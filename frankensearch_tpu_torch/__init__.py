@@ -8,8 +8,9 @@ It never imports jax; it reuses the reference's jax-free host modules
 lexical CPU oracle and tokenizer).
 
 Ported so far: batched hybrid search through the Initial phase —
-``TwoTierSearcher.search_batch`` over ``TwoTierIndex`` (fast tier) and the
-dense-lane ``DeviceBm25Index``.
+``TwoTierSearcher.search_batch`` over ``TwoTierIndex`` (fast tier) and
+``DeviceBm25Index`` at any lexical scale (dense lane; blocked flat,
+pruned and DAAT lanes from 2,097,152 postings).
 """
 
 from frankensearch_tpu.core.config import TwoTierConfig, TwoTierMetrics

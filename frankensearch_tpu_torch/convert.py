@@ -52,8 +52,9 @@ def bm25_from_arrays(
     *,
     device: torch.device,
 ) -> DeviceBm25Index:
-    """A dense-lane :class:`DeviceBm25Index` over the reference's postings
-    arrays and query arms (field name -> term ids, idf table, base)."""
+    """A :class:`DeviceBm25Index` over the reference's postings arrays and
+    query arms (field name -> term ids, idf table, base); the postings
+    count picks the lane as it does for the reference."""
     return DeviceBm25Index.from_postings(
         np.asarray(post_term), np.asarray(post_doc), np.asarray(post_tf),
         dict(arms), list(doc_ids), int(vocab_size), device=device,

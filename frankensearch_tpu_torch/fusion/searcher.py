@@ -2,7 +2,8 @@
 
 Port of ``TwoTierSearcher.search_batch`` from
 frankensearch_tpu/fusion/searcher.py, up to the Initial phase: fast vector
-tier + dense device BM25 in one fused device pass (ops/hybrid_phase1.py),
+tier + device BM25 (the dense lane, or at blocked scale the flat hot-arm,
+pruned and DAAT lanes) in one fused device pass (ops/hybrid_phase1.py),
 the on-device RRF tail (ops/device_rrf.py), then host ``finish_rrf`` and
 hydration. The statements keep the reference's order so later slices
 (phase 2 quality tier, phase 3 rerank, the scalar ``search()``, the
@@ -265,13 +266,22 @@ class TwoTierSearcher:
         k_vec = min(sem_budget, fast.n_rows) or 1
         k_lex = min(lex_budget, arm.n_docs)
 
-        self.last_phase1_lex_lane = "dense"
-        q_idf = torch.from_numpy(arm._query_idf_rows(list(queries))).to(fast.device)
-        vec_s, vec_i, lex_s, lex_i = hp.fused_phase1_dense(
-            fast.slab, mask, q_dev,
-            arm._post_term, arm._post_tf, arm._doc_steps, q_idf,
-            k_vec=k_vec, k_lex=k_lex, scan_mode=scan_mode, n_docs_lex=arm.n_docs,
-        )
+        def dev(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(fast.device)
+
+        if arm._blocked is not None:
+            vec_s, vec_i, lex_s, lex_i = self._fused_blocked_lanes(
+                arm, queries, fast.slab, mask, q_dev, dev,
+                k_vec=k_vec, k_lex=k_lex, scan_mode=scan_mode,
+            )
+        else:
+            self.last_phase1_lex_lane = "dense"
+            q_idf = dev(arm._query_idf_rows(list(queries)))
+            vec_s, vec_i, lex_s, lex_i = hp.fused_phase1_dense(
+                fast.slab, mask, q_dev,
+                arm._post_term, arm._post_tf, arm._doc_steps, q_idf,
+                k_vec=k_vec, k_lex=k_lex, scan_mode=scan_mode, n_docs_lex=arm.n_docs,
+            )
         # on-device RRF tail: the fused entries ride the same fetch; the
         # host keeps hydration and result construction only
         rrf_dev, contribs = self._device_rrf_tail(
@@ -312,6 +322,73 @@ class TwoTierSearcher:
             )
             raw["fused_limit"] = rrf_ctx["limit"]
         return hydrated, lex_lists, raw
+
+    def _fused_blocked_lanes(self, arm, queries, slab, mask, q_dev, dev, *, k_vec, k_lex, scan_mode):
+        """Phase 1 over the blocked lexical layout, the reference's
+        dispatch: on a split corpus each query's hot terms become a dense
+        hot row and its sparse row keeps only tail terms; with
+        ``daat_mode == "auto"`` the pure-tail queries whose own postings
+        are few (``daat_eligible``) take the term-driven lane. All of them
+        eligible: the ``daat`` lane; some: ``mixed`` (both lanes, each
+        query keeps its own); none, or a plan past
+        DAAT_MAX_FUSED_ELEMENTS: ``blocked``. Eligibility is a pure
+        per-query test, so a query's lane never depends on its batchmates."""
+        from frankensearch_tpu_torch.lexical import daat as _daat
+        from frankensearch_tpu_torch.lexical import hot_arm as _hot_arm
+        from frankensearch_tpu_torch.ops import hybrid_phase1 as hp
+
+        ids, w = arm._query_sparse_rows(list(queries))
+        hot = None
+        has_hot = np.zeros(len(queries), dtype=bool)
+        hot_struct = arm._hot
+        if hot_struct is not None:
+            q_hot = _hot_arm.split_hot_rows(hot_struct.hot_row_of, ids, w, hot_struct.h_pad)
+            has_hot = (q_hot > 0.0).any(axis=1)
+            ids, w = _hot_arm.compact_tail_rows(hot_struct.hot_row_of, ids, w)
+            # always the flat lane on split corpora (a corpus constant);
+            # a zero hot row adds exactly +0.0
+            hot = (
+                hot_struct.cols_phys, dev(q_hot), hot_struct.cold_cols,
+                hot_struct.cold_rows, hot_struct.dmap_groups,
+            )
+        daat_plan = None
+        elig = None
+        tm = None
+        if arm.daat_mode == "auto":
+            tm = arm._term_major()
+            if tm is not None:
+                elig = _daat.daat_eligible(
+                    tm.ptr, ids, w, total_postings=arm.cold_posting_count
+                ) & ~has_hot
+                if elig.any():
+                    # ineligible queries gather nothing: their lane is the
+                    # exhaustive one
+                    w_plan = np.where(elig[:, None], w, np.float32(0.0))
+                    plan = _daat.build_gather_plan(tm.ptr, ids, w_plan)
+                    if plan[0].size * 128 <= _daat.DAAT_MAX_FUSED_ELEMENTS:
+                        daat_plan = tuple(dev(x) for x in plan)
+        common = {"k_vec": k_vec, "k_lex": k_lex, "scan_mode": scan_mode}
+        if daat_plan is not None and bool(elig.all()):
+            self.last_phase1_lex_lane = "daat"
+            return hp.fused_phase1_daat(
+                slab, mask, q_dev, tm.device_arrays(), *daat_plan,
+                t_run=ids.shape[1], tm_packed=tm.packed, **common,
+            )
+        # the flat lane consumes no block-max bounds
+        bounds_list = (
+            arm._blocked.split_bounds(arm._blocked.query_bounds(ids, w), arm.device)
+            if hot is None
+            else None
+        )
+        lex_args = (arm._blocked.classes, bounds_list, dev(ids), dev(w), hot)
+        if daat_plan is not None:
+            self.last_phase1_lex_lane = "mixed"
+            return hp.fused_phase1_daat_mixed(
+                slab, mask, q_dev, tm.device_arrays(), *daat_plan, dev(elig), *lex_args,
+                t_run=ids.shape[1], tm_packed=tm.packed, **common,
+            )
+        self.last_phase1_lex_lane = "blocked"
+        return hp.fused_phase1_blocked(slab, mask, q_dev, *lex_args, **common)
 
     @staticmethod
     def _apply_filter_to_pool(pool, search_filter):

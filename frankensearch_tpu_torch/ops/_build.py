@@ -2,9 +2,11 @@
 
 The ``csrc/*.cu`` sources compile with ``nvcc`` into one shared library
 under ``build/kernels/`` at the repository root, named by a hash of the
-sources and flags, so an unchanged tree reuses its build. The library has
-a plain C interface and loads through ``ctypes``: building against
-PyTorch's headers would take minutes instead of seconds.
+sources and flags, so an unchanged tree reuses its build. Each source
+compiles in its own ``nvcc`` process, all started together, and one more
+``nvcc`` links the objects. The library has a plain C interface and loads
+through ``ctypes``: building against PyTorch's headers would take minutes
+instead of seconds.
 
 Nothing here runs at import time; the first kernel launch builds.
 """
@@ -19,11 +21,11 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("group_max.cu", "gather_rescore.cu")
+SOURCES = ("group_max.cu", "gather_rescore.cu", "flat_score.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib: ctypes.CDLL | None = None
@@ -38,6 +40,18 @@ def _nvcc() -> str:
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
     return path
+
+
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> str:
+    """Wait for every process; the joined output, or raise on the first
+    that failed."""
+    logs = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+        logs.append(out + err)
+    return "".join(logs)
 
 
 def library_path() -> Path:
@@ -55,15 +69,29 @@ def library_path() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    objs = [out.with_name(f"{out.stem}.{src.stem}.{tag}.o") for src in srcs]
+    compiles = []
+    for src, obj in zip(srcs, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    tmp = out.with_name(f"{out.name}.{tag}")
+    try:
+        log = _run(compiles)
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp), *map(str, objs)]
+        log += _run([(link, subprocess.Popen(link, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+    except BaseException:
+        for _, proc in compiles:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent builder never loads a partial file
     return out
 
@@ -78,5 +106,7 @@ def library() -> ctypes.CDLL:
         lib.fs_group_max.restype = i32
         lib.fs_gather_rescore.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i64, i32, ptr]
         lib.fs_gather_rescore.restype = i32
+        lib.fs_flat_score.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        lib.fs_flat_score.restype = i32
         _lib = lib
     return _lib

@@ -4,7 +4,8 @@
 Usage: ``python3 profile_chip.py [OUT_DIR]`` from the root of a checkout (one
 CUDA card). OUT_DIR, where the reports go, defaults to ``build/profile``.
 
-Builds the two cells of ``chip_smoke.py`` (semantic-1M, hybrid-60k) and, for
+Builds the three cells of ``chip_smoke.py`` (semantic-1M, hybrid-60k,
+hybrid-1M: the 1M-doc BM25 arm over the semantic cell's vectors) and, for
 each at B = 256 and B = 1 (the cell's first query), after three warm-up calls
 of ``TwoTierSearcher.search_batch``:
 
@@ -88,8 +89,15 @@ def main() -> int:
     out_dir = sys.argv[1] if len(sys.argv) > 1 else os.path.join(HERE, "build", "profile")
     os.makedirs(out_dir, exist_ok=True)
     rows = []
+    def hybrid1m(dev, tmp):
+        # its own 1M-doc vector index, in a directory of its own
+        _, index, emb, _, _ = cs.semantic_cell(dev, tempfile.mkdtemp(dir=tmp))
+        searcher, _, queries, _, _ = cs.hybrid1m_cell(dev, index, emb)
+        return searcher, queries
+
     with tempfile.TemporaryDirectory(prefix="fs_profile_") as tmp:
-        for cell, build in (("semantic-1M", cs.semantic_cell), ("hybrid-60k", cs.hybrid_cell)):
+        for cell, build in (("semantic-1M", cs.semantic_cell), ("hybrid-60k", cs.hybrid_cell),
+                            ("hybrid-1M", hybrid1m)):
             built = build(dev, tmp)
             searcher, queries = built[0], built[-1]
             for b in (256, 1):

@@ -1,4 +1,5 @@
-"""PyTorch port of the dense device BM25 lane against the JAX reference.
+"""PyTorch port of device BM25 against the JAX reference: the dense lane,
+and at blocked scale the split (flat + DAAT) and pruned lanes end to end.
 
 The same corpus goes into the reference's ``DeviceBm25Index`` /
 ``BulkDeviceBm25Index`` and, through ``convert.bm25_from_arrays`` or the
@@ -16,8 +17,12 @@ import jax.numpy as jnp
 from frankensearch_tpu.core.types import IndexableDocument
 from frankensearch_tpu.lexical import device_bm25 as jbm
 from frankensearch_tpu.lexical.memory_index import MemoryLexicalIndex
+from frankensearch_tpu.lexical import daat as jdaat
 from frankensearch_tpu_torch import convert
+from frankensearch_tpu_torch.lexical import daat as tdaat
 from frankensearch_tpu_torch.lexical import device_bm25 as tbm
+from frankensearch_tpu_torch.lexical import hot_arm as thot
+from tests import test_torch_hot_arm as th
 
 CPU = torch.device("cpu")
 QUERIES = [
@@ -121,7 +126,144 @@ def test_doc_steps_visit_each_posting_once_in_order():
     assert steps.posts.tolist() == [0, 1, 3, 2, 5, 4]
 
 
-def test_blocked_scale_raises(monkeypatch):
+def test_blocked_scale_builds_split_layout(monkeypatch):
+    """At the blocked threshold (lowered here, with the hot arm's minimum)
+    the corpus builds the split layout and serves the dense lane's
+    ranking."""
+    docs = _corpus(n_docs=40)
+    dense = tbm.BulkDeviceBm25Index(docs, device=CPU)
     monkeypatch.setattr(tbm, "BLOCKED_THRESHOLD_POSTINGS", 100)
-    with pytest.raises(NotImplementedError, match="blocked"):
-        tbm.BulkDeviceBm25Index(_corpus(n_docs=40), device=CPU)
+    monkeypatch.setattr(thot, "HOT_MIN_POSTINGS", 100)
+    split = tbm.BulkDeviceBm25Index(docs, device=CPU)
+    assert dense._blocked is None and dense.posting_count >= 100
+    assert split._blocked is not None and split._hot is not None and split._hot.n_hot > 0
+    assert split._post_term is None and split.cold_posting_count < split.posting_count
+    assert split._term_major().packed
+    for got, want in zip(split.search_candidates_batch(QUERIES, 20),
+                         dense.search_candidates_batch(QUERIES, 20)):
+        assert [c.doc_id for c in got] == [c.doc_id for c in want]
+        np.testing.assert_allclose([c.score for c in got], [c.score for c in want], rtol=1e-6)
+    assert split.last_lane in ("blocked", "mixed", "daat")
+
+
+# -- blocked scale against the reference ---------------------------------------
+
+
+def _cand_bits(rows):
+    return [[(c.doc_id, np.float32(c.score).view(np.uint32)) for c in row] for row in rows]
+
+
+@pytest.fixture(scope="module")
+def split_pair():
+    return th.build_pair()
+
+
+def _has_hot(port, queries):
+    ids, w = port._query_sparse_rows(queries)
+    return (thot.split_hot_rows(port._hot.hot_row_of, ids, w, port._hot.h_pad) > 0).any(axis=1)
+
+
+@pytest.mark.parametrize("mode", ["auto", "blocked", "daat"])
+def test_search_candidates_batch_split_matches_reference(split_pair, monkeypatch, mode):
+    """End to end over the split layout: queries without hot terms are
+    bitwise equal to the reference (its flat lane in K3's order); queries
+    with hot terms equal in rows up to 1e-6 ties at the k-th score and in
+    scores within 1e-6 relative (the hot partial's product order)."""
+    _, ref, port = split_pair
+    monkeypatch.setattr(ref, "daat_mode", mode)
+    monkeypatch.setattr(port, "daat_mode", mode)
+    with th.reference_flat_interpret():
+        want = ref.search_candidates_batch(th.QUERIES, 30)
+    got = port.search_candidates_batch(th.QUERIES, 30)
+    assert port.last_lane == ref.last_lane
+    assert port.last_hot_queries == ref.last_hot_queries > 0
+    hot = _has_hot(port, th.QUERIES)
+    assert hot.any() and (~hot).any()
+    for q, h, g, w in zip(th.QUERIES, hot, got, want):
+        if not h:
+            assert _cand_bits([g]) == _cand_bits([w]), q
+            continue
+        gs = np.array([c.score for c in g] + [-np.inf] * (30 - len(g)), np.float32)
+        ws = np.array([c.score for c in w] + [-np.inf] * (30 - len(w)), np.float32)
+        gi = np.array([port._row_of[c.doc_id] for c in g] + [-1] * (30 - len(g)))
+        wi = np.array([port._row_of[c.doc_id] for c in w] + [-1] * (30 - len(w)))
+        th.assert_rank_tolerant(gs[None], gi[None], ws[None], wi[None])
+
+
+def test_lanes_chosen_as_in_reference(split_pair, monkeypatch):
+    """With the crossover lowered so that rare pure-tail queries are
+    eligible, batches of eligible, hot and mixed queries take the daat,
+    blocked and mixed lanes in both packages."""
+    _, ref, port = split_pair
+    monkeypatch.setattr(jdaat, "DAAT_CROSSOVER_DIVISOR", 8)
+    monkeypatch.setattr(tdaat, "DAAT_CROSSOVER_DIVISOR", 8)
+    ids, w = port._query_sparse_rows(th.QUERIES)
+    ids, w = thot.compact_tail_rows(port._hot.hot_row_of, ids, w)
+    elig = tdaat.daat_eligible(
+        port._term_major().ptr, ids, w, total_postings=port.cold_posting_count
+    ) & ~_has_hot(port, th.QUERIES)
+    daat_qs = [q for q, e in zip(th.QUERIES, elig) if e]
+    other_qs = [q for q, e in zip(th.QUERIES, elig) if not e]
+    assert len(daat_qs) >= 2 and len(other_qs) >= 2
+    for batch, lane in ((daat_qs, "daat"), (other_qs, "blocked"), (th.QUERIES, "mixed")):
+        with th.reference_flat_interpret():
+            want = ref.search_candidates_batch(batch, 20)
+        got = port.search_candidates_batch(batch, 20)
+        assert port.last_lane == ref.last_lane == lane
+        if lane == "daat":
+            assert _cand_bits(got) == _cand_bits(want)
+
+
+@pytest.fixture(scope="module")
+def pruned_pair():
+    """The same corpus with the hot arm off: the pruned lane, in blocks of
+    512 posting slots so that several blocks per class can be skipped."""
+    with th.lowered(extra=[(jbm, "DEFAULT_BLOCK_POSTINGS", 512), (tbm, "DEFAULT_BLOCK_POSTINGS", 512)]):
+        mem, ref, port = th.build_pair(hot=False)
+    assert ref._hot is None and port._hot is None and port._blocked.n_blk > 8
+    return mem, ref, port
+
+
+@pytest.mark.parametrize("k", [1, 10, 40])
+def test_pruned_lane_bitwise(pruned_pair, monkeypatch, k):
+    """The pruned lane (hot arm off) equals the reference bit for bit: its
+    8-term chunks are XLA's einsum on the CPU, a sequential fused
+    multiply-add, which the port rounds exactly; it skips the same blocks."""
+    _, ref, port = pruned_pair
+    monkeypatch.setattr(ref, "daat_mode", "blocked")
+    monkeypatch.setattr(port, "daat_mode", "blocked")
+    skips = []
+    for q in th.QUERIES:
+        want = ref.search_candidates_batch([q], k)
+        got = port.search_candidates_batch([q], k)
+        assert _cand_bits(got) == _cand_bits(want), q
+        assert port.last_blocks_skipped == ref.last_blocks_skipped, q
+        skips.append(port.last_blocks_skipped)
+    assert max(skips) > 0
+    want = ref.search_candidates_batch(th.QUERIES, k)
+    assert _cand_bits(port.search_candidates_batch(th.QUERIES, k)) == _cand_bits(want)
+    assert port.last_lane == ref.last_lane == "blocked"
+
+
+def test_pruned_lane_auto_matches_reference(pruned_pair):
+    _, ref, port = pruned_pair
+    assert _cand_bits(port.search_candidates_batch(th.QUERIES, 25)) == _cand_bits(
+        ref.search_candidates_batch(th.QUERIES, 25)
+    )
+    assert port.last_lane == ref.last_lane
+
+
+def test_fma_f32_rounds_once():
+    rng = np.random.default_rng(0)
+    a = rng.uniform(0, 8, 4096).astype(np.float32)
+    b = rng.uniform(0, 3, 4096).astype(np.float32)
+    c = (rng.uniform(0, 50, 4096) * 10.0 ** rng.integers(-4, 3, 4096)).astype(np.float32)
+    got = tbm._fma_f32(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    from fractions import Fraction
+
+    for i in range(0, 4096, 97):  # exact rational reference on a sample
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i]))
+        lo = np.float32(float(exact))
+        cands = [np.nextafter(lo, np.float32(-np.inf)), lo, np.nextafter(lo, np.float32(np.inf))]
+        best = min(cands, key=lambda x: (abs(Fraction(float(x)) - exact), int(np.float32(x).view(np.uint32)) & 1))
+        assert got[i] == best, i

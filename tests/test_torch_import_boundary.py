@@ -2,8 +2,9 @@
 
 A subprocess makes ``import jax`` fail (``sys.modules["jax"] = None``),
 imports ``frankensearch_tpu_torch`` and serves a tiny hybrid
-``search_batch`` on the CPU: nothing on the port's path may reach jax,
-directly or through a reference module.
+``search_batch`` on the CPU, over the dense lexical lane and then over the
+blocked (split, flat, DAAT) layout: nothing on the port's path may reach
+jax, directly or through a reference module.
 """
 
 import os
@@ -34,6 +35,24 @@ with tempfile.TemporaryDirectory() as root:
 assert out[0].results[0].doc_id == "d3", out[0].results
 assert out[1].results[0].doc_id == "d4", out[1].results
 assert all(o.metrics.phase1_fused for o in out) and searcher.last_fusion_path == "device"
+
+# the blocked scale: split layout, flat lane, DAAT (thresholds lowered)
+from frankensearch_tpu_torch.lexical import daat, device_bm25, hot_arm
+from frankensearch_tpu_torch.ops import _build, hybrid_phase1
+device_bm25.BLOCKED_THRESHOLD_POSTINGS = 1
+hot_arm.HOT_MIN_POSTINGS = 1
+hot_arm.HOT_MAX_TERMS = 2
+lex = fst.BulkDeviceBm25Index(docs, device=dev)
+assert lex._hot is not None and lex._term_major() is not None
+with tempfile.TemporaryDirectory() as root:
+    index = fst.TwoTierIndex.create(
+        root, emb.embed_batch([d.content for d in docs]), [d.doc_id for d in docs],
+        emb.identity(), device=dev)
+    searcher = fst.TwoTierSearcher(
+        index, emb, lexical=lex, config=fst.TwoTierConfig(fast_only=True))
+    out = searcher.search_batch(["write ahead log", "bm25 ranking"], k=3)
+assert out[0].results[0].doc_id == "d4" and out[1].results[0].doc_id == "d2", out
+assert searcher.last_phase1_lex_lane in ("blocked", "mixed", "daat")
 assert sys.modules["jax"] is None
 print("OK")
 """

@@ -1,5 +1,6 @@
-"""The port on an NVIDIA GPU: kernels K1/K2 against their plain twins, and
-the deterministic lanes (dense BM25, device RRF) bitwise against the CPU.
+"""The port on an NVIDIA GPU: kernels K1/K2/K3 against their plain twins,
+and the deterministic lanes (dense, pruned and DAAT BM25, device RRF)
+bitwise against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -7,8 +8,11 @@ imports no jax, so it also runs where jax is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: K1/K2 vs twin 1e-5 relative (bf16 products are exact; the
-tensor-core and warp sums run in another order than the twins'); the BM25
-and RRF lanes are order-pinned f32 adds, so GPU and CPU agree bit for bit.
+tensor-core and warp sums run in another order than the twins'); K3 sums
+in its twin's order with unfused products and adds, so it is bitwise; the
+BM25 and RRF lanes are order-pinned f32 adds (the pruned lane's exact
+FMA included), so GPU and CPU agree bit for bit. The hot partial is a
+cuBLAS product and is not compared bitwise across devices.
 """
 
 import numpy as np
@@ -16,6 +20,7 @@ import pytest
 import torch
 
 from frankensearch_tpu.core.types import IndexableDocument
+from frankensearch_tpu_torch.lexical import device_bm25, hot_arm
 from frankensearch_tpu_torch.lexical.device_bm25 import BulkDeviceBm25Index
 from frankensearch_tpu_torch.ops import device_rrf, topk_scan
 
@@ -94,3 +99,61 @@ def test_device_rrf_bitwise_cpu_vs_gpu(cuda_device):
 
     for got, want in zip(run(cuda_device), run(torch.device("cpu"))):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,t_q,l_c", [(1, 8, 4), (8, 8, 12), (70, 16, 8)])
+def test_flat_score_matches_twin_bitwise(cuda_device, b, t_q, l_c):
+    gen = np.random.default_rng(b + t_q)
+    n_c, d_pad, vocab = 3, 384, 50
+    term = gen.integers(-1, vocab, size=(n_c, l_c, d_pad)).astype(np.int32)
+    tf = np.where(term >= 0, gen.uniform(0.1, 3.0, term.shape), 0.0).astype(np.float32)
+    ids = gen.integers(0, vocab, size=(b, t_q)).astype(np.int32)
+    w = gen.uniform(0.1, 9.0, size=(b, t_q)).astype(np.float32)
+    w[:, -2:] = 0.0  # padding terms: id 0, weight 0
+    ids[:, -2:] = 0
+    args = [torch.from_numpy(x) for x in (term, tf, ids, w)]
+    want = device_bm25.flat_class_scores_plain(*args)
+    launches = device_bm25.flat_class_scores.launches
+    got = device_bm25.flat_class_scores(*(x.to(cuda_device) for x in args))
+    torch.cuda.synchronize()
+    assert device_bm25.flat_class_scores.launches == launches + 1
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(
+        device_bm25.flat_class_scores_plain(*(x.to(cuda_device) for x in args)).cpu().view(torch.int32),
+        want.view(torch.int32),
+    )
+
+
+def _blocked_docs():
+    rng = np.random.default_rng(7)
+    words = [f"w{i}" for i in range(300)]
+    p = 1.0 / np.arange(1, 301) ** 1.1
+    p /= p.sum()
+    return [
+        IndexableDocument(doc_id=f"d{i:04d}", content=" ".join(rng.choice(words, size=int(rng.integers(3, 60)), p=p)))
+        for i in range(400)
+    ]
+
+
+@pytest.mark.parametrize("hot", [True, False])
+def test_blocked_lanes_bitwise_cpu_vs_gpu(cuda_device, monkeypatch, hot):
+    """Blocked scale (thresholds lowered): the pruned lane (hot arm off) and
+    the split layout's DAAT and flat lanes for queries without hot terms
+    give the same bits on the card as on the CPU."""
+    monkeypatch.setattr(device_bm25, "BLOCKED_THRESHOLD_POSTINGS", 1)
+    monkeypatch.setattr(device_bm25, "DEFAULT_BLOCK_POSTINGS", 512)
+    monkeypatch.setattr(hot_arm, "HOT_MIN_POSTINGS", 1 if hot else 1 << 60)
+    monkeypatch.setattr(hot_arm, "HOT_MAX_TERMS", 6)
+    docs = _blocked_docs()
+    cpu = BulkDeviceBm25Index(docs, device=torch.device("cpu"))
+    gpu = BulkDeviceBm25Index(docs, device=cuda_device)
+    queries = ["w250", "w40 w41 w42", "w100 w120 w140 w160 w180 w200 w220 w240 w260", "w290 w291"]
+    if hot:
+        ids, w = cpu._query_sparse_rows(queries)
+        assert not (hot_arm.split_hot_rows(cpu._hot.hot_row_of, ids, w, cpu._hot.h_pad) > 0).any()
+    for mode in ("daat", "blocked"):
+        cpu.daat_mode = gpu.daat_mode = mode
+        want = [[(c.doc_id, c.score) for c in r] for r in cpu.search_candidates_batch(queries, 25)]
+        got = [[(c.doc_id, c.score) for c in r] for r in gpu.search_candidates_batch(queries, 25)]
+        assert got == want, mode
+        assert gpu.last_blocks_skipped == cpu.last_blocks_skipped

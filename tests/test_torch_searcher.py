@@ -4,6 +4,8 @@ The same docs go through the reference ``TwoTierSearcher`` (fast-only,
 ``BulkDeviceBm25Index``, ``HashEmbedder``) and the port's, over one on-disk
 index opened by both packages. The fused results — doc ids and RRF scores —
 must be equal, and the port must take the fused lane and the device fusion.
+At blocked scale (thresholds lowered in both packages) the lexical lane of
+each batch must be the reference's as well.
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ from frankensearch_tpu_torch.device import resolve_device
 from frankensearch_tpu_torch.fusion.searcher import TwoTierSearcher
 from frankensearch_tpu_torch.index.two_tier import TwoTierIndex
 from frankensearch_tpu_torch.lexical.device_bm25 import BulkDeviceBm25Index
+from tests import test_torch_hot_arm as th
 
 CPU = torch.device("cpu")
 QUERIES = [
@@ -134,6 +137,52 @@ def test_appends_and_tombstones(stacks):
     gone = grown.with_tombstones(["new-b"])
     assert "new-b" in gone.tombstoned_ids()
     assert all(h.doc_id != "new-b" for h in gone.search_classified(v[1], 5).hits)
+
+
+@pytest.fixture(scope="module")
+def split_stacks(tmp_path_factory):
+    """The hybrid slice over a lexical arm at blocked scale: the blocked
+    threshold and the hot arm's minimum lowered in both packages, so the
+    corpus builds the split layout (flat lane + DAAT)."""
+    docs = th.corpus()
+    emb = HashEmbedder(dim=64)
+    root = str(tmp_path_factory.mktemp("split"))
+    ref_index = RefIndex.create(
+        root, emb.embed_batch([d.content for d in docs]), [d.doc_id for d in docs],
+        emb.identity(), use_pallas=True,
+    )
+    with th.lowered():
+        ref_lex, port_lex = RefBulkBm25(docs), BulkDeviceBm25Index(docs, device=CPU)
+    assert ref_lex._hot is not None and port_lex._hot is not None
+    cfg = TwoTierConfig(fast_only=True)
+    return {
+        "ref": RefSearcher(ref_index, emb, lexical=ref_lex, config=cfg),
+        "port": TwoTierSearcher(TwoTierIndex.open(root, device=CPU), emb, lexical=port_lex, config=cfg),
+    }
+
+
+@pytest.mark.parametrize("divisor", [128, 8])
+def test_split_corpus_batch_matches_reference(split_stacks, monkeypatch, divisor):
+    """search_batch over the split layout: the same lexical lane per batch
+    and the same fused results as the reference (its flat lane in K3's
+    order), for the whole batch and for each query alone. A lowered
+    crossover makes rare pure-tail queries daat-eligible."""
+    from frankensearch_tpu.lexical import daat as jdaat
+    from frankensearch_tpu_torch.lexical import daat as tdaat
+
+    monkeypatch.setattr(jdaat, "DAAT_CROSSOVER_DIVISOR", divisor)
+    monkeypatch.setattr(tdaat, "DAAT_CROSSOVER_DIVISOR", divisor)
+    ref, port = split_stacks["ref"], split_stacks["port"]
+    lanes = set()
+    for batch in [th.QUERIES] + [[q] for q in th.QUERIES]:
+        with th.reference_flat_interpret():
+            want = ref.search_batch(batch, k=10)
+        got = port.search_batch(batch, k=10)
+        assert _results(got) == _results(want), batch
+        assert port.last_phase1_lex_lane == ref.last_phase1_lex_lane, batch
+        assert all(o.metrics.phase1_fused for o in got) and port.last_fusion_path == "device"
+        lanes.add(port.last_phase1_lex_lane)
+    assert lanes == {"blocked", "daat", "mixed"}
 
 
 def test_unported_lanes_raise(stacks):
