@@ -5,14 +5,16 @@ Usage: ``python3 chip_smoke.py`` from the root of a checkout (one CUDA card).
 
 Phases:
   0. the card (nvidia-smi name + power limit), torch version, kernel build;
-  1. kernels K1 (group max) and K2 (gather + rescore) against their plain
-     PyTorch twins, on each cell's slab and mask (phase 2's is 1,007,616 x
-     256 bf16), at every batch size B and group count kk the main path gave
-     them (B = 256, 8 and 1 here; kk as the searcher's candidate budget
-     sets it), and K3 (flat tail scores) against its twin, bitwise, on every
-     length class of phase 4's layout at every (B, T) the flat lane gave
-     it. It runs inside phases 2-4, after their main-path runs, so that it
-     knows those shapes;
+  1. each kernel against its plain PyTorch twin, at every shape the main
+     path gave it (batch sizes B = 256, 8 and 1; group and candidate counts
+     kk as the searcher's budget sets them), on the cell's own data: K1
+     (group max) and K2 (gather + rescore) within REL_TOL on each cell's
+     slab and mask (phase 2's is 1,007,616 x 256 bf16); K3 (flat tail
+     scores) bitwise on every length class of phase 4's layout; K4 (int8
+     group max) bitwise and K2-i8 (int8 gather + rescore) within REL_TOL on
+     phase 5's int8 slab; K5 (per-tile top-k) within REL_TOL on phase 2's
+     slab. It runs inside phases 2-5, after their main-path runs, so that
+     it knows those shapes;
   2. semantic serving at 1M docs: ``TwoTierIndex.create`` + fast-only
      ``TwoTierSearcher.search_batch`` (256 queries, then 8 singletons),
      recall@10 against an exact f32 scan, index sets against the plain scan;
@@ -26,7 +28,23 @@ Phases:
      vectors: the split lexical layout (hot arm, flat lane on K3, packed
      DAAT), the daat, blocked and mixed lanes, lexical top-k against an
      exact f64 host BM25, singleton bits against their batch rows, and the
-     device RRF bitwise against the host oracle.
+     device RRF bitwise against the host oracle;
+  5. the fast tier's other scan modes over phase 2's vectors, through the
+     unfused path: ``scan_mode="int8"`` over an int8 ``TwoTierIndex``
+     (kernels K4 and K2's int8 form) fast-only and hybrid with phase 4's
+     lexical arm (its pools held to phase 4's within 1e-6), certified and
+     served behind the recall-certificate gate, then reopened with the
+     persisted certificate; ``scan_mode="pallas"`` (kernel K5) over phase
+     2's bf16 index, held to the K1/K2 lane. recall@10 against the exact
+     f32 scan (int8 >= 0.97, pallas >= 0.99); singletons (four-word
+     queries, whose vector budget is the batch's) bitwise equal to their
+     batch rows (hybrid: their lexical budget is not the batch's, so the
+     lexical and vector score bits of the docs both lists hold).
+
+The kernels line gives each kernel's time, its twin's, and its bound: the
+larger of the bytes it must move (each input read once, each output
+written once; a gather counts the distinct groups it reads) over 3.35 TB/s
+and its operations over the H100's dense peak for their type.
 
 The kernels' launch counters are zeroed right before each phase drives the
 main path and read right after; the kernel checks and the other comparison
@@ -55,6 +73,9 @@ HYBRID_DOCS = 60_000
 HYBRID_VOCAB = 50_000
 POSTINGS_RANGE = (1_500_000, 2_097_152)
 REL_TOL = 1e-5  # kernel vs twin: bf16 products are exact, f32 sums differ in order
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+PEAK_OPS_PER_S = {"bf16": 989e12, "f16": 989e12, "int8": 1979e12, "f32": 67e12}  # dense
+INT8_RECALL_FLOOR = 0.97  # the reference's own recall@10 figure for the int8 lane
 LEX_REL_TOL = 1e-6  # pruned vs dense lane: the same f32 terms summed in another order
 H1M_DOCS = 1_000_000  # tools/bench_hybrid_1m.py: 1M docs of 14 zipf(1.35) words
 H1M_VOCAB = 50_000
@@ -62,6 +83,24 @@ H1M_WORDS = 14
 H1M_ZIPF = 1.35
 H1M_MIN_POSTINGS = 1 << 21  # the blocked layout's threshold
 ORACLE_REL_TOL = 1e-5  # f32 device BM25 vs the exact f64 host sum
+
+
+#: the kernels line: name, launch counter, source, the TPU kernel it
+#: replaces, the cell whose largest shape is the headline
+KERNELS = (
+    ("group_max", "K1", "frankensearch_tpu_torch/ops/csrc/group_max.cu",
+     "frankensearch_tpu/ops/topk_scan.py:220", "semantic-1M"),
+    ("gather_rescore", "K2", "frankensearch_tpu_torch/ops/csrc/gather_rescore.cu",
+     "frankensearch_tpu/ops/topk_scan.py:362", "semantic-1M"),
+    ("flat_score", "K3", "frankensearch_tpu_torch/ops/csrc/flat_score.cu",
+     "frankensearch_tpu/lexical/device_bm25.py:405", "hybrid-1M"),
+    ("group_max_int8", "K4", "frankensearch_tpu_torch/ops/csrc/group_max_int8.cu",
+     "frankensearch_tpu/ops/topk_scan.py:240", "semantic-1M-int8"),
+    ("gather_rescore_i8", "K2-i8", "frankensearch_tpu_torch/ops/csrc/gather_rescore.cu",
+     "frankensearch_tpu/ops/topk_scan.py:362", "semantic-1M-int8"),
+    ("tile_topk", "K5", "frankensearch_tpu_torch/ops/csrc/tile_topk.cu",
+     "frankensearch_tpu/ops/topk_scan.py:114", "semantic-1M"),
+)
 
 
 def log(msg: str) -> None:
@@ -130,6 +169,7 @@ def check_kernels(cell: str, slab, mask, shapes: set, done: set = frozenset()) -
             raise AssertionError(f"phase1 {cell}: the main path gave {name} no shape")
     gen = torch.Generator(device=slab.device).manual_seed(SEED + 1)
     n, d = slab.shape
+    kind = "bf16" if slab.dtype == torch.bfloat16 else "f16"
     recs = []
     todo = shapes - set(done)
     for b in sorted({s[1] for s in shapes if s[0] == "group_max"}, reverse=True):
@@ -140,7 +180,8 @@ def check_kernels(cell: str, slab, mask, shapes: set, done: set = frozenset()) -
             ms = cuda_median_ms(lambda: ts.group_max(slab, q, mask))
             plain_ms = cuda_median_ms(lambda: ts.group_max_plain(slab, q, mask))
             recs.append({"kernel": "group_max", "cell": cell, "n": n, "b": b, "kk": None,
-                         "ms": ms, "plain_ms": plain_ms, "max_abs_err": err})
+                         "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                         "bound": bound(nbytes(slab, q, mask, gm), 2 * b * n * d, kind)})
         for kk in sorted(s[2] for s in todo if s[0] == "gather_rescore" and s[1] == b):
             _, groups = ts.topk_desc_rowasc(gm, kk)
             groups = torch.sort(groups.to(torch.int32), dim=1).values
@@ -150,26 +191,62 @@ def check_kernels(cell: str, slab, mask, shapes: set, done: set = frozenset()) -
             ms = cuda_median_ms(lambda: ts.gather_rescore(slab, q, groups))
             plain_ms = cuda_median_ms(lambda: ts.gather_rescore_plain(slab, q, groups))
             recs.append({"kernel": "gather_rescore", "cell": cell, "n": n, "b": b, "kk": kk,
-                         "ms": ms, "plain_ms": plain_ms, "max_abs_err": err})
+                         "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                         "bound": bound(gathered_bytes(slab, groups) + nbytes(q, groups, r),
+                                        2 * r.numel() * d, kind)})
+    log_kernel_records(cell, recs)
+    return recs
+
+
+def log_kernel_records(cell: str, recs: list[dict]) -> None:
     for r in recs:
         log(f"phase1 {cell} {r['kernel']} N={r['n']} B={r['b']}"
             + (f" kk={r['kk']}" if r["kk"] is not None else "")
-            + f": {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}) max abs err {r['max_abs_err']:.3e}"
-            f" (tolerance {REL_TOL:g} x max(1, |twin|))")
-    return recs
+            + f": {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound'][0]:.4f} by {r['bound'][1]})"
+            f" max abs err {r['max_abs_err']:.3e} (tolerance {REL_TOL:g} x max(1, |twin|))")
+
+
+def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it) for a kernel that must
+    move ``bytes_moved`` bytes and do ``ops`` operations of type ``kind``."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def gathered_bytes(slab, groups) -> int:
+    """Bytes of the distinct 128-row groups a gather must read."""
+    import torch
+
+    return int(torch.unique(groups).numel()) * 128 * slab.shape[1] * slab.element_size()
+
+
+def launch_counters() -> dict:
+    """Kernel name -> its wrapper (each counts its launches)."""
+    from frankensearch_tpu_torch.lexical import device_bm25 as bm
+    from frankensearch_tpu_torch.ops import topk_scan as ts
+
+    return {"K1": ts.group_max, "K2": ts.gather_rescore, "K3": bm.flat_class_scores,
+            "K4": ts.group_max_int8, "K2-i8": ts.gather_rescore_i8, "K5": ts.tile_topk}
 
 
 def drive(fn, shapes: set, flat_inputs: dict | None = None):
     """Run ``fn`` with the kernels' launch counters zeroed; returns
-    (result, (K1 launches, K2 launches, K3 launches)) of that run alone.
-    Adds the kernel shapes of every hierarchical scan in the run to
-    ``shapes``: each scan runs K1 at ("group_max", B, 0) and K2 at
-    ("gather_rescore", B, kk). ``flat_inputs`` collects, for each (B, T) at
-    which the flat lane ran K3, a copy of the first query rows it got."""
+    (result, {kernel: launches}) of that run alone. Adds to ``shapes`` the
+    kernel shapes of every scan in the run: a hierarchical scan runs K1 at
+    ("group_max", B, 0) and K2 at ("gather_rescore", B, kk), an int8 scan
+    K4 at ("group_max_int8", B, 0) and K2-i8 at ("gather_rescore_i8", B,
+    kk), a per-tile scan K5 at ("tile_topk", B, kk). ``flat_inputs``
+    collects, for each (B, T) at which the flat lane ran K3, a copy of the
+    first query rows it got."""
     from frankensearch_tpu_torch.lexical import device_bm25 as bm
     from frankensearch_tpu_torch.ops import topk_scan as ts
 
-    scan = ts.scan_topk_hierarchical
+    scan, scan_i8, scan_tiles = ts.scan_topk_hierarchical, ts.scan_topk_hierarchical_int8, ts.scan_topk_pallas
     flat = bm._graded_scan_flat
 
     def scan_noted(slab, queries, k, mask=None):
@@ -178,28 +255,39 @@ def drive(fn, shapes: set, flat_inputs: dict | None = None):
         shapes.add(("gather_rescore", b, min(k, slab.shape[0] // ts.GROUP)))
         return scan(slab, queries, k, mask)
 
+    def scan_i8_noted(slab_i8, scale, queries, k, mask=None, *, group_overfetch=1):
+        b = queries.shape[0]
+        shapes.add(("group_max_int8", b, 0))
+        shapes.add(("gather_rescore_i8", b, min(max(k * group_overfetch, k), slab_i8.shape[0] // ts.GROUP)))
+        return scan_i8(slab_i8, scale, queries, k, mask, group_overfetch=group_overfetch)
+
+    def tiles_noted(slab, queries, k, mask=None, *, tile_n=ts.TILE_N):
+        shapes.add(("tile_topk", queries.shape[0], min(k, tile_n)))
+        return scan_tiles(slab, queries, k, mask, tile_n=tile_n)
+
     def flat_noted(classes, q_ids, q_w, *args, **kw):
         if flat_inputs is not None:
             flat_inputs.setdefault(tuple(q_ids.shape), (q_ids.clone(), q_w.clone()))
         return flat(classes, q_ids, q_w, *args, **kw)
 
-    ts.group_max.launches = 0
-    ts.gather_rescore.launches = 0
-    bm.flat_class_scores.launches = 0
-    ts.scan_topk_hierarchical = scan_noted
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    ts.scan_topk_hierarchical, ts.scan_topk_hierarchical_int8, ts.scan_topk_pallas = (
+        scan_noted, scan_i8_noted, tiles_noted)
     bm._graded_scan_flat = flat_noted
     try:
         result = fn()
     finally:
-        ts.scan_topk_hierarchical = scan
+        ts.scan_topk_hierarchical, ts.scan_topk_hierarchical_int8, ts.scan_topk_pallas = scan, scan_i8, scan_tiles
         bm._graded_scan_flat = flat
-    return result, (ts.group_max.launches, ts.gather_rescore.launches, bm.flat_class_scores.launches)
+    return result, {name: wrapper.launches for name, wrapper in counters.items()}
 
 
-def need_launches(phase: str, launches, names=("K1", "K2")) -> None:
+def need_launches(phase: str, launches: dict, names=("K1", "K2")) -> None:
     """Fail unless every named kernel launched on the phase's main path."""
-    for name, n in zip(names, launches):
-        if n < 1:
+    for name in names:
+        if launches[name] < 1:
             raise AssertionError(f"{phase}: {name} was not launched on the main path ({launches})")
 
 
@@ -240,7 +328,7 @@ def semantic_cell(dev, tmp: str):
     return searcher, index, emb, vecs, query_texts(rng, vocab, probs, 256)
 
 
-def phase2_semantic(dev, tmp: str) -> tuple[dict, tuple[int, int, int], list[dict], tuple]:
+def phase2_semantic(dev, tmp: str) -> tuple[dict, dict, list[dict], dict]:
     import numpy as np
     import torch
 
@@ -297,9 +385,17 @@ def phase2_semantic(dev, tmp: str) -> tuple[dict, tuple[int, int, int], list[dic
     log(f"phase2 index sets vs plain bf16 scan: {len(queries) - off} equal, {off} differ only at ties")
     del searcher, hier, plain
     torch.cuda.empty_cache()
-    # phase 4 serves its lexical corpus over this index (same doc ids)
+    # phase 4 serves its lexical corpus over this index (same doc ids);
+    # phase 5 its other scan modes over the same vectors and queries
+    semantic = {"index": index, "emb": emb, "shapes": shapes, "vecs": vecs, "queries": queries,
+                "exact_ids": exact_ids, "rows": [rows_of(out) for out in batch]}
     return ({"recall_at_10": recall, "batch_ms": batch_ms, "single_ms": single_ms},
-            launches, kernels, (index, emb, shapes))
+            launches, kernels, semantic)
+
+
+def rows_of(out) -> list[tuple]:
+    """One outcome's results as (doc id, fused, lexical and vector score)."""
+    return [(r.doc_id, r.score, r.lexical_score, r.fast_score) for r in out.results]
 
 
 def hybrid_corpus(rng):
@@ -360,7 +456,7 @@ def hybrid_cell(dev, tmp: str):
     return searcher, index, bm25, query_texts(rng, vocab, probs, 256)
 
 
-def phase3_hybrid(dev, tmp: str) -> tuple[dict, tuple[int, int, int], list[dict]]:
+def phase3_hybrid(dev, tmp: str) -> tuple[dict, dict, list[dict]]:
     searcher, index, bm25, queries = hybrid_cell(dev, tmp)
     shapes: set = set()
     drive(lambda: searcher.search_batch(queries[:8], k=K), shapes)  # warm-up
@@ -517,7 +613,10 @@ def check_flat_kernel(cell: str, classes, flat_inputs: dict) -> list[dict]:
             )
             recs.append({"kernel": "flat_score", "cell": cell, "class": c, "n_c": n_c, "l": l_c,
                          "d_pad": d_pad, "b": b, "t": t_q, "ms": ms, "plain_ms": plain_ms,
-                         "max_abs_err": 0.0})
+                         "max_abs_err": 0.0,
+                         # a term compare per (query, slot, l, query term), f32 scores
+                         "bound": bound(nbytes(cls.term_t, cls.tf_t, q_ids, q_w, got),
+                                        b * n_c * l_c * d_pad * t_q, "f32")})
             log(f"phase1 {cell} flat_score class {c} ({n_c} x {l_c} x {d_pad}) B={b} T={t_q}: "
                 f"{ms:.4f} ms (plain {plain_ms:.4f}), bitwise equal")
             del got, want
@@ -607,19 +706,30 @@ def hybrid1m_cell(dev, index, emb):
     return searcher, bm25, queries, singles, layout
 
 
-def phase4_hybrid1m(dev, semantic) -> tuple[dict, tuple[int, int, int], list[dict]]:
-    """The hybrid-1M cell over phase 2's vector index."""
-    import torch
-
-    index, emb, done_shapes = semantic
+def phase4_hybrid1m(dev, semantic) -> tuple[dict, dict, list[dict], dict]:
+    """The hybrid-1M cell over phase 2's vector index. Returns its record,
+    launches and kernel records, and the lexical arm with the traffic and
+    the batch's lexical pools, for phase 5."""
+    index, emb, done_shapes = semantic["index"], semantic["emb"], semantic["shapes"]
     searcher, bm25, queries, singles, layout = hybrid1m_cell(dev, index, emb)
     shapes: set = set()
     drive(lambda: searcher.search_batch(queries[:8], k=K), shapes)  # warm-up
     lanes: list[str] = []
     flat_inputs: dict = {}
+    pools: dict = {}
+    fill = searcher._fill_fused
+
+    def fill_noted(fused, live, *rest):  # the batch's lexical pools
+        if not pools:
+            pools.update({i: [(c.doc_id, c.score) for c in fused[1][j]] for j, i in enumerate(live)})
+        return fill(fused, live, *rest)
 
     def main_path():
-        batch, batch_ms = timed(lambda: searcher.search_batch(queries, k=K))
+        searcher._fill_fused = fill_noted
+        try:
+            batch, batch_ms = timed(lambda: searcher.search_batch(queries, k=K))
+        finally:
+            del searcher._fill_fused
         lanes.append(searcher.last_phase1_lex_lane)
         solo, single_ms = [], []
         for q in singles:
@@ -640,11 +750,8 @@ def phase4_hybrid1m(dev, semantic) -> tuple[dict, tuple[int, int, int], list[dic
     if sum(1 for o in batch if o.results) < len(batch) // 2:
         raise AssertionError("phase4: most queries returned nothing")
 
-    def rows(out):
-        return [(r.doc_id, r.score, r.lexical_score, r.fast_score) for r in out.results]
-
     for j, one in enumerate(solo):
-        if rows(one) != rows(batch[j]):
+        if rows_of(one) != rows_of(batch[j]):
             raise AssertionError(f"phase4: singleton {singles[j]!r} differs from its batch row")
     log("phase4 singletons bitwise equal to their batch rows (fused, lexical and vector scores)")
 
@@ -665,14 +772,303 @@ def phase4_hybrid1m(dev, semantic) -> tuple[dict, tuple[int, int, int], list[dic
         if [(r.doc_id, r.score) for r in out.results] != [(r.doc_id, r.score) for r in want.results]:
             raise AssertionError(f"phase4: query {j} differs from the host RRF oracle")
     log("phase4 fused rows and scores bitwise equal to the host RRF oracle")
-    del searcher, bm25
-    torch.cuda.empty_cache()
+    del searcher._device_rrf_tail
     return ({"batch_ms": batch_ms, "single_ms": single_ms, "lanes": lanes, "layout": layout,
-             "oracle_equal": outright}, launches, kernels)
+             "oracle_equal": outright}, launches, kernels,
+            {"bm25": bm25, "queries": queries, "pools": pools})
+
+
+def recall_at_k(batch, exact_ids) -> float:
+    """Mean recall@K of the outcomes' doc ids ("doc-%07d") against the
+    exact scan's rows; every query must return K results."""
+    import numpy as np
+
+    recalls = []
+    for j, out in enumerate(batch):
+        if len(out.results) != K:
+            raise AssertionError(f"query {j} returned {len(out.results)} results")
+        recalls.append(len({int(r.doc_id[4:]) for r in out.results} & set(exact_ids[j].tolist())) / K)
+    return float(np.mean(recalls))
+
+
+def four_word_singletons(queries: list[str], n: int = 8) -> list[str]:
+    """The batch's first ``n`` four-word queries. Their class (natural
+    language) sets the batch's vector budget, so alone they get the same
+    budget, and an approximate lane the same candidate pool, as in the
+    batch."""
+    from frankensearch_tpu_torch.core.query_class import QueryClass
+
+    picked = [q for q in queries if QueryClass.classify(q) is QueryClass.NATURAL_LANGUAGE][:n]
+    if len(picked) < n:
+        raise AssertionError(f"only {len(picked)} four-word queries in the batch")
+    return picked
+
+
+def serve(searcher, queries: list[str], singles: list[str]):
+    """The batch, then each singleton alone: (batch, batch ms, singleton
+    outcomes, singleton ms)."""
+    batch, batch_ms = timed(lambda: searcher.search_batch(queries, k=K))
+    solo, single_ms = [], []
+    for q in singles:
+        out, t = timed(lambda q=q: searcher.search_batch([q], k=K))
+        solo.append(out[0])
+        single_ms.append(t)
+    return batch, batch_ms, solo, single_ms
+
+
+def check_singletons(what: str, queries, batch, singles, solo, *, lanes_only: bool = False) -> None:
+    """Each singleton equals its batch row bitwise. With ``lanes_only``,
+    where the batch's lexical budget (its largest class multiplier)
+    differs from the singleton's own, only the lane bits are held: every
+    doc in both lists has the same lexical and vector score bits."""
+    for q, one in zip(singles, solo):
+        want = rows_of(batch[queries.index(q)])
+        got = rows_of(one)
+        if not lanes_only:
+            if got != want:
+                raise AssertionError(f"{what}: singleton {q!r} differs from its batch row")
+            continue
+        lanes = {r[0]: r[2:] for r in want}
+        shared = [r for r in got if r[0] in lanes]
+        if not shared or any(lanes[r[0]] != r[2:] for r in shared):
+            raise AssertionError(f"{what}: singleton {q!r} lane scores differ from its batch row")
+
+
+def check_int8_kernels(cell: str, slab_i8, scale, mask, shapes: set) -> list[dict]:
+    """Phase 1 for the int8 lane: K4 against its twin, bitwise, and K2's
+    int8 form within REL_TOL, at each (B, kk) ``drive`` noted, with seeded
+    unit queries prepared as the lane prepares them."""
+    import torch
+
+    from frankensearch_tpu_torch.ops import topk_scan as ts
+
+    for name in ("group_max_int8", "gather_rescore_i8"):
+        if not any(s[0] == name for s in shapes):
+            raise AssertionError(f"phase1 {cell}: the main path gave {name} no shape")
+    gen = torch.Generator(device=slab_i8.device).manual_seed(SEED + 5)
+    n, d = slab_i8.shape
+    recs = []
+    for b in sorted({s[1] for s in shapes if s[0] == "group_max_int8"}, reverse=True):
+        q = unit_rows(gen, b, d, slab_i8.device)
+        q_i8 = ts.prepare_query_int8(q, scale)
+        gm = ts.group_max_int8(slab_i8, q_i8, mask)
+        want = ts.group_max_int8_plain(slab_i8, q_i8, mask)
+        if not torch.equal(gm.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"phase1 {cell} K4 B={b}: not bitwise (max err {(gm - want).abs().max().item():.3e})")
+        recs.append({"kernel": "group_max_int8", "cell": cell, "n": n, "b": b, "kk": None,
+                     "ms": cuda_median_ms(lambda: ts.group_max_int8(slab_i8, q_i8, mask)),
+                     "plain_ms": cuda_median_ms(lambda: ts.group_max_int8_plain(slab_i8, q_i8, mask)),
+                     "max_abs_err": 0.0,
+                     "bound": bound(nbytes(slab_i8, q_i8, mask, gm), 2 * b * n * d, "int8")})
+        q_scaled = q * scale
+        for kk in sorted(s[2] for s in shapes if s[0] == "gather_rescore_i8" and s[1] == b):
+            _, groups = ts.topk_desc_rowasc(gm, kk)
+            groups = torch.sort(groups.to(torch.int32), dim=1).values
+            r = ts.gather_rescore_i8(slab_i8, q_scaled, groups)
+            err = check_close(r, ts.gather_rescore_i8_plain(slab_i8, q_scaled, groups),
+                              f"phase1 {cell} K2-i8 B={b} kk={kk}")
+            recs.append({"kernel": "gather_rescore_i8", "cell": cell, "n": n, "b": b, "kk": kk,
+                         "ms": cuda_median_ms(lambda: ts.gather_rescore_i8(slab_i8, q_scaled, groups)),
+                         "plain_ms": cuda_median_ms(lambda: ts.gather_rescore_i8_plain(slab_i8, q_scaled, groups)),
+                         "max_abs_err": err,
+                         "bound": bound(gathered_bytes(slab_i8, groups) + nbytes(q_scaled, groups, r),
+                                        2 * r.numel() * d, "f32")})
+    log_kernel_records(cell, recs)
+    return recs
+
+
+def check_tile_rows(slab, q, mask, got_s, got_i, what: str) -> None:
+    """Every finite per-tile candidate of K5 names a distinct row of its
+    tile whose plain score is the candidate's score within REL_TOL."""
+    import torch
+
+    t, kk, b = got_s.shape
+    full = q.to(slab.dtype).to(torch.float32) @ slab.to(torch.float32).T + mask[None, :]
+    rows = got_i.permute(2, 0, 1).reshape(b, t * kk).to(torch.int64)
+    got = got_s.permute(2, 0, 1).reshape(b, t * kk)
+    fin = torch.isfinite(got)
+    check_close(torch.gather(full, 1, rows)[fin], got[fin], f"{what} (rows)")
+    tile_of = torch.arange(t, device=slab.device).repeat_interleave(kk)[None, :] * 2048
+    if bool(((rows < tile_of) | (rows >= tile_of + 2048))[fin].any()):
+        raise AssertionError(f"{what}: a candidate row lies outside its tile")
+    pad = -1 - torch.arange(t * kk, device=slab.device)[None, :]  # distinct stand-ins
+    keyed = torch.sort(torch.where(fin, rows, pad).view(b, t, kk), dim=2).values
+    if bool((keyed[:, :, 1:] == keyed[:, :, :-1]).any()):
+        raise AssertionError(f"{what}: a row appears twice in one tile's candidates")
+
+
+def check_tile_kernel(cell: str, slab, mask, shapes: set) -> list[dict]:
+    """Phase 1 for K5: the kernel against its twin at each (B, kk)
+    ``drive`` noted, with seeded unit queries. The twin's and the kernel's
+    f32 sums differ in order, so near ties may swap: the sorted scores of
+    each (tile, query) agree within REL_TOL position by position, and every
+    candidate row the kernel names is a distinct row of its tile whose
+    plain score is the kernel's."""
+    import torch
+
+    from frankensearch_tpu_torch.ops import topk_scan as ts
+
+    todo = sorted((s[1], s[2]) for s in shapes if s[0] == "tile_topk")
+    if not todo:
+        raise AssertionError(f"phase1 {cell}: the main path gave tile_topk no shape")
+    gen = torch.Generator(device=slab.device).manual_seed(SEED + 6)
+    n, d = slab.shape
+    kind = "bf16" if slab.dtype == torch.bfloat16 else "f16"
+    recs = []
+    for b, kk in reversed(todo):
+        q = unit_rows(gen, b, d, slab.device)
+        got_s, got_i = ts.tile_topk(slab, q, mask, kk)
+        want_s, _ = ts.tile_topk_plain(slab, q, mask, kk)
+        err = check_close(got_s, want_s, f"phase1 {cell} K5 B={b} kk={kk}")
+        check_tile_rows(slab, q, mask, got_s, got_i, f"phase1 {cell} K5 B={b} kk={kk}")
+        del want_s
+        recs.append({"kernel": "tile_topk", "cell": cell, "n": n, "b": b, "kk": kk,
+                     "ms": cuda_median_ms(lambda: ts.tile_topk(slab, q, mask, kk)),
+                     "plain_ms": cuda_median_ms(lambda: ts.tile_topk_plain(slab, q, mask, kk), warmup=1, iters=5),
+                     "max_abs_err": err,
+                     # the kk selection passes are extra work the bound does not count
+                     "bound": bound(nbytes(slab, q, mask, got_s, got_i), 2 * b * n * d, kind)})
+    log_kernel_records(cell, recs)
+    return recs
+
+
+def phase5_scan_modes(dev, tmp: str, semantic: dict, lexical: dict) -> tuple[dict, dict, list[dict]]:
+    """The int8 capacity lane (fast-only, hybrid, certified and gated,
+    reopened) and the per-tile top-k lane, over phase 2's vectors and
+    queries and phase 4's lexical arm, through the unfused path."""
+    import torch
+
+    from frankensearch_tpu_torch import TwoTierConfig, TwoTierIndex, TwoTierSearcher
+    from frankensearch_tpu_torch.core.errors import UncertifiedScanMode
+
+    vecs, emb, queries = semantic["vecs"], semantic["emb"], semantic["queries"]
+    bm25, h_queries, h_pools = lexical["bm25"], lexical["queries"], lexical["pools"]
+    root = os.path.join(tmp, "int8")
+    t0 = time.perf_counter()
+    index8 = TwoTierIndex.create(root, vecs, [f"doc-{i:07d}" for i in range(N_DOCS)], emb.identity(),
+                                 device=dev, slab_dtype="int8")
+    build_s = time.perf_counter() - t0
+    slab_i8, scale = index8.fast._int8
+    log(f"phase5 int8 index build {build_s:.1f} s: int8 slab {nbytes(slab_i8)} bytes beside the "
+        f"bf16 slab's {nbytes(index8.fast.slab)}")
+    shapes: set = set()
+    launches: dict = {}
+
+    def count(phase, got, names):
+        need_launches(phase, got, names)
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+
+    singles = four_word_singletons(queries)
+    rec = {"build_s": build_s, "int8_slab_bytes": nbytes(slab_i8), "bf16_slab_bytes": nbytes(index8.fast.slab)}
+
+    # int8, fast-only
+    cfg8 = TwoTierConfig(fast_only=True, scan_mode="int8")
+    fast = TwoTierSearcher(index8, emb, config=cfg8)
+    drive(lambda: fast.search_batch(queries[:8], k=K), shapes)  # warm-up
+    (batch8, ms, solo, single_ms), got = drive(lambda: serve(fast, queries, singles), shapes)
+    count("phase5 int8", got, ("K4", "K2-i8"))
+    recall8 = recall_at_k(batch8, semantic["exact_ids"])
+    log(f"phase5 int8 fast-only B=256: {ms:.2f} ms; singletons: " + ", ".join(f"{t:.2f}" for t in single_ms)
+        + f" ms; recall@10 vs exact f32 scan {recall8:.4f}")
+    if recall8 < INT8_RECALL_FLOOR:
+        raise AssertionError(f"phase5: int8 recall@10 {recall8} < {INT8_RECALL_FLOOR}")
+    check_singletons("phase5 int8", queries, batch8, singles, solo)
+    rec["int8"] = {"batch_ms": ms, "single_ms": single_ms, "recall_at_10": recall8}
+
+    # int8, hybrid with phase 4's lexical arm (the unfused path)
+    hybrid = TwoTierSearcher(index8, emb, lexical=bm25, config=cfg8)
+    h_singles = four_word_singletons(h_queries)
+    drive(lambda: hybrid.search_batch(h_queries[:8], k=K), shapes)  # warm-up
+    pools: dict = {}
+    lex_batch = bm25.search_candidates_batch
+
+    def lex_noted(texts, budget):  # the batch's lexical pools
+        out = lex_batch(texts, budget)
+        if not pools:
+            pools.update({j: [(c.doc_id, c.score) for c in row] for j, row in enumerate(out)})
+        return out
+
+    bm25.search_candidates_batch = lex_noted
+    try:
+        (h_batch, h_ms, h_solo, h_single_ms), got = drive(lambda: serve(hybrid, h_queries, h_singles), shapes)
+    finally:
+        del bm25.search_candidates_batch
+    count("phase5 int8 hybrid", got, ("K4", "K2-i8"))
+    if any(o.metrics.phase1_fused for o in h_batch) or hybrid.last_fusion_path is not None:
+        raise AssertionError("phase5: the int8 hybrid batch did not take the unfused path")
+    if len(pools) != len(h_queries) or len(h_pools) != len(h_queries):
+        raise AssertionError(f"phase5: {len(pools)} lexical pools here, {len(h_pools)} in phase 4")
+    for j in range(len(h_queries)):
+        same_ranking(pools[j], h_pools[j], LEX_REL_TOL, f"phase5 lexical pool of query {j}")
+    check_singletons("phase5 int8 hybrid", h_queries, h_batch, h_singles, h_solo, lanes_only=True)
+    log(f"phase5 int8 hybrid B=256: {h_ms:.2f} ms; singletons: " + ", ".join(f"{t:.2f}" for t in h_single_ms)
+        + f" ms; {len(pools)} lexical pools equal to phase 4's within {LEX_REL_TOL:g}")
+    rec["int8_hybrid"] = {"batch_ms": h_ms, "single_ms": h_single_ms}
+
+    # certify, serve behind the gate, reopen with the persisted certificate
+    t0 = time.perf_counter()
+    cert = index8.certify_fast_scan_mode("int8", K, emb.embed_batch(queries))
+    cert_s = time.perf_counter() - t0
+    # the floor: the 5% quantile of 256 per-query recall@10 values, a
+    # multiple of 0.1, sits at 0.9 or 1.0 when the mean is near 0.99; 0.8
+    # keeps the check on the gate's mechanics, not on a tuned floor
+    gated_cfg = TwoTierConfig(fast_only=True, scan_mode="int8", require_recall_certificate=True,
+                              min_certified_recall=0.8)
+    refusing = TwoTierSearcher(index8, emb, config=TwoTierConfig(
+        fast_only=True, scan_mode="int8", require_recall_certificate=True, min_certified_recall=1.01))
+    try:
+        refusing.search_batch(queries[:8], k=K)
+    except UncertifiedScanMode as e:
+        log(f"phase5 gate refuses an unmeetable floor: {e}")
+    else:
+        raise AssertionError("phase5: the gate served below its floor")
+    gated = TwoTierSearcher(index8, emb, config=gated_cfg)
+    (g_batch, g_ms), got = drive(lambda: timed(lambda: gated.search_batch(queries, k=K)), shapes)
+    count("phase5 int8 gated", got, ("K4", "K2-i8"))
+    reopened = TwoTierIndex.open(root, device=dev)
+    if reopened.fast.recall_certificate("int8") != cert:
+        raise AssertionError("phase5: the reopened index did not rebind the persisted certificate")
+    r_batch = TwoTierSearcher(reopened, emb, config=gated_cfg).search_batch(queries, k=K)
+    for j, (a, b, c) in enumerate(zip(batch8, g_batch, r_batch)):
+        if not rows_of(a) == rows_of(b) == rows_of(c):
+            raise AssertionError(f"phase5: gated or reopened query {j} differs from the ungated batch")
+    log(f"phase5 certificate ({cert_s:.1f} s): certified recall@{cert.k} {cert.certified_recall:.4f} "
+        f"(mean {cert.mean_recall:.4f}) at confidence {cert.confidence}; gated B=256 {g_ms:.2f} ms; "
+        "rebound after reopen; gated and reopened results equal to the ungated batch")
+    rec["certificate"] = {**cert.to_record(), "certify_s": cert_s, "gated_batch_ms": g_ms}
+    del reopened, r_batch
+
+    # the per-tile top-k lane over phase 2's bf16 index
+    tiles = TwoTierSearcher(semantic["index"], emb, config=TwoTierConfig(fast_only=True, scan_mode="pallas"))
+    drive(lambda: tiles.search_batch(queries[:8], k=K), shapes)  # warm-up
+    (p_batch, p_ms, p_solo, p_single_ms), got = drive(lambda: serve(tiles, queries, singles), shapes)
+    count("phase5 pallas", got, ("K5",))
+    recall_p = recall_at_k(p_batch, semantic["exact_ids"])
+    if recall_p < 0.99:
+        raise AssertionError(f"phase5: pallas recall@10 {recall_p} < 0.99")
+    for j, (out, want) in enumerate(zip(p_batch, semantic["rows"])):
+        same_ranking([(r[0], r[3]) for r in rows_of(out)], [(r[0], r[3]) for r in want],
+                     REL_TOL, f"phase5 pallas query {j} vs the K1/K2 lane")
+    check_singletons("phase5 pallas", queries, p_batch, singles, p_solo)
+    log(f"phase5 pallas B=256: {p_ms:.2f} ms; singletons: " + ", ".join(f"{t:.2f}" for t in p_single_ms)
+        + f" ms; recall@10 {recall_p:.4f}; top-10 equal to the K1/K2 lane's up to ties within {REL_TOL:g}")
+    rec["pallas"] = {"batch_ms": p_ms, "single_ms": p_single_ms, "recall_at_10": recall_p}
+    log(f"phase5 launches on the main path: {launches}")
+
+    mask8 = index8.fast._effective_mask(None, None)
+    kernels = check_int8_kernels("semantic-1M-int8", slab_i8, scale, mask8, shapes)
+    kernels += check_tile_kernel("semantic-1M", semantic["index"].fast.slab,
+                                 semantic["index"].fast._effective_mask(None, None), shapes)
+    del fast, hybrid, gated, tiles, index8
+    torch.cuda.empty_cache()
+    return rec, launches, kernels
 
 
 def main() -> int:
-    sys.modules["jax"] = None  # the port must not reach jax, even indirectly
+    # the port must reach neither jax nor the JAX package, even indirectly
+    sys.modules["jax"] = None
+    sys.modules["frankensearch_tpu"] = None
     try:
         import torch
     except ImportError:
@@ -706,45 +1102,37 @@ def main() -> int:
         hyb, l3, k3 = phase3_hybrid(dev, tmp)
         wall["phase3_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        h1m, l4, k4 = phase4_hybrid1m(dev, semantic)
+        h1m, l4, k4, lexical = phase4_hybrid1m(dev, semantic)
         wall["phase4_s"] = time.perf_counter() - t0
-        del semantic
+        t0 = time.perf_counter()
+        modes, l5, k5 = phase5_scan_modes(dev, tmp, semantic, lexical)
+        wall["phase5_s"] = time.perf_counter() - t0
+        del semantic, lexical
         log("phase wall times: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
 
-    sources = {
-        "group_max": ("frankensearch_tpu_torch/ops/csrc/group_max.cu",
-                      "frankensearch_tpu/ops/topk_scan.py:220", 0),
-        "gather_rescore": ("frankensearch_tpu_torch/ops/csrc/gather_rescore.cu",
-                           "frankensearch_tpu/ops/topk_scan.py:362", 1),
-    }
+    records = k2 + k3 + k4 + k5
     kernels = []
-    for name, (src, replaces, slot) in sources.items():
-        recs = [r for r in k2 + k3 + k4 if r["kernel"] == name]
-        # headline: the 1M-doc cell's largest batch (and largest kk)
-        head = max((r for r in recs if r["cell"] == "semantic-1M"), key=lambda r: (r["b"], r["kk"] or 0))
+    for name, key, src, replaces, cell in KERNELS:
+        recs = [r for r in records if r["kernel"] == name]
+        if name == "flat_score":
+            # headline: the widest batch tile, summed over the classes (one flat scan)
+            top = max((r["b"], r["t"]) for r in recs)
+            head = [r for r in recs if (r["b"], r["t"]) == top]
+        else:
+            # headline: the 1M-doc cell's largest batch (and largest kk)
+            head = [max((r for r in recs if r["cell"] == cell), key=lambda r: (r["b"], r["kk"] or 0))]
+        bound_ms = sum(r["bound"][0] for r in head)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": l2[slot] + l3[slot] + l4[slot],
+            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5)),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "shapes": [{k: r[k] for k in ("cell", "n", "b", "kk", "ms", "plain_ms", "max_abs_err")}
-                       for r in recs],
+            "ms": sum(r["ms"] for r in head), "plain_ms": sum(r["plain_ms"] for r in head),
+            "bound_ms": bound_ms,
+            "bound_by": max(head, key=lambda r: r["bound"][0])["bound"][1],
+            "library_ms": None,  # no single PyTorch call computes any of these functions
+            "shapes": [{k: (v if k != "bound" else v[0]) for k, v in r.items() if k != "kernel"} for r in recs],
         })
-    recs = [r for r in k4 if r["kernel"] == "flat_score"]
-    # headline: the widest batch tile, summed over the classes (one flat scan)
-    b_top = max(r["b"] for r in recs)
-    t_top = max(r["t"] for r in recs if r["b"] == b_top)
-    head = [r for r in recs if (r["b"], r["t"]) == (b_top, t_top)]
-    kernels.append({
-        "name": "flat_score", "route": "cuda",
-        "source": "frankensearch_tpu_torch/ops/csrc/flat_score.cu",
-        "replaces": "frankensearch_tpu/lexical/device_bm25.py:405",
-        "launches": l4[2], "max_abs_err": 0.0,
-        "ms": sum(r["ms"] for r in head), "plain_ms": sum(r["plain_ms"] for r in head),
-        "shapes": [{k: r[k] for k in ("cell", "class", "n_c", "l", "d_pad", "b", "t", "ms", "plain_ms")}
-                   for r in recs],
-    })
-    log(json.dumps({"semantic": sem, "hybrid": hyb, "hybrid_1m": h1m, "wall_s": wall}))
+    log(json.dumps({"semantic": sem, "hybrid": hyb, "hybrid_1m": h1m, "scan_modes": modes, "wall_s": wall}))
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
     print(json.dumps({

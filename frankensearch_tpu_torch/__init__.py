@@ -3,18 +3,22 @@
 The JAX package stays the reference; this package does the same work with
 PyTorch on an NVIDIA Hopper GPU (hand-written CUDA kernels where the
 reference had Pallas kernels) or on the CPU (their plain PyTorch twins).
-It never imports jax; it reuses the reference's jax-free host modules
-(core types and config, FTVI/WAL formats, embedders, host fusion, the
-lexical CPU oracle and tokenizer).
+It imports neither jax nor anything of ``frankensearch_tpu``: the host
+modules it needs (core types and config, FTVI/WAL formats, durability and
+recall certificates, embedders, host fusion, the lexical CPU oracle and
+tokenizer, the native ingest binding) are its own copies, at the same
+relative paths, and write byte-compatible artifacts.
 
 Ported so far: batched hybrid search through the Initial phase —
 ``TwoTierSearcher.search_batch`` over ``TwoTierIndex`` (fast tier) and
 ``DeviceBm25Index`` at any lexical scale (dense lane; blocked flat,
-pruned and DAAT lanes from 2,097,152 postings).
+pruned and DAAT lanes from 2,097,152 postings) — and the fast tier's
+``scan_mode`` lanes ``"int8"`` (the int8 capacity slab) and ``"pallas"``
+(the per-tile top-k scan), behind the recall-certificate gate.
 """
 
-from frankensearch_tpu.core.config import TwoTierConfig, TwoTierMetrics
-from frankensearch_tpu.core.types import FusedHit, IndexableDocument, ScoredResult, VectorHit
+from frankensearch_tpu_torch.core.config import TwoTierConfig, TwoTierMetrics
+from frankensearch_tpu_torch.core.types import FusedHit, IndexableDocument, ScoredResult, VectorHit
 
 __all__ = [
     "TwoTierConfig",
@@ -57,11 +61,11 @@ def __getattr__(name):
 
         return getattr(device_bm25, name)
     if name == "HashEmbedder":
-        from frankensearch_tpu.embed.hash_embedder import HashEmbedder
+        from frankensearch_tpu_torch.embed.hash_embedder import HashEmbedder
 
         return HashEmbedder
     if name == "MemoryLexicalIndex":
-        from frankensearch_tpu.lexical.memory_index import MemoryLexicalIndex
+        from frankensearch_tpu_torch.lexical.memory_index import MemoryLexicalIndex
 
         return MemoryLexicalIndex
     raise AttributeError(name)

@@ -2,7 +2,9 @@
 
 Both functions take plain numpy arrays — the caller pulls them out of the
 reference's objects with ``np.asarray(...)`` — so the port holds exactly the
-reference's state: the same padded slab and mask bits, the same postings.
+reference's state: the same padded slab and mask bits, the same int8 arm,
+the same postings. Identities and query arms are rebuilt as the port's own
+types from their fields.
 """
 
 from __future__ import annotations
@@ -12,9 +14,9 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from frankensearch_tpu.index.fsvi import EmbeddingIdentity
+from frankensearch_tpu_torch.index.fsvi import EmbeddingIdentity
 from frankensearch_tpu_torch.index.device_index import DeviceVectorIndex
-from frankensearch_tpu_torch.lexical.device_bm25 import DeviceBm25Index
+from frankensearch_tpu_torch.lexical.device_bm25 import DeviceBm25Index, _FieldArm
 
 
 def _to_tensor(x: np.ndarray) -> torch.Tensor:
@@ -28,18 +30,34 @@ def device_index_from_arrays(
     slab: np.ndarray,
     base_mask: np.ndarray,
     doc_ids: Sequence[str],
-    identity: EmbeddingIdentity,
+    identity,
     *,
     device: torch.device,
+    int8: tuple[np.ndarray, np.ndarray] | None = None,
 ) -> DeviceVectorIndex:
     """A :class:`DeviceVectorIndex` over a padded (n_pad, d_pad) slab and
-    its (n_pad,) additive mask, as a reference index holds them."""
-    return DeviceVectorIndex.from_padded(
+    its (n_pad,) additive mask, as a reference index holds them.
+    ``identity`` is any object with EmbeddingIdentity's fields; ``int8`` is
+    the reference's int8 arm (``_int8``) as numpy: the padded (n_pad,
+    d_pad) int8 values and the (d_pad,) f32 scale."""
+    index = DeviceVectorIndex.from_padded(
         _to_tensor(slab).to(device),
         _to_tensor(np.asarray(base_mask, dtype=np.float32)).to(device),
         doc_ids,
-        identity,
+        EmbeddingIdentity(
+            embedder_id=identity.embedder_id,
+            embedder_revision=identity.embedder_revision,
+            dim=identity.dim,
+            is_semantic=identity.is_semantic,
+        ),
     )
+    if int8 is not None:
+        values, scale = int8
+        index._int8 = (
+            _to_tensor(np.asarray(values, dtype=np.int8)).to(device),
+            _to_tensor(np.asarray(scale, dtype=np.float32)).to(device),
+        )
+    return index
 
 
 def bm25_from_arrays(
@@ -54,8 +72,13 @@ def bm25_from_arrays(
 ) -> DeviceBm25Index:
     """A :class:`DeviceBm25Index` over the reference's postings arrays and
     query arms (field name -> term ids, idf table, base); the postings
-    count picks the lane as it does for the reference."""
+    count picks the lane as it does for the reference. Each arm is any
+    object with ``_FieldArm``'s fields."""
+    port_arms = {
+        name: _FieldArm(dict(a.term_ids), np.asarray(a.idf_host), a.boost, a.base)
+        for name, a in arms.items()
+    }
     return DeviceBm25Index.from_postings(
         np.asarray(post_term), np.asarray(post_doc), np.asarray(post_tf),
-        dict(arms), list(doc_ids), int(vocab_size), device=device,
+        port_arms, list(doc_ids), int(vocab_size), device=device,
     )

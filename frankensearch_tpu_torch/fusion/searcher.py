@@ -5,7 +5,10 @@ frankensearch_tpu/fusion/searcher.py, up to the Initial phase: fast vector
 tier + device BM25 (the dense lane, or at blocked scale the flat hot-arm,
 pruned and DAAT lanes) in one fused device pass (ops/hybrid_phase1.py),
 the on-device RRF tail (ops/device_rrf.py), then host ``finish_rrf`` and
-hydration. The statements keep the reference's order so later slices
+hydration. A ``scan_mode`` other than ``"auto"`` (the int8 capacity lane,
+the per-tile top-k scan) takes the unfused path: a separate vector scan,
+``search_candidates_batch`` for the lexical arm, and per-query host RRF;
+approximate modes pass the recall-certificate gate first. The statements keep the reference's order so later slices
 (phase 2 quality tier, phase 3 rerank, the scalar ``search()``, the
 Model2Vec embed fusion) can slot in where the reference has them.
 
@@ -22,29 +25,29 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from frankensearch_tpu.core.canonicalize import DefaultCanonicalizer
-from frankensearch_tpu.core.config import (
+from frankensearch_tpu_torch.core.canonicalize import DefaultCanonicalizer
+from frankensearch_tpu_torch.core.config import (
     FusionStrategy,
     MetricsExporter,
     TiebreakStrategy,
     TwoTierConfig,
     TwoTierMetrics,
 )
-from frankensearch_tpu.core.errors import InvalidConfig
-from frankensearch_tpu.core.parsed_query import ParsedQuery
-from frankensearch_tpu.core.query_class import QueryClass
-from frankensearch_tpu.core.types import (
+from frankensearch_tpu_torch.core.errors import InvalidConfig, UncertifiedScanMode
+from frankensearch_tpu_torch.core.parsed_query import ParsedQuery
+from frankensearch_tpu_torch.core.query_class import QueryClass
+from frankensearch_tpu_torch.core.types import (
     FusedHit,
     ScoredResult,
     SearchPhase,
     VectorHit,
 )
-from frankensearch_tpu.embed.base import Embedder
-from frankensearch_tpu.embed.cached import CachedEmbedder
-from frankensearch_tpu.fusion.circuit_breaker import CircuitBreaker
-from frankensearch_tpu.fusion.phase_gate import PhaseGate
-from frankensearch_tpu.fusion.rrf import RrfConfig, candidate_count, fuse_by_strategy
-from frankensearch_tpu.lexical.base import LexicalCandidate, LexicalRead
+from frankensearch_tpu_torch.embed.base import Embedder
+from frankensearch_tpu_torch.embed.cached import CachedEmbedder
+from frankensearch_tpu_torch.fusion.circuit_breaker import CircuitBreaker
+from frankensearch_tpu_torch.fusion.phase_gate import PhaseGate
+from frankensearch_tpu_torch.fusion.rrf import RrfConfig, candidate_count, fuse_by_strategy
+from frankensearch_tpu_torch.lexical.base import LexicalCandidate, LexicalRead
 from frankensearch_tpu_torch.index.two_tier import TwoTierIndex
 
 TextFn = Callable[[str], str | None]
@@ -119,7 +122,7 @@ class TwoTierSearcher:
         self.hubness = hubness
         self.smoother = smoother
         if nqc is None and self.config.nqc_downweight:
-            from frankensearch_tpu.fusion.normalize import NqcDownweight
+            from frankensearch_tpu_torch.fusion.normalize import NqcDownweight
 
             nqc = NqcDownweight()
         self.nqc = nqc
@@ -149,17 +152,32 @@ class TwoTierSearcher:
     def _enforce_recall_certificate(self, k: int) -> None:
         """Fail-closed gate for approximate scan lanes: with
         require_recall_certificate on, an int8/ivf/mrl scan refuses to
-        serve without a certificate covering (mode, k). Those lanes and
-        their certificates are not ported yet, so such a configuration
-        always refuses."""
+        serve unless the fast index holds a certificate for that mode whose
+        certified recall meets min_certified_recall and whose k covers the
+        request."""
         cfg = self.config
+        if not cfg.require_recall_certificate:
+            return
         mode = "mrl" if cfg.mrl_search_dims else cfg.scan_mode
-        if cfg.require_recall_certificate and mode in ("int8", "ivf", "mrl"):
-            from frankensearch_tpu.core.errors import UncertifiedScanMode
-
+        if mode not in ("int8", "ivf", "mrl"):
+            return
+        cert = self.index.fast.recall_certificate(mode)
+        if cert is None:
             raise UncertifiedScanMode(
-                f"scan_mode {mode!r} has no recall certificate for k={k}; "
-                "disable require_recall_certificate"
+                f"scan_mode {mode!r} has no recall certificate; run "
+                "DeviceVectorIndex.certify_scan_mode or disable "
+                "require_recall_certificate"
+            )
+        if cert.certified_recall < cfg.min_certified_recall:
+            raise UncertifiedScanMode(
+                f"scan_mode {mode!r} certificate ({cert.certified_recall:.3f} "
+                f"@ conf {cert.confidence}) is below the configured floor "
+                f"{cfg.min_certified_recall}"
+            )
+        if k > cert.k:
+            raise UncertifiedScanMode(
+                f"requested k={k} exceeds the certified k={cert.k} for "
+                f"scan_mode {mode!r}; re-certify at the larger k"
             )
 
     def _rrf_ctx(self, classes, live, k):
@@ -402,7 +420,7 @@ class TwoTierSearcher:
         """Batch RRF over row ids (fusion/rrf_batch.py). Returns
         {outcome index -> FusedHit list} or None when the row space can't
         be joined (docs missing from an arm, tombstones)."""
-        from frankensearch_tpu.fusion.rrf_batch import rows_to_fused_hits, rrf_fuse_batch_rows
+        from frankensearch_tpu_torch.fusion.rrf_batch import rows_to_fused_hits, rrf_fuse_batch_rows
 
         arm = raw["arm"]
         # on-device fused entries — exact; reusable only when the fuse-time
@@ -500,7 +518,7 @@ class TwoTierSearcher:
         # boolean/phrase queries take the scalar search() lane in the
         # reference (tree retrieval + per-hit constraint filtering)
         if self.lexical is not None:
-            from frankensearch_tpu.lexical.query import is_boolean_syntax
+            from frankensearch_tpu_torch.lexical.query import is_boolean_syntax
 
             structured = [
                 q for q in queries
@@ -649,7 +667,7 @@ class TwoTierSearcher:
             if batch_fused is not None and i in batch_fused and fast_hits:
                 fused = batch_fused[i]
             elif self.graph_ranker is not None and cfg.graph_rrf_weight > 0.0:
-                from frankensearch_tpu.fusion.rrf import rrf_fuse_with_graph
+                from frankensearch_tpu_torch.fusion.rrf import rrf_fuse_with_graph
 
                 seeds = lexical_pool or [
                     ScoredResult(doc_id=h.doc_id, score=h.score) for h in fast_hits
@@ -727,7 +745,7 @@ class TwoTierSearcher:
 
     def _build_explanation(self, fused: FusedHit, rank: int, result: ScoredResult):
         """Per-hit score decomposition (emitted only when config.explain)."""
-        from frankensearch_tpu.core.types import HitExplanation
+        from frankensearch_tpu_torch.core.types import HitExplanation
 
         components: dict[str, float] = {"rrf_fused": fused.score}
         ranks: dict[str, int] = {"fused": rank}

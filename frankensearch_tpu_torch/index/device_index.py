@@ -4,7 +4,10 @@ Port of frankensearch_tpu/index/device_index.py. The FTVI artifact (plus
 the replayed WAL) is normalized, padded and uploaded once; tombstones,
 filters and padding all lower to one additive f32 mask. The slab is padded
 to a multiple of 8192 rows and 128 dims, so the hierarchical scan (kernels
-K1/K2) always applies on CUDA.
+K1/K2), its int8 capacity lane (K4, K2's int8 form) and the per-tile
+top-k scan (K5) always apply on CUDA. The int8 arm (a per-dim calibrated
+int8 copy of the slab) is preloaded from an int8 artifact or calibrated on
+first use; recall certificates gate the approximate int8 lane.
 """
 
 from __future__ import annotations
@@ -15,12 +18,13 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from frankensearch_tpu.core.errors import DimensionMismatch
-from frankensearch_tpu.core.filter import SearchFilter
-from frankensearch_tpu.core.types import ClassifiedHits, VectorHit, ZeroSignalReason
-from frankensearch_tpu.index.fsvi import EmbeddingIdentity, FtviFile
-from frankensearch_tpu.index.wal import WalState
+from frankensearch_tpu_torch.core.errors import DimensionMismatch
+from frankensearch_tpu_torch.core.filter import SearchFilter
+from frankensearch_tpu_torch.core.types import ClassifiedHits, VectorHit, ZeroSignalReason
+from frankensearch_tpu_torch.index.fsvi import EmbeddingIdentity, FtviFile
+from frankensearch_tpu_torch.index.wal import WalState
 from frankensearch_tpu_torch.ops import topk_scan
+from frankensearch_tpu_torch.ops.quantize import calibrate_int8
 
 NEG_INF = float("-inf")
 #: slab row padding unit (a multiple of the scan kernels' 128-row group)
@@ -51,7 +55,7 @@ def _sanitize_rows(x: np.ndarray) -> np.ndarray:
     if n_bad:
         x = x.copy()
         x[bad] = 0.0
-        from frankensearch_tpu.utils.tracing import get_logger
+        from frankensearch_tpu_torch.utils.tracing import get_logger
 
         get_logger("index").warning(
             "%d non-finite vector row(s) zeroed at admission "
@@ -122,6 +126,8 @@ class DeviceVectorIndex:
         self.base_mask = base_mask
         self.n_rows = len(self.doc_ids)
         self.n_pad, self.d_pad = slab.shape
+        # int8 arm (lazy): (padded int8 slab, (d_pad,) f32 scale) on the device
+        self._int8 = None
 
     @classmethod
     def from_padded(
@@ -181,7 +187,28 @@ class DeviceVectorIndex:
                 row = base_rows.get(doc_id)
                 if row is not None:
                     tomb[row] = True
-        return cls(vectors, doc_ids, f.header.identity, tombstoned=tomb, **kwargs)
+        index = cls(vectors, doc_ids, f.header.identity, tombstoned=tomb, **kwargs)
+        # durable identity for recall-certificate binding (the persisted
+        # cert is void when any of these change — see scan_state_signature)
+        index._base_slab_crc32 = int(f.header.slab_crc32)
+        index._wal_mutations = (
+            (len(wal.live), len(wal.tombstones)) if wal is not None else (0, 0)
+        )
+        if f.header.dtype == "int8" and f.scale is not None and not (
+            wal is not None and (wal.live or wal.tombstones)
+        ):
+            # the artifact carries the int8 arm: preload it, so mode "int8"
+            # skips recalibration (FSVI quantization parity)
+            padded_i8 = np.zeros((index.n_pad, index.d_pad), dtype=np.int8)
+            padded_i8[: index.n_rows, : index.dim] = np.asarray(f.slab)
+            scale = np.zeros(index.d_pad, dtype=np.float32)
+            scale[: index.dim] = np.asarray(f.scale)
+            scale[index.dim :] = 1.0
+            index._int8 = (
+                torch.from_numpy(padded_i8).to(index.device),
+                torch.from_numpy(scale).to(index.device),
+            )
+        return index
 
     def with_appended(self, doc_ids: Sequence[str], vectors: np.ndarray) -> "DeviceVectorIndex":
         """Functional append -> new index. When every new doc is new and
@@ -218,6 +245,23 @@ class DeviceVectorIndex:
                 vectors_f32=np.concatenate([self._vectors_f32[: self.n_rows], norm_vecs], axis=0),
                 slab_dtype=self.slab_dtype,
             )
+            # the durable identity rides along (its row counts now differ,
+            # so a persisted certificate cannot rebind); certificates
+            # measured on the parent do not carry over (fail-closed)
+            for attr in ("_base_slab_crc32", "_wal_mutations"):
+                if hasattr(self, attr):
+                    setattr(clone, attr, getattr(self, attr))
+            if self._int8 is not None:
+                # new rows quantized with the EXISTING per-dim scale (fixed at
+                # calibration); rows outside the old range clip, which the
+                # recall certificates and a full recalibration cover
+                i8_slab, scale = self._int8
+                q = np.clip(
+                    np.round(padded / np.maximum(scale.cpu().numpy(), 1e-12)), -127, 127
+                ).astype(np.int8)
+                i8_slab = i8_slab.clone()
+                i8_slab[self.n_rows : self.n_rows + m] = torch.from_numpy(q).to(self.device)
+                clone._int8 = (i8_slab, scale)
             return clone
         all_vecs, all_ids, all_tomb = self._merged_host(new_ids, vecs)
         return DeviceVectorIndex(
@@ -299,11 +343,16 @@ class DeviceVectorIndex:
         *,
         search_filter: SearchFilter | None = None,
         metadata: Sequence[Mapping | None] | None = None,
-        mode: str = "auto",  # "auto" | "hierarchical" | "xla"
+        mode: str = "auto",  # "auto" | "hierarchical" | "xla" | "int8" | "pallas"
+        int8_candidate_multiplier: int = 4,
     ) -> topk_scan.TopKResult:
         """Batched scan; returns device (scores, indices). Rows are slab
         rows; use :meth:`hydrate` to map to doc ids. ``auto`` is the
-        hierarchical kernel scan on CUDA and the plain scan on the CPU."""
+        hierarchical kernel scan on CUDA and the plain scan on the CPU.
+        ``int8`` is the capacity lane over the int8 arm: K4 + K2's int8
+        form on CUDA, the plain two-pass scan (a pool of ``k *
+        int8_candidate_multiplier`` rescored against the slab) on the CPU.
+        ``pallas`` is the per-tile top-k scan (K5 on CUDA)."""
         q = np.asarray(queries, dtype=np.float32)
         if q.ndim == 1:
             q = q[None, :]
@@ -316,16 +365,95 @@ class DeviceVectorIndex:
 
         if mode == "auto":
             mode = "hierarchical" if self.device.type == "cuda" else "xla"
-        if mode in ("mrl", "ivf", "int8", "pallas"):
+        if mode in ("mrl", "ivf"):
             raise NotImplementedError(
-                f"scan mode {mode!r} is not ported yet (ROADMAP: the "
-                "int8/MRL/IVF lanes and kernels K4/K5)"
+                f"scan mode {mode!r} is not ported yet (ROADMAP: the MRL/IVF lanes)"
             )
+        if mode == "int8":
+            i8_slab, scale = self._int8_arm()
+            if self.device.type == "cuda":
+                return topk_scan.scan_topk_hierarchical_int8(i8_slab, scale, q_dev, k, mask)
+            return topk_scan.scan_topk_int8_two_pass(
+                i8_slab, scale, self.slab, q_dev, k, mask,
+                candidate_multiplier=int8_candidate_multiplier,
+            )
+        if mode == "pallas":
+            return topk_scan.scan_topk_pallas(self.slab, q_dev, k, mask)
         if mode == "hierarchical":
             return topk_scan.scan_topk_hierarchical(self.slab, q_dev, k, mask)
         if mode == "xla":
             return topk_scan.scan_topk_xla(self.slab, q_dev, k, mask)
         raise ValueError(f"unknown scan mode {mode!r}")
+
+    def certify_scan_mode(
+        self,
+        mode: str,
+        k: int,
+        sample_queries: np.ndarray,
+        *,
+        confidence: float = 0.95,
+        **mode_kwargs,
+    ):
+        """Measure an approximate mode's recall@k against the exact scan on
+        ``sample_queries`` and record a split-conformal certificate
+        (index/recall_certificate.py). With
+        ``TwoTierConfig.require_recall_certificate`` the searcher refuses
+        an approximate mode unless such a certificate covers (mode, k) at
+        the configured floor."""
+        from frankensearch_tpu_torch.index.recall_certificate import (
+            certify_recall,
+            per_query_recall,
+        )
+
+        exact = self.search_batch(sample_queries, k, mode="xla")
+        approx = self.search_batch(sample_queries, k, mode=mode, **mode_kwargs)
+        recalls = per_query_recall(approx.indices.cpu().numpy(), exact.indices.cpu().numpy())
+        param_name, param_value = next(iter(mode_kwargs.items()), ("mode", 0.0))
+        cert = certify_recall(
+            recalls, k=k,
+            parameter_name=str(param_name),
+            parameter_value=float(param_value) if np.isscalar(param_value) else 0.0,
+            confidence=confidence,
+        )
+        if not hasattr(self, "_recall_certs"):
+            self._recall_certs = {}
+        self._recall_certs[mode] = cert
+        return cert
+
+    def recall_certificate(self, mode: str):
+        """The recorded certificate for an approximate mode, or None."""
+        return getattr(self, "_recall_certs", {}).get(mode)
+
+    def scan_state_signature(self) -> dict | None:
+        """Durable identity of the scanned state, for binding persisted
+        recall certificates: None for an index that was not opened from an
+        artifact (nothing durable to bind to)."""
+        crc = getattr(self, "_base_slab_crc32", None)
+        if crc is None:
+            return None
+        wal_live, wal_tomb = getattr(self, "_wal_mutations", (0, 0))
+        return {
+            "slab_crc32": int(crc),
+            "n_rows": int(self.n_rows),
+            "live_count": int(self.live_count),
+            "dim": int(self.dim),
+            "slab_dtype": self.slab_dtype,
+            "embedder_id": self.identity.embedder_id,
+            "wal_live": int(wal_live),
+            "wal_tombstones": int(wal_tomb),
+        }
+
+    def _int8_arm(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The int8 arm, calibrated from the host rows on first use."""
+        if self._int8 is None:
+            padded = np.zeros((self.n_pad, self.d_pad), dtype=np.float32)
+            padded[: self.n_rows, : self.dim] = self._vectors_f32[: self.n_rows]
+            q = calibrate_int8(padded)
+            self._int8 = (
+                torch.from_numpy(q.values).to(self.device),
+                torch.from_numpy(q.scale).to(self.device),
+            )
+        return self._int8
 
     def search_classified(self, query: np.ndarray, k: int, **kwargs) -> ClassifiedHits:
         """Single-query search with typed zero-signal classification

@@ -1,10 +1,12 @@
 """Two-tier index: fast tier + optional quality tier (PyTorch port).
 
-Port of ``TwoTierIndex.create`` / ``TwoTierIndex.open`` from
-frankensearch_tpu/index/two_tier.py over the reference's own FTVI/WAL
-modules, so both packages open the same on-disk artifact. WAL appends,
-deletes, compaction, recall certificates and the quality tier's aligned
-rescoring (phase 2) are not ported yet.
+Port of ``TwoTierIndex.create`` / ``TwoTierIndex.open`` /
+``certify_fast_scan_mode`` from frankensearch_tpu/index/two_tier.py, over
+the port's copies of the FTVI/WAL modules, which write and read the
+reference's bytes: both packages open the same on-disk artifact, int8
+artifacts included. Recall certificates persist in the generation
+manifest and rebind on open. WAL appends, deletes, compaction and the
+quality tier's aligned rescoring (phase 2) are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,16 +17,21 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from frankensearch_tpu.core.errors import IndexCorrupted, IndexNotFound
-from frankensearch_tpu.core.types import ClassifiedHits
-from frankensearch_tpu.index.durability import (
+from frankensearch_tpu_torch.core.errors import IndexCorrupted, IndexNotFound
+from frankensearch_tpu_torch.core.types import ClassifiedHits
+from frankensearch_tpu_torch.index.durability import (
     ParityProtector,
     artifact_mutation_lock,
     ensure_artifact,
 )
-from frankensearch_tpu.index.fsvi import EmbeddingIdentity, FtviFile, write_ftvi
-from frankensearch_tpu.index.wal import WriteAheadLog
+from frankensearch_tpu_torch.index.fsvi import EmbeddingIdentity, FtviFile, write_ftvi
+from frankensearch_tpu_torch.index.recall_certificate import (
+    load_persisted_certificates,
+    persist_certificate,
+)
+from frankensearch_tpu_torch.index.wal import WriteAheadLog
 from frankensearch_tpu_torch.index.device_index import DeviceVectorIndex
+from frankensearch_tpu_torch.ops.quantize import calibrate_int8
 
 FAST_FILE = "vector.fast.idx"
 FAST_FALLBACK_FILE = "vector.idx"
@@ -100,6 +107,13 @@ class TwoTierIndex:
                 WriteAheadLog(quality_path + ".wal").replay(),
                 device=device, slab_dtype=slab_dtype,
             )
+        # persisted recall certificates: rebind the manifest's certificates
+        # whose binding matches the fast tier's durable identity (slab crc,
+        # WAL census, counts); any mismatch drops them and the fail-closed
+        # gate demands a fresh certify
+        certs = load_persisted_certificates(root, fast.scan_state_signature())
+        if certs:
+            fast._recall_certs = dict(certs)
         return cls(fast, quality, root=root)
 
     @classmethod
@@ -115,25 +129,55 @@ class TwoTierIndex:
         quality_identity: EmbeddingIdentity | None = None,
         slab_dtype: str = "bf16",
     ) -> "TwoTierIndex":
-        """Write the tiers as FTVI artifacts under ``root``, then open them."""
-        if slab_dtype not in ("bf16", "f16", "f32"):
-            raise NotImplementedError(
-                f"slab_dtype {slab_dtype!r} is not ported yet (ROADMAP: the int8/MRL/IVF lanes)"
-            )
+        """Write the tiers as FTVI artifacts under ``root``, then open them.
+        ``slab_dtype="int8"`` writes int8 artifacts (the normalized rows
+        quantized per dim, the scale in the artifact) and opens them with a
+        bf16 slab beside the preloaded int8 arm."""
+        if slab_dtype not in ("bf16", "f16", "f32", "int8"):
+            raise ValueError(f"unknown slab_dtype {slab_dtype!r}")
         os.makedirs(root, exist_ok=True)
-        write_ftvi(
-            os.path.join(root, FAST_FILE), np.asarray(fast_vectors, dtype=np.float32),
-            doc_ids, fast_identity, dtype=slab_dtype,
-        )
+
+        def write_tier(path: str, vectors: np.ndarray, identity: EmbeddingIdentity) -> None:
+            vectors = np.asarray(vectors, dtype=np.float32)
+            if slab_dtype == "int8":
+                norms = np.linalg.norm(vectors, axis=1, keepdims=True)
+                vectors = np.where(norms > 1e-12, vectors / np.maximum(norms, 1e-12), vectors)
+                q = calibrate_int8(vectors)
+                write_ftvi(path, q.values, doc_ids, identity, dtype="int8", scale=q.scale)
+            else:
+                write_ftvi(path, vectors, doc_ids, identity, dtype=slab_dtype)
+
+        write_tier(os.path.join(root, FAST_FILE), fast_vectors, fast_identity)
         if quality_vectors is not None:
             if quality_identity is None:
                 raise ValueError("quality_vectors requires quality_identity")
-            write_ftvi(
-                os.path.join(root, QUALITY_FILE),
-                np.asarray(quality_vectors, dtype=np.float32),
-                doc_ids, quality_identity, dtype=slab_dtype,
-            )
-        return cls.open(root, device=device, slab_dtype=slab_dtype)
+            write_tier(os.path.join(root, QUALITY_FILE), quality_vectors, quality_identity)
+        return cls.open(
+            root, device=device, slab_dtype="bf16" if slab_dtype == "int8" else slab_dtype
+        )
+
+    def certify_fast_scan_mode(
+        self,
+        mode: str,
+        k: int,
+        sample_queries: np.ndarray,
+        *,
+        confidence: float = 0.95,
+        persist: bool = True,
+        **mode_kwargs,
+    ):
+        """Certify an approximate fast-tier scan mode and persist the
+        certificate into the generation manifest, bound to the current
+        slab/WAL state: a reopened index in the same state rebinds it
+        without the exact pass; any slab or WAL change voids it."""
+        cert = self.fast.certify_scan_mode(
+            mode, k, sample_queries, confidence=confidence, **mode_kwargs
+        )
+        if persist and self.root is not None:
+            sig = self.fast.scan_state_signature()
+            if sig is not None:
+                persist_certificate(self.root, mode, cert, sig)
+        return cert
 
     @property
     def has_quality_tier(self) -> bool:

@@ -56,10 +56,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from frankensearch_tpu.lexical.base import LexicalCandidate, LexicalRead
-from frankensearch_tpu.lexical.bm25 import BM25_K1, idf, tf_norm_cache
-from frankensearch_tpu.lexical.memory_index import _BOOSTS, _FIELDS, MemoryLexicalIndex
-from frankensearch_tpu.lexical.tokenizer import simple_tokenize
+from frankensearch_tpu_torch.lexical.base import LexicalCandidate, LexicalRead
+from frankensearch_tpu_torch.lexical.bm25 import BM25_K1, idf, tf_norm_cache
+from frankensearch_tpu_torch.lexical.memory_index import _BOOSTS, _FIELDS, MemoryLexicalIndex
+from frankensearch_tpu_torch.lexical.tokenizer import simple_tokenize
 from frankensearch_tpu_torch.ops.topk_scan import (
     NEG_INF,
     _pad_topk,
@@ -530,7 +530,7 @@ class _BlockedPostings:
         flat_q = np.repeat(np.arange(b, dtype=np.int64), ids.shape[1])
         active = flat_w > 0.0
         flat_ids, flat_w, flat_q = flat_ids[active], flat_w[active], flat_q[active]
-        from frankensearch_tpu import native as _native
+        from frankensearch_tpu_torch import native as _native
 
         via_native = _native.bm25_bounds_native(
             flat_ids, flat_w, flat_q, self.bm_ptr, self.bm_blk, self.bm_max, self.n_blk, b,
@@ -1086,8 +1086,8 @@ class BulkDeviceBm25Index(DeviceBm25Index):
     fieldnorm / tf-side folding, then one upload."""
 
     def __init__(self, docs, *, device: torch.device, preview_chars: int = 240) -> None:
-        from frankensearch_tpu import native
-        from frankensearch_tpu.lexical.fieldnorm import field_norms_table
+        from frankensearch_tpu_torch import native
+        from frankensearch_tpu_torch.lexical.fieldnorm import field_norms_table
 
         # row order == doc_id order so the top-k's lower-row tiebreak
         # reproduces the oracle's (score desc, doc_id asc) contract

@@ -21,7 +21,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("group_max.cu", "gather_rescore.cu", "flat_score.cu")
+SOURCES = ("group_max.cu", "gather_rescore.cu", "flat_score.cu", "group_max_int8.cu", "tile_topk.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -108,5 +108,11 @@ def library() -> ctypes.CDLL:
         lib.fs_gather_rescore.restype = i32
         lib.fs_flat_score.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
         lib.fs_flat_score.restype = i32
+        lib.fs_group_max_int8.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, ptr]
+        lib.fs_group_max_int8.restype = i32
+        lib.fs_gather_rescore_i8.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
+        lib.fs_gather_rescore_i8.restype = i32
+        lib.fs_tile_topk.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr]
+        lib.fs_tile_topk.restype = i32
         _lib = lib
     return _lib

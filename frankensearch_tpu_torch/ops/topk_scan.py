@@ -1,10 +1,15 @@
 """Exact batched scan + top-k over a device-resident vector slab (PyTorch).
 
 Port of frankensearch_tpu/ops/topk_scan.py: the plain scan
-(:func:`scan_topk_xla`) and the hierarchical group-max scan
-(:func:`scan_topk_hierarchical`), whose two TPU kernels become the
-hand-written Hopper kernels K1 (:func:`group_max`, csrc/group_max.cu) and
-K2 (:func:`gather_rescore`, csrc/gather_rescore.cu).
+(:func:`scan_topk_xla`), the hierarchical group-max scan
+(:func:`scan_topk_hierarchical`), its int8 capacity lane
+(:func:`scan_topk_hierarchical_int8`), the per-tile top-k scan
+(:func:`scan_topk_pallas`) and the plain int8 two-pass scan
+(:func:`scan_topk_int8_two_pass`). Their TPU kernels become hand-written
+Hopper kernels: K1 (:func:`group_max`, csrc/group_max.cu), K2
+(:func:`gather_rescore`, csrc/gather_rescore.cu) and its int8 form
+(:func:`gather_rescore_i8`, the same source), K4 (:func:`group_max_int8`,
+csrc/group_max_int8.cu) and K5 (:func:`tile_topk`, csrc/tile_topk.cu).
 
 Each kernel wrapper runs its kernel on a CUDA tensor and its plain PyTorch
 twin (same semantics, the analog of Pallas ``interpret=True``) on a CPU
@@ -132,6 +137,12 @@ def _check_kernel_operands(slab: torch.Tensor, queries: torch.Tensor) -> None:
         raise ValueError(f"slab rows {slab.shape[0]} not a multiple of {GROUP}")
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous, and 16-byte aligned for the kernels' 16-byte loads."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def group_max_plain(slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Plain twin of K1: (B, N/128) maxima of q·slabᵀ + mask, the query
     rounded to the slab dtype, f32 accumulate."""
@@ -156,9 +167,7 @@ def group_max(slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor) -> 
     out = torch.empty((b, n // GROUP), dtype=torch.float32, device=slab.device)
     if b == 0:
         return out
-    q = queries.to(slab.dtype).contiguous()
-    if q.data_ptr() % 16:  # the kernel stages query rows with 16-byte loads
-        q = q.clone()
+    q = _aligned(queries.to(slab.dtype))  # the kernel stages query rows with 16-byte loads
     mask = mask.contiguous()
     from frankensearch_tpu_torch.ops import _build
 
@@ -235,6 +244,234 @@ gather_rescore.launches = 0
 
 
 # --------------------------------------------------------------------------
+# int8 lane: query preparation, K4 and K2's int8 form
+# --------------------------------------------------------------------------
+
+
+def prepare_query_int8(queries: torch.Tensor, slab_scale: torch.Tensor) -> torch.Tensor:
+    """The int8 lane's prepared query, the reference's f32 ops in its
+    order: fold the per-dim scale in, then per-query symmetric int8
+    (``q_prep / qmax * 127``, round half to even, clip to [-127, 127])."""
+    q_prep = queries.to(torch.float32) * slab_scale.to(torch.float32)
+    qmax = torch.clamp(q_prep.abs().amax(dim=1, keepdim=True), min=1e-6)
+    return torch.clamp(torch.round(q_prep / qmax * 127.0), -127, 127).to(torch.int8)
+
+
+def int8_dot(q_i8: torch.Tensor, slab_i8: torch.Tensor) -> torch.Tensor:
+    """Exact (B, N) int8 · int8ᵀ sums, as f32. Computed in f64, where every
+    partial sum of at most 2^53 is exact, because an int8 ``torch.matmul``
+    accumulates in int8 on the CPU and CUDA has no integer matmul; the
+    cast to f32 rounds once, like the TPU kernel's int32 -> f32 cast."""
+    return (q_i8.to(torch.float64) @ slab_i8.to(torch.float64).T).to(torch.float32)
+
+
+def group_max_int8_plain(slab_i8: torch.Tensor, q_i8: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K4: (B, N/128) maxima of float(q_i8 · slab_i8ᵀ) + mask."""
+    b = q_i8.shape[0]
+    scores = int8_dot(q_i8, slab_i8) + mask[None, :].to(torch.float32)
+    return scores.view(b, slab_i8.shape[0] // GROUP, GROUP).amax(dim=2)
+
+
+def _check_int8_operands(slab_i8: torch.Tensor, queries: torch.Tensor, query_dtype) -> None:
+    if slab_i8.dtype != torch.int8 or queries.dtype != query_dtype:
+        raise ValueError(f"want an int8 slab and {query_dtype} queries, got {slab_i8.dtype}, {queries.dtype}")
+    if slab_i8.dim() != 2 or queries.dim() != 2 or queries.shape[1] != slab_i8.shape[1]:
+        raise ValueError(f"shape mismatch: slab {tuple(slab_i8.shape)}, queries {tuple(queries.shape)}")
+    if queries.device != slab_i8.device:
+        raise ValueError(f"queries on {queries.device}, slab on {slab_i8.device}")
+    if not slab_i8.is_contiguous() or slab_i8.data_ptr() % 16:
+        raise ValueError("slab must be contiguous and 16-byte aligned")
+    if slab_i8.shape[0] % GROUP:
+        raise ValueError(f"slab rows {slab_i8.shape[0]} not a multiple of {GROUP}")
+
+
+def group_max_int8(slab_i8: torch.Tensor, q_i8: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """K4 (replaces ``_group_max_int8_kernel``): (B, N/128) f32 masked group
+    maxima of the exact int8 scores. CUDA tensors run
+    csrc/group_max_int8.cu; CPU tensors the plain twin. Bitwise equal to
+    the twin (exact int32 sums)."""
+    if slab_i8.device.type == "cpu":
+        return group_max_int8_plain(slab_i8, q_i8, mask)
+    _check_int8_operands(slab_i8, q_i8, torch.int8)
+    n, d = slab_i8.shape
+    if d % 128 or d > 1024:
+        raise ValueError(f"group_max_int8 needs dim % 128 == 0 and dim <= 1024, got {d}")
+    if mask.shape != (n,) or mask.dtype != torch.float32 or mask.device != slab_i8.device:
+        raise ValueError("mask must be (N,) f32 on the slab's device")
+    b = q_i8.shape[0]
+    out = torch.empty((b, n // GROUP), dtype=torch.float32, device=slab_i8.device)
+    if b == 0:
+        return out
+    q = _aligned(q_i8)
+    mask = mask.contiguous()
+    from frankensearch_tpu_torch.ops import _build
+
+    lib = _build.library()
+    with torch.cuda.device(slab_i8.device):
+        rc = lib.fs_group_max_int8(
+            q.data_ptr(), slab_i8.data_ptr(), mask.data_ptr(), out.data_ptr(), b, d, n,
+            torch.cuda.current_stream(slab_i8.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"group_max_int8 kernel launch failed: CUDA error {rc}")
+    group_max_int8.launches += 1
+    return out
+
+
+group_max_int8.launches = 0
+
+
+def gather_rescore_i8_plain(
+    slab_i8: torch.Tensor, q_scaled: torch.Tensor, top_groups: torch.Tensor
+) -> torch.Tensor:
+    """Plain twin of K2's int8 form: (B, kk*128) dots of each f32 query
+    (per-dim scale folded in) with its selected groups' int8 rows cast to
+    f32."""
+    b, kk = top_groups.shape
+    d = slab_i8.shape[1]
+    cand = slab_i8.view(-1, GROUP, d)[top_groups.to(torch.int64)].to(torch.float32)
+    return torch.einsum("bd,bkrd->bkr", q_scaled.to(torch.float32), cand).reshape(b, kk * GROUP)
+
+
+def gather_rescore_i8(
+    slab_i8: torch.Tensor, q_scaled: torch.Tensor, top_groups: torch.Tensor
+) -> torch.Tensor:
+    """K2's int8 form (replaces ``_gather_rescore_kernel`` with
+    ``compute_f32=True``): (B, kk) group ids -> (B, kk*128) f32 scores.
+    CUDA tensors run ``fs_gather_rescore_i8`` of csrc/gather_rescore.cu
+    (any B and kk); CPU tensors the plain twin."""
+    if slab_i8.device.type == "cpu":
+        return gather_rescore_i8_plain(slab_i8, q_scaled, top_groups)
+    _check_int8_operands(slab_i8, q_scaled, torch.float32)
+    n, d = slab_i8.shape
+    if d % 16 or d * 4 > 48 * 1024:
+        raise ValueError(f"gather_rescore_i8 needs dim % 16 == 0 and dim <= 12288, got {d}")
+    b, kk = top_groups.shape
+    if b != q_scaled.shape[0] or top_groups.device != slab_i8.device:
+        raise ValueError("top_groups must be (B, kk) on the slab's device")
+    out = torch.empty((b, kk * GROUP), dtype=torch.float32, device=slab_i8.device)
+    if b == 0 or kk == 0:
+        return out
+    q = q_scaled.contiguous()
+    groups = top_groups.to(torch.int32).contiguous()
+    from frankensearch_tpu_torch.ops import _build
+
+    lib = _build.library()
+    with torch.cuda.device(slab_i8.device):
+        rc = lib.fs_gather_rescore_i8(
+            q.data_ptr(), slab_i8.data_ptr(), groups.data_ptr(), out.data_ptr(), b, kk, d, n,
+            torch.cuda.current_stream(slab_i8.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"gather_rescore_i8 kernel launch failed: CUDA error {rc}")
+    gather_rescore_i8.launches += 1
+    return out
+
+
+gather_rescore_i8.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K5: per-tile top-k
+# --------------------------------------------------------------------------
+
+#: slab rows per tile of the per-tile top-k scan (fixed by K5)
+TILE_N = 2048
+
+
+def tile_topk_plain(
+    slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor, kk: int, tile_n: int = TILE_N
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of K5: per tile of ``tile_n`` rows, ``kk`` argmax passes
+    over q·slabᵀ + mask (the query rounded to the slab dtype, f32 sums).
+    Pass j takes the first column equal to the maximum (``==``, so -0.0
+    ties +0.0), records its score and slab row, and knocks it out with
+    -inf. Returns (T, kk, B) f32 scores and int32 rows."""
+    n = slab.shape[0]
+    b = queries.shape[0]
+    t = n // tile_n
+    q = queries.to(slab.dtype).to(torch.float32)
+    s = (q @ slab.to(torch.float32).T + mask[None, :].to(torch.float32)).view(b, t, tile_n)
+    base = torch.arange(t, dtype=torch.int64, device=slab.device)[None, :] * tile_n
+    out_s = torch.empty((kk, b, t), dtype=torch.float32, device=slab.device)
+    out_i = torch.empty((kk, b, t), dtype=torch.int64, device=slab.device)
+    for j in range(kk):
+        best = s.amax(dim=2, keepdim=True)
+        col = torch.argmax((s == best).to(torch.uint8), dim=2, keepdim=True)  # first max
+        out_s[j] = torch.gather(s, 2, col)[..., 0]
+        out_i[j] = col[..., 0] + base
+        s.scatter_(2, col, NEG_INF)
+    return out_s.permute(2, 0, 1).contiguous(), out_i.permute(2, 0, 1).to(torch.int32).contiguous()
+
+
+def tile_topk(
+    slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor, kk: int, tile_n: int = TILE_N
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5 (replaces ``_tile_topk_kernel``): (T, kk, B) per-tile top-kk
+    scores and slab rows. CUDA tensors run csrc/tile_topk.cu (tiles of
+    2048 rows); CPU tensors the plain twin."""
+    if slab.device.type == "cpu":
+        return tile_topk_plain(slab, queries, mask, kk, tile_n)
+    _check_kernel_operands(slab, queries)
+    n, d = slab.shape
+    if tile_n != TILE_N or n % TILE_N:
+        raise ValueError(f"tile_topk runs {TILE_N}-row tiles over a multiple of them, got {tile_n}, {n}")
+    if d % 16 or d > 2048 or not 1 <= kk <= TILE_N:
+        raise ValueError(f"tile_topk needs dim % 16 == 0, dim <= 2048 and 1 <= kk <= {TILE_N}; got {d}, {kk}")
+    if mask.shape != (n,) or mask.dtype != torch.float32 or mask.device != slab.device:
+        raise ValueError("mask must be (N,) f32 on the slab's device")
+    b = queries.shape[0]
+    out_s = torch.empty((n // TILE_N, kk, b), dtype=torch.float32, device=slab.device)
+    out_i = torch.empty((n // TILE_N, kk, b), dtype=torch.int32, device=slab.device)
+    if b == 0:
+        return out_s, out_i
+    q = _aligned(queries.to(slab.dtype))
+    mask = mask.contiguous()
+    from frankensearch_tpu_torch.ops import _build
+
+    lib = _build.library()
+    with torch.cuda.device(slab.device):
+        rc = lib.fs_tile_topk(
+            q.data_ptr(), slab.data_ptr(), mask.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            b, d, n, kk, int(slab.dtype == torch.bfloat16),
+            torch.cuda.current_stream(slab.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"tile_topk kernel launch failed: CUDA error {rc}")
+    tile_topk.launches += 1
+    return out_s, out_i
+
+
+tile_topk.launches = 0
+
+
+def scan_topk_pallas(
+    slab: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    mask: torch.Tensor | None = None,
+    *,
+    tile_n: int = TILE_N,
+) -> TopKResult:
+    """Scan + per-tile top-k (K5), then one exact merge of the (B,
+    T*kk) tile candidates in ``lax.top_k`` order (tile-major pools keep
+    the row-ascending tiebreak). Needs N % tile_n == 0."""
+    n = slab.shape[0]
+    b = queries.shape[0]
+    if n % tile_n:
+        raise ValueError(f"slab rows {n} not a multiple of tile_n {tile_n}")
+    kk = min(k, tile_n)
+    if mask is None:
+        mask = torch.zeros(n, dtype=torch.float32, device=slab.device)
+    cand_s, cand_i = tile_topk(slab, queries, mask, kk, tile_n)
+    cand_s = cand_s.permute(2, 0, 1).reshape(b, -1)
+    cand_i = cand_i.permute(2, 0, 1).reshape(b, -1)
+    top_s, pos = topk_desc_rowasc(cand_s, min(k, cand_s.shape[1]))
+    top_i = torch.gather(cand_i, 1, pos)
+    return _finalize(*_pad_topk(top_s, top_i, k))
+
+
+# --------------------------------------------------------------------------
 # hierarchical scan
 # --------------------------------------------------------------------------
 
@@ -246,18 +483,20 @@ def _rescore_groups(
     top_groups: torch.Tensor,  # (B, kk_groups) selected group ids
     *,
     k: int,
+    rescore=None,
 ) -> TopKResult:
-    """Exact-rescore tail of the hierarchical scan: score the selected
-    groups' rows (K2), add their mask, final top-k. The reference's XLA
-    rescore (f32 query) is not ported: the main path always took the
-    kernel, whose query is rounded to the slab dtype."""
+    """Exact-rescore tail of the hierarchical scans: score the selected
+    groups' rows (``rescore``, K2 by default), add their mask, final
+    top-k. The reference's XLA rescore (f32 query) is not ported: the main
+    path always took the kernel, whose query is rounded to the slab
+    dtype."""
     n = slab.shape[0]
     b = queries.shape[0]
     kk_groups = top_groups.shape[1]
     top_groups = torch.sort(top_groups, dim=1).values  # row-ascending tiebreak
     offsets = torch.arange(GROUP, dtype=top_groups.dtype, device=slab.device)
     cand_rows = (top_groups[:, :, None] * GROUP + offsets).reshape(b, kk_groups * GROUP)
-    exact = gather_rescore(slab, queries, top_groups)
+    exact = (rescore or gather_rescore)(slab, queries, top_groups)
     mask_cand = mask.reshape(n // GROUP, GROUP)[top_groups.to(torch.int64)]
     exact = exact + mask_cand.reshape(b, kk_groups * GROUP)
     kk = min(k, exact.shape[1])
@@ -289,3 +528,63 @@ def scan_topk_hierarchical(
     gmax = group_max(slab, queries, mask)  # (B, N/128)
     _, top_groups = topk_desc_rowasc(gmax, kk_groups)
     return _rescore_groups(slab, queries, mask, top_groups.to(torch.int32), k=k)
+
+
+def scan_topk_hierarchical_int8(
+    slab_i8: torch.Tensor,  # (N, D) int8
+    slab_scale: torch.Tensor,  # (D,) f32 per-dim dequant scale
+    queries: torch.Tensor,  # (B, D) f32
+    k: int,
+    mask: torch.Tensor | None = None,
+    *,
+    group_overfetch: int = 1,
+) -> TopKResult:
+    """The capacity lane: the only slab on the device is int8. K4 ranks the
+    groups with the prepared int8 query, then the top ``k *
+    group_overfetch`` groups' int8 rows are rescored (K2's int8 form)
+    against the f32 query with the per-dim scale folded in, and an exact
+    top-k runs over them. Int8 ranks are approximate, so covering the
+    exact top-k is probable, not certain (recall_certificate.py measures
+    it). The rescore always takes the kernel's form, ``(q * scale) · c``;
+    the reference falls back to ``q · (c * scale)`` off its TPU gates
+    (B % 8 != 0, or a VMEM scratch above 12 MiB)."""
+    n = slab_i8.shape[0]
+    if n % GROUP:
+        raise ValueError(f"slab rows {n} not a multiple of {GROUP}")
+    kk_groups = min(max(k * group_overfetch, k), n // GROUP)
+    if mask is None:
+        mask = torch.zeros(n, dtype=torch.float32, device=slab_i8.device)
+    gmax = group_max_int8(slab_i8, prepare_query_int8(queries, slab_scale), mask)
+    _, top_groups = topk_desc_rowasc(gmax, kk_groups)
+    q_scaled = queries.to(torch.float32) * slab_scale.to(torch.float32)
+    return _rescore_groups(
+        slab_i8, q_scaled, mask, top_groups.to(torch.int32), k=k, rescore=gather_rescore_i8
+    )
+
+
+def scan_topk_int8_two_pass(
+    slab_i8: torch.Tensor,
+    slab_scale: torch.Tensor,
+    slab_exact: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    mask: torch.Tensor | None = None,
+    *,
+    candidate_multiplier: int = 4,
+) -> TopKResult:
+    """Two-pass quantized scan, plain PyTorch (the lane the int8 mode takes
+    off the accelerator). Pass 1 ranks every row by the exact int8 dot with
+    the prepared query and keeps a pool of ``k * candidate_multiplier``;
+    pass 2 rescores the pool's rows of ``slab_exact`` against the f32 query
+    and keeps the exact top-k of the pool."""
+    n = slab_i8.shape[0]
+    pool = min(max(k * candidate_multiplier, k), n)
+    rough = _apply_additive_mask(int8_dot(prepare_query_int8(queries, slab_scale), slab_i8), mask)
+    _, cand_idx = topk_desc_rowasc(rough, pool)  # (B, pool)
+    cand_rows = slab_exact[cand_idx].to(torch.float32)  # (B, pool, D)
+    exact = torch.einsum("bd,bpd->bp", queries.to(torch.float32), cand_rows)
+    if mask is not None:
+        exact = exact + mask[cand_idx].to(torch.float32)
+    top_s, pos = topk_desc_rowasc(exact, min(k, pool))
+    top_i = torch.gather(cand_idx, 1, pos)
+    return _finalize(*_pad_topk(top_s, top_i, k))

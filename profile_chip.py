@@ -4,8 +4,10 @@
 Usage: ``python3 profile_chip.py [OUT_DIR]`` from the root of a checkout (one
 CUDA card). OUT_DIR, where the reports go, defaults to ``build/profile``.
 
-Builds the three cells of ``chip_smoke.py`` (semantic-1M, hybrid-60k,
-hybrid-1M: the 1M-doc BM25 arm over the semantic cell's vectors) and, for
+Builds the cells of ``chip_smoke.py`` (semantic-1M, hybrid-60k,
+hybrid-1M: the 1M-doc BM25 arm over the semantic cell's vectors, and
+semantic-1M-int8: the semantic cell's vectors in an int8 ``TwoTierIndex``
+served with ``scan_mode="int8"``) and, for
 each at B = 256 and B = 1 (the cell's first query), after three warm-up calls
 of ``TwoTierSearcher.search_batch``:
 
@@ -75,7 +77,9 @@ def profile_once(fn, path: str) -> tuple[float, float, float]:
 
 
 def main() -> int:
-    sys.modules["jax"] = None  # the port must not reach jax, even indirectly
+    # the port must reach neither jax nor the JAX package, even indirectly
+    sys.modules["jax"] = None
+    sys.modules["frankensearch_tpu"] = None
     import torch
 
     if not torch.cuda.is_available():
@@ -95,9 +99,20 @@ def main() -> int:
         searcher, _, queries, _, _ = cs.hybrid1m_cell(dev, index, emb)
         return searcher, queries
 
+    def semantic_int8(dev, tmp):
+        from frankensearch_tpu_torch import TwoTierConfig, TwoTierIndex, TwoTierSearcher
+
+        _, index, emb, vecs, queries = cs.semantic_cell(dev, tempfile.mkdtemp(dir=tmp))
+        index8 = TwoTierIndex.create(
+            tempfile.mkdtemp(dir=tmp), vecs, index.fast.doc_ids, emb.identity(),
+            device=dev, slab_dtype="int8",
+        )
+        del index
+        return TwoTierSearcher(index8, emb, config=TwoTierConfig(fast_only=True, scan_mode="int8")), queries
+
     with tempfile.TemporaryDirectory(prefix="fs_profile_") as tmp:
         for cell, build in (("semantic-1M", cs.semantic_cell), ("hybrid-60k", cs.hybrid_cell),
-                            ("hybrid-1M", hybrid1m)):
+                            ("hybrid-1M", hybrid1m), ("semantic-1M-int8", semantic_int8)):
             built = build(dev, tmp)
             searcher, queries = built[0], built[-1]
             for b in (256, 1):

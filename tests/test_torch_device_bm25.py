@@ -48,16 +48,13 @@ def _corpus(n_docs=400, seed=1):
 
 @pytest.fixture(scope="module")
 def pair():
-    mem = MemoryLexicalIndex()
-    for d in _corpus():
-        mem.add_document(d)
-    mem.commit()
+    mem, port_mem = th.memory_pair(_corpus())
     ref = jbm.DeviceBm25Index(mem)
     port = convert.bm25_from_arrays(
         np.asarray(ref._post_term), np.asarray(ref._post_doc), np.asarray(ref._post_tf),
         ref._arms, ref.doc_ids, ref.vocab_size, device=CPU,
     )
-    return mem, ref, port
+    return (mem, port_mem), ref, port
 
 
 def _cands(lists):
@@ -97,12 +94,13 @@ def test_converted_state_is_the_reference_state(pair):
 
 @pytest.mark.parametrize("builder", ["memory", "bulk"])
 def test_port_builders_match_reference(pair, builder):
-    mem, _, _ = pair
+    (mem, port_mem), _, _ = pair
     docs = _corpus()
     if builder == "memory":
-        ref, port = jbm.DeviceBm25Index(mem), tbm.DeviceBm25Index(mem, device=CPU)
+        ref, port = jbm.DeviceBm25Index(mem), tbm.DeviceBm25Index(port_mem, device=CPU)
     else:
-        ref, port = jbm.BulkDeviceBm25Index(docs), tbm.BulkDeviceBm25Index(docs, device=CPU)
+        ref = jbm.BulkDeviceBm25Index(docs)
+        port = tbm.BulkDeviceBm25Index(th.port_docs(docs), device=CPU)
     assert _cands(port.search_candidates_batch(QUERIES, 20)) == _cands(
         ref.search_candidates_batch(QUERIES, 20)
     )

@@ -28,9 +28,11 @@ from frankensearch_tpu.lexical import daat as jdaat
 from frankensearch_tpu.lexical import device_bm25 as jbm
 from frankensearch_tpu.lexical import hot_arm as jhot
 from frankensearch_tpu.lexical.memory_index import MemoryLexicalIndex
+from frankensearch_tpu_torch.core.types import IndexableDocument as PortDocument
 from frankensearch_tpu_torch.lexical import daat as tdaat
 from frankensearch_tpu_torch.lexical import device_bm25 as tbm
 from frankensearch_tpu_torch.lexical import hot_arm as thot
+from frankensearch_tpu_torch.lexical.memory_index import MemoryLexicalIndex as PortMemoryIndex
 
 CPU = torch.device("cpu")
 WORDS = [f"w{i}" for i in range(300)]
@@ -79,13 +81,27 @@ def lowered(*, hot: bool = True, max_terms: int = 6, extra=()):
             setattr(mod, name, v)
 
 
-def build_pair(docs=None, *, hot=True, max_terms=6):
-    mem = MemoryLexicalIndex()
-    for d in docs or corpus():
+def port_docs(docs):
+    """The same documents as the port's own ``IndexableDocument``s."""
+    return [PortDocument(d.doc_id, d.content, d.title, d.metadata) for d in docs]
+
+
+def memory_pair(docs):
+    """The same committed documents in the reference's
+    ``MemoryLexicalIndex`` and in the port's own copy of it."""
+    mem, port_mem = MemoryLexicalIndex(), PortMemoryIndex()
+    for d, pd in zip(docs, port_docs(docs)):
         mem.add_document(d)
+        port_mem.add_document(pd)
     mem.commit()
+    port_mem.commit()
+    return mem, port_mem
+
+
+def build_pair(docs=None, *, hot=True, max_terms=6):
+    mem, port_mem = memory_pair(docs or corpus())
     with lowered(hot=hot, max_terms=max_terms):
-        return mem, jbm.DeviceBm25Index(mem), tbm.DeviceBm25Index(mem, device=CPU)
+        return mem, jbm.DeviceBm25Index(mem), tbm.DeviceBm25Index(port_mem, device=CPU)
 
 
 @contextlib.contextmanager

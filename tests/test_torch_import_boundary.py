@@ -1,22 +1,30 @@
-"""The port runs where jax is not installed.
+"""The port runs where neither jax nor the JAX package is importable.
 
-A subprocess makes ``import jax`` fail (``sys.modules["jax"] = None``),
-imports ``frankensearch_tpu_torch`` and serves a tiny hybrid
-``search_batch`` on the CPU, over the dense lexical lane and then over the
-blocked (split, flat, DAAT) layout: nothing on the port's path may reach
-jax, directly or through a reference module.
+A subprocess makes ``import jax`` and ``import frankensearch_tpu`` fail
+(``sys.modules[...] = None``), imports ``frankensearch_tpu_torch``, builds
+every object from the port's own types and serves a tiny hybrid
+``search_batch`` on the CPU: over the dense lexical lane, over the blocked
+(split, flat, DAAT) layout, and through the ``int8`` (certified) and
+``pallas`` scan modes. A static check reads every import statement of the
+port's files, ``chip_smoke.py`` and ``profile_chip.py``: none may name
+``frankensearch_tpu`` or ``jax``.
 """
 
+import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
 
 SCRIPT = r"""
 import sys, tempfile
 sys.modules["jax"] = None
+sys.modules["frankensearch_tpu"] = None
 import numpy as np
 import frankensearch_tpu_torch as fst
-from frankensearch_tpu.core.types import IndexableDocument
+from frankensearch_tpu_torch import IndexableDocument
 
 dev = fst.resolve_device("cpu")
 docs = [IndexableDocument(doc_id=f"d{i}", content=text) for i, text in enumerate(
@@ -53,17 +61,58 @@ with tempfile.TemporaryDirectory() as root:
     out = searcher.search_batch(["write ahead log", "bm25 ranking"], k=3)
 assert out[0].results[0].doc_id == "d4" and out[1].results[0].doc_id == "d2", out
 assert searcher.last_phase1_lex_lane in ("blocked", "mixed", "daat")
-assert sys.modules["jax"] is None
+
+# the int8 capacity slab behind the certificate gate, and the tile scan
+with tempfile.TemporaryDirectory() as root:
+    index = fst.TwoTierIndex.create(
+        root, emb.embed_batch([d.content for d in docs]), [d.doc_id for d in docs],
+        emb.identity(), device=dev, slab_dtype="int8")
+    sample = np.repeat(emb.embed_batch([d.content for d in docs]), 5, axis=0)  # 25 queries
+    cert = index.certify_fast_scan_mode("int8", 5, sample + 0.01)
+    assert cert.certified_recall == 1.0, cert
+    index = fst.TwoTierIndex.open(root, device=dev)
+    assert index.fast.recall_certificate("int8") is not None
+    for mode in ("int8", "pallas"):
+        searcher = fst.TwoTierSearcher(index, emb, lexical=fst.DeviceBm25Index(mem, device=dev),
+            config=fst.TwoTierConfig(fast_only=True, scan_mode=mode, require_recall_certificate=True))
+        out = searcher.search_batch(["vector search", "write ahead log"], k=3)
+        assert out[0].results[0].doc_id == "d3" and out[1].results[0].doc_id == "d4", (mode, out)
+        assert not any(o.metrics.phase1_fused for o in out)
+assert sys.modules["jax"] is None and sys.modules["frankensearch_tpu"] is None
+assert not [m for m in sys.modules if m.startswith(("jax.", "frankensearch_tpu."))]
 print("OK")
 """
 
 
-def test_port_serves_without_jax():
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=repo)
+def test_port_serves_without_jax_or_the_reference():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT], cwd=repo, env=env,
+        [sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=240,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("OK")
+
+
+def _imported_roots(path: Path) -> set[str]:
+    """The top-level package of every import statement in a file,
+    including imports inside functions."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_port_file_imports_the_reference_or_jax():
+    files = sorted((REPO / "frankensearch_tpu_torch").rglob("*.py"))
+    files += [REPO / "chip_smoke.py", REPO / "profile_chip.py"]
+    assert len(files) > 40
+    offenders = {
+        str(f.relative_to(REPO)): sorted(bad)
+        for f in files
+        if (bad := _imported_roots(f) & {"frankensearch_tpu", "jax", "jaxlib"})
+    }
+    assert offenders == {}

@@ -1,14 +1,17 @@
-"""The port on an NVIDIA GPU: kernels K1/K2/K3 against their plain twins,
-and the deterministic lanes (dense, pruned and DAAT BM25, device RRF)
-bitwise against the CPU.
+"""The port on an NVIDIA GPU: kernels K1/K2/K3/K4/K5 and K2's int8 form
+against their plain twins, the deterministic lanes (dense, pruned and DAAT
+BM25, device RRF) bitwise against the CPU, and the int8 and per-tile scan
+lanes against their CPU twin pipelines.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports no jax, so it also runs where jax is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: K1/K2 vs twin 1e-5 relative (bf16 products are exact; the
-tensor-core and warp sums run in another order than the twins'); K3 sums
+Tolerances: K1/K2/K2-i8/K5 vs twin 1e-5 relative (bf16 and int8 products
+are exact; the tensor-core and warp sums run in another order than the
+twins', so K5 and the scan lanes may also swap near ties); K4's int32
+sums are exact, so it is bitwise; K3 sums
 in its twin's order with unfused products and adds, so it is bitwise; the
 BM25 and RRF lanes are order-pinned f32 adds (the pruned lane's exact
 FMA included), so GPU and CPU agree bit for bit. The hot partial is a
@@ -19,10 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from frankensearch_tpu.core.types import IndexableDocument
+import chip_smoke
+from frankensearch_tpu_torch.core.types import IndexableDocument
 from frankensearch_tpu_torch.lexical import device_bm25, hot_arm
 from frankensearch_tpu_torch.lexical.device_bm25 import BulkDeviceBm25Index
 from frankensearch_tpu_torch.ops import device_rrf, topk_scan
+from frankensearch_tpu_torch.ops.quantize import calibrate_int8
 
 pytestmark = pytest.mark.cuda
 
@@ -157,3 +162,89 @@ def test_blocked_lanes_bitwise_cpu_vs_gpu(cuda_device, monkeypatch, hot):
         got = [[(c.doc_id, c.score) for c in r] for r in gpu.search_candidates_batch(queries, 25)]
         assert got == want, mode
         assert gpu.last_blocks_skipped == cpu.last_blocks_skipped
+
+
+def _unit_slab(seed, n=16384, d=256):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    slab = torch.randn(n, d, generator=gen)
+    mask = torch.zeros(n)
+    mask[n - 384 :] = float("-inf")
+    return slab / slab.norm(dim=1, keepdim=True), mask, gen
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("b", [1, 8, 256])
+def test_group_max_int8_bitwise(cuda_device, b, d):
+    gen = torch.Generator(device="cpu").manual_seed(b + d)
+    slab = torch.randint(-127, 128, (16384, d), generator=gen, dtype=torch.int8)
+    slab[:3] = 127  # the largest sums
+    q = torch.randint(-127, 128, (b, d), generator=gen, dtype=torch.int8)
+    q[0] = 127
+    mask = torch.zeros(16384)
+    mask[16000:] = float("-inf")
+    launches = topk_scan.group_max_int8.launches
+    got = topk_scan.group_max_int8(slab.to(cuda_device), q.to(cuda_device), mask.to(cuda_device))
+    torch.cuda.synchronize()
+    assert topk_scan.group_max_int8.launches == launches + 1
+    want = topk_scan.group_max_int8_plain(slab, q, mask)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    on_card = topk_scan.group_max_int8_plain(slab.to(cuda_device), q.to(cuda_device), mask.to(cuda_device))
+    assert torch.equal(got.view(torch.int32), on_card.view(torch.int32))
+
+
+@pytest.mark.parametrize("b,kk", [(1, 12), (8, 60), (70, 30)])
+def test_gather_rescore_i8_matches_twin(cuda_device, b, kk):
+    gen = torch.Generator(device="cpu").manual_seed(b * kk)
+    slab = torch.randint(-127, 128, (16384, 256), generator=gen, dtype=torch.int8).to(cuda_device)
+    q = (torch.randn(b, 256, generator=gen) * 0.01).to(cuda_device)
+    groups = torch.sort(torch.stack([torch.randperm(128, generator=gen)[:kk] for _ in range(b)]), dim=1)
+    groups = groups.values.to(torch.int32).to(cuda_device)
+    launches = topk_scan.gather_rescore_i8.launches
+    got = topk_scan.gather_rescore_i8(slab, q, groups)
+    assert topk_scan.gather_rescore_i8.launches == launches + 1
+    torch.testing.assert_close(got, topk_scan.gather_rescore_i8_plain(slab, q, groups), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,kk", [(1, 10), (8, 60), (70, 30)])
+def test_tile_topk_matches_twin(cuda_device, b, kk, dtype):
+    slab, mask, gen = _unit_slab(b + kk)
+    mask[2048 + 3 : 4096] = float("-inf")  # tile 1 holds 3 live rows: it runs out
+    slab, mask = slab.to(cuda_device, dtype), mask.to(cuda_device)
+    q = torch.randn(b, 256, generator=gen).to(cuda_device)
+    launches = topk_scan.tile_topk.launches
+    got_s, got_i = topk_scan.tile_topk(slab, q, mask, kk)
+    torch.cuda.synchronize()
+    assert topk_scan.tile_topk.launches == launches + 1
+    want_s, want_i = topk_scan.tile_topk_plain(slab, q, mask, kk)
+    chip_smoke.check_close(got_s, want_s, "K5 scores")
+    chip_smoke.check_tile_rows(slab, q, mask, got_s, got_i, "K5 rows")
+    spent = ~torch.isfinite(got_s)
+    assert bool(spent[1, 3:].all()) and torch.equal(got_i[spent], want_i[spent])
+
+
+def _same_up_to_near_ties(got, want, rel=1e-5):
+    torch.testing.assert_close(got.scores.cpu(), want.scores.cpu(), rtol=rel, atol=rel)
+    gi, wi, ws = got.indices.cpu(), want.indices.cpu(), want.scores.cpu()
+    for b, j in (gi != wi).nonzero().tolist():
+        near = (ws[b] - ws[b, j]).abs() <= rel * max(abs(float(ws[b, j])), 1.0)
+        assert int(gi[b, j]) in set(wi[b][near].tolist()), (b, j)
+
+
+@pytest.mark.parametrize("k", [10, 60])
+def test_int8_and_tile_lanes_gpu_vs_cpu(cuda_device, k):
+    """The capacity lane (K4 + K2-i8) and the per-tile lane (K5) against
+    the same lanes on the CPU, where the twins run."""
+    slab, mask, gen = _unit_slab(k)
+    q = torch.randn(13, 256, generator=gen)
+    arm = calibrate_int8(slab.numpy())
+    i8, scale = torch.from_numpy(arm.values), torch.from_numpy(arm.scale)
+    cpu = topk_scan.scan_topk_hierarchical_int8(i8, scale, q, k, mask)
+    gpu = topk_scan.scan_topk_hierarchical_int8(
+        i8.to(cuda_device), scale.to(cuda_device), q.to(cuda_device), k, mask.to(cuda_device)
+    )
+    _same_up_to_near_ties(gpu, cpu)
+    bf = slab.to(torch.bfloat16)
+    cpu = topk_scan.scan_topk_pallas(bf, q, k, mask)
+    gpu = topk_scan.scan_topk_pallas(bf.to(cuda_device), q.to(cuda_device), k, mask.to(cuda_device))
+    _same_up_to_near_ties(gpu, cpu)

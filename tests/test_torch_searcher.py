@@ -2,7 +2,8 @@
 
 The same docs go through the reference ``TwoTierSearcher`` (fast-only,
 ``BulkDeviceBm25Index``, ``HashEmbedder``) and the port's, over one on-disk
-index opened by both packages. The fused results — doc ids and RRF scores —
+index opened by both packages. Each package gets objects of its own types
+(config, embedder, documents): the port shares no class with the reference. The fused results — doc ids and RRF scores —
 must be equal, and the port must take the fused lane and the device fusion.
 At blocked scale (thresholds lowered in both packages) the lexical lane of
 each batch must be the reference's as well.
@@ -12,13 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from frankensearch_tpu.core.config import TwoTierConfig
+from frankensearch_tpu.core.config import TwoTierConfig as RefConfig
 from frankensearch_tpu.core.types import IndexableDocument
-from frankensearch_tpu.embed.hash_embedder import HashEmbedder
+from frankensearch_tpu.embed.hash_embedder import HashEmbedder as RefHashEmbedder
 from frankensearch_tpu.fusion.searcher import TwoTierSearcher as RefSearcher
 from frankensearch_tpu.index.two_tier import TwoTierIndex as RefIndex
 from frankensearch_tpu.lexical.device_bm25 import BulkDeviceBm25Index as RefBulkBm25
-from frankensearch_tpu_torch import convert
+from frankensearch_tpu_torch import HashEmbedder, TwoTierConfig, convert
 from frankensearch_tpu_torch.device import resolve_device
 from frankensearch_tpu_torch.fusion.searcher import TwoTierSearcher
 from frankensearch_tpu_torch.index.two_tier import TwoTierIndex
@@ -50,20 +51,20 @@ def _docs(n=500, seed=1):
 @pytest.fixture(scope="module")
 def stacks(tmp_path_factory):
     docs = _docs()
-    emb = HashEmbedder(dim=64)
+    ref_emb, emb = RefHashEmbedder(dim=64), HashEmbedder(dim=64)
     root = str(tmp_path_factory.mktemp("slice"))
     ref_index = RefIndex.create(
-        root, emb.embed_batch([d.content for d in docs]), [d.doc_id for d in docs],
-        emb.identity(), use_pallas=True,  # pads to 8192 rows, like the port
+        root, ref_emb.embed_batch([d.content for d in docs]), [d.doc_id for d in docs],
+        ref_emb.identity(), use_pallas=True,  # pads to 8192 rows, like the port
     )
-    cfg = TwoTierConfig(fast_only=True)
-    ref = RefSearcher(ref_index, emb, lexical=RefBulkBm25(docs), config=cfg)
+    ref = RefSearcher(ref_index, ref_emb, lexical=RefBulkBm25(docs), config=RefConfig(fast_only=True))
     index = TwoTierIndex.open(root, device=CPU)
     port = TwoTierSearcher(
-        index, emb, lexical=BulkDeviceBm25Index(docs, device=CPU), config=cfg
+        index, emb, lexical=BulkDeviceBm25Index(th.port_docs(docs), device=CPU),
+        config=TwoTierConfig(fast_only=True),
     )
-    return {"docs": docs, "emb": emb, "ref": ref, "port": port, "ref_index": ref_index,
-            "index": index}
+    return {"docs": docs, "emb": emb, "ref_emb": ref_emb, "ref": ref, "port": port,
+            "ref_index": ref_index, "index": index, "root": root}
 
 
 def _results(outcomes):
@@ -92,9 +93,8 @@ def test_singleton_requests_match_reference(stacks, query):
 
 
 def test_semantic_only_matches_reference(stacks):
-    cfg = TwoTierConfig(fast_only=True)
-    ref = RefSearcher(stacks["ref_index"], stacks["emb"], config=cfg)
-    port = TwoTierSearcher(stacks["index"], stacks["emb"], config=cfg)
+    ref = RefSearcher(stacks["ref_index"], stacks["ref_emb"], config=RefConfig(fast_only=True))
+    port = TwoTierSearcher(stacks["index"], stacks["emb"], config=TwoTierConfig(fast_only=True))
     want, got = ref.search_batch(QUERIES, k=10), port.search_batch(QUERIES, k=10)
     assert [[r.doc_id for r in o.results] for o in got] == [
         [r.doc_id for r in o.results] for o in want
@@ -145,19 +145,20 @@ def split_stacks(tmp_path_factory):
     threshold and the hot arm's minimum lowered in both packages, so the
     corpus builds the split layout (flat lane + DAAT)."""
     docs = th.corpus()
-    emb = HashEmbedder(dim=64)
+    ref_emb, emb = RefHashEmbedder(dim=64), HashEmbedder(dim=64)
     root = str(tmp_path_factory.mktemp("split"))
     ref_index = RefIndex.create(
-        root, emb.embed_batch([d.content for d in docs]), [d.doc_id for d in docs],
-        emb.identity(), use_pallas=True,
+        root, ref_emb.embed_batch([d.content for d in docs]), [d.doc_id for d in docs],
+        ref_emb.identity(), use_pallas=True,
     )
     with th.lowered():
-        ref_lex, port_lex = RefBulkBm25(docs), BulkDeviceBm25Index(docs, device=CPU)
+        ref_lex = RefBulkBm25(docs)
+        port_lex = BulkDeviceBm25Index(th.port_docs(docs), device=CPU)
     assert ref_lex._hot is not None and port_lex._hot is not None
-    cfg = TwoTierConfig(fast_only=True)
     return {
-        "ref": RefSearcher(ref_index, emb, lexical=ref_lex, config=cfg),
-        "port": TwoTierSearcher(TwoTierIndex.open(root, device=CPU), emb, lexical=port_lex, config=cfg),
+        "ref": RefSearcher(ref_index, ref_emb, lexical=ref_lex, config=RefConfig(fast_only=True)),
+        "port": TwoTierSearcher(TwoTierIndex.open(root, device=CPU), emb, lexical=port_lex,
+                                config=TwoTierConfig(fast_only=True)),
     }
 
 
@@ -190,8 +191,9 @@ def test_unported_lanes_raise(stacks):
         stacks["port"].search_batch(['"exact phrase" w1'], k=5)
     with pytest.raises(NotImplementedError, match="phase 2"):
         TwoTierSearcher(stacks["index"], stacks["emb"], quality_embedder=stacks["emb"])
-    with pytest.raises(NotImplementedError, match="int8"):
-        stacks["index"].fast.search_batch(np.ones((1, 64), np.float32), 3, mode="int8")
+    for mode in ("mrl", "ivf"):
+        with pytest.raises(NotImplementedError, match=mode):
+            stacks["index"].fast.search_batch(np.ones((1, 64), np.float32), 3, mode=mode)
 
 
 def test_resolve_device_never_falls_back(monkeypatch):
