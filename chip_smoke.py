@@ -39,7 +39,23 @@ Phases:
      f32 scan (int8 >= 0.97, pallas >= 0.99); singletons (four-word
      queries, whose vector budget is the batch's) bitwise equal to their
      batch rows (hybrid: their lexical budget is not the batch's, so the
-     lexical and vector score bits of the docs both lists hold).
+     lexical and vector score bits of the docs both lists hold);
+  6. the A/B scan over phase 2's slab and queries (B = 256, 8, 1; k = 30,
+     60): ``scan_topk_hierarchical_ab(emit="tile_topk")``, whose per-tile
+     group candidates come from kernel K6, bitwise equal to the K1/K2 route,
+     as is ``group_select="iter"``; ``rescore="xla"`` (the f32 query) held
+     to the same rescore over K1's groups and to f64 dot products; then K6
+     against its twin (values within REL_TOL, group ids equal except where
+     two groups' maxima tie, every value K1's maximum for its group);
+  7. hybrid-1M with a Model2Vec fast tier (hybrid-1M-m2v): a seeded
+     500,000 x 256 table, phase 4's 1M docs embedded through the bag lane
+     (``embed_corpus``, twice: the same bits) into a bf16 index, served with
+     phase 4's lexical arm and traffic through the fully fused lane (the
+     embed inside the pass): the daat, blocked and mixed lanes, the device
+     RRF bitwise against the host oracle, singletons against their batch
+     rows, the lexical pools against phase 4's, vector recall@10 against an
+     exact f32 scan of the pass's own query vectors, and the results against
+     the same batch embedded on the host first.
 
 The kernels line gives each kernel's time, its twin's, and its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -76,6 +92,15 @@ REL_TOL = 1e-5  # kernel vs twin: bf16 products are exact, f32 sums differ in or
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12, "f16": 989e12, "int8": 1979e12, "f32": 67e12}  # dense
 INT8_RECALL_FLOOR = 0.97  # the reference's own recall@10 figure for the int8 lane
+AB_BATCHES = (256, 8, 1)  # phase 6: the serve batch, the fused lane's pad, a singleton
+AB_KS = (30, 60)  # the searcher's candidate budgets at k = 10
+AB_TILE = 8192  # K6's widest tile: 64 groups
+M2V_ROWS = 500_000  # of the order of potion-multilingual-128M's 128M parameters over 256 dims
+M2V_COS_FLOOR = 0.99999  # bag lane vs embed_batch (tests/test_bulk_embed.py)
+#: how far rounding a unit query and a unit doc vector to bf16 (unit
+#: roundoff u = 2^-9) can move their dot product: (2u + u^2) |q| |d|, plus
+#: f32 sums; two docs closer than twice this may swap against an f32 scan
+BF16_DOT_BOUND = 2.0**-8 + 2.0**-18 + 1e-5
 LEX_REL_TOL = 1e-6  # pruned vs dense lane: the same f32 terms summed in another order
 H1M_DOCS = 1_000_000  # tools/bench_hybrid_1m.py: 1M docs of 14 zipf(1.35) words
 H1M_VOCAB = 50_000
@@ -100,6 +125,8 @@ KERNELS = (
      "frankensearch_tpu/ops/topk_scan.py:362", "semantic-1M-int8"),
     ("tile_topk", "K5", "frankensearch_tpu_torch/ops/csrc/tile_topk.cu",
      "frankensearch_tpu/ops/topk_scan.py:114", "semantic-1M"),
+    ("group_candidates", "K6", "frankensearch_tpu_torch/ops/csrc/group_candidates.cu",
+     "frankensearch_tpu/ops/ab_primitives.py:103", "semantic-1M"),
 )
 
 
@@ -231,7 +258,8 @@ def launch_counters() -> dict:
     from frankensearch_tpu_torch.ops import topk_scan as ts
 
     return {"K1": ts.group_max, "K2": ts.gather_rescore, "K3": bm.flat_class_scores,
-            "K4": ts.group_max_int8, "K2-i8": ts.gather_rescore_i8, "K5": ts.tile_topk}
+            "K4": ts.group_max_int8, "K2-i8": ts.gather_rescore_i8, "K5": ts.tile_topk,
+            "K6": ts.group_candidates}
 
 
 def drive(fn, shapes: set, flat_inputs: dict | None = None):
@@ -665,17 +693,14 @@ def lexical_oracle_check(bm25, queries: list[str], k: int) -> int:
     return outright
 
 
-def hybrid1m_cell(dev, index, emb):
-    """The hybrid-1M cell over a 1M-doc vector index with phase 2's doc ids:
-    the corpus, its BM25 arm (split layout, packed term-major copy), a
-    fast-only hybrid searcher and the traffic. Returns (searcher, BM25
-    index, queries, singletons, layout record)."""
+def hybrid1m_lexical(dev):
+    """The hybrid-1M corpus, its BM25 arm (split layout, packed term-major
+    copy) and the traffic. Returns (BM25 index, queries, singletons, layout
+    record, the docs' texts)."""
     import numpy as np
 
-    from frankensearch_tpu_torch import BulkDeviceBm25Index, TwoTierConfig, TwoTierSearcher
+    from frankensearch_tpu_torch import BulkDeviceBm25Index
 
-    if index.fast.n_rows != H1M_DOCS:
-        raise AssertionError(f"hybrid-1M: the vector index holds {index.fast.n_rows} docs, not {H1M_DOCS}")
     rng = np.random.default_rng(SEED + 4)
     t0 = time.perf_counter()
     docs, vocab = hybrid1m_docs(rng)
@@ -683,6 +708,7 @@ def hybrid1m_cell(dev, index, emb):
     t0 = time.perf_counter()
     bm25 = BulkDeviceBm25Index(docs, device=dev)  # raises if the native ingest cannot load
     build_s = time.perf_counter() - t0
+    texts = [d.content for d in docs]  # phase 7 embeds them
     del docs
     t0 = time.perf_counter()
     tm = bm25._term_major()
@@ -701,9 +727,22 @@ def hybrid1m_cell(dev, index, emb):
         raise AssertionError(f"hybrid-1M: {bm25.posting_count} postings < {H1M_MIN_POSTINGS}")
     if hot is None or tm is None or not tm.packed:
         raise AssertionError("hybrid-1M: the split layout with a hot arm and a packed term-major copy was not built")
-    searcher = TwoTierSearcher(index, emb, lexical=bm25, config=TwoTierConfig(fast_only=True))
     queries, singles = hybrid1m_queries(rng, vocab, bm25)
-    return searcher, bm25, queries, singles, layout
+    return bm25, queries, singles, layout, texts
+
+
+def hybrid1m_cell(dev, index, emb):
+    """The hybrid-1M cell over a 1M-doc vector index with phase 2's doc ids:
+    :func:`hybrid1m_lexical` and a fast-only hybrid searcher. Returns
+    (searcher, BM25 index, queries, singletons, layout record, the docs'
+    texts)."""
+    from frankensearch_tpu_torch import TwoTierConfig, TwoTierSearcher
+
+    if index.fast.n_rows != H1M_DOCS:
+        raise AssertionError(f"hybrid-1M: the vector index holds {index.fast.n_rows} docs, not {H1M_DOCS}")
+    bm25, queries, singles, layout, texts = hybrid1m_lexical(dev)
+    searcher = TwoTierSearcher(index, emb, lexical=bm25, config=TwoTierConfig(fast_only=True))
+    return searcher, bm25, queries, singles, layout, texts
 
 
 def phase4_hybrid1m(dev, semantic) -> tuple[dict, dict, list[dict], dict]:
@@ -711,7 +750,7 @@ def phase4_hybrid1m(dev, semantic) -> tuple[dict, dict, list[dict], dict]:
     launches and kernel records, and the lexical arm with the traffic and
     the batch's lexical pools, for phase 5."""
     index, emb, done_shapes = semantic["index"], semantic["emb"], semantic["shapes"]
-    searcher, bm25, queries, singles, layout = hybrid1m_cell(dev, index, emb)
+    searcher, bm25, queries, singles, layout, texts = hybrid1m_cell(dev, index, emb)
     shapes: set = set()
     drive(lambda: searcher.search_batch(queries[:8], k=K), shapes)  # warm-up
     lanes: list[str] = []
@@ -775,7 +814,7 @@ def phase4_hybrid1m(dev, semantic) -> tuple[dict, dict, list[dict], dict]:
     del searcher._device_rrf_tail
     return ({"batch_ms": batch_ms, "single_ms": single_ms, "lanes": lanes, "layout": layout,
              "oracle_equal": outright}, launches, kernels,
-            {"bm25": bm25, "queries": queries, "pools": pools})
+            {"bm25": bm25, "queries": queries, "singles": singles, "pools": pools, "texts": texts})
 
 
 def recall_at_k(batch, exact_ids) -> float:
@@ -832,6 +871,42 @@ def check_singletons(what: str, queries, batch, singles, solo, *, lanes_only: bo
         shared = [r for r in got if r[0] in lanes]
         if not shared or any(lanes[r[0]] != r[2:] for r in shared):
             raise AssertionError(f"{what}: singleton {q!r} lane scores differ from its batch row")
+
+
+def class_budgets(queries: list[str]) -> tuple[float, float]:
+    """The (vector, lexical) budget multipliers ``search_batch`` gives a
+    batch: the largest over its queries' classes."""
+    from frankensearch_tpu_torch.core.canonicalize import DefaultCanonicalizer
+    from frankensearch_tpu_torch.core.parsed_query import ParsedQuery
+    from frankensearch_tpu_torch.core.query_class import QueryClass
+
+    canon = DefaultCanonicalizer()
+    classes = [QueryClass.classify(ParsedQuery.parse(canon.canonicalize_query(q)).positive or q) for q in queries]
+    live = [c for c in classes if c is not QueryClass.EMPTY]
+    return (max(c.semantic_budget_multiplier() for c in live), max(c.lexical_budget_multiplier() for c in live))
+
+
+def check_singletons_by_budget(what: str, queries, batch, singles, solo) -> int:
+    """Each singleton against its batch row: bitwise, which must hold where
+    its class budgets are the batch's; where the batch's pools are deeper,
+    a doc may hold a lane score in one list only, and every lane score
+    that a doc holds in both has the same bits. Returns how many were
+    bitwise."""
+    batch_budgets = class_budgets(queries)
+    bitwise = 0
+    for q, one in zip(singles, solo):
+        want = rows_of(batch[queries.index(q)])
+        if rows_of(one) == want:
+            bitwise += 1
+            continue
+        if class_budgets([q]) == batch_budgets:
+            raise AssertionError(f"{what}: singleton {q!r} differs from its batch row")
+        lanes = {r[0]: r[2:] for r in want}
+        pairs = [(a, b) for r in rows_of(one) if r[0] in lanes
+                 for a, b in zip(r[2:], lanes[r[0]]) if a is not None and b is not None]
+        if not pairs or any(a != b for a, b in pairs):
+            raise AssertionError(f"{what}: singleton {q!r} lane scores differ from its batch row")
+    return bitwise
 
 
 def check_int8_kernels(cell: str, slab_i8, scale, mask, shapes: set) -> list[dict]:
@@ -1065,6 +1140,324 @@ def phase5_scan_modes(dev, tmp: str, semantic: dict, lexical: dict) -> tuple[dic
     return rec, launches, kernels
 
 
+def check_group_ids(gm, got_g, want_g, what: str) -> int:
+    """K6's group ids against its twin's, (T, t, B) each: equal, except
+    where the two groups' maxima (``gm``, the twin's (B, n_groups)) tie
+    within REL_TOL. Returns how many positions differ."""
+    import torch
+
+    diff = got_g != want_g
+    if not bool(diff.any()):
+        return 0
+    q = torch.arange(gm.shape[0], device=gm.device)[None, None, :].expand_as(got_g)[diff]
+    a, w = gm[q, got_g[diff].long()], gm[q, want_g[diff].long()]
+    fin = torch.isfinite(w)
+    if not torch.equal(torch.isfinite(a), fin) or bool(
+        ((a - w).abs() > REL_TOL * w.abs().clamp(min=1.0))[fin].any()
+    ):
+        raise AssertionError(f"{what}: a group id differs from the twin's away from a tie")
+    return int(diff.sum())
+
+
+def check_candidate_kernel(cell: str, slab, mask, q_all, ts_bk: list) -> list[dict]:
+    """Phase 1 for K6: the kernel against its twin at each (B, t) phase 6
+    ran it with, on phase 6's queries: values within REL_TOL, group ids
+    equal except at ties, and every finite value the K1 maximum of its
+    group, bit for bit (one scoring body). Times are CUDA-event medians."""
+    import torch
+
+    from frankensearch_tpu_torch.ops import topk_scan as ts
+
+    n, d = slab.shape
+    kind = "bf16" if slab.dtype == torch.bfloat16 else "f16"
+    recs = []
+    for b, t in sorted(ts_bk, reverse=True):
+        q = q_all[:b]
+        got_v, got_g = ts.group_candidates(slab, q, mask, t, AB_TILE)
+        want_v, want_g = ts.group_candidates_plain(slab, q, mask, t, AB_TILE)
+        what = f"phase1 {cell} K6 B={b} t={t}"
+        err = check_close(got_v, want_v, what)
+        swapped = check_group_ids(ts.group_max_plain(slab, q, mask), got_g, want_g, what)
+        gm = ts.group_max(slab, q, mask)
+        k1 = gm[torch.arange(b, device=slab.device)[None, None, :].expand_as(got_g), got_g.long()]
+        fin = torch.isfinite(got_v)
+        if not torch.equal(k1[fin].view(torch.int32), got_v[fin].view(torch.int32)):
+            raise AssertionError(f"{what}: a value is not K1's maximum of its group")
+        del want_v, want_g, gm, k1
+        recs.append({"kernel": "group_candidates", "cell": cell, "n": n, "b": b, "kk": t,
+                     "ms": cuda_median_ms(lambda: ts.group_candidates(slab, q, mask, t, AB_TILE)),
+                     "plain_ms": cuda_median_ms(lambda: ts.group_candidates_plain(slab, q, mask, t, AB_TILE),
+                                                warmup=1, iters=5),
+                     "max_abs_err": err, "ids_swapped_at_ties": swapped,
+                     # the t selection passes are extra work the bound does not count
+                     "bound": bound(nbytes(slab, q, mask, got_v, got_g), 2 * b * n * d, kind)})
+    log_kernel_records(cell, recs)
+    return recs
+
+
+def phase6_ab_scan(dev, semantic: dict) -> tuple[dict, dict, list[dict]]:
+    """The A/B scan lane over phase 2's slab and queries: the K6 route
+    (``emit="tile_topk"``) at every (B, k), held bitwise to the K1/K2
+    route; ``group_select="iter"`` likewise; ``rescore="xla"`` to the f32
+    rescore of K1's groups; then K6 against its twin."""
+    import torch
+
+    from frankensearch_tpu_torch.ops import ab_primitives as ab
+    from frankensearch_tpu_torch.ops import topk_scan as ts
+
+    fast = semantic["index"].fast
+    slab, mask = fast.slab, fast._effective_mask(None, None)
+    n_groups = slab.shape[0] // ts.GROUP
+    q_all = torch.from_numpy(semantic["emb"].embed_batch(semantic["queries"])).to(dev)
+    shapes: set = set()
+    cases = [(b, k) for b in AB_BATCHES for k in AB_KS]
+    for b, k in cases:
+        if (slab.shape[0] // AB_TILE) * min(k, AB_TILE // ts.GROUP) >= n_groups:
+            raise AssertionError(f"phase6: B={b} k={k} would not take the narrowing branch")
+    ab.scan_topk_hierarchical_ab(slab, q_all[:8], K, mask, emit="tile_topk")  # warm-up
+
+    def main_path():
+        return {(b, k): ab.scan_topk_hierarchical_ab(slab, q_all[:b], k, mask, emit="tile_topk")
+                for b, k in cases}
+
+    (got, ms), launches = drive(lambda: timed(main_path), shapes)
+    log(f"phase6 A/B scan emit=tile_topk over {len(cases)} (B, k): {ms:.2f} ms; launches {launches}")
+    need_launches("phase6", launches, ("K6", "K2"))
+    if launches["K6"] != len(cases) or launches["K1"] != 0:
+        raise AssertionError(f"phase6: the narrowing branch did not run for every case ({launches})")
+
+    # checks (comparison runs; not counted)
+    for (b, k), res in got.items():
+        q = q_all[:b]
+        want = ts.scan_topk_hierarchical(slab, q, k, mask)
+        it = ab.scan_topk_hierarchical_ab(slab, q, k, mask, group_select="iter")
+        for name, r in (("tile_topk", res), ("iter", it)):
+            if not (torch.equal(r.indices, want.indices)
+                    and torch.equal(r.scores.view(torch.int32), want.scores.view(torch.int32))):
+                raise AssertionError(f"phase6 {name} B={b} k={k}: not bitwise the K1/K2 route")
+        x6 = ab.scan_topk_hierarchical_ab(slab, q, k, mask, emit="tile_topk", rescore="xla")
+        x1 = ab.scan_topk_hierarchical_ab(slab, q, k, mask, rescore="xla")
+        for j in range(b):
+            same_ranking(list(zip(x6.indices[j].tolist(), x6.scores[j].tolist())),
+                         list(zip(x1.indices[j].tolist(), x1.scores[j].tolist())),
+                         1e-6, f"phase6 xla B={b} k={k} query {j}")
+        rows = x6.indices.to(torch.int64)
+        exact = torch.einsum("bd,bkd->bk", q.double(), slab[rows.clamp(min=0)].double())
+        if bool(((x6.scores.double() - exact).abs() > 1e-6 * exact.abs().clamp(min=1.0))[rows >= 0].any()):
+            raise AssertionError(f"phase6 xla B={b} k={k}: scores off the f64 dot products")
+    log(f"phase6 emit=tile_topk and group_select=iter bitwise equal to the K1/K2 route at "
+        f"B={list(AB_BATCHES)}, k={list(AB_KS)}; rescore=xla equal to the f32 rescore of K1's "
+        "groups up to 1e-6 ties and within 1e-6 of f64 dot products")
+    head_q = q_all[: max(AB_BATCHES)]
+    route_ms = {
+        "ab_tile_topk": cuda_median_ms(lambda: ab.scan_topk_hierarchical_ab(slab, head_q, max(AB_KS), mask,
+                                                                            emit="tile_topk")),
+        "k1_k2": cuda_median_ms(lambda: ts.scan_topk_hierarchical(slab, head_q, max(AB_KS), mask)),
+    }
+    log(f"phase6 scan at B={max(AB_BATCHES)} k={max(AB_KS)}: K6 route {route_ms['ab_tile_topk']:.4f} ms, "
+        f"K1/K2 route {route_ms['k1_k2']:.4f} ms")
+    # K2 at the (B, kk) this lane gave it that phase 2 did not (K1's groups
+    # seed its inputs; K1 itself did not run here)
+    k1_shapes = {("group_max", b, 0) for b in AB_BATCHES}
+    kernels = check_kernels("semantic-1M", slab, mask, k1_shapes | {("gather_rescore", b, k) for b, k in cases},
+                            k1_shapes | semantic["shapes"])
+    kernels += check_candidate_kernel("semantic-1M", slab, mask, q_all,
+                                      sorted({(b, min(k, AB_TILE // ts.GROUP)) for b, k in cases}))
+    torch.cuda.empty_cache()
+    return {"batch_ms": ms, "scan_ms_b256_k60": route_ms}, launches, kernels
+
+
+class HostEmbedder:
+    """The Model2Vec embedder behind a plain interface, so the searcher
+    embeds on the host (``embed_batch``) and takes the scan + BM25 lane."""
+
+    def __init__(self, inner) -> None:
+        self._inner = inner
+        self.dim, self.embedder_id, self.revision, self.is_semantic = (
+            inner.dim, inner.embedder_id, inner.revision, True)
+
+    def identity(self):
+        return self._inner.identity()
+
+    def embed_batch(self, texts):
+        return self._inner.embed_batch(texts)
+
+
+def m2v_embedder(dev):
+    """hybrid-1M-m2v's fast tier: a seeded M2V_ROWS x DIM Model2Vec table
+    (the reference's numpy draw, bf16 on ``dev``) over phase 4's words
+    w00000..w49999, then filler words."""
+    from frankensearch_tpu_torch.embed.model2vec import random_model2vec
+
+    vocab = [f"w{i:05d}" for i in range(H1M_VOCAB)] + [f"f{i:06d}" for i in range(M2V_ROWS - H1M_VOCAB)]
+    return random_model2vec(vocab, dim=DIM, seed=SEED + 7, device=dev)
+
+
+def phase7_hybrid_m2v(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
+    """hybrid-1M-m2v: phase 4's corpus and lexical arm with a seeded
+    Model2Vec fast tier, served through the fully fused lane."""
+    import numpy as np
+    import torch
+
+    from frankensearch_tpu_torch import TwoTierConfig, TwoTierIndex, TwoTierSearcher
+    from frankensearch_tpu_torch.embed import bulk
+    from frankensearch_tpu_torch.embed.model2vec import gather_pool_normalize
+    from frankensearch_tpu_torch.ops import topk_scan as ts
+
+    bm25, queries, singles, texts = lexical["bm25"], lexical["queries"], lexical["singles"], lexical["texts"]
+    t0 = time.perf_counter()
+    m2v = m2v_embedder(dev)
+    table_s = time.perf_counter() - t0
+    if bulk.bag_embed_corpus(m2v, texts[:8]) is None:
+        raise AssertionError("phase7: the bag lane does not apply (no native tokenizer)")
+    vecs, embed_s = timed(lambda: bulk.embed_corpus(m2v, texts))
+    again, embed2_s = timed(lambda: bulk.embed_corpus(m2v, texts))
+    if not np.array_equal(vecs.view(np.uint32), again.view(np.uint32)):
+        raise AssertionError("phase7: two embed_corpus runs gave different bits")
+    del again
+    sample = np.random.default_rng(SEED + 8).choice(len(texts), 4096, replace=False)
+    cos = np.sum(vecs[sample] * m2v.embed_batch([texts[i] for i in sample]), axis=1)
+    if cos.min() <= M2V_COS_FLOOR:
+        raise AssertionError(f"phase7: bag lane vs embed_batch cosine {cos.min()} <= {M2V_COS_FLOOR}")
+    docs_per_s = len(texts) / (embed2_s / 1000.0)
+    log(f"phase7 Model2Vec table {M2V_ROWS} x {DIM} bf16 ({nbytes(m2v._emb)} bytes, {table_s:.1f} s); "
+        f"embed_corpus of {len(texts)} docs {embed_s / 1000:.2f} s then {embed2_s / 1000:.2f} s "
+        f"({docs_per_s:.0f} docs/s), the same bits both times; 4096-doc sample vs embed_batch "
+        f"cosine >= {cos.min():.7f}")
+    t0 = time.perf_counter()
+    ids = [f"doc-{i:07d}" for i in range(len(texts))]  # phase 4's doc ids
+    index = TwoTierIndex.create(os.path.join(tmp, "m2v"), vecs, ids, m2v.identity(), device=dev)
+    build_s = time.perf_counter() - t0
+    searcher = TwoTierSearcher(index, m2v, lexical=bm25, config=TwoTierConfig(fast_only=True))
+    shapes: set = set()
+    drive(lambda: searcher.search_batch(queries[:8], k=K), shapes)  # warm-up
+    lanes: list[str] = []
+    embedded: list[bool] = []
+    pools: dict = {}
+    vec_hits: dict = {}
+    fill = searcher._fill_fused
+
+    def fill_noted(fused, live, *rest):  # the batch's lexical pools and vector hits
+        if not pools:
+            pools.update({i: [(c.doc_id, c.score) for c in fused[1][j]] for j, i in enumerate(live)})
+            vec_hits.update({i: fused[0][j] for j, i in enumerate(live)})
+        return fill(fused, live, *rest)
+
+    def main_path():
+        searcher._fill_fused = fill_noted
+        try:
+            batch, batch_ms = timed(lambda: searcher.search_batch(queries, k=K))
+        finally:
+            del searcher._fill_fused
+        lanes.append(searcher.last_phase1_lex_lane)
+        embedded.append(searcher.last_phase1_embed_fused)
+        solo, single_ms = [], []
+        for q in singles:
+            out, t = timed(lambda q=q: searcher.search_batch([q], k=K))
+            solo.append(out[0])
+            single_ms.append(t)
+            lanes.append(searcher.last_phase1_lex_lane)
+            embedded.append(searcher.last_phase1_embed_fused)
+        return batch, batch_ms, solo, single_ms
+
+    (batch, batch_ms, solo, single_ms), launches = drive(main_path, shapes)
+    log(f"phase7 search_batch B=256: {batch_ms:.2f} ms; singletons: "
+        + ", ".join(f"{t:.2f}" for t in single_ms) + f" ms; lanes {lanes}")
+    need_launches("phase7", launches, ("K1", "K2", "K3"))
+    if not all(embedded) or not all(o.metrics.phase1_fused for o in batch + solo):
+        raise AssertionError(f"phase7: the fully fused embed lane did not run every time ({embedded})")
+    if not {"daat", "blocked", "mixed"} <= set(lanes):
+        raise AssertionError(f"phase7: lanes {sorted(set(lanes))}, want daat, blocked and mixed")
+    if searcher.last_fusion_path != "device":
+        raise AssertionError(f"phase7: fusion path {searcher.last_fusion_path!r}, not device")
+    bitwise = check_singletons_by_budget("phase7", queries, batch, singles, solo)
+    if pools != lexical["pools"]:
+        raise AssertionError("phase7: the lexical pools differ from phase 4's")
+    log(f"phase7 fully fused embed lane for the batch and every singleton; {bitwise} of {len(singles)} "
+        "singletons bitwise equal to their batch rows (required where their class budgets are the batch's), "
+        "the others in every lane score both lists hold; the 256 lexical pools bitwise equal to phase 4's")
+
+    # the vector arm's top-10 against exact scans of the pass's own query
+    # vectors (the pool is batch-independent, so these are its bits): the
+    # plain scan at the lane's precision (the query rounded to bf16, the
+    # bf16 slab, f32 sums), and the f32 scan of the f32 doc vectors
+    tok, msk = m2v.tokenize_batch(queries)
+    qv = gather_pool_normalize(m2v._emb, torch.from_numpy(tok).to(dev), torch.from_numpy(msk).to(dev))
+    got = [[int(h.doc_id[4:]) for h in vec_hits[j][:K]] for j in range(len(queries))]
+    same_prec = ts.scan_topk_xla(index.fast.slab, qv, K, index.fast._effective_mask(None, None)).indices.cpu()
+    vecs_dev = torch.from_numpy(vecs).to(dev)
+    exact = ts.scan_topk_xla(vecs_dev, qv, K, precise=True).indices.cpu()
+    recall_lane = float(np.mean([len(set(g) & set(same_prec[j].tolist())) / K for j, g in enumerate(got)]))
+    recall = float(np.mean([len(set(g) & set(exact[j].tolist())) / K for j, g in enumerate(got)]))
+    worst_gap = 0.0
+    for j, g in enumerate(got):  # every miss against the f32 scan is a bf16 near tie
+        missed = sorted(set(exact[j].tolist()) - set(g))
+        if missed:
+            sc = (vecs_dev[torch.tensor(g + missed, device=dev)].double() @ qv[j].double()).cpu()
+            worst_gap = max(worst_gap, float(sc[len(g):].max() - sc[: len(g)].min()))
+    log(f"phase7 vector recall@10 vs the plain scan at the lane's precision {recall_lane:.4f}; vs the exact f32 "
+        f"scan {recall:.4f}, every miss within {worst_gap:.3e} of the lane's 10th doc's exact score "
+        f"(bf16 rounding moves a score by up to {BF16_DOT_BOUND:.3e})")
+    if recall_lane < 0.99:
+        raise AssertionError(f"phase7: vector recall@10 vs the plain scan {recall_lane} < 0.99")
+    if worst_gap > 2 * BF16_DOT_BOUND:
+        raise AssertionError(f"phase7: a doc missed against the f32 scan leads by {worst_gap}, past bf16 rounding")
+    del vecs_dev
+
+    searcher._device_rrf_tail = lambda *args: (None, None)
+    oracle = searcher.search_batch(queries, k=K)
+    if searcher.last_fusion_path != "host_vectorized":
+        raise AssertionError(f"phase7: oracle fusion path {searcher.last_fusion_path!r}")
+    for j, (out, want) in enumerate(zip(batch, oracle)):
+        if [(r.doc_id, r.score) for r in out.results] != [(r.doc_id, r.score) for r in want.results]:
+            raise AssertionError(f"phase7: query {j} differs from the host RRF oracle: "
+                                 f"{rows_of(out)} vs {rows_of(want)}")
+    del searcher._device_rrf_tail
+    log("phase7 fused rows and scores bitwise equal to the host RRF oracle")
+
+    # the same batch embedded on the host first: embed_batch renormalizes
+    # there, so a query vector may differ in its last bits, and where that
+    # moves an element's bf16 rounding the scan scores differ by up to a
+    # bf16 step of that element; where it moves none, the scan's inputs
+    # are the same bits and so are its results
+    q_host = torch.from_numpy(m2v.embed_batch(queries)).to(dev)
+    same_q = (q_host.to(torch.bfloat16) == qv.to(torch.bfloat16)).all(dim=1).tolist()
+    host = TwoTierSearcher(index, HostEmbedder(m2v), lexical=bm25, config=TwoTierConfig(fast_only=True))
+    host_hits: dict = {}
+    fill_h = host._fill_fused
+
+    def fill_host(fused, live, *rest):
+        host_hits.update({i: fused[0][j] for j, i in enumerate(live)})
+        return fill_h(fused, live, *rest)
+
+    host._fill_fused = fill_host
+    h_batch = host.search_batch(queries, k=K)
+    if host.last_phase1_embed_fused or not all(o.metrics.phase1_fused for o in h_batch):
+        raise AssertionError("phase7: the host-embedded batch did not take the scan + BM25 lane")
+    moved = 0
+    for j in range(len(queries)):
+        got_h = [(h.doc_id, h.score) for h in host_hits[j]]
+        want_h = [(h.doc_id, h.score) for h in vec_hits[j]]
+        if same_q[j]:
+            if got_h != want_h or rows_of(h_batch[j]) != rows_of(batch[j]):
+                raise AssertionError(f"phase7: query {j} differs from the host-embedded batch")
+            continue
+        same_ranking(got_h, want_h, BF16_DOT_BOUND, f"phase7 host-embedded vector hits of query {j}")
+        moved += 1
+    log(f"phase7 host-embedded batch: {len(queries) - moved} queries with the same bf16 query vector give "
+        f"bitwise equal vector hits and results; {moved} whose host-normalized vector rounds an element to "
+        f"another bf16 value give vector hits equal up to ties within {BF16_DOT_BOUND:.3e}")
+    kernels = check_kernels("hybrid-1M-m2v", index.fast.slab, index.fast._effective_mask(None, None), shapes)
+    del searcher, host, index, m2v, vecs
+    torch.cuda.empty_cache()
+    return ({"batch_ms": batch_ms, "single_ms": single_ms, "lanes": lanes, "recall_at_10": recall,
+             "recall_at_10_lane_precision": recall_lane, "f32_miss_max_gap": worst_gap,
+             "singletons_bitwise": bitwise,
+             "embed_s": [embed_s / 1000.0, embed2_s / 1000.0], "embed_docs_per_s": docs_per_s,
+             "table_s": table_s, "index_build_s": build_s, "host_embed_other_bf16_query": moved},
+            launches, kernels)
+
+
 def main() -> int:
     # the port must reach neither jax nor the JAX package, even indirectly
     sys.modules["jax"] = None
@@ -1107,10 +1500,17 @@ def main() -> int:
         t0 = time.perf_counter()
         modes, l5, k5 = phase5_scan_modes(dev, tmp, semantic, lexical)
         wall["phase5_s"] = time.perf_counter() - t0
-        del semantic, lexical
+        t0 = time.perf_counter()
+        ab_rec, l6, k6 = phase6_ab_scan(dev, semantic)
+        wall["phase6_s"] = time.perf_counter() - t0
+        del semantic
+        t0 = time.perf_counter()
+        m2v_rec, l7, k7 = phase7_hybrid_m2v(dev, tmp, lexical)
+        wall["phase7_s"] = time.perf_counter() - t0
+        del lexical
         log("phase wall times: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
 
-    records = k2 + k3 + k4 + k5
+    records = k2 + k3 + k4 + k5 + k6 + k7
     kernels = []
     for name, key, src, replaces, cell in KERNELS:
         recs = [r for r in records if r["kernel"] == name]
@@ -1124,7 +1524,7 @@ def main() -> int:
         bound_ms = sum(r["bound"][0] for r in head)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5)),
+            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7)),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": sum(r["ms"] for r in head), "plain_ms": sum(r["plain_ms"] for r in head),
             "bound_ms": bound_ms,
@@ -1132,7 +1532,8 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes any of these functions
             "shapes": [{k: (v if k != "bound" else v[0]) for k, v in r.items() if k != "kernel"} for r in recs],
         })
-    log(json.dumps({"semantic": sem, "hybrid": hyb, "hybrid_1m": h1m, "scan_modes": modes, "wall_s": wall}))
+    log(json.dumps({"semantic": sem, "hybrid": hyb, "hybrid_1m": h1m, "scan_modes": modes, "ab_scan": ab_rec,
+                    "hybrid_1m_m2v": m2v_rec, "wall_s": wall}))
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
     print(json.dumps({

@@ -14,7 +14,11 @@ Ported so far: batched hybrid search through the Initial phase —
 ``DeviceBm25Index`` at any lexical scale (dense lane; blocked flat,
 pruned and DAAT lanes from 2,097,152 postings) — and the fast tier's
 ``scan_mode`` lanes ``"int8"`` (the int8 capacity slab) and ``"pallas"``
-(the per-tile top-k scan), behind the recall-certificate gate.
+(the per-tile top-k scan), behind the recall-certificate gate. A
+``Model2VecEmbedder`` fast tier runs its embed inside the fused phase-1
+pass (``embed_corpus`` embeds a corpus through the native bag lane), and
+``ops/ab_primitives.scan_topk_hierarchical_ab`` keeps the reference's
+retired A/B scan lanes, the per-tile group candidates kernel among them.
 """
 
 from frankensearch_tpu_torch.core.config import TwoTierConfig, TwoTierMetrics
@@ -34,6 +38,10 @@ __all__ = [
     "DeviceBm25Index",
     "BulkDeviceBm25Index",
     "HashEmbedder",
+    "Model2VecEmbedder",
+    "SimpleWordTokenizer",
+    "random_model2vec",
+    "embed_corpus",
     "MemoryLexicalIndex",
 ]
 
@@ -64,6 +72,14 @@ def __getattr__(name):
         from frankensearch_tpu_torch.embed.hash_embedder import HashEmbedder
 
         return HashEmbedder
+    if name in ("Model2VecEmbedder", "SimpleWordTokenizer", "random_model2vec"):
+        from frankensearch_tpu_torch.embed import model2vec
+
+        return getattr(model2vec, name)
+    if name == "embed_corpus":
+        from frankensearch_tpu_torch.embed.bulk import embed_corpus
+
+        return embed_corpus
     if name == "MemoryLexicalIndex":
         from frankensearch_tpu_torch.lexical.memory_index import MemoryLexicalIndex
 

@@ -1,10 +1,10 @@
 """Carry device state across from the JAX package without importing jax.
 
-Both functions take plain numpy arrays — the caller pulls them out of the
+Every function takes plain numpy arrays — the caller pulls them out of the
 reference's objects with ``np.asarray(...)`` — so the port holds exactly the
 reference's state: the same padded slab and mask bits, the same int8 arm,
-the same postings. Identities and query arms are rebuilt as the port's own
-types from their fields.
+the same postings, the same Model2Vec table. Identities, query arms and
+tokenizers are rebuilt as the port's own types from their fields.
 """
 
 from __future__ import annotations
@@ -82,3 +82,27 @@ def bm25_from_arrays(
         np.asarray(post_term), np.asarray(post_doc), np.asarray(post_tf),
         port_arms, list(doc_ids), int(vocab_size), device=device,
     )
+
+
+def model2vec_from_arrays(
+    embeddings: np.ndarray,
+    vocab: Mapping[str, int],
+    *,
+    device: torch.device,
+    unk_id: int | None = None,
+    lowercase: bool = True,
+    **kwargs,
+):
+    """A :class:`Model2VecEmbedder` over a reference embedder's table (its
+    ``_emb`` as numpy, bf16 or f32) and word vocabulary (its tokenizer's
+    ``vocab``, ``unk_id`` and ``lowercase``). The table is stored as given
+    (bf16 by default, so a bf16 table keeps its bits); ``kwargs`` go to the
+    constructor (``embedder_id``, ``revision``, ``max_tokens``,
+    ``param_dtype``)."""
+    from frankensearch_tpu_torch.embed.model2vec import Model2VecEmbedder, SimpleWordTokenizer
+
+    table = np.asarray(embeddings)
+    if table.dtype.name == "bfloat16":  # numpy's bfloat16 extension type
+        table = _to_tensor(table).to(torch.float32).numpy()
+    tokenizer = SimpleWordTokenizer(dict(vocab), unk_id=unk_id, lowercase=lowercase)
+    return Model2VecEmbedder(np.asarray(table, dtype=np.float32), tokenizer, device=device, **kwargs)

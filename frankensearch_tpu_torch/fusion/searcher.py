@@ -5,12 +5,15 @@ frankensearch_tpu/fusion/searcher.py, up to the Initial phase: fast vector
 tier + device BM25 (the dense lane, or at blocked scale the flat hot-arm,
 pruned and DAAT lanes) in one fused device pass (ops/hybrid_phase1.py),
 the on-device RRF tail (ops/device_rrf.py), then host ``finish_rrf`` and
-hydration. A ``scan_mode`` other than ``"auto"`` (the int8 capacity lane,
-the per-tile top-k scan) takes the unfused path: a separate vector scan,
-``search_candidates_batch`` for the lexical arm, and per-query host RRF;
-approximate modes pass the recall-certificate gate first. The statements keep the reference's order so later slices
-(phase 2 quality tier, phase 3 rerank, the scalar ``search()``, the
-Model2Vec embed fusion) can slot in where the reference has them.
+hydration. With a Model2Vec fast tier the pass starts from token ids: the
+gather + mean-pool embed runs in it too (the fully fused lane, tried
+first); other embedders embed on the host first. A ``scan_mode`` other
+than ``"auto"`` (the int8 capacity lane, the per-tile top-k scan) takes
+the unfused path: a separate vector scan, ``search_candidates_batch`` for
+the lexical arm, and per-query host RRF; approximate modes pass the
+recall-certificate gate first. The statements
+keep the reference's order so later slices (phase 2 quality tier, phase 3
+rerank, the scalar ``search()``) can slot in where the reference has them.
 
 Unlike the reference, a failure on the device path propagates: a lane that
 does not apply returns ``None`` and the caller takes the next lane, but an
@@ -133,6 +136,9 @@ class TwoTierSearcher:
         self._semantic_admitted = self._admit_semantic()
         self.last_fusion_path: str | None = None
         self.last_phase1_lex_lane: str | None = None
+        #: True when the last batch's fused phase-1 pass embedded the
+        #: queries itself (Model2Vec gather + mean-pool on the device)
+        self.last_phase1_embed_fused = False
 
     def _admit_semantic(self) -> bool:
         mine = self.fast_embedder.identity()
@@ -230,24 +236,24 @@ class TwoTierSearcher:
         def dev(x):
             return torch.from_numpy(x).to(fast.device)
 
-        cl_hi, cl_lo = drrf.split_f64(contrib_l)
-        cv_hi, cv_lo = drrf.split_f64(contrib_v)
         rrf_dev = drrf.device_rrf(
-            lex_i, lex_s, vec_i, cached[1],
-            dev(cl_hi), dev(cl_lo), dev(cv_hi), dev(cv_lo),
-            limit=rrf_ctx["limit"],
+            lex_i, lex_s, vec_i, cached[1], dev(contrib_l), dev(contrib_v), limit=rrf_ctx["limit"],
         )
         return rrf_dev, (contrib_l, contrib_v)
 
     def _fused_phase1_batch(
         self, fast_vecs, queries, sem_budget: int, lex_budget: int, rrf_ctx=None
     ):
-        """Run phase 1's vector scan + device BM25 as one device pass
-        (ops/hybrid_phase1.py) and, with ``rrf_ctx``, the RRF merge on the
-        device too; all results come back in one fetch. Returns (hydrated
-        vector hits per query, lexical candidate lists per query, raw) or
-        None when a lane does not apply (non-device arms, filters, non-auto
-        scan modes, an empty lexical arm, no precomputed query vectors)."""
+        """Run phase 1's (embed +) vector scan + device BM25 as one device
+        pass (ops/hybrid_phase1.py) and, with ``rrf_ctx``, the RRF merge on
+        the device too; all results come back in one fetch. With
+        ``fast_vecs=None`` the fast embedder must be a Model2Vec one of the
+        index's width (``CachedEmbedder`` unwrapped): the queries go in as
+        token ids and the gather + mean-pool embed runs in the pass.
+        Returns (hydrated vector hits per query, lexical candidate lists per
+        query, raw) or None when a lane does not apply (non-device arms,
+        filters, non-auto scan modes, an empty lexical arm, no query vectors
+        and no Model2Vec embedder)."""
         from frankensearch_tpu_torch.index.device_index import DeviceVectorIndex
         from frankensearch_tpu_torch.lexical.device_bm25 import DeviceBm25Index
         from frankensearch_tpu_torch.ops import hybrid_phase1 as hp
@@ -262,44 +268,62 @@ class TwoTierSearcher:
             return None
         if arm.device != fast.device:
             raise ValueError(f"lexical arm on {arm.device}, vector index on {fast.device}")
+
+        inner = None
         if fast_vecs is None:
-            return None  # the Model2Vec embed fusion is not ported yet
+            from frankensearch_tpu_torch.embed.model2vec import Model2VecEmbedder
+
+            inner = getattr(self.fast_embedder, "inner", self.fast_embedder)  # unwrap CachedEmbedder
+            if not isinstance(inner, Model2VecEmbedder) or inner.dim != fast.dim:
+                return None
+            if inner.device != fast.device:
+                raise ValueError(f"Model2Vec table on {inner.device}, vector index on {fast.device}")
+
+        def dev(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(fast.device)
 
         # pad the batch to a multiple of 8 by repeating query 0 (the
         # padding results are sliced off below), as the reference does
         b_real = len(queries)
         b_padded = max(-(-b_real // 8) * 8, 8)
         queries = list(queries) + [queries[0]] * (b_padded - b_real)
-        q = np.asarray(fast_vecs, dtype=np.float32)
-        if q.ndim == 1:
-            q = q[None, :]
-        if q.shape[1] != fast.dim:
-            return None
-        if q.shape[0] != b_padded:
-            q = np.concatenate([q, np.repeat(q[:1], b_padded - q.shape[0], axis=0)])
-        q_dev = hp._pad_q(torch.from_numpy(q).to(fast.device), fast.d_pad)
-
         mask = fast._effective_mask(None, None)
+        if inner is not None:
+            # the embed-fused bodies take (table, token ids, mask) in place
+            # of the query vectors, and the index's padded width
+            tok_ids, tok_mask = inner.tokenize_batch(queries)
+            lead = (inner._emb, dev(tok_ids), dev(tok_mask), fast.slab, mask)
+            extra = {"d_pad": fast.d_pad}
+        else:
+            q = np.asarray(fast_vecs, dtype=np.float32)
+            if q.ndim == 1:
+                q = q[None, :]
+            if q.shape[1] != fast.dim:
+                return None
+            if q.shape[0] != b_padded:
+                q = np.concatenate([q, np.repeat(q[:1], b_padded - q.shape[0], axis=0)])
+            lead = (fast.slab, mask, hp._pad_q(dev(q), fast.d_pad))
+            extra = {}
+        embed_fused = inner is not None
+
+        def lane(name: str):
+            return getattr(hp, f"fused_phase1_embed_{name}" if embed_fused else f"fused_phase1_{name}")
+
         scan_mode = "hierarchical" if fast.device.type == "cuda" else "xla"
         k_vec = min(sem_budget, fast.n_rows) or 1
         k_lex = min(lex_budget, arm.n_docs)
-
-        def dev(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(fast.device)
+        common = {"k_vec": k_vec, "k_lex": k_lex, "scan_mode": scan_mode, **extra}
 
         if arm._blocked is not None:
-            vec_s, vec_i, lex_s, lex_i = self._fused_blocked_lanes(
-                arm, queries, fast.slab, mask, q_dev, dev,
-                k_vec=k_vec, k_lex=k_lex, scan_mode=scan_mode,
-            )
+            vec_s, vec_i, lex_s, lex_i = self._fused_blocked_lanes(arm, queries, lead, lane, dev, common)
         else:
             self.last_phase1_lex_lane = "dense"
             q_idf = dev(arm._query_idf_rows(list(queries)))
-            vec_s, vec_i, lex_s, lex_i = hp.fused_phase1_dense(
-                fast.slab, mask, q_dev,
-                arm._post_term, arm._post_tf, arm._doc_steps, q_idf,
-                k_vec=k_vec, k_lex=k_lex, scan_mode=scan_mode, n_docs_lex=arm.n_docs,
+            vec_s, vec_i, lex_s, lex_i = lane("dense")(
+                *lead, arm._post_term, arm._post_tf, arm._doc_steps, q_idf,
+                n_docs_lex=arm.n_docs, **common,
             )
+        self.last_phase1_embed_fused = embed_fused
         # on-device RRF tail: the fused entries ride the same fetch; the
         # host keeps hydration and result construction only
         rrf_dev, contribs = self._device_rrf_tail(
@@ -341,9 +365,12 @@ class TwoTierSearcher:
             raw["fused_limit"] = rrf_ctx["limit"]
         return hydrated, lex_lists, raw
 
-    def _fused_blocked_lanes(self, arm, queries, slab, mask, q_dev, dev, *, k_vec, k_lex, scan_mode):
+    def _fused_blocked_lanes(self, arm, queries, lead, lane, dev, common):
         """Phase 1 over the blocked lexical layout, the reference's
-        dispatch: on a split corpus each query's hot terms become a dense
+        dispatch. ``lead`` are the lane body's leading arguments (slab, mask
+        and query vectors, or the Model2Vec table and token ids first),
+        ``lane(name)`` picks the body and ``common`` holds its keyword
+        arguments. On a split corpus each query's hot terms become a dense
         hot row and its sparse row keeps only tail terms; with
         ``daat_mode == "auto"`` the pure-tail queries whose own postings
         are few (``daat_eligible``) take the term-driven lane. All of them
@@ -353,7 +380,6 @@ class TwoTierSearcher:
         per-query test, so a query's lane never depends on its batchmates."""
         from frankensearch_tpu_torch.lexical import daat as _daat
         from frankensearch_tpu_torch.lexical import hot_arm as _hot_arm
-        from frankensearch_tpu_torch.ops import hybrid_phase1 as hp
 
         ids, w = arm._query_sparse_rows(list(queries))
         hot = None
@@ -385,11 +411,10 @@ class TwoTierSearcher:
                     plan = _daat.build_gather_plan(tm.ptr, ids, w_plan)
                     if plan[0].size * 128 <= _daat.DAAT_MAX_FUSED_ELEMENTS:
                         daat_plan = tuple(dev(x) for x in plan)
-        common = {"k_vec": k_vec, "k_lex": k_lex, "scan_mode": scan_mode}
         if daat_plan is not None and bool(elig.all()):
             self.last_phase1_lex_lane = "daat"
-            return hp.fused_phase1_daat(
-                slab, mask, q_dev, tm.device_arrays(), *daat_plan,
+            return lane("daat")(
+                *lead, tm.device_arrays(), *daat_plan,
                 t_run=ids.shape[1], tm_packed=tm.packed, **common,
             )
         # the flat lane consumes no block-max bounds
@@ -401,12 +426,12 @@ class TwoTierSearcher:
         lex_args = (arm._blocked.classes, bounds_list, dev(ids), dev(w), hot)
         if daat_plan is not None:
             self.last_phase1_lex_lane = "mixed"
-            return hp.fused_phase1_daat_mixed(
-                slab, mask, q_dev, tm.device_arrays(), *daat_plan, dev(elig), *lex_args,
+            return lane("daat_mixed")(
+                *lead, tm.device_arrays(), *daat_plan, dev(elig), *lex_args,
                 t_run=ids.shape[1], tm_packed=tm.packed, **common,
             )
         self.last_phase1_lex_lane = "blocked"
-        return hp.fused_phase1_blocked(slab, mask, q_dev, *lex_args, **common)
+        return lane("blocked")(*lead, *lex_args, **common)
 
     @staticmethod
     def _apply_filter_to_pool(pool, search_filter):
@@ -539,41 +564,50 @@ class TwoTierSearcher:
         if not live:
             return outcomes
 
-        # (the reference first tries the Model2Vec embed-fused lane here;
-        # not ported yet)
         hits_per_query: dict[int, list[VectorHit]] = {}
         lexical_pools: dict[int, list[ScoredResult]] = {}
         fused_done = False
         fused_raw = None
+        self.last_phase1_embed_fused = False
+        sem_budget_f = max(
+            int(candidate_count(k, 0, cfg.candidate_multiplier)
+                * max(classes[i].semantic_budget_multiplier() for i in live)),
+            k,
+        )
+        lex_budget_f = max(
+            int(candidate_count(k, 0, cfg.candidate_multiplier)
+                * max(classes[i].lexical_budget_multiplier() for i in live)),
+            k,
+        )
 
-        # one call for all fast embeddings
-        fast_vecs = None
-        if self._semantic_admitted:
-            fast_vecs = self.fast_embedder.embed_batch([parsed_list[i].positive for i in live])
-
-        # scan + BM25 fused lane (query vectors already computed)
-        if fast_vecs is not None and self.lexical is not None and search_filter is None:
-            sem_budget_f = max(
-                int(candidate_count(k, 0, cfg.candidate_multiplier)
-                    * max(classes[i].semantic_budget_multiplier() for i in live)),
-                k,
-            )
-            lex_budget_f = max(
-                int(candidate_count(k, 0, cfg.candidate_multiplier)
-                    * max(classes[i].lexical_budget_multiplier() for i in live)),
-                k,
-            )
+        def fused_lane(fast_vecs) -> bool:
+            nonlocal fused_raw
             fused = self._fused_phase1_batch(
                 fast_vecs, [parsed_list[i].positive for i in live],
                 sem_budget_f, lex_budget_f,
                 rrf_ctx=self._rrf_ctx(classes, live, k),
             )
-            if fused is not None:
-                self._fill_fused(fused, live, hits_per_query, lexical_pools)
-                for i in live:
-                    outcomes[i].metrics.phase1_fused = True
-                fused_raw = fused[2]
-                fused_done = True
+            if fused is None:
+                return False
+            self._fill_fused(fused, live, hits_per_query, lexical_pools)
+            for i in live:
+                outcomes[i].metrics.phase1_fused = True
+            fused_raw = fused[2]
+            return True
+
+        # the fully fused lane first: Model2Vec embed + scan + BM25 as one
+        # device pass (None for any other embedder)
+        if self._semantic_admitted and self.lexical is not None and search_filter is None:
+            fused_done = fused_lane(None)
+
+        # one call for all fast embeddings
+        fast_vecs = None
+        if self._semantic_admitted and not fused_done:
+            fast_vecs = self.fast_embedder.embed_batch([parsed_list[i].positive for i in live])
+
+        # scan + BM25 fused lane (query vectors already computed)
+        if fast_vecs is not None and self.lexical is not None and search_filter is None:
+            fused_done = fused_lane(fast_vecs)
         if fast_vecs is not None and not fused_done:
             sem_budget = max(
                 int(candidate_count(k, 0, cfg.candidate_multiplier)

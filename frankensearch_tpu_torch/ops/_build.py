@@ -21,7 +21,12 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("group_max.cu", "gather_rescore.cu", "flat_score.cu", "group_max_int8.cu", "tile_topk.cu")
+SOURCES = (
+    "group_max.cu", "gather_rescore.cu", "flat_score.cu", "group_max_int8.cu", "tile_topk.cu",
+    "group_candidates.cu",
+)
+#: headers the sources include (part of the build's hash)
+HEADERS = ("group_scan.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -62,7 +67,7 @@ def library_path() -> Path:
     digest = hashlib.sha256()
     for flag in NVCC_FLAGS:
         digest.update(flag.encode())
-    for src in srcs:
+    for src in srcs + [CSRC / name for name in HEADERS]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"libfs_kernels_{digest.hexdigest()[:16]}.so"
@@ -114,5 +119,7 @@ def library() -> ctypes.CDLL:
         lib.fs_gather_rescore_i8.restype = i32
         lib.fs_tile_topk.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr]
         lib.fs_tile_topk.restype = i32
+        lib.fs_group_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, i32, ptr]
+        lib.fs_group_candidates.restype = i32
         _lib = lib
     return _lib

@@ -1,15 +1,18 @@
 """On-device RRF: the fused-phase-1 tail that merges both arms on the card.
 
 Port of frankensearch_tpu/ops/device_rrf.py. The host vectorized
-implementation (frankensearch_tpu/fusion/rrf_batch.py) stays the oracle;
-this module reproduces its exact ordering contract on the device:
+implementation (fusion/rrf_batch.py) stays the oracle; this module
+reproduces its exact ordering contract on the device:
 
 - contributions are computed on the host in f64 with the oracle's exact
-  expressions, then split into (hi, lo) f32 pairs — no f64 on the device;
+  expressions and uploaded as they are;
 - each doc gets at most one contribution per arm, so its fused score is
-  one error-free TwoSum of the hi parts plus the lo terms, in eager f32
-  ops whose order is written out (never reassociated, never compiled);
-- the 5-key order (rrf desc, in-both first, lexical score desc, row asc)
+  one f64 add, lexical term first — the oracle's own sum, bit for bit, on
+  any device (the H100 has f64; the reference's TPU has not, and orders by
+  an f32 double-float (hi, lo) sum instead, which can break exact ties
+  by its rounding: two docs with swapped lexical and vector ranks tie in
+  f64 but not always in that sum);
+- the 4-key order (rrf desc, in-both first, lexical score desc, row asc)
   is a chain of stable sorts, least-significant key first;
 - the device returns only (row, lex_rank, fast_rank); :func:`finish_rrf`
   recomputes the winners' scores from the same f64 tables, so scores are
@@ -40,16 +43,12 @@ def make_contrib_tables(
     return contrib_l, contrib_v
 
 
-def split_f64(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """f64 -> double-float (hi, lo) f32 pair: hi = f32(x), lo = f32(x - hi)."""
-    hi = x.astype(np.float32)
-    lo = (x - hi.astype(np.float64)).astype(np.float32)
-    return hi, lo
-
-
 def _sort_key(x: torch.Tensor) -> torch.Tensor:
     """Float sort key with -0.0 == +0.0 (``lax.sort``'s comparison) and
     the same order on every device: canonicalize zeros, then order bits."""
+    if x.dtype == torch.float64:
+        bits = (x + 0.0).contiguous().view(torch.int64)
+        return torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFFFFFFFFFF)
     if x.dtype.is_floating_point:
         return float_order_key(x + 0.0)
     return x.to(torch.int64)
@@ -73,8 +72,8 @@ def rrf_tail(
     lex_s: torch.Tensor,  # (B, Kl) f32 BM25 scores (-inf/0 padding)
     vec_i: torch.Tensor,  # (B, Kv) i32 vector-slab rows (-1 padding)
     row_map: torch.Tensor,  # (Nv,) i32 vector row -> lexical row
-    cl_hi: torch.Tensor, cl_lo: torch.Tensor,  # (B, Kl) f32 lex contribs
-    cv_hi: torch.Tensor, cv_lo: torch.Tensor,  # (B, Kv) f32 vec contribs
+    contrib_l: torch.Tensor,  # (B, Kl) f64 lexical rank contributions
+    contrib_v: torch.Tensor,  # (B, Kv) f64 vector rank contributions
     *,
     limit: int,
 ):
@@ -92,8 +91,7 @@ def rrf_tail(
     vec_i = vec_i.to(i32)
     vid = torch.where(vec_i >= 0, row_map.to(i32)[vec_i.clamp(min=0).to(torch.int64)], -1)
     ids = torch.cat([lid, vid], dim=1)  # lex first: grouping order
-    hi = torch.cat([cl_hi, cv_hi], dim=1)
-    lo = torch.cat([cl_lo, cv_lo], dim=1)
+    contrib = torch.cat([contrib_l, contrib_v], dim=1).to(torch.float64)
     ranks = torch.cat(
         [
             torch.arange(kl, dtype=i32, device=dev).expand(b, kl),
@@ -109,8 +107,8 @@ def rrf_tail(
 
     key_id = torch.where(ids >= 0, ids, _BIG_ROW)
     order = torch.sort(key_id, dim=1, stable=True).indices
-    sid, shi, slo, srk, silex, slexsc = (
-        torch.gather(x, 1, order) for x in (key_id, hi, lo, ranks, is_lex, lexsc)
+    sid, sc, srk, silex, slexsc = (
+        torch.gather(x, 1, order) for x in (key_id, contrib, ranks, is_lex, lexsc)
     )
 
     same = sid[:, 1:] == sid[:, :-1]
@@ -122,18 +120,10 @@ def rrf_tail(
     def shl(x):
         return torch.cat([x[:, 1:], torch.zeros((b, 1), dtype=x.dtype, device=dev)], dim=1)
 
-    nhi = torch.where(nxt_same, shl(shi), 0.0)
-    nlo = torch.where(nxt_same, shl(slo), 0.0)
     nrk = torch.where(nxt_same, shl(srk), 0)
-
-    # error-free TwoSum on the hi parts, then fold the lo terms (f32, in
-    # exactly this order)
-    s = shi + nhi
-    v = s - shi
-    e = (shi - (s - v)) + (nhi - v)
-    lo_sum = (e + slo) + nlo
-    hi2 = s + lo_sum
-    lo2 = lo_sum - (hi2 - s)
+    # a doc's group is (lexical entry, vector entry) or one of them: the
+    # oracle's grouped f64 sum, lexical term first
+    rrf = torch.where(nxt_same, sc + shl(sc), sc)
 
     in_both = is_first & nxt_same
     first_is_lex = silex == 1
@@ -142,12 +132,11 @@ def rrf_tail(
     t3 = torch.where(first_is_lex, -slexsc, float("inf"))
 
     inf = float("inf")
-    k1 = torch.where(is_first, -hi2, inf)  # rrf desc
-    k2 = torch.where(is_first, -lo2, inf)
+    k1 = torch.where(is_first, -rrf, inf)  # rrf desc
     k3 = torch.where(is_first, torch.where(in_both, 0, 1), 2).to(i32)  # in-both first
     k4 = torch.where(is_first, t3, inf)  # lexical score desc
     k5 = torch.where(is_first, sid, _BIG_ROW)  # row asc
-    perm = _lexsort([k1, k2, k3, k4, k5])
+    perm = _lexsort([k1, k3, k4, k5])
 
     lim = min(limit, k)
     perm = perm[:, :lim]

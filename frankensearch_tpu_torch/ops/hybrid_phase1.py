@@ -7,13 +7,17 @@ pruned scan otherwise), the term-driven lane (``fused_phase1_daat``) and
 mixed batches (``fused_phase1_daat_mixed``: both lexical lanes, each query
 keeping its own lane's bits). Both arms are enqueued on the same CUDA
 stream and the caller fetches all results with one host sync. The
-Model2Vec embed variants are not ported yet.
+``fused_phase1_embed_*`` variants put the Model2Vec gather + mean-pool
+embed (``embed/model2vec.gather_pool_normalize``) in front of the same
+bodies, so phase 1 starts from token ids: embed, scan, BM25 (and the
+caller's device RRF) in one pass.
 """
 
 from __future__ import annotations
 
 import torch
 
+from frankensearch_tpu_torch.embed.model2vec import gather_pool_normalize
 from frankensearch_tpu_torch.lexical.device_bm25 import (
     DocSteps,
     _blocked_hot_body,
@@ -121,3 +125,57 @@ def fused_phase1_daat_mixed(
     b_s, b_i = _lex_blocked(classes, bounds_list, q_ids, q_w, k_lex=k_lex, hot=hot)
     lex_s, lex_i = _lex_select(elig, d_s, d_i, b_s, b_i)
     return vec.scores, vec.indices, lex_s, lex_i
+
+
+def _embed_q(emb, tok_ids, tok_mask, d_pad: int) -> torch.Tensor:
+    return _pad_q(gather_pool_normalize(emb, tok_ids, tok_mask), d_pad)
+
+
+def fused_phase1_embed_dense(
+    emb, tok_ids, tok_mask, slab, mask,
+    post_term, post_tf, steps: DocSteps, q_idf,
+    *, k_vec: int, k_lex: int, scan_mode: str, n_docs_lex: int, d_pad: int,
+):
+    """Model2Vec embed + :func:`fused_phase1_dense`."""
+    return fused_phase1_dense(
+        slab, mask, _embed_q(emb, tok_ids, tok_mask, d_pad), post_term, post_tf, steps, q_idf,
+        k_vec=k_vec, k_lex=k_lex, scan_mode=scan_mode, n_docs_lex=n_docs_lex,
+    )
+
+
+def fused_phase1_embed_blocked(
+    emb, tok_ids, tok_mask, slab, mask,
+    classes, bounds_list, q_ids, q_w, hot=None,
+    *, k_vec: int, k_lex: int, scan_mode: str, d_pad: int,
+):
+    """Model2Vec embed + :func:`fused_phase1_blocked`."""
+    return fused_phase1_blocked(
+        slab, mask, _embed_q(emb, tok_ids, tok_mask, d_pad), classes, bounds_list, q_ids, q_w, hot,
+        k_vec=k_vec, k_lex=k_lex, scan_mode=scan_mode,
+    )
+
+
+def fused_phase1_embed_daat(
+    emb, tok_ids, tok_mask, slab, mask,
+    tm, row_idx, row_w, span_lo, span_hi,
+    *, k_vec: int, k_lex: int, scan_mode: str, t_run: int, d_pad: int, tm_packed: bool = False,
+):
+    """Model2Vec embed + :func:`fused_phase1_daat`."""
+    return fused_phase1_daat(
+        slab, mask, _embed_q(emb, tok_ids, tok_mask, d_pad), tm, row_idx, row_w, span_lo, span_hi,
+        k_vec=k_vec, k_lex=k_lex, scan_mode=scan_mode, t_run=t_run, tm_packed=tm_packed,
+    )
+
+
+def fused_phase1_embed_daat_mixed(
+    emb, tok_ids, tok_mask, slab, mask,
+    tm, row_idx, row_w, span_lo, span_hi, elig,
+    classes, bounds_list, q_ids, q_w, hot=None,
+    *, k_vec: int, k_lex: int, scan_mode: str, t_run: int, d_pad: int, tm_packed: bool = False,
+):
+    """Model2Vec embed + :func:`fused_phase1_daat_mixed`."""
+    return fused_phase1_daat_mixed(
+        slab, mask, _embed_q(emb, tok_ids, tok_mask, d_pad),
+        tm, row_idx, row_w, span_lo, span_hi, elig, classes, bounds_list, q_ids, q_w, hot,
+        k_vec=k_vec, k_lex=k_lex, scan_mode=scan_mode, t_run=t_run, tm_packed=tm_packed,
+    )

@@ -10,6 +10,9 @@ Hopper kernels: K1 (:func:`group_max`, csrc/group_max.cu), K2
 (:func:`gather_rescore`, csrc/gather_rescore.cu) and its int8 form
 (:func:`gather_rescore_i8`, the same source), K4 (:func:`group_max_int8`,
 csrc/group_max_int8.cu) and K5 (:func:`tile_topk`, csrc/tile_topk.cu).
+K6 (:func:`group_candidates`, csrc/group_candidates.cu) is the kernel of
+the A/B lane in ops/ab_primitives.py; it lives here beside K1, whose
+scoring body it shares.
 
 Each kernel wrapper runs its kernel on a CUDA tensor and its plain PyTorch
 twin (same semantics, the analog of Pallas ``interpret=True``) on a CPU
@@ -472,8 +475,110 @@ def scan_topk_pallas(
 
 
 # --------------------------------------------------------------------------
+# K6: per-tile group candidates
+# --------------------------------------------------------------------------
+
+#: the widest tile K6 takes (64 groups of 128 rows)
+MAX_CANDIDATE_TILE = 8192
+
+
+def argmax_passes(x: torch.Tensor, t: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``t`` argmax passes over the last axis of ``x`` (..., G), the
+    reference kernels' selection: pass j takes the maximum ``m`` (+0.0
+    above -0.0, as ``jnp.max``), the first column whose value ``== m`` (so
+    -0.0 ties +0.0), records (``m``, column) and knocks the column out with
+    -inf; an exhausted row repeats column 0 at -inf. ``x`` is not modified.
+    Returns (..., t) f32 values and int64 columns."""
+    g = x.shape[-1]
+    col = torch.arange(g, dtype=torch.int64, device=x.device)
+    vals, cols = [], []
+    for _ in range(t):
+        m = torch.gather(x, -1, float_order_key(x).argmax(dim=-1, keepdim=True))
+        bi = torch.where(x == m, col, g).amin(dim=-1, keepdim=True)
+        vals.append(m[..., 0])
+        cols.append(bi[..., 0])
+        x = torch.where(col == bi, NEG_INF, x)
+    return torch.stack(vals, dim=-1), torch.stack(cols, dim=-1)
+
+
+def group_candidates_plain(
+    slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor, t: int, tile_n: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of K6: per tile of ``tile_n`` rows, K1's group maxima
+    (:func:`group_max_plain`), then ``t`` :func:`argmax_passes` over the
+    tile's ``tile_n / 128`` groups. Returns (T, t, B) f32 values and int32
+    global group ids."""
+    n = slab.shape[0]
+    b = queries.shape[0]
+    g_tile = tile_n // GROUP
+    n_tiles = n // tile_n
+    gm = group_max_plain(slab, queries, mask).view(b, n_tiles, g_tile)
+    vals, cols = argmax_passes(gm, t)  # (B, T, t)
+    gids = cols + torch.arange(n_tiles, dtype=torch.int64, device=slab.device)[None, :, None] * g_tile
+    return vals.permute(1, 2, 0).contiguous(), gids.permute(1, 2, 0).to(torch.int32).contiguous()
+
+
+def group_candidates(
+    slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor, t: int, tile_n: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6 (replaces ``_group_candidates_kernel``): (T, t, B) per-tile top-t
+    group maxima and their global group ids. CUDA tensors run
+    csrc/group_candidates.cu (``tile_n`` a multiple of 128 up to 8192 that
+    divides N); CPU tensors the plain twin."""
+    if slab.device.type == "cpu":
+        return group_candidates_plain(slab, queries, mask, t, tile_n)
+    _check_kernel_operands(slab, queries)
+    n, d = slab.shape
+    if d % 64:
+        raise ValueError(f"group_candidates needs dim % 64 == 0, got {d}")
+    if tile_n % GROUP or not GROUP <= tile_n <= MAX_CANDIDATE_TILE or n % tile_n:
+        raise ValueError(
+            f"group_candidates needs tile_n a multiple of {GROUP} up to {MAX_CANDIDATE_TILE} "
+            f"that divides N; got tile_n {tile_n}, N {n}"
+        )
+    if not 1 <= t <= tile_n // GROUP:
+        raise ValueError(f"group_candidates needs 1 <= t <= {tile_n // GROUP}, got {t}")
+    if mask.shape != (n,) or mask.dtype != torch.float32 or mask.device != slab.device:
+        raise ValueError("mask must be (N,) f32 on the slab's device")
+    b = queries.shape[0]
+    out_v = torch.empty((n // tile_n, t, b), dtype=torch.float32, device=slab.device)
+    out_g = torch.empty((n // tile_n, t, b), dtype=torch.int32, device=slab.device)
+    if b == 0:
+        return out_v, out_g
+    q = _aligned(queries.to(slab.dtype))
+    mask = mask.contiguous()
+    from frankensearch_tpu_torch.ops import _build
+
+    lib = _build.library()
+    with torch.cuda.device(slab.device):
+        rc = lib.fs_group_candidates(
+            q.data_ptr(), slab.data_ptr(), mask.data_ptr(), out_v.data_ptr(), out_g.data_ptr(),
+            b, d, n, tile_n, t, int(slab.dtype == torch.bfloat16),
+            torch.cuda.current_stream(slab.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"group_candidates kernel launch failed: CUDA error {rc}")
+    group_candidates.launches += 1
+    return out_v, out_g
+
+
+group_candidates.launches = 0
+
+
+# --------------------------------------------------------------------------
 # hierarchical scan
 # --------------------------------------------------------------------------
+
+
+def rescore_xla(slab: torch.Tensor, queries: torch.Tensor, top_groups: torch.Tensor) -> torch.Tensor:
+    """The reference's XLA rescore (its ``rescore="xla"`` branch, no
+    Pallas kernel): the selected groups' rows gathered and cast to f32,
+    scored against the f32 query (not rounded to the slab dtype).
+    (B, kk) group ids -> (B, kk*128) f32."""
+    b, kk = top_groups.shape
+    d = slab.shape[1]
+    cand = slab.view(-1, GROUP, d)[top_groups.to(torch.int64)].reshape(b, kk * GROUP, d).to(torch.float32)
+    return torch.einsum("bd,bcd->bc", queries.to(torch.float32), cand)
 
 
 def _rescore_groups(
@@ -483,20 +588,24 @@ def _rescore_groups(
     top_groups: torch.Tensor,  # (B, kk_groups) selected group ids
     *,
     k: int,
-    rescore=None,
+    rescore="pallas",
 ) -> TopKResult:
     """Exact-rescore tail of the hierarchical scans: score the selected
-    groups' rows (``rescore``, K2 by default), add their mask, final
-    top-k. The reference's XLA rescore (f32 query) is not ported: the main
-    path always took the kernel, whose query is rounded to the slab
-    dtype."""
+    groups' rows, add their mask, final top-k. ``rescore`` is ``"pallas"``
+    (K2, the query rounded to the slab dtype: the product's lanes),
+    ``"xla"`` (:func:`rescore_xla`, the f32 query) or a function with K2's
+    signature."""
     n = slab.shape[0]
     b = queries.shape[0]
     kk_groups = top_groups.shape[1]
     top_groups = torch.sort(top_groups, dim=1).values  # row-ascending tiebreak
     offsets = torch.arange(GROUP, dtype=top_groups.dtype, device=slab.device)
     cand_rows = (top_groups[:, :, None] * GROUP + offsets).reshape(b, kk_groups * GROUP)
-    exact = (rescore or gather_rescore)(slab, queries, top_groups)
+    if rescore == "pallas":
+        rescore = gather_rescore
+    elif rescore == "xla":
+        rescore = rescore_xla
+    exact = rescore(slab, queries, top_groups)
     mask_cand = mask.reshape(n // GROUP, GROUP)[top_groups.to(torch.int64)]
     exact = exact + mask_cand.reshape(b, kk_groups * GROUP)
     kk = min(k, exact.shape[1])

@@ -5,9 +5,11 @@ Usage: ``python3 profile_chip.py [OUT_DIR]`` from the root of a checkout (one
 CUDA card). OUT_DIR, where the reports go, defaults to ``build/profile``.
 
 Builds the cells of ``chip_smoke.py`` (semantic-1M, hybrid-60k,
-hybrid-1M: the 1M-doc BM25 arm over the semantic cell's vectors, and
+hybrid-1M: the 1M-doc BM25 arm over the semantic cell's vectors,
 semantic-1M-int8: the semantic cell's vectors in an int8 ``TwoTierIndex``
-served with ``scan_mode="int8"``) and, for
+served with ``scan_mode="int8"``, and hybrid-1M-m2v: the same BM25 arm with
+a Model2Vec fast tier, its docs embedded through the bag lane and its
+queries embedded inside the fused phase-1 pass) and, for
 each at B = 256 and B = 1 (the cell's first query), after three warm-up calls
 of ``TwoTierSearcher.search_batch``:
 
@@ -96,8 +98,20 @@ def main() -> int:
     def hybrid1m(dev, tmp):
         # its own 1M-doc vector index, in a directory of its own
         _, index, emb, _, _ = cs.semantic_cell(dev, tempfile.mkdtemp(dir=tmp))
-        searcher, _, queries, _, _ = cs.hybrid1m_cell(dev, index, emb)
+        searcher, _, queries, _, _, _ = cs.hybrid1m_cell(dev, index, emb)
         return searcher, queries
+
+    def hybrid1m_m2v(dev, tmp):
+        from frankensearch_tpu_torch import TwoTierConfig, TwoTierIndex, TwoTierSearcher
+        from frankensearch_tpu_torch.embed.bulk import embed_corpus
+
+        bm25, queries, _, _, texts = cs.hybrid1m_lexical(dev)
+        m2v = cs.m2v_embedder(dev)
+        index = TwoTierIndex.create(
+            tempfile.mkdtemp(dir=tmp), embed_corpus(m2v, texts), [f"doc-{i:07d}" for i in range(len(texts))],
+            m2v.identity(), device=dev,
+        )
+        return TwoTierSearcher(index, m2v, lexical=bm25, config=TwoTierConfig(fast_only=True)), queries
 
     def semantic_int8(dev, tmp):
         from frankensearch_tpu_torch import TwoTierConfig, TwoTierIndex, TwoTierSearcher
@@ -112,7 +126,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="fs_profile_") as tmp:
         for cell, build in (("semantic-1M", cs.semantic_cell), ("hybrid-60k", cs.hybrid_cell),
-                            ("hybrid-1M", hybrid1m), ("semantic-1M-int8", semantic_int8)):
+                            ("hybrid-1M", hybrid1m), ("semantic-1M-int8", semantic_int8),
+                            ("hybrid-1M-m2v", hybrid1m_m2v)):
             built = build(dev, tmp)
             searcher, queries = built[0], built[-1]
             for b in (256, 1):
@@ -135,12 +150,13 @@ def main() -> int:
                     "idle_share": 1.0 - device_ms / statistics.median(host),
                     "host_ms_under_torch_profiler": torch_prof_ms,
                     "host_ms_under_cprofile": cprofile_ms,
+                    "embed_fused": searcher.last_phase1_embed_fused,
                 }
                 rows.append(row)
                 cs.log(f"{cell} B={b}: host {row['host_ms_median']:.3f} ms median of {REPS} "
                        f"({row['host_ms_min']:.3f}-{row['host_ms_max']:.3f}); device {device_ms:.3f} ms; "
                        f"idle {row['idle_share']:.3f}; under torch.profiler {torch_prof_ms:.3f} ms, "
-                       f"under cProfile {cprofile_ms:.3f} ms")
+                       f"under cProfile {cprofile_ms:.3f} ms; embed in the pass {row['embed_fused']}")
             del built, searcher
             torch.cuda.empty_cache()
     cs.log(cs.gpu_line())

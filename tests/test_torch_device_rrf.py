@@ -5,6 +5,10 @@ score ties, zero-score and -inf slots, extreme k constants, zero-weight
 arms): the port's ``rrf_tail`` + ``finish_rrf`` must return exactly what
 the reference's ``device_rrf`` + ``finish_rrf`` return — rows, ranks and
 f64 scores — and both must equal the host oracle ``rrf_fuse_batch_rows``.
+Where two docs' ranks are swapped between the arms their f64 sums tie; the
+port sums in f64 as the oracle does and breaks the tie by the oracle's
+keys, while the reference's f32 (hi, lo) sum can order them by its own
+rounding: there the port is held to the oracle alone.
 """
 
 import numpy as np
@@ -36,13 +40,11 @@ def run_jax(lex_rows, lex_scores, vec_rows, row_map, limit, k_arr, lex_w, sem_w)
 def run_torch(lex_rows, lex_scores, vec_rows, row_map, limit, k_arr, lex_w, sem_w):
     b, kl = lex_rows.shape
     contrib_l, contrib_v = trrf.make_contrib_tables(k_arr, kl, vec_rows.shape[1], lex_w, sem_w)
-    cl_hi, cl_lo = trrf.split_f64(contrib_l)
-    cv_hi, cv_lo = trrf.split_f64(contrib_v)
     t = torch.from_numpy
     out = trrf.rrf_tail(
         t(lex_rows.astype(np.int32)), t(lex_scores.astype(np.float32)),
         t(vec_rows.astype(np.int32)), t(row_map.astype(np.int32)),
-        t(cl_hi), t(cl_lo), t(cv_hi), t(cv_lo),
+        t(contrib_l), t(contrib_v),
         limit=limit,
     )
     assert all(x.dtype == torch.int32 for x in out)
@@ -129,3 +131,19 @@ def test_zero_weight_arms(zero_arm):
     sem_w = np.full(4, 0.0 if zero_arm in ("sem", "both") else 1.0)
     check(lex_rows, lex_scores, vec_rows, row_map, 10, k_arr, lex_w, sem_w, 60)
 
+
+
+@pytest.mark.parametrize("ranks", [(0, 16), (0, 28), (3, 40)])
+def test_swapped_ranks_tie_like_the_oracle(ranks):
+    """Doc 5 ranks (a, b) in (lexical, vector), doc 9 ranks (b, a): their
+    f64 sums are equal, so in-both and then the lexical score decide."""
+    a, b = ranks
+    n = max(a, b) + 1
+    lex = np.arange(100, 100 + n)
+    vec = np.arange(200, 200 + n)
+    lex[a], lex[b], vec[b], vec[a] = 5, 9, 5, 9
+    scores = np.linspace(9.0, 1.0, n).astype(np.float32)
+    args = (lex[None], scores[None], vec[None], np.arange(300), 4, np.array([60.0]), 1.0, np.array([1.0]))
+    got = run_torch(*args)
+    assert got == run_oracle(*args, 300)
+    assert [e[0] for e in got[0][:2]] == [5, 9] and got[0][0][1] == got[0][1][1]

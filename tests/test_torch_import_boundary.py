@@ -4,8 +4,9 @@ A subprocess makes ``import jax`` and ``import frankensearch_tpu`` fail
 (``sys.modules[...] = None``), imports ``frankensearch_tpu_torch``, builds
 every object from the port's own types and serves a tiny hybrid
 ``search_batch`` on the CPU: over the dense lexical lane, over the blocked
-(split, flat, DAAT) layout, and through the ``int8`` (certified) and
-``pallas`` scan modes. A static check reads every import statement of the
+(split, flat, DAAT) layout, through the ``int8`` (certified) and
+``pallas`` scan modes, and with a Model2Vec fast tier (the fully fused
+lane), then runs the A/B scan lane. A static check reads every import statement of the
 port's files, ``chip_smoke.py`` and ``profile_chip.py``: none may name
 ``frankensearch_tpu`` or ``jax``.
 """
@@ -78,6 +79,26 @@ with tempfile.TemporaryDirectory() as root:
         out = searcher.search_batch(["vector search", "write ahead log"], k=3)
         assert out[0].results[0].doc_id == "d3" and out[1].results[0].doc_id == "d4", (mode, out)
         assert not any(o.metrics.phase1_fused for o in out)
+
+# a Model2Vec fast tier: the corpus through the bag lane, the queries
+# embedded inside the fused pass; the A/B scan lane over its slab
+import torch
+from frankensearch_tpu_torch.ops import ab_primitives
+words = sorted({w for d in docs for w in d.content.split()})
+m2v = fst.random_model2vec(words, dim=32, seed=0, device=dev)
+with tempfile.TemporaryDirectory() as root:
+    index = fst.TwoTierIndex.create(
+        root, fst.embed_corpus(m2v, [d.content for d in docs]), [d.doc_id for d in docs],
+        m2v.identity(), device=dev)
+    searcher = fst.TwoTierSearcher(index, m2v, lexical=fst.DeviceBm25Index(mem, device=dev),
+        config=fst.TwoTierConfig(fast_only=True))
+    out = searcher.search_batch(["vector search", "write ahead log"], k=3)
+assert searcher.last_phase1_embed_fused and all(o.metrics.phase1_fused for o in out)
+assert out[0].results[0].doc_id == "d3" and out[1].results[0].doc_id == "d4", out
+q = torch.zeros(2, index.fast.slab.shape[1])
+q[:, :32] = torch.from_numpy(m2v.embed_batch(["vector search", "sqlite log"]))
+hits = ab_primitives.scan_topk_hierarchical_ab(index.fast.slab, q, 2, emit="tile_topk", tile_n=1024)
+assert hits.indices[0, 0] == 3 and hits.indices[1, 0] == 4, hits
 assert sys.modules["jax"] is None and sys.modules["frankensearch_tpu"] is None
 assert not [m for m in sys.modules if m.startswith(("jax.", "frankensearch_tpu."))]
 print("OK")

@@ -1,22 +1,27 @@
-"""The port on an NVIDIA GPU: kernels K1/K2/K3/K4/K5 and K2's int8 form
-against their plain twins, the deterministic lanes (dense, pruned and DAAT
-BM25, device RRF) bitwise against the CPU, and the int8 and per-tile scan
-lanes against their CPU twin pipelines.
+"""The port on an NVIDIA GPU: kernels K1-K6 and K2's int8 form against
+their plain twins, the deterministic lanes (dense, pruned and DAAT BM25,
+device RRF) bitwise against the CPU, the int8 and per-tile scan lanes
+against their CPU twin pipelines, the A/B scan's K6 route bitwise against
+the K1/K2 route, and the Model2Vec pool and bag lane against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports no jax, so it also runs where jax is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: K1/K2/K2-i8/K5 vs twin 1e-5 relative (bf16 and int8 products
-are exact; the tensor-core and warp sums run in another order than the
-twins', so K5 and the scan lanes may also swap near ties); K4's int32
-sums are exact, so it is bitwise; K3 sums
+Tolerances: K1/K2/K2-i8/K5/K6 vs twin 1e-5 relative (bf16 and int8
+products are exact; the tensor-core and warp sums run in another order
+than the twins', so K5, K6's group ids and the scan lanes may also swap
+near ties); K6's maxima are K1's bits (one scoring body); K4's int32
+sums are exact, so it is bitwise; the Model2Vec pool is elementwise f32
+adds in a fixed order, within 1e-6 of the CPU; K3 sums
 in its twin's order with unfused products and adds, so it is bitwise; the
 BM25 and RRF lanes are order-pinned f32 adds (the pruned lane's exact
 FMA included), so GPU and CPU agree bit for bit. The hot partial is a
 cuBLAS product and is not compared bitwise across devices.
 """
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -26,7 +31,8 @@ import chip_smoke
 from frankensearch_tpu_torch.core.types import IndexableDocument
 from frankensearch_tpu_torch.lexical import device_bm25, hot_arm
 from frankensearch_tpu_torch.lexical.device_bm25 import BulkDeviceBm25Index
-from frankensearch_tpu_torch.ops import device_rrf, topk_scan
+from frankensearch_tpu_torch.embed import bulk, model2vec
+from frankensearch_tpu_torch.ops import ab_primitives, device_rrf, topk_scan
 from frankensearch_tpu_torch.ops.quantize import calibrate_int8
 
 pytestmark = pytest.mark.cuda
@@ -95,8 +101,7 @@ def test_device_rrf_bitwise_cpu_vs_gpu(cuda_device):
     lex_s[:, -3:] = 0.0
     vec_i = np.stack([rng.choice(n, kv, replace=False) for _ in range(b)]).astype(np.int32)
     row_map = np.arange(n, dtype=np.int32)
-    cl, cv = device_rrf.make_contrib_tables(np.full(b, 60.0), kl, kv, 1.0, np.full(b, 1.0))
-    parts = (*device_rrf.split_f64(cl), *device_rrf.split_f64(cv))
+    parts = device_rrf.make_contrib_tables(np.full(b, 60.0), kl, kv, 1.0, np.full(b, 1.0))
 
     def run(dev):
         t = [torch.from_numpy(x).to(dev) for x in (lex_i, lex_s, vec_i, row_map, *parts)]
@@ -248,3 +253,81 @@ def test_int8_and_tile_lanes_gpu_vs_cpu(cuda_device, k):
     cpu = topk_scan.scan_topk_pallas(bf, q, k, mask)
     gpu = topk_scan.scan_topk_pallas(bf.to(cuda_device), q.to(cuda_device), k, mask.to(cuda_device))
     _same_up_to_near_ties(gpu, cpu)
+
+
+#: sha256 of K1's output bits on _k1_input's seeded data, as the kernel
+#: gave them before its scoring body moved to group_scan.cuh (H100, nvcc
+#: 12.8): the move must not change a bit
+K1_DIGESTS = {
+    ("torch.bfloat16", 70): "3571d87c8b52fa7f0ac303daa280375ed20ee22019b6ae6556084d942c112837",
+    ("torch.float16", 256): "cf777e37e38aeda57eb7664b528cfeb8982c98927ae9213959fce47d381f9ff4",
+    ("torch.bfloat16", 1): "b804c639aae174ab4ca3cc51c2ef77c64104fece141247702c2e70c1728f39f1",
+}
+
+
+def _k1_input(dtype, b):
+    gen = torch.Generator(device="cpu").manual_seed(20261016)
+    slab = torch.randn(16384, 256, generator=gen)
+    slab = (slab / slab.norm(dim=1, keepdim=True)).to(dtype)
+    q = torch.randn(b, 256, generator=gen)
+    mask = torch.zeros(16384)
+    mask[16000:] = float("-inf")
+    return slab, q, mask
+
+
+@pytest.mark.parametrize("dtype,b", [(torch.bfloat16, 70), (torch.float16, 256), (torch.bfloat16, 1)])
+def test_group_max_bits_unchanged_by_the_header_split(cuda_device, dtype, b):
+    slab, q, mask = _k1_input(dtype, b)
+    out = topk_scan.group_max(slab.to(cuda_device), q.to(cuda_device), mask.to(cuda_device)).cpu()
+    digest = hashlib.sha256(out.view(torch.int32).numpy().tobytes()).hexdigest()
+    assert digest == K1_DIGESTS[(str(dtype), b)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b", [1, 8, 256])
+def test_group_candidates_matches_twin_and_k1(cuda_device, b, dtype):
+    slab, mask, gen = _unit_slab(b)
+    mask[8192 + 3 * 128 :] = float("-inf")  # the last tile runs out after 3 groups
+    slab, mask = slab.to(cuda_device, dtype), mask.to(cuda_device)
+    q = torch.randn(b, 256, generator=gen).to(cuda_device)
+    launches = topk_scan.group_candidates.launches
+    got_v, got_g = topk_scan.group_candidates(slab, q, mask, 60, 8192)
+    torch.cuda.synchronize()
+    assert topk_scan.group_candidates.launches == launches + 1
+    want_v, want_g = topk_scan.group_candidates_plain(slab, q, mask, 60, 8192)
+    chip_smoke.check_close(got_v, want_v, "K6 values")
+    chip_smoke.check_group_ids(topk_scan.group_max_plain(slab, q, mask), got_g, want_g, "K6 group ids")
+    gm = topk_scan.group_max(slab, q, mask)  # K6's maxima are K1's bits
+    k1 = gm[torch.arange(b, device=cuda_device)[None, None, :].expand_as(got_g), got_g.long()]
+    fin = torch.isfinite(got_v)
+    assert torch.equal(k1[fin].view(torch.int32), got_v[fin].view(torch.int32))
+    assert bool((got_g[1, 3:] == 64).all()) and not bool(fin[1, 3:].any())  # exhausted: group 0 of tile 1
+
+
+@pytest.mark.parametrize("b,k", [(1, 10), (8, 60), (256, 30)])
+def test_ab_tile_topk_route_bitwise_to_k1_route(cuda_device, b, k):
+    slab, mask, gen = _unit_slab(b + k, n=8192 * 4)
+    slab, mask = slab.to(cuda_device, torch.bfloat16), mask.to(cuda_device)
+    q = torch.randn(b, 256, generator=gen).to(cuda_device)
+    want = topk_scan.scan_topk_hierarchical(slab, q, k, mask)
+    for kw in ({"emit": "tile_topk"}, {"emit": "tile_topk", "tile_n": 2048}, {"group_select": "iter"}):
+        got = ab_primitives.scan_topk_hierarchical_ab(slab, q, k, mask, **kw)
+        assert torch.equal(got.indices, want.indices), kw
+        assert torch.equal(got.scores.view(torch.int32), want.scores.view(torch.int32)), kw
+
+
+def test_model2vec_pool_and_bag_lane_gpu_vs_cpu(cuda_device):
+    words = [f"w{i}" for i in range(500)]
+    rng = np.random.default_rng(3)
+    texts = [" ".join(rng.choice(words, size=int(rng.integers(0, 60)))) for _ in range(300)]
+    cpu = model2vec.random_model2vec(words, dim=256, seed=1, device=torch.device("cpu"))
+    gpu = model2vec.random_model2vec(words, dim=256, seed=1, device=cuda_device)
+    ids, msk = cpu.tokenize_batch(texts)
+    want = model2vec.gather_pool_normalize(cpu._emb, torch.from_numpy(ids), torch.from_numpy(msk))
+    got = model2vec.gather_pool_normalize(gpu._emb, torch.from_numpy(ids).to(cuda_device),
+                                          torch.from_numpy(msk).to(cuda_device)).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    bag_cpu = bulk.bag_embed_corpus(cpu, texts, chunk_docs=128)
+    bag_gpu = bulk.bag_embed_corpus(gpu, texts, chunk_docs=128)
+    np.testing.assert_array_equal(bag_gpu.view(np.uint32), bulk.bag_embed_corpus(gpu, texts, chunk_docs=128).view(np.uint32))
+    np.testing.assert_allclose(bag_gpu, bag_cpu, rtol=0, atol=1e-6)
