@@ -9,12 +9,15 @@ Phases:
      path gave it (batch sizes B = 256, 8 and 1; group and candidate counts
      kk as the searcher's budget sets them), on the cell's own data: K1
      (group max) and K2 (gather + rescore) within REL_TOL on each cell's
-     slab and mask (phase 2's is 1,007,616 x 256 bf16); K3 (flat tail
-     scores) bitwise on every length class of phase 4's layout; K4 (int8
-     group max) bitwise and K2-i8 (int8 gather + rescore) within REL_TOL on
-     phase 5's int8 slab; K5 (per-tile top-k) within REL_TOL on phase 2's
-     slab. It runs inside phases 2-5, after their main-path runs, so that
-     it knows those shapes;
+     slab and mask (phase 2's is 1,007,616 x 256 bf16); K3 (one class of
+     the flat lane: tail scores, hot partial, padding mask, group maxima
+     and rows, in one pass) bitwise on every length class at every (B, T)
+     of phases 4 and 7; K4 (int8 group max) bitwise and K2-i8 (int8 gather
+     + rescore) within REL_TOL on phase 5's int8 slab; K5 (per-tile top-k)
+     within REL_TOL on phase 2's slab, its first candidates bitwise K1's
+     tile maxima, and bitwise on seeded adversarial tiles through both of
+     its entries. It runs inside phases 2-7, after their main-path runs, so
+     that it knows those shapes;
   2. semantic serving at 1M docs: ``TwoTierIndex.create`` + fast-only
      ``TwoTierSearcher.search_batch`` (256 queries, then 8 singletons),
      recall@10 against an exact f32 scan, index sets against the plain scan;
@@ -60,7 +63,10 @@ Phases:
 The kernels line gives each kernel's time, its twin's, and its bound: the
 larger of the bytes it must move (each input read once, each output
 written once; a gather counts the distinct groups it reads) over 3.35 TB/s
-and its operations over the H100's dense peak for their type.
+and its operations over the H100's dense peak for their type (integer
+compares at the INT32 lanes' rate). Each entry is one launch at its
+headline shape; K3's is the mean over the length classes of one flat scan
+at the widest batch tile, the unit its launch count counts.
 
 The kernels' launch counters are zeroed right before each phase drives the
 main path and read right after; the kernel checks and the other comparison
@@ -90,7 +96,12 @@ HYBRID_VOCAB = 50_000
 POSTINGS_RANGE = (1_500_000, 2_097_152)
 REL_TOL = 1e-5  # kernel vs twin: bf16 products are exact, f32 sums differ in order
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-PEAK_OPS_PER_S = {"bf16": 989e12, "f16": 989e12, "int8": 1979e12, "f32": 67e12}  # dense
+#: integer compares: one instruction per lane on the 64 INT32 lanes of each
+#: Hopper SM per clock (NVIDIA's Hopper tuning guide, arithmetic throughput
+#: of compute capability 9.0), 132 SMs at the 1.98 GHz boost clock
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+PEAK_OPS_PER_S = {"bf16": 989e12, "f16": 989e12, "int8": 1979e12, "f32": 67e12,  # dense
+                  "int32": INT32_OPS_PER_S}
 INT8_RECALL_FLOOR = 0.97  # the reference's own recall@10 figure for the int8 lane
 AB_BATCHES = (256, 8, 1)  # phase 6: the serve batch, the fused lane's pad, a singleton
 AB_KS = (30, 60)  # the searcher's candidate budgets at k = 10
@@ -117,7 +128,7 @@ KERNELS = (
      "frankensearch_tpu/ops/topk_scan.py:220", "semantic-1M"),
     ("gather_rescore", "K2", "frankensearch_tpu_torch/ops/csrc/gather_rescore.cu",
      "frankensearch_tpu/ops/topk_scan.py:362", "semantic-1M"),
-    ("flat_score", "K3", "frankensearch_tpu_torch/ops/csrc/flat_score.cu",
+    ("flat_fused", "K3", "frankensearch_tpu_torch/ops/csrc/flat_score.cu",
      "frankensearch_tpu/lexical/device_bm25.py:405", "hybrid-1M"),
     ("group_max_int8", "K4", "frankensearch_tpu_torch/ops/csrc/group_max_int8.cu",
      "frankensearch_tpu/ops/topk_scan.py:240", "semantic-1M-int8"),
@@ -257,7 +268,7 @@ def launch_counters() -> dict:
     from frankensearch_tpu_torch.lexical import device_bm25 as bm
     from frankensearch_tpu_torch.ops import topk_scan as ts
 
-    return {"K1": ts.group_max, "K2": ts.gather_rescore, "K3": bm.flat_class_scores,
+    return {"K1": ts.group_max, "K2": ts.gather_rescore, "K3": bm.flat_class_fused,
             "K4": ts.group_max_int8, "K2-i8": ts.gather_rescore_i8, "K5": ts.tile_topk,
             "K6": ts.group_candidates}
 
@@ -270,7 +281,7 @@ def drive(fn, shapes: set, flat_inputs: dict | None = None):
     K4 at ("group_max_int8", B, 0) and K2-i8 at ("gather_rescore_i8", B,
     kk), a per-tile scan K5 at ("tile_topk", B, kk). ``flat_inputs``
     collects, for each (B, T) at which the flat lane ran K3, a copy of the
-    first query rows it got."""
+    first query rows, hot partial and group-row map it got."""
     from frankensearch_tpu_torch.lexical import device_bm25 as bm
     from frankensearch_tpu_torch.ops import topk_scan as ts
 
@@ -293,10 +304,11 @@ def drive(fn, shapes: set, flat_inputs: dict | None = None):
         shapes.add(("tile_topk", queries.shape[0], min(k, tile_n)))
         return scan_tiles(slab, queries, k, mask, tile_n=tile_n)
 
-    def flat_noted(classes, q_ids, q_w, *args, **kw):
-        if flat_inputs is not None:
-            flat_inputs.setdefault(tuple(q_ids.shape), (q_ids.clone(), q_w.clone()))
-        return flat(classes, q_ids, q_w, *args, **kw)
+    def flat_noted(classes, q_ids, q_w, s_phys, dmap_groups, **kw):
+        if flat_inputs is not None and tuple(q_ids.shape) not in flat_inputs:
+            flat_inputs[tuple(q_ids.shape)] = (q_ids.clone(), q_w.clone(),
+                                               None if s_phys is None else s_phys.clone(), dmap_groups)
+        return flat(classes, q_ids, q_w, s_phys, dmap_groups, **kw)
 
     counters = launch_counters()
     for wrapper in counters.values():
@@ -616,10 +628,17 @@ def hybrid1m_queries(rng, vocab, bm25) -> tuple[list[str], list[str]]:
     return queries, queries[:8]
 
 
-def check_flat_kernel(cell: str, classes, flat_inputs: dict) -> list[dict]:
-    """Phase 1 for K3: the kernel against its twin, bitwise, on every length
-    class at every (B, T) the flat lane ran it with, on the query rows the
-    lane gave it there. Times are CUDA-event medians."""
+def check_flat_kernel(cell: str, classes, flat_inputs: dict, *, timed: bool = True) -> list[dict]:
+    """Phase 1 for K3: the fused kernel against its twin, bitwise (masked
+    scores, group maxima and group rows), on every length class at every
+    (B, T) the flat lane ran it with, on the query rows, hot partial and
+    row map the lane gave it there. Times are CUDA-event medians of one
+    launch (one class). The bound counts the bytes (term and tf words, the
+    hot slice, the row map and the query rows read once; the three outputs
+    written once) against the integer compares this data needs at the INT32
+    rate: one filter probe per (l, slot) per query tile, and B * T compares
+    for each (l, slot) whose term a query row of the tile holds; the naive
+    count, B * T for every (l, slot), is logged beside it."""
     import torch
 
     from frankensearch_tpu_torch.lexical import device_bm25 as bm
@@ -627,27 +646,43 @@ def check_flat_kernel(cell: str, classes, flat_inputs: dict) -> list[dict]:
     if not flat_inputs:
         raise AssertionError(f"phase1 {cell}: the main path gave the flat lane no query rows")
     recs = []
-    for (b, t_q), (q_ids, q_w) in sorted(flat_inputs.items(), reverse=True):
+    for (b, t_q), (q_ids, q_w, s_phys, dmap_groups) in sorted(flat_inputs.items(), reverse=True):
+        off = goff = 0
         for c, cls in enumerate(classes):
             n_c, l_c, d_pad = cls.term_t.shape
-            got = bm.flat_class_scores(cls.term_t, cls.tf_t, q_ids, q_w)
-            want = bm.flat_class_scores_plain(cls.term_t, cls.tf_t, q_ids, q_w)
-            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-                err = (got - want).abs().max().item()
-                raise AssertionError(f"phase1 {cell} K3 class {c} B={b} T={t_q}: not bitwise (max err {err:.3e})")
-            ms = cuda_median_ms(lambda: bm.flat_class_scores(cls.term_t, cls.tf_t, q_ids, q_w), iters=10)
-            plain_ms = cuda_median_ms(
-                lambda: bm.flat_class_scores_plain(cls.term_t, cls.tf_t, q_ids, q_w), warmup=1, iters=5
-            )
-            recs.append({"kernel": "flat_score", "cell": cell, "class": c, "n_c": n_c, "l": l_c,
+            gc = d_pad // 128
+            dmap = dmap_groups[goff : goff + n_c * gc].reshape(n_c, d_pad)
+            args = (cls.term_t, cls.tf_t, q_ids, q_w, s_phys, off, dmap)
+            got = bm.flat_class_fused(*args)
+            want = bm.flat_class_fused_plain(*args)
+            for what, g, w in zip(("scores", "group maxima", "group rows"), got, want):
+                if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                    raise AssertionError(f"phase1 {cell} K3 class {c} B={b} T={t_q}: {what} not bitwise")
+            off += n_c * d_pad
+            goff += n_c * gc
+            if not timed:
+                continue
+            ms = cuda_median_ms(lambda: bm.flat_class_fused(*args), iters=10)
+            plain_ms = cuda_median_ms(lambda: bm.flat_class_fused_plain(*args), warmup=1, iters=5)
+            slots = cls.term_t.numel()
+            hits = int(torch.isin(cls.term_t, q_ids).sum().item())
+            row_tiles = -(-b // min(64, 4096 // (t_q | 1)))  # the kernel's query tiles
+            compares = slots * row_tiles + hits * b * t_q
+            hot_bytes = 0 if s_phys is None else n_c * d_pad * b * 4
+            recs.append({"kernel": "flat_fused", "cell": cell, "class": c, "n_c": n_c, "l": l_c,
                          "d_pad": d_pad, "b": b, "t": t_q, "ms": ms, "plain_ms": plain_ms,
-                         "max_abs_err": 0.0,
-                         # a term compare per (query, slot, l, query term), f32 scores
-                         "bound": bound(nbytes(cls.term_t, cls.tf_t, q_ids, q_w, got),
-                                        b * n_c * l_c * d_pad * t_q, "f32")})
-            log(f"phase1 {cell} flat_score class {c} ({n_c} x {l_c} x {d_pad}) B={b} T={t_q}: "
-                f"{ms:.4f} ms (plain {plain_ms:.4f}), bitwise equal")
+                         "max_abs_err": 0.0, "hit_words": hits, "words": slots,
+                         "bound": bound(nbytes(cls.term_t, cls.tf_t, q_ids, q_w, dmap, *got) + hot_bytes,
+                                        compares, "int32"),
+                         "naive_compare_ms": slots * b * t_q / INT32_OPS_PER_S * 1e3})
+            r = recs[-1]
+            log(f"phase1 {cell} K3 class {c} ({n_c} x {l_c} x {d_pad}) B={b} T={t_q}: {ms:.4f} ms "
+                f"(plain {plain_ms:.4f}, bound {r['bound'][0]:.4f} by {r['bound'][1]}; naive compares "
+                f"{r['naive_compare_ms']:.4f} ms; {hits} of {slots} words hit), bitwise equal")
             del got, want
+    if not timed:
+        log(f"phase1 {cell} K3 bitwise equal to its twin on {len(classes)} classes at (B, T) "
+            f"{sorted(flat_inputs)}")
     return recs
 
 
@@ -978,7 +1013,9 @@ def check_tile_kernel(cell: str, slab, mask, shapes: set) -> list[dict]:
     f32 sums differ in order, so near ties may swap: the sorted scores of
     each (tile, query) agree within REL_TOL position by position, and every
     candidate row the kernel names is a distinct row of its tile whose
-    plain score is the kernel's."""
+    plain score is the kernel's. The kernel's scores are K1's bits: each
+    (tile, query)'s first candidate is bitwise the largest of K1's 16 group
+    maxima over the tile. Then :func:`check_tile_edges`."""
     import torch
 
     from frankensearch_tpu_torch.ops import topk_scan as ts
@@ -997,14 +1034,86 @@ def check_tile_kernel(cell: str, slab, mask, shapes: set) -> list[dict]:
         err = check_close(got_s, want_s, f"phase1 {cell} K5 B={b} kk={kk}")
         check_tile_rows(slab, q, mask, got_s, got_i, f"phase1 {cell} K5 B={b} kk={kk}")
         del want_s
+        k1_first = ts.group_max(slab, q, mask).view(b, n // ts.TILE_N, ts.TILE_N // ts.GROUP).amax(dim=2)
+        if not torch.equal(got_s[:, 0, :].T.contiguous().view(torch.int32), k1_first.view(torch.int32)):
+            raise AssertionError(f"phase1 {cell} K5 B={b} kk={kk}: a first candidate is not K1's tile maximum")
         recs.append({"kernel": "tile_topk", "cell": cell, "n": n, "b": b, "kk": kk,
                      "ms": cuda_median_ms(lambda: ts.tile_topk(slab, q, mask, kk)),
                      "plain_ms": cuda_median_ms(lambda: ts.tile_topk_plain(slab, q, mask, kk), warmup=1, iters=5),
                      "max_abs_err": err,
-                     # the kk selection passes are extra work the bound does not count
+                     # the selection moves no device memory: bytes and the scan's products
                      "bound": bound(nbytes(slab, q, mask, got_s, got_i), 2 * b * n * d, kind)})
     log_kernel_records(cell, recs)
+    log(f"phase1 {cell} K5 first candidates bitwise equal to K1's tile maxima at (B, kk) {todo}")
+    check_tile_edges(slab.device)
     return recs
+
+
+#: the (B, kk) of K5's edge check: a ragged query tile, kk = 1 and 2, the
+#: searcher's budgets, the list entry's widest kk and the wide entry's
+EDGE_B = 70
+EDGE_KKS = (1, 2, 30, 60, 64, 65, 2048)
+
+
+def adversarial_tile_inputs(n_tiles: int, d: int, b: int, seed: int):
+    """Seeded K5 inputs whose every score is exact in f32, so any summation
+    order gives the same bits: slab entries are multiples of 1/8 in
+    [-1/4, 1/4] and query entries integers in [-2, 2] (both exact in bf16
+    and f16). Exact ties: every tile repeats 64 of its rows at 3 other
+    columns each, query row 1 is zero (every score of a tile ties), and the
+    values are coarse. About 10% of the rows are masked; tile 1 is masked
+    whole; tile 2 holds only three finite rows, so kk above 3 reaches the
+    -inf column-0 padding. Returns numpy (slab f32 (n_tiles*2048, d),
+    queries f32 (b, d), additive mask f32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = n_tiles * 2048
+    slab = rng.integers(-2, 3, size=(n, d), dtype=np.int8).astype(np.float32) * np.float32(0.125)
+    for t in range(n_tiles):
+        for src in rng.choice(2048, 64, replace=False):
+            slab[t * 2048 + rng.choice(2048, 3, replace=False)] = slab[t * 2048 + src]
+    q = rng.integers(-2, 3, size=(b, d)).astype(np.float32)
+    if b > 1:
+        q[1] = 0.0
+    mask = np.where(rng.random(n) < 0.1, -np.inf, 0.0).astype(np.float32)
+    if n_tiles > 1:
+        mask[2048:4096] = -np.inf
+    if n_tiles > 2:
+        mask[4096:6144] = -np.inf
+        mask[4096 + np.array([5, 700, 2047])] = 0.0
+    return slab, q, mask
+
+
+def check_tile_edges(dev) -> None:
+    """K5's edge cases on the card: :func:`adversarial_tile_inputs` over 8
+    tiles at B = EDGE_B, bf16 and f16, every kk of EDGE_KKS (both entries of
+    the kernel): rows and score bits equal to the twin's, and each first
+    candidate bitwise K1's tile maximum."""
+    import torch
+
+    from frankensearch_tpu_torch.ops import topk_scan as ts
+
+    slab_np, q_np, mask_np = adversarial_tile_inputs(8, DIM, EDGE_B, SEED + 9)
+    q, mask = torch.from_numpy(q_np).to(dev), torch.from_numpy(mask_np).to(dev)
+    wide0 = ts.tile_topk.wide_launches
+    for dtype in (torch.bfloat16, torch.float16):
+        slab = torch.from_numpy(slab_np).to(dev, dtype)
+        k1_first = ts.group_max(slab, q, mask).view(EDGE_B, 8, 16).amax(dim=2)
+        for kk in EDGE_KKS:
+            got_s, got_i = ts.tile_topk(slab, q, mask, kk)
+            want_s, want_i = ts.tile_topk_plain(slab, q, mask, kk)
+            if not (torch.equal(got_i, want_i) and torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))):
+                bad = (got_i != want_i) | (got_s.view(torch.int32) != want_s.view(torch.int32))
+                raise AssertionError(f"phase1 K5 edges {dtype} kk={kk}: {int(bad.sum())} entries differ from the twin, "
+                                     f"first at {bad.nonzero()[0].tolist()}")
+            if not torch.equal(got_s[:, 0, :].T.contiguous().view(torch.int32), k1_first.view(torch.int32)):
+                raise AssertionError(f"phase1 K5 edges {dtype} kk={kk}: a first candidate is not K1's tile maximum")
+    if ts.tile_topk.wide_launches - wide0 != 2 * sum(kk > ts.TILE_TOPK_LIST_K for kk in EDGE_KKS):
+        raise AssertionError("phase1 K5 edges: the wide entry did not run for every kk above the list entry's")
+    log(f"phase1 K5 edges (8 tiles x {DIM}, B={EDGE_B}, ties, masked rows, a masked tile, a 3-row tile; "
+        f"kk {list(EDGE_KKS)}, bf16 and f16, list and wide entries): rows and score bits equal to the twin's, "
+        "first candidates equal to K1's tile maxima")
 
 
 def phase5_scan_modes(dev, tmp: str, semantic: dict, lexical: dict) -> tuple[dict, dict, list[dict]]:
@@ -1360,7 +1469,8 @@ def phase7_hybrid_m2v(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[di
             embedded.append(searcher.last_phase1_embed_fused)
         return batch, batch_ms, solo, single_ms
 
-    (batch, batch_ms, solo, single_ms), launches = drive(main_path, shapes)
+    flat_inputs: dict = {}
+    (batch, batch_ms, solo, single_ms), launches = drive(main_path, shapes, flat_inputs)
     log(f"phase7 search_batch B=256: {batch_ms:.2f} ms; singletons: "
         + ", ".join(f"{t:.2f}" for t in single_ms) + f" ms; lanes {lanes}")
     need_launches("phase7", launches, ("K1", "K2", "K3"))
@@ -1448,6 +1558,7 @@ def phase7_hybrid_m2v(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[di
         f"bitwise equal vector hits and results; {moved} whose host-normalized vector rounds an element to "
         f"another bf16 value give vector hits equal up to ties within {BF16_DOT_BOUND:.3e}")
     kernels = check_kernels("hybrid-1M-m2v", index.fast.slab, index.fast._effective_mask(None, None), shapes)
+    check_flat_kernel("hybrid-1M-m2v", bm25._blocked.classes, flat_inputs, timed=False)
     del searcher, host, index, m2v, vecs
     torch.cuda.empty_cache()
     return ({"batch_ms": batch_ms, "single_ms": single_ms, "lanes": lanes, "recall_at_10": recall,
@@ -1514,19 +1625,20 @@ def main() -> int:
     kernels = []
     for name, key, src, replaces, cell in KERNELS:
         recs = [r for r in records if r["kernel"] == name]
-        if name == "flat_score":
-            # headline: the widest batch tile, summed over the classes (one flat scan)
+        if name == "flat_fused":
+            # headline: one launch (one class) at the widest batch tile, the
+            # mean over the classes, the unit of its launch count
             top = max((r["b"], r["t"]) for r in recs)
             head = [r for r in recs if (r["b"], r["t"]) == top]
         else:
             # headline: the 1M-doc cell's largest batch (and largest kk)
             head = [max((r for r in recs if r["cell"] == cell), key=lambda r: (r["b"], r["kk"] or 0))]
-        bound_ms = sum(r["bound"][0] for r in head)
+        bound_ms = sum(r["bound"][0] for r in head) / len(head)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7)),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
-            "ms": sum(r["ms"] for r in head), "plain_ms": sum(r["plain_ms"] for r in head),
+            "ms": sum(r["ms"] for r in head) / len(head), "plain_ms": sum(r["plain_ms"] for r in head) / len(head),
             "bound_ms": bound_ms,
             "bound_by": max(head, key=lambda r: r["bound"][0])["bound"][1],
             "library_ms": None,  # no single PyTorch call computes any of these functions

@@ -20,11 +20,11 @@ layout, and the layout SPLITS (lexical/hot_arm.py) when the df head fits
 the hot arm's budget:
 
 - split corpora store the blocks transposed, (n_c, L, d_pad) per class;
-  the FLAT lane scores every tail slot with kernel K3
-  (:func:`flat_class_scores`, ops/csrc/flat_score.cu), adds the hot
-  partial in the same slot space, reduces per 128-slot group to (max, row
-  of the first max), selects the top-k groups per query and finishes
-  with an exact sort of their slots;
+  the FLAT lane runs kernel K3 (:func:`flat_class_fused`,
+  ops/csrc/flat_score.cu) once per class: it scores every tail slot, adds
+  the hot partial in the same slot space and reduces per 128-slot group
+  to (max, row of the first max) in one pass; the lane then selects the
+  top-k groups per query and finishes with an exact sort of their slots;
 - unsplit corpora keep the doc-major blocks and run the PRUNED lane: the
   blocks in descending order of their block-max bound, each skipped when
   its bound is below every query's running k-th score;
@@ -276,12 +276,13 @@ def _graded_scan_pruned(classes, bounds_list, q_ids, q_w, *, k: int):
 
 
 # --------------------------------------------------------------------------
-# K3: flat class scores
+# K3: one class of the flat lane (split layout)
 # --------------------------------------------------------------------------
 
 
 def flat_class_scores_plain(term_t, tf_t, q_ids, q_w) -> torch.Tensor:
-    """Plain twin of K3: (n_c, B, d_pad) f32 scores of one class,
+    """The scoring half of K3's plain twin: (n_c, B, d_pad) f32 tail scores
+    of one class,
 
         out[p, b, d] = Σ_l Σ_j q_w[b, j] · tf_t[p, l, d] · [term_t[p, l, d] == q_ids[b, j]]
 
@@ -297,55 +298,6 @@ def flat_class_scores_plain(term_t, tf_t, q_ids, q_w) -> torch.Tensor:
             hit = tl == q_ids[None, :, j, None]  # (n_c, B, d_pad)
             acc = acc + torch.where(hit, q_w[None, :, j, None] * fl, 0.0)
     return acc
-
-
-def flat_class_scores(term_t, tf_t, q_ids, q_w) -> torch.Tensor:
-    """K3 (replaces ``_flat_score_kernel``): (n_c, B, d_pad) f32 flat tail
-    scores of one class. CUDA tensors run csrc/flat_score.cu (any B, T and
-    L); CPU tensors the plain twin. Both sum in the same order, so they
-    agree bit for bit."""
-    if term_t.device.type == "cpu":
-        return flat_class_scores_plain(term_t, tf_t, q_ids, q_w)
-    n_c, l_c, d_pad = term_t.shape
-    b, t_q = q_ids.shape
-    if (
-        term_t.dtype != torch.int32 or tf_t.dtype != torch.float32
-        or q_ids.dtype != torch.int32 or q_w.dtype != torch.float32
-    ):
-        raise ValueError("flat_class_scores takes i32 terms/ids and f32 tf/weights")
-    if tf_t.shape != term_t.shape or q_w.shape != q_ids.shape:
-        raise ValueError(f"shape mismatch: {tuple(term_t.shape)}/{tuple(tf_t.shape)}, "
-                         f"{tuple(q_ids.shape)}/{tuple(q_w.shape)}")
-    if len({t.device for t in (term_t, tf_t, q_ids, q_w)}) != 1:
-        raise ValueError("flat_class_scores operands must share one device")
-    if d_pad % 128 or t_q * 4 * 8 > 48 * 1024:
-        raise ValueError(f"flat_class_scores needs d_pad % 128 == 0 and T <= 1536, got {d_pad}, {t_q}")
-    out = torch.empty((n_c, b, d_pad), dtype=torch.float32, device=term_t.device)
-    if n_c == 0 or b == 0:
-        return out
-    term_t, tf_t = term_t.contiguous(), tf_t.contiguous()
-    q_ids, q_w = q_ids.contiguous(), q_w.contiguous()
-    from frankensearch_tpu_torch.ops import _build
-
-    lib = _build.library()
-    with torch.cuda.device(term_t.device):
-        rc = lib.fs_flat_score(
-            q_ids.data_ptr(), q_w.data_ptr(), term_t.data_ptr(), tf_t.data_ptr(),
-            out.data_ptr(), n_c, l_c, d_pad, b, t_q,
-            torch.cuda.current_stream(term_t.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flat_score kernel launch failed: CUDA error {rc}")
-    flat_class_scores.launches += 1
-    return out
-
-
-flat_class_scores.launches = 0
-
-
-# --------------------------------------------------------------------------
-# flat lane (split layout)
-# --------------------------------------------------------------------------
 
 
 def _flat_step_stats(scores: torch.Tensor, dm: torch.Tensor):
@@ -378,13 +330,85 @@ def _flat_class_poststats(sc0, s_phys, off: int, dmap_blocks):
     return scores, gmax, grow
 
 
+def flat_class_fused_plain(term_t, tf_t, q_ids, q_w, s_phys, off: int, dmap_blocks):
+    """Plain twin of K3: :func:`flat_class_scores_plain`, then
+    :func:`_flat_class_poststats` (the reference's Pallas kernel and its
+    post-pass). Returns (masked (n_c, B, d_pad) f32, gmax (n_c, B, gc)
+    f32, grow (n_c, B, gc) i32)."""
+    return _flat_class_poststats(flat_class_scores_plain(term_t, tf_t, q_ids, q_w), s_phys, off, dmap_blocks)
+
+
+def flat_class_fused(term_t, tf_t, q_ids, q_w, s_phys, off: int, dmap_blocks):
+    """K3 (replaces ``_flat_score_kernel`` and its post-pass
+    ``_flat_hot_mask_stats``): one class of the flat lane in one pass: the
+    tail scores, the hot partial's slice ``s_phys[:, off : off + n_c*d_pad]``
+    added (``s_phys`` may be None), padding slots (``dmap_blocks < 0``)
+    masked to -inf, and each 128-slot group reduced to (max, row of its
+    first max). CUDA tensors run csrc/flat_score.cu (any B and L, T <=
+    4095); CPU tensors the plain twin. Both take the same rounded steps in
+    the same order, so they agree bit for bit. Returns (masked (n_c, B,
+    d_pad) f32, gmax (n_c, B, gc) f32, grow (n_c, B, gc) i32)."""
+    if term_t.device.type == "cpu":
+        return flat_class_fused_plain(term_t, tf_t, q_ids, q_w, s_phys, off, dmap_blocks)
+    n_c, l_c, d_pad = term_t.shape
+    b, t_q = q_ids.shape
+    if (
+        term_t.dtype != torch.int32 or tf_t.dtype != torch.float32 or dmap_blocks.dtype != torch.int32
+        or q_ids.dtype != torch.int32 or q_w.dtype != torch.float32
+        or (s_phys is not None and s_phys.dtype != torch.float32)
+    ):
+        raise ValueError("flat_class_fused takes i32 terms/ids/rows and f32 tf/weights/hot partial")
+    if tf_t.shape != term_t.shape or q_w.shape != q_ids.shape or dmap_blocks.shape != (n_c, d_pad):
+        raise ValueError(f"shape mismatch: {tuple(term_t.shape)}/{tuple(tf_t.shape)}/{tuple(dmap_blocks.shape)}, "
+                         f"{tuple(q_ids.shape)}/{tuple(q_w.shape)}")
+    if s_phys is not None and (s_phys.dim() != 2 or s_phys.shape[0] != b or off + n_c * d_pad > s_phys.shape[1]):
+        raise ValueError(f"hot partial {tuple(s_phys.shape)} does not hold {b} rows of slots "
+                         f"{off}..{off + n_c * d_pad}")
+    operands = (term_t, tf_t, q_ids, q_w, dmap_blocks) + (() if s_phys is None else (s_phys,))
+    if len({t.device for t in operands}) != 1:
+        raise ValueError("flat_class_fused operands must share one device")
+    if d_pad % 128 or (t_q | 1) > 4096:
+        raise ValueError(f"flat_class_fused needs d_pad % 128 == 0 and T <= 4095, got {d_pad}, {t_q}")
+    dev = term_t.device
+    out = torch.empty((n_c, b, d_pad), dtype=torch.float32, device=dev)
+    gmax = torch.empty((n_c, b, d_pad // 128), dtype=torch.float32, device=dev)
+    grow = torch.empty((n_c, b, d_pad // 128), dtype=torch.int32, device=dev)
+    if n_c == 0 or b == 0:
+        return out, gmax, grow
+    term_t, tf_t, dmap_blocks = term_t.contiguous(), tf_t.contiguous(), dmap_blocks.contiguous()
+    q_ids, q_w = q_ids.contiguous(), q_w.contiguous()
+    hot = None if s_phys is None else s_phys.contiguous()
+    from frankensearch_tpu_torch.ops import _build
+
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.fs_flat_fused(
+            q_ids.data_ptr(), q_w.data_ptr(), term_t.data_ptr(), tf_t.data_ptr(),
+            None if hot is None else hot.data_ptr(), 0 if hot is None else hot.shape[1], off,
+            dmap_blocks.data_ptr(), out.data_ptr(), gmax.data_ptr(), grow.data_ptr(),
+            n_c, l_c, d_pad, b, t_q, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flat_fused kernel launch failed: CUDA error {rc}")
+    flat_class_fused.launches += 1
+    return out, gmax, grow
+
+
+flat_class_fused.launches = 0
+
+
+# --------------------------------------------------------------------------
+# flat lane (split layout)
+# --------------------------------------------------------------------------
+
+
 def _graded_scan_flat(classes, q_ids, q_w, s_phys, dmap_groups, *, k: int):
     """Flat exhaustive scan over the graded classes of the split layout.
     Returns ((B, k) f32 scores, (B, k) i32 global rows, skipped = 0).
 
-    Each class's tail scores come from K3; the hot partial is added in the
-    same group-aligned slot space, padding slots mask to -inf, and each
-    128-slot group reduces to (max, row of its first max). The top-k
+    Each class is one K3 pass: its tail scores, the hot partial added in
+    the same group-aligned slot space, padding slots masked to -inf, and
+    each 128-slot group reduced to (max, row of its first max). The top-k
     groups per query by (max desc, row asc) cover the exact top-k: an
     element of a group left out is dominated by k others, by score or, at
     equal score, by row. Their slots are gathered from the class scores
@@ -400,8 +424,7 @@ def _graded_scan_flat(classes, q_ids, q_w, s_phys, dmap_groups, *, k: int):
         n_c, d_pad = cls.term_t.shape[0], cls.term_t.shape[2]
         gc = d_pad // 128
         dmap_blocks = dmap_groups[goff : goff + n_c * gc].reshape(n_c, d_pad)
-        sc0 = flat_class_scores(cls.term_t, cls.tf_t, q_ids, q_w)
-        sc, gmax, grow = _flat_class_poststats(sc0, s_phys, off, dmap_blocks)
+        sc, gmax, grow = flat_class_fused(cls.term_t, cls.tf_t, q_ids, q_w, s_phys, off, dmap_blocks)
         scores_cls.append(sc)
         meta.append((goff, gc, n_c))
         gmax_parts.append(gmax.transpose(0, 1).reshape(b, n_c * gc))

@@ -25,7 +25,8 @@ SOURCES = (
     "group_max.cu", "gather_rescore.cu", "flat_score.cu", "group_max_int8.cu", "tile_topk.cu",
     "group_candidates.cu",
 )
-#: headers the sources include (part of the build's hash)
+#: headers the sources include (part of the build's hash): group_scan.cuh
+#: is the scoring body of K1, K5 and K6
 HEADERS = ("group_scan.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -111,14 +112,17 @@ def library() -> ctypes.CDLL:
         lib.fs_group_max.restype = i32
         lib.fs_gather_rescore.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i64, i32, ptr]
         lib.fs_gather_rescore.restype = i32
-        lib.fs_flat_score.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-        lib.fs_flat_score.restype = i32
+        lib.fs_flat_fused.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, ptr, ptr, ptr, ptr,
+                                      i32, i32, i32, i32, i32, ptr]
+        lib.fs_flat_fused.restype = i32
         lib.fs_group_max_int8.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, ptr]
         lib.fs_group_max_int8.restype = i32
         lib.fs_gather_rescore_i8.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
         lib.fs_gather_rescore_i8.restype = i32
         lib.fs_tile_topk.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr]
         lib.fs_tile_topk.restype = i32
+        lib.fs_tile_topk_wide.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr]
+        lib.fs_tile_topk_wide.restype = i32
         lib.fs_group_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, i32, ptr]
         lib.fs_group_candidates.restype = i32
         _lib = lib

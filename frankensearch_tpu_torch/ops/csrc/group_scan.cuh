@@ -1,15 +1,18 @@
-// The per-group scoring body shared by K1 (group_max.cu) and K6
-// (group_candidates.cu), for sm_90a.
+// The per-group scoring body shared by K1 (group_max.cu), K5 (tile_topk.cu)
+// and K6 (group_candidates.cu), for sm_90a.
 //
-// score_group() computes, for one 128-row group of the slab and a tile of
-// 64 queries,
+// score_group_with() computes, for one 128-row group of the slab and a tile
+// of 64 queries, the dot products dot(bf16(q[b]), slab[r]) with bf16 (or
+// f16) products accumulated in f32 on the tensor cores (mma.sync
+// m16n8k16), and hands them, with the group's mask staged in shared memory,
+// to an epilogue. score_group() is that body with K1's epilogue:
 //
 //     max_{r in group} ( dot(bf16(q[b]), slab[r]) + mask[r] )
 //
-// with bf16 (or f16) products accumulated in f32 on the tensor cores
-// (mma.sync m16n8k16), and leaves it in shared memory: group_max_of(sm, c)
-// is the maximum for query q0 + c. Both kernels call exactly this code, so
-// K6's group maxima are K1's, bit for bit.
+// left in shared memory, where group_max_of(sm, c) reads the maximum for
+// query q0 + c. The three kernels call exactly this code, so K6's group
+// maxima are K1's, and K5's scores are the values K1 takes the maximum
+// of, bit for bit.
 //
 // Layout (see group_max.cu for what bounds it on the H100):
 //   * 4 warps, each owning 32 rows x 64 queries (2 x 8 mma tiles, 64 f32
@@ -17,9 +20,9 @@
 //   * the group's rows and the query tile are staged through shared memory
 //     in 64-dim chunks with 16-byte loads; rows are padded to 72 elements so
 //     the fragment loads are free of bank conflicts;
-//   * the mask is added in f32 before the max, the max over the 128 rows is
-//     taken in registers, across lanes with shuffles and across the 4 warps
-//     through shared memory.
+//   * K1's epilogue adds the mask in f32 before the max, takes the max over
+//     the 128 rows in registers, across lanes with shuffles and across the
+//     4 warps through shared memory.
 
 #pragma once
 
@@ -65,16 +68,23 @@ __device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// Accumulators of score_group_with(): acc[mt][nt][c] is the dot product of
+// row warp*32 + mt*16 + g (+8 for c >= 2) of the group with query
+// nt*8 + 2t + (c & 1) of the tile, where g = lane / 4 and t = lane % 4.
+using GroupAcc = float[2][8][4];
+
 // Scores rows row0 .. row0+127 of the slab against queries q0 .. q0+63
-// (missing queries past b score as zero rows) and leaves each warp's
-// per-query maximum in sm.red. Every thread of the block must call it; it
-// ends with a barrier, after which group_max_of() may be read.
-template <bool kBf16>
-__device__ __forceinline__ void score_group(const uint16_t* __restrict__ q,
-                                            const uint16_t* __restrict__ slab,
-                                            const float* __restrict__ mask,
-                                            int64_t row0, int q0, int b, int d,
-                                            GroupSmem& sm) {
+// (missing queries past b score as zero rows) and calls epi(acc) with every
+// thread's accumulators, sm.mask holding the group's mask. Every thread of
+// the block must call it. The staged rows and queries are dead when epi
+// runs (all threads have passed the barrier after the last chunk); the
+// mask is live until epi's own barrier.
+template <bool kBf16, class Epilogue>
+__device__ __forceinline__ void score_group_with(const uint16_t* __restrict__ q,
+                                                 const uint16_t* __restrict__ slab,
+                                                 const float* __restrict__ mask,
+                                                 int64_t row0, int q0, int b, int d,
+                                                 GroupSmem& sm, Epilogue&& epi) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -83,7 +93,7 @@ __device__ __forceinline__ void score_group(const uint16_t* __restrict__ q,
 
   for (int i = tid; i < kGroup; i += kThreads) sm.mask[i] = mask[row0 + i];
 
-  float acc[2][8][4];
+  GroupAcc acc;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -131,27 +141,42 @@ __device__ __forceinline__ void score_group(const uint16_t* __restrict__ q,
     }
     __syncthreads();
   }
+  epi(acc);
+}
 
-  // acc[mt][nt][c] is the score of row warp*32 + mt*16 + g (+8 for c >= 2)
-  // against query nt*8 + 2t + (c & 1).
+// K1's scoring body: score_group_with() whose epilogue adds the mask, takes
+// each warp's per-query maximum into sm.red and ends with a barrier, after
+// which group_max_of() may be read.
+template <bool kBf16>
+__device__ __forceinline__ void score_group(const uint16_t* __restrict__ q,
+                                            const uint16_t* __restrict__ slab,
+                                            const float* __restrict__ mask,
+                                            int64_t row0, int q0, int b, int d,
+                                            GroupSmem& sm) {
+  score_group_with<kBf16>(q, slab, mask, row0, q0, b, d, sm, [&](GroupAcc& acc) {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float m = -INFINITY;
+      for (int j = 0; j < 2; ++j) {
+        float m = -INFINITY;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = warp * 32 + mt * 16 + g;
-        m = fmaxf(m, acc[mt][nt][j] + sm.mask[r]);
-        m = fmaxf(m, acc[mt][nt][j + 2] + sm.mask[r + 8]);
+        for (int mt = 0; mt < 2; ++mt) {
+          const int r = warp * 32 + mt * 16 + g;
+          m = fmaxf(m, acc[mt][nt][j] + sm.mask[r]);
+          m = fmaxf(m, acc[mt][nt][j + 2] + sm.mask[r + 8]);
+        }
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
+        if (g == 0) sm.red[warp][nt * 8 + 2 * t + j] = m;
       }
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
-      if (g == 0) sm.red[warp][nt * 8 + 2 * t + j] = m;
     }
-  }
-  __syncthreads();
+    __syncthreads();
+  });
 }
 
 // The group's maximum for query q0 + c, after score_group().

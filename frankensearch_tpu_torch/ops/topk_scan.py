@@ -380,6 +380,8 @@ gather_rescore_i8.launches = 0
 
 #: slab rows per tile of the per-tile top-k scan (fixed by K5)
 TILE_N = 2048
+#: the largest kk K5's threshold-list entry holds (larger kk: its wide entry)
+TILE_TOPK_LIST_K = 64
 
 
 def tile_topk_plain(
@@ -412,7 +414,10 @@ def tile_topk(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5 (replaces ``_tile_topk_kernel``): (T, kk, B) per-tile top-kk
     scores and slab rows. CUDA tensors run csrc/tile_topk.cu (tiles of
-    2048 rows); CPU tensors the plain twin."""
+    2048 rows): its threshold-list entry, on K1's scoring body, for
+    ``kk <= TILE_TOPK_LIST_K`` and dim % 64 == 0, else its wide entry
+    (argmax passes; counted in ``tile_topk.wide_launches`` as well); CPU
+    tensors the plain twin."""
     if slab.device.type == "cpu":
         return tile_topk_plain(slab, queries, mask, kk, tile_n)
     _check_kernel_operands(slab, queries)
@@ -433,8 +438,9 @@ def tile_topk(
     from frankensearch_tpu_torch.ops import _build
 
     lib = _build.library()
+    wide = kk > TILE_TOPK_LIST_K or d % 64 != 0
     with torch.cuda.device(slab.device):
-        rc = lib.fs_tile_topk(
+        rc = (lib.fs_tile_topk_wide if wide else lib.fs_tile_topk)(
             q.data_ptr(), slab.data_ptr(), mask.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
             b, d, n, kk, int(slab.dtype == torch.bfloat16),
             torch.cuda.current_stream(slab.device).cuda_stream,
@@ -442,10 +448,12 @@ def tile_topk(
     if rc != 0:
         raise RuntimeError(f"tile_topk kernel launch failed: CUDA error {rc}")
     tile_topk.launches += 1
+    tile_topk.wide_launches += wide
     return out_s, out_i
 
 
 tile_topk.launches = 0
+tile_topk.wide_launches = 0
 
 
 def scan_topk_pallas(

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time goes: profile the PyTorch port's main path on one NVIDIA GPU.
 
-Usage: ``python3 profile_chip.py [OUT_DIR]`` from the root of a checkout (one
-CUDA card). OUT_DIR, where the reports go, defaults to ``build/profile``.
+Usage: ``python3 profile_chip.py [OUT_DIR]`` (or ``--kernels [ROOT]``,
+below) from the root of a checkout (one CUDA card). OUT_DIR, where the
+reports go, defaults to ``build/profile``.
 
-Builds the cells of ``chip_smoke.py`` (semantic-1M, hybrid-60k,
+Builds the cells of ``chip_smoke.py`` (semantic-1M, semantic-1M-pallas:
+the same index served with ``scan_mode="pallas"`` (K5), hybrid-60k,
 hybrid-1M: the 1M-doc BM25 arm over the semantic cell's vectors,
 semantic-1M-int8: the semantic cell's vectors in an int8 ``TwoTierIndex``
 served with ``scan_mode="int8"``, and hybrid-1M-m2v: the same BM25 arm with
@@ -27,6 +29,16 @@ of ``TwoTierSearcher.search_batch``:
 Prints one line per (cell, B), then the card's name and power limit, then a
 JSON summary as the last line. The profiler table and the cProfile listing
 of each (cell, B) go to ``OUT_DIR/profile_<cell>_b<B>.txt``.
+
+``python3 profile_chip.py --kernels [ROOT]`` times the flat lane's class
+step and K5 instead, from the port package under ROOT (default: this
+checkout), so that an earlier tree unpacked elsewhere (``git archive
+<commit> frankensearch_tpu_torch native``) is timed on the same inputs:
+hybrid-1M's lexical arm (``chip_smoke.hybrid1m_lexical``), the first
+64-row flat tile its 256 queries give, each class's step (K3 with its
+post-pass where the tree has one) and the whole ``_graded_scan_flat``; K5
+(``tile_topk``) on a seeded 1,007,616 x 256 bf16 slab of unit rows at the
+phase-5 shapes. CUDA-event medians; the last line is a JSON summary.
 """
 
 from __future__ import annotations
@@ -78,6 +90,77 @@ def profile_once(fn, path: str) -> tuple[float, float, float]:
     return device_ms, torch_prof_ms, cprofile_ms
 
 
+#: (B, kk) at which ``--kernels`` times K5: the serve batch, the fused
+#: lane's pad and a singleton at the searcher's two candidate budgets
+K5_SHAPES = ((256, 60), (256, 30), (8, 60), (8, 30), (1, 60), (1, 30))
+
+
+def time_kernels(root: str) -> int:
+    """``--kernels``: the flat class step and K5 of the package under
+    ``root``, on seeded inputs built the same way for any tree."""
+    import torch
+
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    from frankensearch_tpu_torch.device import resolve_device
+    from frankensearch_tpu_torch.lexical import device_bm25 as bm
+    from frankensearch_tpu_torch.ops import topk_scan as ts
+
+    dev = resolve_device("cuda")
+    fused = hasattr(bm, "flat_class_fused")
+    bm25, queries, _, _, _ = cs.hybrid1m_lexical(dev)
+    seen = []
+    flat = bm._graded_scan_flat
+
+    def flat_noted(classes, q_ids, q_w, s_phys, dmap_groups, **kw):
+        if not seen or q_ids.shape[0] > seen[0][1].shape[0]:  # the widest tile
+            seen[:] = [(classes, q_ids.clone(), q_w.clone(), s_phys.clone(), dmap_groups, kw["k"])]
+        return flat(classes, q_ids, q_w, s_phys, dmap_groups, **kw)
+
+    bm._graded_scan_flat = flat_noted
+    try:
+        bm25.search_candidates_batch(queries, 30)
+    finally:
+        bm._graded_scan_flat = flat
+    classes, q_ids, q_w, s_phys, dmap_groups, k = seen[0]
+    steps = []
+    off = goff = 0
+    for cls in classes:
+        n_c, l_c, d_pad = cls.term_t.shape
+        gc = d_pad // 128
+        dmap = dmap_groups[goff : goff + n_c * gc].reshape(n_c, d_pad)
+        if fused:
+            step = lambda c=cls, o=off, dm=dmap: bm.flat_class_fused(c.term_t, c.tf_t, q_ids, q_w, s_phys, o, dm)
+        else:
+            step = lambda c=cls, o=off, dm=dmap: bm._flat_class_poststats(
+                bm.flat_class_scores(c.term_t, c.tf_t, q_ids, q_w), s_phys, o, dm)
+        steps.append({"shape": [n_c, l_c, d_pad], "ms": cs.cuda_median_ms(step, iters=20)})
+        off += n_c * d_pad
+        goff += n_c * gc
+    lane_ms = cs.cuda_median_ms(lambda: flat(classes, q_ids, q_w, s_phys, dmap_groups, k=k), iters=20)
+    cs.log(f"{root}: flat class steps at B={q_ids.shape[0]} T={q_ids.shape[1]} ({'fused K3' if fused else 'K3 + post-pass'}): "
+           + ", ".join(f"{st['shape']} {st['ms']:.4f}" for st in steps)
+           + f" ms; one flat scan {sum(st['ms'] for st in steps):.4f} ms; _graded_scan_flat {lane_ms:.4f} ms")
+    del bm25, classes, s_phys
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 10)
+    n = 1_007_616  # semantic-1M's padded row count
+    slab = cs.unit_rows(gen, n, cs.DIM, dev).to(torch.bfloat16)
+    mask = torch.zeros(n, device=dev)
+    mask[cs.N_DOCS :] = float("-inf")
+    k5 = []
+    for b, kk in K5_SHAPES:
+        q = cs.unit_rows(gen, b, cs.DIM, dev)
+        k5.append({"b": b, "kk": kk, "ms": cs.cuda_median_ms(lambda: ts.tile_topk(slab, q, mask, kk), iters=20)})
+    cs.log(f"{root}: K5 at N={n}: " + ", ".join(f"B={r['b']} kk={r['kk']} {r['ms']:.4f}" for r in k5) + " ms")
+    cs.log(cs.gpu_line())
+    print(json.dumps({"root": root, "flat_fused": fused, "flat_steps": steps, "flat_scan_ms": sum(st["ms"] for st in steps),
+                      "graded_scan_flat_ms": lane_ms, "flat_b": q_ids.shape[0], "flat_t": q_ids.shape[1],
+                      "tile_topk": k5}), flush=True)
+    return 0
+
+
 def main() -> int:
     # the port must reach neither jax nor the JAX package, even indirectly
     sys.modules["jax"] = None
@@ -88,6 +171,8 @@ def main() -> int:
         print("profile_chip: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if len(sys.argv) > 1 and sys.argv[1] == "--kernels":
+        return time_kernels(os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else HERE)
     import chip_smoke as cs
     from frankensearch_tpu_torch.device import resolve_device
 
@@ -124,10 +209,16 @@ def main() -> int:
         del index
         return TwoTierSearcher(index8, emb, config=TwoTierConfig(fast_only=True, scan_mode="int8")), queries
 
+    def semantic_pallas(dev, tmp):
+        from frankensearch_tpu_torch import TwoTierConfig, TwoTierSearcher
+
+        _, index, emb, _, queries = cs.semantic_cell(dev, tempfile.mkdtemp(dir=tmp))
+        return TwoTierSearcher(index, emb, config=TwoTierConfig(fast_only=True, scan_mode="pallas")), queries
+
     with tempfile.TemporaryDirectory(prefix="fs_profile_") as tmp:
-        for cell, build in (("semantic-1M", cs.semantic_cell), ("hybrid-60k", cs.hybrid_cell),
-                            ("hybrid-1M", hybrid1m), ("semantic-1M-int8", semantic_int8),
-                            ("hybrid-1M-m2v", hybrid1m_m2v)):
+        for cell, build in (("semantic-1M", cs.semantic_cell), ("semantic-1M-pallas", semantic_pallas),
+                            ("hybrid-60k", cs.hybrid_cell), ("hybrid-1M", hybrid1m),
+                            ("semantic-1M-int8", semantic_int8), ("hybrid-1M-m2v", hybrid1m_m2v)):
             built = build(dev, tmp)
             searcher, queries = built[0], built[-1]
             for b in (256, 1):

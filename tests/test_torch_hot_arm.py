@@ -213,16 +213,23 @@ def test_split_budget_caps_like_reference():
 
 @pytest.mark.parametrize("b,t_q", [(8, 8), (16, 16)])
 def test_k3_twin_equals_reference_kernel_interpret(split_pair, b, t_q):
+    """The scoring half of K3's twin against the reference kernel; the
+    fused wrapper on CPU tensors runs the twin (its own tests:
+    tests/test_torch_flat_fused.py)."""
     _, ref, port = split_pair
     ids, w, _ = query_rows(port, b, seed=b + t_q, t_q=t_q)
     for pc, rc in zip(port._blocked.classes, ref._blocked.classes):
         want = jbm._flat_class_scores_pallas(
             rc.term_t, rc.tf_t, jnp.asarray(ids), jnp.asarray(w), interpret=True
         )
-        got = tbm.flat_class_scores(pc.term_t, pc.tf_t, torch.from_numpy(ids), torch.from_numpy(w))
+        args = (pc.term_t, pc.tf_t, torch.from_numpy(ids), torch.from_numpy(w))
+        got = tbm.flat_class_scores_plain(*args)
         assert got.shape == tuple(want.shape)
         np.testing.assert_array_equal(bits(got.numpy()), bits(want))
-    assert tbm.flat_class_scores.launches == 0  # CPU tensors take the twin
+        n_c, _, d_pad = pc.term_t.shape
+        unmasked = torch.zeros((n_c, d_pad), dtype=torch.int32)  # no padding slot: the raw scores
+        np.testing.assert_array_equal(bits(tbm.flat_class_fused(*args, None, 0, unmasked)[0].numpy()), bits(want))
+    assert tbm.flat_class_fused.launches == 0  # CPU tensors take the twin
 
 
 # -- the flat lane (b) --------------------------------------------------------

@@ -12,10 +12,13 @@ imports no jax, so it also runs where jax is not installed:
 Tolerances: K1/K2/K2-i8/K5/K6 vs twin 1e-5 relative (bf16 and int8
 products are exact; the tensor-core and warp sums run in another order
 than the twins', so K5, K6's group ids and the scan lanes may also swap
-near ties); K6's maxima are K1's bits (one scoring body); K4's int32
+near ties); K5's scores and K6's maxima are K1's bits (one scoring
+body), and on inputs whose every score is exact in f32 K5 is bitwise its
+twin; K4's int32
 sums are exact, so it is bitwise; the Model2Vec pool is elementwise f32
 adds in a fixed order, within 1e-6 of the CPU; K3 sums
-in its twin's order with unfused products and adds, so it is bitwise; the
+in its twin's order with unfused products and adds, then adds the hot
+partial, masks and reduces as the twin does, so it is bitwise; the
 BM25 and RRF lanes are order-pinned f32 adds (the pruned lane's exact
 FMA included), so GPU and CPU agree bit for bit. The hot partial is a
 cuBLAS product and is not compared bitwise across devices.
@@ -113,25 +116,34 @@ def test_device_rrf_bitwise_cpu_vs_gpu(cuda_device):
 
 @pytest.mark.parametrize("b,t_q,l_c", [(1, 8, 4), (8, 8, 12), (70, 16, 8)])
 def test_flat_score_matches_twin_bitwise(cuda_device, b, t_q, l_c):
+    """K3 (the fused class step) against its twin: masked scores, group
+    maxima and group rows, with and without a hot partial, padding slots
+    and an all-padding group included."""
     gen = np.random.default_rng(b + t_q)
-    n_c, d_pad, vocab = 3, 384, 50
+    n_c, d_pad, vocab, off = 3, 384, 50, 256
     term = gen.integers(-1, vocab, size=(n_c, l_c, d_pad)).astype(np.int32)
     tf = np.where(term >= 0, gen.uniform(0.1, 3.0, term.shape), 0.0).astype(np.float32)
     ids = gen.integers(0, vocab, size=(b, t_q)).astype(np.int32)
     w = gen.uniform(0.1, 9.0, size=(b, t_q)).astype(np.float32)
     w[:, -2:] = 0.0  # padding terms: id 0, weight 0
     ids[:, -2:] = 0
-    args = [torch.from_numpy(x) for x in (term, tf, ids, w)]
-    want = device_bm25.flat_class_scores_plain(*args)
-    launches = device_bm25.flat_class_scores.launches
-    got = device_bm25.flat_class_scores(*(x.to(cuda_device) for x in args))
-    torch.cuda.synchronize()
-    assert device_bm25.flat_class_scores.launches == launches + 1
-    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
-    assert torch.equal(
-        device_bm25.flat_class_scores_plain(*(x.to(cuda_device) for x in args)).cpu().view(torch.int32),
-        want.view(torch.int32),
-    )
+    ids[:, 1] = ids[:, 0]  # a repeated term id
+    dmap = np.arange(n_c * d_pad, dtype=np.int32).reshape(n_c, d_pad)
+    dmap[0, 128:256] = -1  # an all-padding group
+    dmap[2, 300:] = -1
+    hot = gen.uniform(0.0, 2.0, size=(b, off + n_c * d_pad + 128)).astype(np.float32)
+    for s_phys in (torch.from_numpy(hot), None):
+        args = [torch.from_numpy(x) for x in (term, tf, ids, w)] + [s_phys, off, torch.from_numpy(dmap)]
+        want = device_bm25.flat_class_fused_plain(*args)
+        on_card = [x.to(cuda_device) if isinstance(x, torch.Tensor) else x for x in args]
+        launches = device_bm25.flat_class_fused.launches
+        got = device_bm25.flat_class_fused(*on_card)
+        torch.cuda.synchronize()
+        assert device_bm25.flat_class_fused.launches == launches + 1
+        plain_on_card = device_bm25.flat_class_fused_plain(*on_card)
+        for g, c, x in zip(got, plain_on_card, want):
+            assert torch.equal(g.cpu().view(torch.int32), x.view(torch.int32))
+            assert torch.equal(c.cpu().view(torch.int32), x.view(torch.int32))
 
 
 def _blocked_docs():
@@ -281,6 +293,28 @@ def test_group_max_bits_unchanged_by_the_header_split(cuda_device, dtype, b):
     out = topk_scan.group_max(slab.to(cuda_device), q.to(cuda_device), mask.to(cuda_device)).cpu()
     digest = hashlib.sha256(out.view(torch.int32).numpy().tobytes()).hexdigest()
     assert digest == K1_DIGESTS[(str(dtype), b)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("kk", [1, 2, 7, 64, 65, 2048])
+def test_tile_topk_edges_bitwise(cuda_device, kk, dtype):
+    """K5 on chip_smoke's adversarial tiles (every score exact in f32):
+    rows and score bits equal to the twin's through both entries (the
+    threshold list up to kk = 64, the wide entry above), and each first
+    candidate is K1's tile maximum bit for bit."""
+    slab, q, mask = (torch.from_numpy(x) for x in chip_smoke.adversarial_tile_inputs(4, 256, 70, seed=kk))
+    slab = slab.to(dtype)
+    want_s, want_i = topk_scan.tile_topk_plain(slab, q, mask, kk)
+    slab, q, mask = slab.to(cuda_device), q.to(cuda_device), mask.to(cuda_device)
+    launches, wide = topk_scan.tile_topk.launches, topk_scan.tile_topk.wide_launches
+    got_s, got_i = topk_scan.tile_topk(slab, q, mask, kk)
+    torch.cuda.synchronize()
+    assert topk_scan.tile_topk.launches == launches + 1
+    assert topk_scan.tile_topk.wide_launches == wide + (kk > topk_scan.TILE_TOPK_LIST_K)
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_s.cpu().view(torch.int32), want_s.view(torch.int32))
+    k1_first = topk_scan.group_max(slab, q, mask).view(70, 4, 16).amax(dim=2)
+    assert torch.equal(got_s[:, 0, :].T.contiguous().view(torch.int32), k1_first.view(torch.int32))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
