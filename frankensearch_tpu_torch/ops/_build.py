@@ -26,8 +26,9 @@ SOURCES = (
     "group_candidates.cu",
 )
 #: headers the sources include (part of the build's hash): group_scan.cuh
-#: is the scoring body of K1, K5 and K6
-HEADERS = ("group_scan.cuh",)
+#: is the mma.sync scoring body of K5 and K6, hopper.cuh K1's TMA,
+#: mbarrier and wgmma primitives
+HEADERS = ("group_scan.cuh", "hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -112,6 +113,10 @@ def library() -> ctypes.CDLL:
         lib.fs_group_max.restype = i32
         lib.fs_gather_rescore.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i64, i32, ptr]
         lib.fs_gather_rescore.restype = i32
+        lib.fs_gather_rescore_sorted.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, i32, ptr]
+        lib.fs_gather_rescore_sorted.restype = i32
+        lib.fs_gather_plan.argtypes = [ptr, ptr, i32, i32, ptr]
+        lib.fs_gather_plan.restype = i32
         lib.fs_flat_fused.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, ptr, ptr, ptr, ptr,
                                       i32, i32, i32, i32, i32, ptr]
         lib.fs_flat_fused.restype = i32

@@ -10,17 +10,36 @@
 // with the query rounded to the slab dtype (as the TPU kernel does on the
 // main path) and products accumulated in f32.
 //
-// What bounds it on the H100: it is a gather-bound GEMV. At B = 256 and
-// kk = 30 groups it reads 256*30*128 rows of 512 B, ~0.5 GB: as much as the
-// slab itself, with 2 FLOP per element read. Only bytes matter.
+// What bounds it on the H100: it is a gather-bound GEMV, 2 FLOP per element
+// read, so only bytes matter, and the bytes it must move are the DISTINCT
+// groups the batch selected. At B = 256, kk = 60 on the 1M x 256 slab the
+// queries pick about 6,900 distinct groups (451 MB, 0.135 ms at 3.35 TB/s)
+// in 15,360 (query, group) pairs. The first port (one block per pair, in
+// query order) read a group again for every query that chose it, far apart
+// in time, so L2 rarely served it: 1.0 GB a call, above half the bound even
+// at full HBM speed.
 //
-// Design: one block per (query, group) pair, 4 warps of 32 rows each. The
-// block loads its own group id (the TPU kernel used scalar prefetch) and
-// stages the query once in shared memory as f32. Each warp reads whole rows
-// with coalesced 16-byte loads (one row = one 512 B transaction at d = 256),
-// four rows in flight per lane, and reduces each row's dot with a fixed
-// butterfly of shuffles. There is no VMEM gate and no batch-multiple rule:
-// any b and kk launch.
+// Design: group-major. A counting sort on the card (`fs_gather_plan`: a
+// count per group, a scan, a scatter; no host sync and no library sort,
+// whose host cost alone was twice the kernel's at B = 8) puts the B*kk
+// pairs in group order: the ids with equal ids adjacent and the pair each
+// came from. Batches too small to share
+// groups (the wrapper's GATHER_GROUP_MIN_B; a singleton's groups are
+// distinct) skip it and pass their pairs in pair order. One block of 4
+// warps (32 rows each) per
+// sorted position; a block scores the run of equal ids that starts at its
+// position (at most kRunPairs of them: a group every query chose still
+// spreads over many blocks) and every other block exits at once. A block
+// reads its group's 128 rows from HBM once into registers (each lane holds
+// 16-byte chunks c = lane, lane + 32, ... of its warp's rows, 64 registers
+// of them at a time: 16 rows at d <= 256), then loops over the run's
+// queries. The dot order is the first port's, so the output bits are too:
+// lane c sums 8 fmaf over chunk c, then c + 32, ...; the 32 lane sums meet
+// in the butterfly xor 16, 8, 4, 2, 1, done here as a reduce-scatter (each
+// round halves the rows a lane holds, computing the same sums), after
+// which each lane holds whole rows and the warp writes 128 contiguous
+// bytes. Ids outside [0, n/128) poison their 128 outputs with NaN. Any
+// b >= 1 and kk >= 1 launch.
 //
 // K2-i8, `fs_gather_rescore_i8` below, is the TPU kernel's `compute_f32`
 // form, reached from `scan_topk_hierarchical_int8`: int8 rows cast up to
@@ -30,9 +49,10 @@
 //
 // with f32 products and sums. It reads half the bytes of the bf16 form for
 // the same rows (kk = 60, B = 256 at d = 256: 503 MB, 0.150 ms at 3.35
-// TB/s) and is bound by them alone. Same design, with 16 int8 values per
-// 16-byte load and eight rows in flight per lane, so that a warp keeps as
-// many bytes in flight as the bf16 form.
+// TB/s) and is bound by them alone. It keeps the first port's design: one
+// block per (query, group) pair, 4 warps of 32 rows, the query staged in
+// shared memory as f32, eight rows in flight per lane (16 int8 values per
+// 16-byte load), a butterfly of shuffles per row.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -46,7 +66,7 @@ constexpr int kGroup = 128;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kGroup / kWarps;
-constexpr int kUnroll = 4;  // rows in flight per lane
+constexpr int kRunPairs = 16;  // most (query, group) pairs one block scores
 
 template <bool kBf16>
 __device__ __forceinline__ float to_f32(uint16_t x) {
@@ -68,85 +88,262 @@ __device__ __forceinline__ float dot8(const uint4& v, const float* qv, float acc
   return acc;
 }
 
-template <bool kBf16>
+// One round of the butterfly over lanes `m` apart, as a reduce-scatter: a
+// list of kW >= 2 row sums keeps half (the upper half on the lane whose bit
+// m is set) and adds the partner's sums for it; a single sum adds the
+// partner's. Either way each kept sum is own + partner, the butterfly's.
+template <int kW, int kRows>
+__device__ __forceinline__ void sum_round(float (&s)[kRows], int lane, int m) {
+  if constexpr (kW >= 2) {
+    const bool up = (lane & m) != 0;
+#pragma unroll
+    for (int i = 0; i < kW / 2; ++i) {
+      const float lo = s[i], hi = s[kW / 2 + i];
+      s[i] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, m);
+    }
+  } else {
+    s[0] = s[0] + __shfl_xor_sync(0xffffffffu, s[0], m);
+  }
+}
+
+// kCpl: 16-byte chunks of a row a lane holds (a power of two), so a warp
+// holds kRows = 16 / kCpl rows at once in 64 registers (one row in 128 at
+// kCpl = 32). Holding 32 rows at kCpl = 1 spills.
+template <bool kBf16, int kCpl>
 __global__ void __launch_bounds__(kThreads)
-gather_rescore_kernel(const uint16_t* __restrict__ q,       // (b, d) slab dtype
-                      const uint16_t* __restrict__ slab,    // (n, d)
-                      const int32_t* __restrict__ groups,   // (b, kk)
-                      float* __restrict__ out,              // (b, kk*128)
-                      int kk, int d, int n_groups) {
-  extern __shared__ float s_q[];  // d floats
-  const int64_t pair = blockIdx.x;  // = query * kk + j
-  const int64_t bq = pair / kk;
+gather_rescore_kernel(const uint16_t* __restrict__ q,      // (b, d) slab dtype
+                      const uint16_t* __restrict__ slab,   // (n, d)
+                      const int32_t* __restrict__ gids,    // (b*kk,) group ids, equal ids adjacent
+                      const int32_t* __restrict__ order,   // (b*kk,) pair of each position; null: itself
+                      float* __restrict__ out,             // (b, kk*128)
+                      int total, int kk, int d, int n_groups) {
+  constexpr int kRows = kCpl <= 16 ? 16 / kCpl : 1;
+  const int p0 = blockIdx.x;
+  const int gid = gids[p0];
+  if (p0 % kRunPairs != 0 && gids[p0 - 1] == gid) return;  // inside another block's run
+  int p1 = p0 + 1;
+  while (p1 < total && p1 % kRunPairs != 0 && gids[p1] == gid) ++p1;
+
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* dst = out + pair * kGroup;
-
-  const int gid = groups[pair];
   if (gid < 0 || gid >= n_groups) {  // never produced by the scan; poison
-    for (int r = threadIdx.x; r < kGroup; r += kThreads) dst[r] = NAN;
+    for (int p = p0; p < p1; ++p) {
+      const int64_t pair = order ? order[p] : p;
+      out[pair * kGroup + threadIdx.x] = NAN;
+    }
     return;
   }
-  for (int i = threadIdx.x; i < d; i += kThreads)
-    s_q[i] = to_f32<kBf16>(q[bq * d + i]);
-  __syncthreads();
 
-  const int n_vec = d / 8;  // 16-byte vectors per row
-  const uint16_t* rows =
-      slab + (static_cast<int64_t>(gid) * kGroup + warp * kRowsPerWarp) * d;
-  for (int r0 = 0; r0 < kRowsPerWarp; r0 += kUnroll) {
-    float part[kUnroll];
+  const int n_vec = d / 8;  // 16-byte chunks per row
+  const uint16_t* rows = slab + (static_cast<int64_t>(gid) * kGroup + warp * kRowsPerWarp) * d;
+  for (int r0 = 0; r0 < kRowsPerWarp; r0 += kRows) {
+    uint4 v[kRows][kCpl];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) part[u] = 0.0f;
-    for (int c = lane; c < n_vec; c += 32) {
-      float qv[8];
+    for (int r = 0; r < kRows; ++r)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) qv[i] = s_q[c * 8 + i];
-      uint4 v[kUnroll];
+      for (int ci = 0; ci < kCpl; ++ci) {
+        const int c = lane + 32 * ci;
+        v[r][ci] = c < n_vec ? __ldg(reinterpret_cast<const uint4*>(rows + static_cast<int64_t>(r0 + r) * d + c * 8))
+                             : make_uint4(0u, 0u, 0u, 0u);
+      }
+    for (int p = p0; p < p1; ++p) {
+      const int64_t pair = order ? order[p] : p;
+      const uint16_t* qrow = q + (pair / kk) * d;
+      float s[kRows];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        v[u] = __ldg(reinterpret_cast<const uint4*>(
-            rows + static_cast<int64_t>(r0 + u) * d + c * 8));
+      for (int r = 0; r < kRows; ++r) s[r] = 0.0f;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) part[u] = dot8<kBf16>(v[u], qv, part[u]);
-    }
+      for (int ci = 0; ci < kCpl; ++ci) {
+        const int c = lane + 32 * ci;
+        if (c < n_vec) {
+          const uint4 qw = __ldg(reinterpret_cast<const uint4*>(qrow + c * 8));
+          const uint32_t w[4] = {qw.x, qw.y, qw.z, qw.w};
+          float qv[8];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float s = part[u];
+          for (int i = 0; i < 4; ++i) {
+            qv[2 * i] = to_f32<kBf16>(static_cast<uint16_t>(w[i] & 0xffffu));
+            qv[2 * i + 1] = to_f32<kBf16>(static_cast<uint16_t>(w[i] >> 16));
+          }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) dst[warp * kRowsPerWarp + r0 + u] = s;
+          for (int r = 0; r < kRows; ++r) s[r] = dot8<kBf16>(v[r][ci], qv, s[r]);
+        }
+      }
+      sum_round<kRows>(s, lane, 16);
+      sum_round<(kRows >= 2 ? kRows / 2 : 1)>(s, lane, 8);
+      sum_round<(kRows >= 4 ? kRows / 4 : 1)>(s, lane, 4);
+      sum_round<(kRows >= 8 ? kRows / 8 : 1)>(s, lane, 2);
+      sum_round<(kRows >= 16 ? kRows / 16 : 1)>(s, lane, 1);
+      // lane l now holds row l / (32 / kRows) of the batch; its neighbours
+      // below the next multiple of 32 / kRows hold the same bits
+      if (lane % (32 / kRows) == 0)
+        out[pair * kGroup + warp * kRowsPerWarp + r0 + lane / (32 / kRows)] = s[0];
     }
   }
+}
+
+template <bool kBf16>
+int launch_rescore(int cpl, const uint16_t* q, const uint16_t* slab, const int32_t* gids, const int32_t* order,
+                   float* out, int total, int kk, int d, int n_groups, cudaStream_t s) {
+  const unsigned grid = static_cast<unsigned>(total);
+  switch (cpl) {
+    case 1: gather_rescore_kernel<kBf16, 1><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
+    case 2: gather_rescore_kernel<kBf16, 2><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
+    case 4: gather_rescore_kernel<kBf16, 4><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
+    case 8: gather_rescore_kernel<kBf16, 8><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
+    case 16: gather_rescore_kernel<kBf16, 16><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
+    default: gather_rescore_kernel<kBf16, 32><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gather_rescore(const void* q, const void* slab, const void* gids, const void* order, void* out, int b, int kk,
+                   int d, long long n, int is_bf16, void* stream) {
+  if (b < 1 || kk < 1 || d < 8 || d % 8 != 0 || d > 8192 || n < kGroup || n % kGroup != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = static_cast<long long>(b) * kk;
+  if (total > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  int cpl = 1;  // chunks a lane holds per row: ceil(d / 8 / 32), rounded up to a power of two
+  while (cpl * 32 * 8 < d) cpl *= 2;
+  const auto* qp = static_cast<const uint16_t*>(q);
+  const auto* sp = static_cast<const uint16_t*>(slab);
+  const auto* gp = static_cast<const int32_t*>(gids);
+  const auto* op = static_cast<const int32_t*>(order);
+  auto* outp = static_cast<float*>(out);
+  const int n_groups = static_cast<int>(n / kGroup);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_rescore<true>(cpl, qp, sp, gp, op, outp, static_cast<int>(total), kk, d, n_groups, s)
+                 : launch_rescore<false>(cpl, qp, sp, gp, op, outp, static_cast<int>(total), kk, d, n_groups, s);
+}
+
+constexpr int kPlanThreads = 256;  // count and scatter: one thread a pair
+constexpr int kScanThreads = 1024;
+
+// Bin of group id g: g itself, or n_groups for an id outside the slab.
+__device__ __forceinline__ int plan_bin(int g, int n_groups) {
+  return static_cast<unsigned>(g) < static_cast<unsigned>(n_groups) ? g : n_groups;
+}
+
+__global__ void __launch_bounds__(kPlanThreads)
+gather_plan_count(const int32_t* __restrict__ groups, int32_t* __restrict__ cnt, int total, int n_groups) {
+  const int p = blockIdx.x * kPlanThreads + threadIdx.x;
+  if (p < total) atomicAdd(&cnt[plan_bin(groups[p], n_groups)], 1);
+}
+
+// One block: the exclusive scan of the bins' counts into start, the sorted
+// ids written bin by bin (ids outside the slab as -1), and the counts
+// zeroed for the scatter's cursors. The counts pass through shared memory
+// a tile of bins at a time (one coalesced load each); thread t scans
+// kScanPer consecutive bins of the tile.
+constexpr int kScanPer = 8;
+constexpr int kScanTile = kScanThreads * kScanPer;
+
+__global__ void __launch_bounds__(kScanThreads)
+gather_plan_scan(int32_t* __restrict__ cnt, int32_t* __restrict__ start, int32_t* __restrict__ gids, int n_bins,
+                 int n_groups) {
+  __shared__ int32_t tile[kScanTile];
+  __shared__ int32_t warp_sum[kScanThreads / 32];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int carry = 0;  // pairs in the tiles before this one
+  for (int t0 = 0; t0 < n_bins; t0 += kScanTile) {
+    const int nb = min(kScanTile, n_bins - t0);
+    for (int i = tid; i < nb; i += kScanThreads) {
+      tile[i] = cnt[t0 + i];
+      cnt[t0 + i] = 0;
+    }
+    __syncthreads();
+    const int lo = tid * kScanPer;
+    int own = 0;
+#pragma unroll
+    for (int i = 0; i < kScanPer; ++i) own += lo + i < nb ? tile[lo + i] : 0;
+    int incl = own;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int w = warp_sum[lane];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, w, off);
+        if (lane >= off) w += v;
+      }
+      warp_sum[lane] = w;  // inclusive over warps
+    }
+    __syncthreads();
+    int next = carry + incl - own + (warp > 0 ? warp_sum[warp - 1] : 0);
+    for (int i = 0; i < kScanPer && lo + i < nb; ++i) {
+      const int bin = t0 + lo + i;
+      const int c = tile[lo + i];
+      const int id = bin < n_groups ? bin : -1;
+      start[bin] = next;
+      for (int j = 0; j < c; ++j) gids[next + j] = id;
+      next += c;
+    }
+    carry += warp_sum[kScanThreads / 32 - 1];
+    __syncthreads();  // the next tile reuses tile and warp_sum
+  }
+  if (tid == 0) start[n_bins] = carry;
+}
+
+// Each pair to its bin's next slot. The order within a bin follows the
+// atomics and varies from call to call; the scores do not depend on it.
+__global__ void __launch_bounds__(kPlanThreads)
+gather_plan_scatter(const int32_t* __restrict__ groups, const int32_t* __restrict__ start, int32_t* __restrict__ cursor,
+                    int32_t* __restrict__ order, int total, int n_groups) {
+  const int p = blockIdx.x * kPlanThreads + threadIdx.x;
+  if (p >= total) return;
+  const int bin = plan_bin(groups[p], n_groups);
+  order[start[bin] + atomicAdd(&cursor[bin], 1)] = p;
 }
 
 }  // namespace
 
 // q: (b, d) bf16/f16, slab: (n, d) same dtype, groups: (b, kk) int32 group
-// ids, out: (b, kk * 128) f32. Needs n % 128 == 0, d % 8 == 0 and 16-byte
-// aligned pointers (the Python wrapper checks all of these).
+// ids in pair order, out: (b, kk * 128) f32. Equal ids that sit side by side
+// share one read of their group. Needs n % 128 == 0, d % 8 == 0, d <= 8192
+// and 16-byte aligned pointers (the Python wrapper checks all of these).
 // Returns cudaGetLastError() after the launch.
-extern "C" int fs_gather_rescore(const void* q, const void* slab, const void* groups,
-                                 void* out, int b, int kk, int d, long long n,
-                                 int is_bf16, void* stream) {
-  if (b < 1 || kk < 1 || d < 8 || d % 8 != 0 || n < kGroup || n % kGroup != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = static_cast<long long>(b) * kk;
-  const size_t smem = static_cast<size_t>(d) * sizeof(float);
-  if (blocks > 0x7fffffffLL || smem > 48 * 1024)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int n_groups = static_cast<int>(n / kGroup);
-  const dim3 grid(static_cast<unsigned>(blocks));
+extern "C" int fs_gather_rescore(const void* q, const void* slab, const void* groups, void* out, int b, int kk,
+                                 int d, long long n, int is_bf16, void* stream) {
+  return gather_rescore(q, slab, groups, nullptr, out, b, kk, d, n, is_bf16, stream);
+}
+
+// K2's group order, a counting sort: groups (total,) int32 ids -> in
+// scratch (int32 words), with n_bins = n_groups + 1 (the last bin takes the
+// ids outside the slab): counts [n_bins], starts [n_bins + 1], then gids
+// [total], the ids in bin order (equal ids adjacent, outside ids as -1),
+// then order [total], the index in groups of each. Four launches (a
+// memset, a count, a one-block scan, a scatter), no host sync. Returns
+// cudaGetLastError() after the last.
+extern "C" int fs_gather_plan(const void* groups, void* scratch, int total, int n_groups, void* stream) {
+  if (total < 1 || n_groups < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const uint16_t*>(q);
-  const auto* sp = static_cast<const uint16_t*>(slab);
+  const int n_bins = n_groups + 1;
+  auto* cnt = static_cast<int32_t*>(scratch);
+  int32_t* start = cnt + n_bins;
+  int32_t* gids = start + n_bins + 1;
+  int32_t* order = gids + total;
   const auto* gp = static_cast<const int32_t*>(groups);
-  auto* op = static_cast<float*>(out);
-  if (is_bf16)
-    gather_rescore_kernel<true><<<grid, kThreads, smem, s>>>(qp, sp, gp, op, kk, d, n_groups);
-  else
-    gather_rescore_kernel<false><<<grid, kThreads, smem, s>>>(qp, sp, gp, op, kk, d, n_groups);
+  const unsigned blocks = static_cast<unsigned>((total + kPlanThreads - 1) / kPlanThreads);
+  cudaError_t err = cudaMemsetAsync(cnt, 0, static_cast<size_t>(n_bins) * sizeof(int32_t), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gather_plan_count<<<blocks, kPlanThreads, 0, s>>>(gp, cnt, total, n_groups);
+  gather_plan_scan<<<1, kScanThreads, 0, s>>>(cnt, start, gids, n_bins, n_groups);
+  gather_plan_scatter<<<blocks, kPlanThreads, 0, s>>>(gp, start, cnt, order, total, n_groups);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The group-major entry: gids (b*kk,) int32 with equal ids adjacent and
+// order (b*kk,) int32 the pair b_i * kk + j of each (fs_gather_plan's
+// gids and order). Otherwise as fs_gather_rescore.
+extern "C" int fs_gather_rescore_sorted(const void* q, const void* slab, const void* gids, const void* order,
+                                        void* out, int b, int kk, int d, long long n, int is_bf16, void* stream) {
+  return gather_rescore(q, slab, gids, order, out, b, kk, d, n, is_bf16, stream);
 }
 
 namespace {

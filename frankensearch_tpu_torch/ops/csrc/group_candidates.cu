@@ -6,7 +6,7 @@
 // slab rows and each query b it
 //   1. computes the tile's g_tile = tile_n / 128 group maxima of
 //      bf16(q[b]) . slab[r] + mask[r] (bf16 or f16 products, f32 sums), with
-//      the scoring body K1 uses (group_scan.cuh), so they are K1's bits;
+//      the scoring body of group_scan.cuh, whose bits K1 gives too;
 //   2. runs t argmax passes over them: pass j takes the largest maximum m
 //      (+0.0 above -0.0, as `jnp.max`), the FIRST group whose maximum == m
 //      (so -0.0 ties +0.0), writes m to out_v[tile, j, b] and the global

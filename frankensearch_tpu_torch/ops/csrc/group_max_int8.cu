@@ -17,7 +17,8 @@
 // both about equal, so the products must run on the tensor cores, here
 // with mma.sync m16n8k32 s8 x s8 -> s32.
 //
-// Design (K1's, with int8 fragments; correct and simple first):
+// Design (the first K1's, mma.sync, with int8 fragments; correct and
+// simple first):
 //   * one block = one 128-row group x a tile of 64 queries, 4 warps; blocks
 //     of one group are adjacent in the grid, so the group's rows come from
 //     HBM once and from L2 for the other query tiles;

@@ -1,28 +1,31 @@
-// The per-group scoring body shared by K1 (group_max.cu), K5 (tile_topk.cu)
-// and K6 (group_candidates.cu), for sm_90a.
+// The per-group scoring body of K5 (tile_topk.cu) and K6
+// (group_candidates.cu), for sm_90a.
 //
 // score_group_with() computes, for one 128-row group of the slab and a tile
 // of 64 queries, the dot products dot(bf16(q[b]), slab[r]) with bf16 (or
 // f16) products accumulated in f32 on the tensor cores (mma.sync
-// m16n8k16), and hands them, with the group's mask staged in shared memory,
-// to an epilogue. score_group() is that body with K1's epilogue:
+// m16n8k16, k16 steps in ascending order), and hands them, with the
+// group's mask staged in shared memory, to an epilogue. score_group() is
+// that body with a max epilogue:
 //
 //     max_{r in group} ( dot(bf16(q[b]), slab[r]) + mask[r] )
 //
 // left in shared memory, where group_max_of(sm, c) reads the maximum for
-// query q0 + c. The three kernels call exactly this code, so K6's group
-// maxima are K1's, and K5's scores are the values K1 takes the maximum
-// of, bit for bit.
+// query q0 + c. K1 (group_max.cu) computes the same values with wgmma in
+// the same k order, and the card tests hold it to these bits
+// (K1_DIGESTS: unchanged since K1 ran this body), so K6's group maxima are
+// K1's, and K5's scores are the values K1 takes the maximum of, bit for
+// bit.
 //
-// Layout (see group_max.cu for what bounds it on the H100):
+// Layout:
 //   * 4 warps, each owning 32 rows x 64 queries (2 x 8 mma tiles, 64 f32
 //     accumulators per thread);
 //   * the group's rows and the query tile are staged through shared memory
 //     in 64-dim chunks with 16-byte loads; rows are padded to 72 elements so
 //     the fragment loads are free of bank conflicts;
-//   * K1's epilogue adds the mask in f32 before the max, takes the max over
-//     the 128 rows in registers, across lanes with shuffles and across the
-//     4 warps through shared memory.
+//   * the max epilogue adds the mask in f32 before the max, takes the max
+//     over the 128 rows in registers, across lanes with shuffles and across
+//     the 4 warps through shared memory.
 
 #pragma once
 
@@ -144,7 +147,7 @@ __device__ __forceinline__ void score_group_with(const uint16_t* __restrict__ q,
   epi(acc);
 }
 
-// K1's scoring body: score_group_with() whose epilogue adds the mask, takes
+// The max body: score_group_with() whose epilogue adds the mask, takes
 // each warp's per-query maximum into sm.red and ends with a barrier, after
 // which group_max_of() may be read.
 template <bool kBf16>

@@ -20,7 +20,7 @@
 // Two entries:
 //
 // fs_tile_topk (kk <= 64, the searcher's budgets), the design:
-//   * the scores are K1's: one block = one tile x 64 queries, 4 warps,
+//   * the scores are K1's bits: one block = one tile x 64 queries, 4 warps,
 //     walking the tile's 16 groups with score_group_with() of
 //     group_scan.cuh (16-byte staged loads, mma.sync). The epilogue adds the
 //     mask exactly as K1 does and parks the group's 128 x 64 scores in

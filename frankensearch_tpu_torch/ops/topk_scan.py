@@ -34,6 +34,13 @@ import torch
 NEG_INF = float("-inf")
 #: slab rows per group in the hierarchical scan (fixed by both kernels)
 GROUP = 128
+#: widest dim K1 and K2 take: K1 keeps 8 queries of it resident in 128 KB
+#: of shared memory, K2 one row in a lane's 128 registers
+MAX_KERNEL_DIM = 8192
+#: K2 puts the pairs in group order (a counting sort on the card) from this
+#: batch size up. Below it the queries share few of the slab's groups, and
+#: the sort's four launches would cost more than the reads they save.
+GATHER_GROUP_MIN_B = 64
 
 
 class TopKResult(NamedTuple):
@@ -162,15 +169,15 @@ def group_max(slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor) -> 
         return group_max_plain(slab, queries, mask)
     _check_kernel_operands(slab, queries)
     n, d = slab.shape
-    if d % 64:
-        raise ValueError(f"group_max needs dim % 64 == 0, got {d}")
+    if d % 64 or d > MAX_KERNEL_DIM:
+        raise ValueError(f"group_max needs dim % 64 == 0 and dim <= {MAX_KERNEL_DIM}, got {d}")
     if mask.shape != (n,) or mask.dtype != torch.float32 or mask.device != slab.device:
         raise ValueError("mask must be (N,) f32 on the slab's device")
     b = queries.shape[0]
     out = torch.empty((b, n // GROUP), dtype=torch.float32, device=slab.device)
     if b == 0:
         return out
-    q = _aligned(queries.to(slab.dtype))  # the kernel stages query rows with 16-byte loads
+    q = _aligned(queries.to(slab.dtype))  # the kernel reads query rows with TMA
     mask = mask.contiguous()
     from frankensearch_tpu_torch.ops import _build
 
@@ -208,35 +215,53 @@ def gather_rescore_plain(
     return torch.einsum("bd,bkrd->bkr", q, cand).reshape(b, kk * GROUP)
 
 
+def _gather_plan_scratch(n_groups: int, total: int, device) -> tuple[torch.Tensor, int, int]:
+    """Scratch of ``fs_gather_plan`` (int32 words: counts and starts of the
+    n_groups + 1 bins, then the sorted ids, then the pair of each) and the
+    addresses of its last two parts."""
+    n_bins = n_groups + 1
+    plan = torch.empty(2 * n_bins + 1 + 2 * total, dtype=torch.int32, device=device)
+    ids = plan.data_ptr() + 4 * (2 * n_bins + 1)
+    return plan, ids, ids + 4 * total
+
+
 def gather_rescore(
     slab: torch.Tensor, queries: torch.Tensor, top_groups: torch.Tensor
 ) -> torch.Tensor:
     """K2 (replaces ``_gather_rescore_kernel``): (B, kk) group ids ->
     (B, kk*128) f32 scores. CUDA tensors run csrc/gather_rescore.cu (any B
-    and kk); CPU tensors the plain twin."""
+    and kk); CPU tensors the plain twin. From ``GATHER_GROUP_MIN_B``
+    queries up, a counting sort on the card first puts the pairs in group
+    order, so that each group the batch chose is read once."""
     if slab.device.type == "cpu":
         return gather_rescore_plain(slab, queries, top_groups)
     _check_kernel_operands(slab, queries)
     n, d = slab.shape
-    if d % 8 or d * 4 > 48 * 1024:
-        raise ValueError(f"gather_rescore needs dim % 8 == 0 and dim <= 12288, got {d}")
+    if d % 8 or d > MAX_KERNEL_DIM:
+        raise ValueError(f"gather_rescore needs dim % 8 == 0 and dim <= {MAX_KERNEL_DIM}, got {d}")
     b, kk = top_groups.shape
     if b != queries.shape[0] or top_groups.device != slab.device:
         raise ValueError("top_groups must be (B, kk) on the slab's device")
     out = torch.empty((b, kk * GROUP), dtype=torch.float32, device=slab.device)
     if b == 0 or kk == 0:
         return out
-    q = queries.to(slab.dtype).contiguous()
+    q = _aligned(queries.to(slab.dtype))  # the kernel reads query rows with 16-byte loads
     groups = top_groups.to(torch.int32).contiguous()
     from frankensearch_tpu_torch.ops import _build
 
     lib = _build.library()
     with torch.cuda.device(slab.device):
-        rc = lib.fs_gather_rescore(
-            q.data_ptr(), slab.data_ptr(), groups.data_ptr(), out.data_ptr(),
-            b, kk, d, n, int(slab.dtype == torch.bfloat16),
-            torch.cuda.current_stream(slab.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(slab.device).cuda_stream
+        bf16 = int(slab.dtype == torch.bfloat16)
+        if b < GATHER_GROUP_MIN_B:
+            rc = lib.fs_gather_rescore(q.data_ptr(), slab.data_ptr(), groups.data_ptr(), out.data_ptr(),
+                                       b, kk, d, n, bf16, stream)
+        else:
+            plan, ids, pairs = _gather_plan_scratch(n // GROUP, b * kk, slab.device)
+            rc = lib.fs_gather_plan(groups.data_ptr(), plan.data_ptr(), b * kk, n // GROUP, stream)
+            if rc == 0:
+                rc = lib.fs_gather_rescore_sorted(q.data_ptr(), slab.data_ptr(), ids, pairs, out.data_ptr(),
+                                                  b, kk, d, n, bf16, stream)
     if rc != 0:
         raise RuntimeError(f"gather_rescore kernel launch failed: CUDA error {rc}")
     gather_rescore.launches += 1

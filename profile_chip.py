@@ -31,14 +31,21 @@ JSON summary as the last line. The profiler table and the cProfile listing
 of each (cell, B) go to ``OUT_DIR/profile_<cell>_b<B>.txt``.
 
 ``python3 profile_chip.py --kernels [ROOT]`` times the flat lane's class
-step and K5 instead, from the port package under ROOT (default: this
+step, K5, K1 and K2 instead, from the port package under ROOT (default: this
 checkout), so that an earlier tree unpacked elsewhere (``git archive
 <commit> frankensearch_tpu_torch native``) is timed on the same inputs:
 hybrid-1M's lexical arm (``chip_smoke.hybrid1m_lexical``), the first
 64-row flat tile its 256 queries give, each class's step (K3 with its
 post-pass where the tree has one) and the whole ``_graded_scan_flat``; K5
 (``tile_topk``) on a seeded 1,007,616 x 256 bf16 slab of unit rows at the
-phase-5 shapes. CUDA-event medians; the last line is a JSON summary.
+phase-5 shapes, then K1 (``group_max``) at B = 256, 8, 1 and K2
+(``gather_rescore``, the wrapper with its counting sort) at kk = 60, 30
+over each batch's top groups by K1, on the same slab. CUDA-event medians
+of back-to-back calls, which include the host's enqueue wherever the card
+waits on it (K2's groups at B = 1 stay in L2 between calls); K1 and K2
+also get their device time (``device_ms``: torch.profiler's self device
+time of every kernel of one call of the wrapper). The last line is a JSON
+summary.
 """
 
 from __future__ import annotations
@@ -90,8 +97,26 @@ def profile_once(fn, path: str) -> tuple[float, float, float]:
     return device_ms, torch_prof_ms, cprofile_ms
 
 
-#: (B, kk) at which ``--kernels`` times K5: the serve batch, the fused
-#: lane's pad and a singleton at the searcher's two candidate budgets
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn``: the self device time of all its
+    kernels and copies under torch.profiler, over ``iters`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return sum(e.self_device_time_total for e in events if e.device_type != DeviceType.CPU) / iters / 1000.0
+
+
+#: (B, kk) at which ``--kernels`` times K5 and K2 (K1 at each B): the serve
+#: batch, the fused lane's pad and a singleton at the searcher's two
+#: candidate budgets
 K5_SHAPES = ((256, 60), (256, 30), (8, 60), (8, 30), (1, 60), (1, 30))
 
 
@@ -154,10 +179,24 @@ def time_kernels(root: str) -> int:
         q = cs.unit_rows(gen, b, cs.DIM, dev)
         k5.append({"b": b, "kk": kk, "ms": cs.cuda_median_ms(lambda: ts.tile_topk(slab, q, mask, kk), iters=20)})
     cs.log(f"{root}: K5 at N={n}: " + ", ".join(f"B={r['b']} kk={r['kk']} {r['ms']:.4f}" for r in k5) + " ms")
+    k1, k2 = [], []
+    for b in sorted({b for b, _ in K5_SHAPES}, reverse=True):
+        q = cs.unit_rows(gen, b, cs.DIM, dev)
+        k1_call = lambda: ts.group_max(slab, q, mask)
+        k1.append({"b": b, "ms": cs.cuda_median_ms(k1_call, iters=20), "device_ms": device_ms(k1_call)})
+        gm = ts.group_max(slab, q, mask)
+        for kk in sorted({kk for bb, kk in K5_SHAPES if bb == b}, reverse=True):
+            groups = torch.sort(ts.topk_desc_rowasc(gm, kk)[1].to(torch.int32), dim=1).values  # as the scan gives them
+            k2_call = lambda: ts.gather_rescore(slab, q, groups)
+            k2.append({"b": b, "kk": kk, "ms": cs.cuda_median_ms(k2_call, iters=20), "device_ms": device_ms(k2_call)})
+    for name, recs in (("K1", k1), ("K2", k2)):
+        cs.log(f"{root}: {name} at N={n} (CUDA events / device): "
+               + ", ".join(f"B={r['b']}" + (f" kk={r['kk']}" if "kk" in r else "") + f" {r['ms']:.4f} / {r['device_ms']:.4f}"
+                           for r in recs) + " ms")
     cs.log(cs.gpu_line())
     print(json.dumps({"root": root, "flat_fused": fused, "flat_steps": steps, "flat_scan_ms": sum(st["ms"] for st in steps),
                       "graded_scan_flat_ms": lane_ms, "flat_b": q_ids.shape[0], "flat_t": q_ids.shape[1],
-                      "tile_topk": k5}), flush=True)
+                      "tile_topk": k5, "group_max": k1, "gather_rescore": k2}), flush=True)
     return 0
 
 

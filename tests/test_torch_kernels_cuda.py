@@ -9,6 +9,10 @@ imports no jax, so it also runs where jax is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
+``PYTHONPATH=ROOT python tests/test_torch_kernels_cuda.py`` prints the K2
+digests (``K2_DIGESTS``) that the port package under ROOT gives on the
+card, for pinning them from an earlier tree.
+
 Tolerances: K1/K2/K2-i8/K5/K6 vs twin 1e-5 relative (bf16 and int8
 products are exact; the tensor-core and warp sums run in another order
 than the twins', so K5, K6's group ids and the scan lanes may also swap
@@ -365,3 +369,167 @@ def test_model2vec_pool_and_bag_lane_gpu_vs_cpu(cuda_device):
     bag_gpu = bulk.bag_embed_corpus(gpu, texts, chunk_docs=128)
     np.testing.assert_array_equal(bag_gpu.view(np.uint32), bulk.bag_embed_corpus(gpu, texts, chunk_docs=128).view(np.uint32))
     np.testing.assert_allclose(bag_gpu, bag_cpu, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_group_max_row_bits_independent_of_batch(cuda_device, dtype):
+    """A query's K1 row is the same bits at B = 1, 8 and 256, whatever
+    query tile width and tile position it lands in."""
+    slab, q, mask = _k1_input(dtype, 256)
+    slab, q, mask = slab.to(cuda_device), q.to(cuda_device), mask.to(cuda_device)
+    full = topk_scan.group_max(slab, q, mask).view(torch.int32)
+    for b in (1, 8):
+        for start in (0, 5, 129, 255 - b + 1):
+            part = topk_scan.group_max(slab, q[start : start + b].contiguous(), mask).view(torch.int32)
+            assert torch.equal(part, full[start : start + b]), (b, start)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 256, 768])
+@pytest.mark.parametrize("b", [1, 3, 63, 65, 256, 300])
+def test_k1_k2_edge_shapes_match_twins(cuda_device, b, d, dtype):
+    """Query counts around K1's tile widths (8 .. 256, two tiles at 300)
+    and dims that shrink the tile (768: 64 queries); K2 on K1's top groups,
+    K2's lanes holding 1 (d <= 256) or 4 (768) chunks of a row."""
+    gen = torch.Generator(device="cpu").manual_seed(b * 1000 + d)
+    slab = torch.randn(4096, d, generator=gen)
+    slab = (slab / slab.norm(dim=1, keepdim=True)).to(cuda_device, dtype)
+    q = torch.randn(b, d, generator=gen).to(cuda_device)
+    mask = torch.zeros(4096, device=cuda_device)
+    mask[4000:] = float("-inf")
+    gm = topk_scan.group_max(slab, q, mask)
+    chip_smoke.check_close(gm, topk_scan.group_max_plain(slab, q, mask), "K1")
+    groups = torch.sort(torch.topk(gm, 20, dim=1).indices.to(torch.int32), dim=1).values
+    r = topk_scan.gather_rescore(slab, q, groups)
+    chip_smoke.check_close(r, topk_scan.gather_rescore_plain(slab, q, groups), "K2")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k1_k2_one_group_and_masked_group(cuda_device, dtype):
+    """A one-group slab (one item for one block), and a group whose every
+    row is masked: K1 gives -inf there; K2, which takes no mask, scores it."""
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    for n in (128, 1024):
+        slab = torch.randn(n, 256, generator=gen).to(cuda_device, dtype)
+        q = torch.randn(5, 256, generator=gen).to(cuda_device)
+        mask = torch.zeros(n, device=cuda_device)
+        mask[:128] = float("-inf")  # group 0 fully masked
+        gm = topk_scan.group_max(slab, q, mask)
+        assert bool(torch.isneginf(gm[:, 0]).all())
+        chip_smoke.check_close(gm, topk_scan.group_max_plain(slab, q, mask), f"K1 n={n}")
+        groups = torch.zeros(5, 1, dtype=torch.int32, device=cuda_device)
+        r = topk_scan.gather_rescore(slab, q, groups)
+        chip_smoke.check_close(r, topk_scan.gather_rescore_plain(slab, q, groups), f"K2 n={n}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", ["shared", "distinct", "out_of_range"])
+def test_gather_rescore_sharing_edges(cuda_device, case, dtype):
+    """K2's group-major order at its extremes: every query choosing the same
+    groups (runs longer than one block takes), every pair a distinct group,
+    and ids outside the slab, which poison their 128 outputs with NaN."""
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    slab = torch.randn(16384, 256, generator=gen).to(cuda_device, dtype)
+    q = torch.randn(40, 256, generator=gen).to(cuda_device)
+    if case == "shared":
+        groups = torch.arange(0, 120, 4, dtype=torch.int32).expand(40, 30).contiguous()
+    else:
+        groups = torch.randperm(128, generator=gen)[:120].view(40, 3).sort(dim=1).values.to(torch.int32)
+    if case == "out_of_range":
+        groups[3, 1], groups[7, 0], groups[7, 2] = 128, -1, 1 << 30
+    groups = groups.to(cuda_device)
+    launches = topk_scan.gather_rescore.launches
+    got = topk_scan.gather_rescore(slab, q, groups)
+    torch.cuda.synchronize()
+    assert topk_scan.gather_rescore.launches == launches + 1
+    bad = (groups < 0) | (groups >= 128)
+    poisoned = bad.repeat_interleave(128, dim=1)
+    assert bool(torch.isnan(got[poisoned]).all()) and not bool(torch.isnan(got[~poisoned]).any())
+    want = topk_scan.gather_rescore_plain(slab, q, torch.where(bad, 0, groups))
+    chip_smoke.check_close(got[~poisoned], want[~poisoned], f"K2 {case}")
+
+
+@pytest.mark.parametrize("case", ["random", "shared", "out_of_range"])
+def test_gather_plan_orders_every_pair_once(cuda_device, case):
+    """K2's counting sort: each (query, j) pair exactly once, the ids in
+    ascending order and ids outside the slab last, as -1: one run per
+    distinct id."""
+    from frankensearch_tpu_torch.ops import _build
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    n_groups = 7872
+    groups = torch.randint(0, n_groups, (256, 60), generator=gen, dtype=torch.int32)
+    if case == "shared":
+        groups[:] = groups[0]
+    if case == "out_of_range":
+        groups[3, :5], groups[9, 7] = -1, n_groups + 3
+    flat = groups.reshape(-1)
+    on_card = flat.to(cuda_device)
+    plan, ids, pairs = topk_scan._gather_plan_scratch(n_groups, flat.numel(), cuda_device)
+    rc = _build.library().fs_gather_plan(on_card.data_ptr(), plan.data_ptr(), flat.numel(), n_groups,
+                                         torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    gids, order = plan[-2 * flat.numel():].view(2, -1).cpu().long()
+    assert torch.equal(torch.sort(order).values, torch.arange(flat.numel()))
+    inside = (flat >= 0) & (flat < n_groups)
+    assert torch.equal(gids, torch.where(inside, flat, -1)[order].long())
+    key = torch.where(gids < 0, n_groups, gids)
+    assert bool((key[1:] >= key[:-1]).all())
+
+
+#: K2's cases: (dtype, B, kk) plus the batch whose queries all chose the
+#: same groups
+K2_CASES = [(dt, b, kk) for dt in ("bfloat16", "float16") for b in (1, 8, 256) for kk in (30, 60)] + [
+    ("bfloat16", "shared", 60), ("float16", "shared", 60)]
+
+#: sha256 of K2's output bits on _k2_input's seeded data, as the first
+#: port's kernel (one block per (query, group) pair) gave them
+#: (H100, nvcc 12.8, `PYTHONPATH=ROOT python tests/test_torch_kernels_cuda.py`
+#: on that tree): the group-major design keeps its dot order, so it must not
+#: change a bit, in pair order (B = 1, 8) or group order (B = 256)
+K2_DIGESTS = {
+    ('bfloat16', 1, 30): "e730ed3e852396aa0fff0ff5836c744406cc71e0df66daaed47a936ea5091885",
+    ('bfloat16', 1, 60): "73b5e0c7c26dff78dfad80c7eb81196344ae8f81c043f717f5457e417ed9b7a7",
+    ('bfloat16', 8, 30): "7f840c535d535c2df7ae71c8ac089332c716a739abf6f1b66c92851174d82561",
+    ('bfloat16', 8, 60): "4560ddb10ad370b87c2bfd7347b02e8c8155caa3d331b38725fd73e167585d46",
+    ('bfloat16', 256, 30): "08213a7945ef71bfba029cfbd27ed6c36c9c25474184ba5f0dac5973cd69e06d",
+    ('bfloat16', 256, 60): "48f90f7b7070c5cc5e8868c2d1053c5b8dadefde704c870ff17df19702aa7bce",
+    ('float16', 1, 30): "95deef518aa6beb36de7080669d87e72f9a07e89eac65966aa2ef1f2409dba69",
+    ('float16', 1, 60): "ee45a14e0502389c10ea44def37690792f911e58ab87c1062db09cfea28c9fdb",
+    ('float16', 8, 30): "d4c91fd10b15fd38ddc5a3886af33ac46b89cdf01b48970709979bbaed5b23b9",
+    ('float16', 8, 60): "cf93d0361065e4d396df9323c4d76d391dca70074d73fd5e7873967d3115d9b1",
+    ('float16', 256, 30): "62f903a8c3cb4d0f5d57c61e099fe728cec4d677c3928ccb6743e214b33163f4",
+    ('float16', 256, 60): "b20fddf661f3f6da7bce024901274649eeb5553cf64edbf7928a4de90eb16284",
+    ('bfloat16', 'shared', 60): "bd6c407fb717b3e1731327e7d394ae6f07179bfe940727895b889c37a524f899",
+    ('float16', 'shared', 60): "d097a35ff513933bcaa67915ae6b36e9a3ca1135ad62571a1f909544f40549ef",
+}
+
+
+def _k2_input(dtype: str, b, kk: int):
+    gen = torch.Generator(device="cpu").manual_seed(20261017)
+    slab = torch.randn(16384, 256, generator=gen)
+    slab = (slab / slab.norm(dim=1, keepdim=True)).to(getattr(torch, dtype))
+    if b == "shared":
+        q = torch.randn(256, 256, generator=gen)
+        groups = torch.sort(torch.randperm(128, generator=gen)[:kk]).values.expand(256, kk)
+    else:
+        q = torch.randn(b, 256, generator=gen)
+        groups = torch.sort(torch.stack([torch.randperm(128, generator=gen)[:kk] for _ in range(b)]), dim=1).values
+    return slab, q, groups.to(torch.int32).contiguous()
+
+
+def _k2_digest(dev, case) -> str:
+    slab, q, groups = _k2_input(*case)
+    out = topk_scan.gather_rescore(slab.to(dev), q.to(dev), groups.to(dev)).cpu()
+    return hashlib.sha256(out.view(torch.int32).numpy().tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("case", K2_CASES, ids=[f"{dt}-{b}-{kk}" for dt, b, kk in K2_CASES])
+def test_gather_rescore_bits_equal_the_first_port(cuda_device, case):
+    assert _k2_digest(cuda_device, case) == K2_DIGESTS[case]
+
+
+if __name__ == "__main__":
+    for case in K2_CASES:
+        print(f"    {case!r}: \"{_k2_digest(torch.device('cuda'), case)}\",")
