@@ -49,7 +49,9 @@ Phases:
      as is ``group_select="iter"``; ``rescore="xla"`` (the f32 query) held
      to the same rescore over K1's groups and to f64 dot products; then K6
      against its twin (values within REL_TOL, group ids equal except where
-     two groups' maxima tie, every value K1's maximum for its group);
+     two groups' maxima tie, every value K1's maximum for its group, K1's
+     time alone beside K6's), and K6's selection bitwise against the argmax
+     passes on crafted maxima (ties, both zeros, masked groups and tiles);
   7. hybrid-1M with a Model2Vec fast tier (hybrid-1M-m2v): a seeded
      500,000 x 256 table, phase 4's 1M docs embedded through the bag lane
      (``embed_corpus``, twice: the same bits) into a bf16 index, served with
@@ -130,7 +132,7 @@ KERNELS = (
      "frankensearch_tpu/ops/topk_scan.py:362", "semantic-1M"),
     ("flat_fused", "K3", "frankensearch_tpu_torch/ops/csrc/flat_score.cu",
      "frankensearch_tpu/lexical/device_bm25.py:405", "hybrid-1M"),
-    ("group_max_int8", "K4", "frankensearch_tpu_torch/ops/csrc/group_max_int8.cu",
+    ("group_max_int8", "K4", "frankensearch_tpu_torch/ops/csrc/group_max.cu",
      "frankensearch_tpu/ops/topk_scan.py:240", "semantic-1M-int8"),
     ("gather_rescore_i8", "K2-i8", "frankensearch_tpu_torch/ops/csrc/gather_rescore.cu",
      "frankensearch_tpu/ops/topk_scan.py:362", "semantic-1M-int8"),
@@ -1268,11 +1270,66 @@ def check_group_ids(gm, got_g, want_g, what: str) -> int:
     return int(diff.sum())
 
 
+#: the values crafted K6 maxima take: ties, both zeros, -inf (masked
+#: groups) and +inf
+SELECT_POOL = (float("-inf"), -1.5, -0.25, -0.0, 0.0, 0.25, 1.0, 3.0, float("inf"))
+#: (tile_n, t) at which K6's selection is held to its twin on crafted maxima
+SELECT_EDGES = ((8192, 1), (8192, 30), (8192, 60), (8192, 64), (2048, 1), (2048, 7), (2048, 16))
+
+
+def crafted_maxima(b: int, n_tiles: int, g: int, seed: int):
+    """Seeded (b, n_tiles * g) f32 group maxima for K6's selection: each
+    row draws from SELECT_POOL with weights of its own, so equal maxima
+    share a tile, +0.0 and -0.0 fall in one tie class in either group order
+    and -inf groups lie between finite ones; tile 1 is -inf whole (a masked
+    tile), tile 2 holds only zeros of both signs, and query 0's tile 0 opens
+    with +0.0, -0.0, +0.0, -0.0 (query 1's with the signs swapped).
+    Returns numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pool = np.array(SELECT_POOL, np.float32)
+    weights = rng.dirichlet(np.ones(len(pool)), size=b)
+    gm = np.stack([pool[rng.choice(len(pool), size=n_tiles * g, p=w)] for w in weights])
+    if n_tiles > 1:
+        gm[:, g : 2 * g] = -np.inf
+    if n_tiles > 2:
+        gm[:, 2 * g : 3 * g] = np.where(rng.random((b, g)) < 0.5, np.float32(0.0), np.float32(-0.0))
+    if g >= 4:
+        gm[0, :4] = np.array([0.0, -0.0, 0.0, -0.0], np.float32)
+        if b > 1:
+            gm[1, :4] = np.array([-0.0, 0.0, -0.0, 0.0], np.float32)
+    return gm
+
+
+def check_select_edges(dev) -> None:
+    """K6's selection kernel (``tile_select``) on :func:`crafted_maxima`
+    (B = 70 over 4 tiles; every (tile_n, t) of SELECT_EDGES): values and
+    group ids bitwise its twin's, the argmax passes."""
+    import torch
+
+    from frankensearch_tpu_torch.ops import topk_scan as ts
+
+    for i, (tile_n, t) in enumerate(SELECT_EDGES):
+        gm = torch.from_numpy(crafted_maxima(70, 4, tile_n // ts.GROUP, SEED + 11 + i)).to(dev)
+        got_v, got_g = ts.tile_select(gm, t, tile_n)
+        want_v, want_g = ts.tile_select_plain(gm, t, tile_n)
+        if not (torch.equal(got_g, want_g) and torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))):
+            bad = (got_g != want_g) | (got_v.view(torch.int32) != want_v.view(torch.int32))
+            raise AssertionError(f"phase1 K6 selection tile_n={tile_n} t={t}: {int(bad.sum())} entries differ "
+                                 f"from the passes, first at {bad.nonzero()[0].tolist()}")
+    log(f"phase1 K6 selection on crafted maxima (B=70, 4 tiles: ties, +0.0/-0.0 in both orders, -inf between "
+        f"finite groups, a masked tile, a tile of zeros; (tile_n, t) {list(SELECT_EDGES)}): values and group ids "
+        "bitwise the argmax passes'")
+
+
 def check_candidate_kernel(cell: str, slab, mask, q_all, ts_bk: list) -> list[dict]:
     """Phase 1 for K6: the kernel against its twin at each (B, t) phase 6
     ran it with, on phase 6's queries: values within REL_TOL, group ids
     equal except at ties, and every finite value the K1 maximum of its
-    group, bit for bit (one scoring body). Times are CUDA-event medians."""
+    group, bit for bit (K6 scores with K1's kernel). Times are CUDA-event
+    medians: K6's whole wrapper (K1's scan and the selection), and K1 alone
+    at the same B (``k1_ms``), which gives the selection's share."""
     import torch
 
     from frankensearch_tpu_torch.ops import topk_scan as ts
@@ -1298,9 +1355,13 @@ def check_candidate_kernel(cell: str, slab, mask, q_all, ts_bk: list) -> list[di
                      "plain_ms": cuda_median_ms(lambda: ts.group_candidates_plain(slab, q, mask, t, AB_TILE),
                                                 warmup=1, iters=5),
                      "max_abs_err": err, "ids_swapped_at_ties": swapped,
-                     # the t selection passes are extra work the bound does not count
+                     "k1_ms": cuda_median_ms(lambda: ts.group_max(slab, q, mask)),
+                     # the selection's compares are extra work the bound does not count
                      "bound": bound(nbytes(slab, q, mask, got_v, got_g), 2 * b * n * d, kind)})
     log_kernel_records(cell, recs)
+    for r in recs:
+        log(f"phase1 {cell} K6 B={r['b']} t={r['kk']}: K1 alone {r['k1_ms']:.4f} ms, the selection "
+            f"{r['ms'] - r['k1_ms']:.4f} ms of K6's {r['ms']:.4f}")
     return recs
 
 
@@ -1372,6 +1433,7 @@ def phase6_ab_scan(dev, semantic: dict) -> tuple[dict, dict, list[dict]]:
                             k1_shapes | semantic["shapes"])
     kernels += check_candidate_kernel("semantic-1M", slab, mask, q_all,
                                       sorted({(b, min(k, AB_TILE // ts.GROUP)) for b, k in cases}))
+    check_select_edges(dev)
     torch.cuda.empty_cache()
     return {"batch_ms": ms, "scan_ms_b256_k60": route_ms}, launches, kernels
 

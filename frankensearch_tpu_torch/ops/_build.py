@@ -21,13 +21,10 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (
-    "group_max.cu", "gather_rescore.cu", "flat_score.cu", "group_max_int8.cu", "tile_topk.cu",
-    "group_candidates.cu",
-)
+SOURCES = ("group_max.cu", "gather_rescore.cu", "flat_score.cu", "tile_topk.cu", "group_candidates.cu")
 #: headers the sources include (part of the build's hash): group_scan.cuh
-#: is the mma.sync scoring body of K5 and K6, hopper.cuh K1's TMA,
-#: mbarrier and wgmma primitives
+#: is the mma.sync scoring body of K5, hopper.cuh the TMA, mbarrier and
+#: wgmma primitives of K1 and K4 (group_max.cu)
 HEADERS = ("group_scan.cuh", "hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -128,7 +125,7 @@ def library() -> ctypes.CDLL:
         lib.fs_tile_topk.restype = i32
         lib.fs_tile_topk_wide.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr]
         lib.fs_tile_topk_wide.restype = i32
-        lib.fs_group_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, i32, ptr]
-        lib.fs_group_candidates.restype = i32
+        lib.fs_tile_select.argtypes = [ptr, ptr, ptr, i32, i64, i32, i32, ptr]
+        lib.fs_tile_select.restype = i32
         _lib = lib
     return _lib

@@ -12,8 +12,9 @@ top groups are found.
 - :func:`iter_topk` — k argmax passes instead of one sorted top-k.
 - :func:`topk_groups_two_stage` — chunked two-stage group selection.
 - :func:`scan_topk_hierarchical_ab` — the hierarchical scan with the
-  retired ``emit="tile_topk"`` (kernel K6, csrc/group_candidates.cu: each
-  tile emits its top-t group candidates inside the scan) and
+  retired ``emit="tile_topk"`` (kernel K6: K1's maxima, then
+  csrc/group_candidates.cu's selection gives each tile's top-t group
+  candidates) and
   ``group_select="iter"`` axes.
 
 The TPU measurements that retired them do not carry over to the H100; the

@@ -3,133 +3,136 @@
 // Replaces the TPU kernel frankensearch_tpu/ops/ab_primitives.py
 // `_group_candidates_kernel` (the pallas_call of
 // `scan_topk_hierarchical_ab(emit="tile_topk")`). For each tile of tile_n
-// slab rows and each query b it
-//   1. computes the tile's g_tile = tile_n / 128 group maxima of
-//      bf16(q[b]) . slab[r] + mask[r] (bf16 or f16 products, f32 sums), with
-//      the scoring body of group_scan.cuh, whose bits K1 gives too;
-//   2. runs t argmax passes over them: pass j takes the largest maximum m
-//      (+0.0 above -0.0, as `jnp.max`), the FIRST group whose maximum == m
-//      (so -0.0 ties +0.0), writes m to out_v[tile, j, b] and the global
-//      group id tile * g_tile + local to out_g[tile, j, b], and knocks the
-//      group out with -inf. Once every group is -inf the pass takes group 0
-//      of the tile again, as the TPU kernel does.
+// slab rows and each query b it takes the tile's g = tile_n / 128 group
+// maxima of bf16(q[b]) . slab[r] + mask[r] and runs t argmax passes over
+// them: pass j takes the largest maximum m (+0.0 above -0.0, as
+// `jnp.max`), the FIRST group whose maximum == m (so -0.0 ties +0.0),
+// writes m to out_v[tile, j, b] and the global group id tile * g + local to
+// out_g[tile, j, b], and knocks the group out with -inf. Once every group is
+// -inf the pass takes group 0 of the tile again, as the TPU kernel does.
 //
-// What bounds it on the H100: the slab is read once (1M x 256 bf16: 516 MB,
-// about 0.16 ms at 3.35 TB/s; its 134 G bf16 operations take 0.13 ms at
-// 989 TFLOP/s), so bytes, as for K1. The t selection passes run on 64 group
-// maxima per query held in registers and add no device-memory traffic.
+// The wrapper (topk_scan.group_candidates) makes two launches: K1
+// (group_max.cu, fs_group_max) writes the (B, n_groups) maxima, so they are
+// K1's bits by construction, and fs_tile_select below does the passes' work
+// in one ranking step.
 //
-// Design (correct and simple first):
-//   * one block = one tile x a tile of 64 queries, 4 warps; the blocks of
-//     one tile are adjacent in the grid, so the tile comes from HBM once;
-//   * the block walks the tile's groups with score_group() and keeps the
-//     64 x g_tile maxima in shared memory (16.6 KB at tile_n = 8192);
-//   * then one warp per query: each lane holds two maxima (groups lane and
-//     lane + 32), a shuffle reduction finds the pass's maximum, a second
-//     one the lowest group index holding it, and the owning lane knocks it
-//     out.
+// The passes as a ranking. Of a row's g maxima x_0 .. x_{g-1}, let f be the
+// number that are not -inf (maxima are never NaN). Then, for j < t:
+//   * group i (x_i not -inf) is emitted by pass
+//       rank(i) = #{k : x_k > x_i} + #{k < i : x_k == x_i}
+//     (IEEE compares: by value, equal maxima in ascending group order, and
+//     +0.0 and -0.0 equal);
+//   * pass j < f emits as its value x_i of the group i it emits, except in
+//     the class of zeros: there the passes take the groups in group order
+//     while the pass's maximum stays +0.0 until the last +0.0 group is out,
+//     so every pass up to the one that emits the last +0.0 group emits
+//     +0.0, and the later ones -0.0, whichever group each names;
+//   * pass j >= f emits (-inf, group 0 of the tile): every group is -inf.
+//
+// What bounds it on the H100: K1's scan (0.158 ms at 1M x 256 bf16, B =
+// 256). The selection reads the maxima once (4 B n_groups bytes: 8 MB at
+// B = 256) and writes 8 t B bytes a tile (15 MB at t = 60): 7 us at 3.35
+// TB/s. The passes of the first port (t rounds of two 5-step shuffle
+// reductions per query and tile, about 0.7 ms at B = 256, t = 60) become
+// g compare steps per group.
+//
+// Design: one block = one tile x 32 queries, 8 warps. The block stages its
+// 32 rows of maxima in shared memory; a warp ranks one row at a time (two
+// maxima a lane, g steps against the row broadcast from shared memory) and
+// puts each emitted (value, id) at its pass in a staging buffer; then the
+// block writes out[tile, j, b0 .. b0+31] as one 128-byte span per pass j.
 
-#include "group_scan.cuh"
-
-using namespace fs_scan;
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kMaxGroupsPerTile = 64;  // tile_n <= 8192
-constexpr int kLdG = kMaxGroupsPerTile + 1;
+constexpr int kMaxG = 64;             // groups a tile (tile_n <= 8192)
+constexpr int kQ = 32;                // queries a block
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kLdOut = kQ + 1;        // staging row stride: a warp's 32 ranks hit distinct banks
 
-// Integer key whose order is the float total order (-0.0 below +0.0), the
-// order `float_order_key` gives the plain twin.
-__device__ __forceinline__ int order_key(float x) {
-  const int bits = __float_as_int(x);
-  return bits >= 0 ? bits : bits ^ 0x7fffffff;
-}
-
-__device__ __forceinline__ float total_max(float a, float b) {
-  return order_key(b) > order_key(a) ? b : a;
-}
-
-template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
-group_candidates_kernel(const uint16_t* __restrict__ q,     // (b, d) slab dtype
-                        const uint16_t* __restrict__ slab,  // (n, d)
-                        const float* __restrict__ mask,     // (n,) additive
-                        float* __restrict__ out_v,          // (n_tiles, t, b)
-                        int32_t* __restrict__ out_g,        // (n_tiles, t, b)
-                        int b, int d, int g_tile, int t, int n_qtiles) {
-  __shared__ GroupSmem sm;
-  __shared__ float s_gmax[kQTile * kLdG];
+tile_select_kernel(const float* __restrict__ gm,  // (b, n_groups) group maxima
+                   float* __restrict__ out_v,     // (n_tiles, t, b)
+                   int32_t* __restrict__ out_g,   // (n_tiles, t, b)
+                   int b, int n_groups, int g, int t, int n_qblocks) {
+  __shared__ float s_row[kQ * kMaxG];
+  __shared__ float s_v[kMaxG * kLdOut];
+  __shared__ int32_t s_g[kMaxG * kLdOut];
 
-  const int tile = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kQTile;
+  const int tile = blockIdx.x / n_qblocks;
+  const int b0 = (blockIdx.x % n_qblocks) * kQ;
+  const int nq = min(kQ, b - b0);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int gid0 = tile * g;
 
-  for (int lg = 0; lg < g_tile; ++lg) {
-    const int64_t row0 = (static_cast<int64_t>(tile) * g_tile + lg) * kGroup;
-    score_group<kBf16>(q, slab, mask, row0, q0, b, d, sm);
-    for (int c = threadIdx.x; c < kQTile; c += kThreads) s_gmax[c * kLdG + lg] = group_max_of(sm, c);
+  for (int i = threadIdx.x; i < nq * g; i += kThreads) {
+    const int ql = i / g, k = i - ql * g;
+    s_row[ql * kMaxG + k] = gm[static_cast<int64_t>(b0 + ql) * n_groups + gid0 + k];
   }
   __syncthreads();
 
-  const int gid0 = tile * g_tile;
-  for (int ql = warp; ql < kQTile; ql += kWarps) {
-    const int qi = q0 + ql;
-    if (qi >= b) break;
-    const float* row = s_gmax + ql * kLdG;
-    float v0 = lane < g_tile ? row[lane] : -INFINITY;
-    float v1 = lane + 32 < g_tile ? row[lane + 32] : -INFINITY;
-    for (int j = 0; j < t; ++j) {
-      float m = total_max(v0, v1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) m = total_max(m, __shfl_xor_sync(0xffffffffu, m, off));
-      // lanes past g_tile hold -inf too, but group 0 is -inf whenever they
-      // tie the maximum, and it is the lower index
-      int c = v0 == m ? lane : (v1 == m ? lane + 32 : g_tile);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) c = min(c, __shfl_xor_sync(0xffffffffu, c, off));
-      if (lane == 0) {
-        const int64_t o = (static_cast<int64_t>(tile) * t + j) * b + qi;
-        out_v[o] = m;
-        out_g[o] = gid0 + c;
-      }
-      if (c == lane) v0 = -INFINITY;
-      else if (c == lane + 32) v1 = -INFINITY;
+  for (int ql = warp; ql < nq; ql += kWarps) {
+    const float* row = s_row + ql * kMaxG;
+    const int i0 = lane, i1 = lane + 32;
+    const float v0 = i0 < g ? row[i0] : -INFINITY;
+    const float v1 = i1 < g ? row[i1] : -INFINITY;
+    int r0 = 0, r1 = 0;
+#pragma unroll 4
+    for (int k = 0; k < g; ++k) {
+      const float x = row[k];
+      r0 += (x > v0) | ((x == v0) & (k < i0));
+      r1 += (x > v1) | ((x == v1) & (k < i1));
+    }
+    const unsigned all = 0xffffffffu;
+    const int f = __popc(__ballot_sync(all, v0 != -INFINITY)) + __popc(__ballot_sync(all, v1 != -INFINITY));
+    // the pass that emits the last +0.0 group (in group order), or -1
+    const int plus_last = __reduce_max_sync(
+        all, max(__float_as_int(v0) == 0 ? r0 : -1, __float_as_int(v1) == 0 ? r1 : -1));
+    auto emit = [&](float v, int r, int i) {
+      if (v == -INFINITY || r >= t) return;
+      s_v[r * kLdOut + ql] = v == 0.0f ? (r <= plus_last ? 0.0f : -0.0f) : v;
+      s_g[r * kLdOut + ql] = gid0 + i;
+    };
+    emit(v0, r0, i0);
+    emit(v1, r1, i1);
+    for (int r = f + lane; r < t; r += 32) {
+      s_v[r * kLdOut + ql] = -INFINITY;
+      s_g[r * kLdOut + ql] = gid0;
+    }
+  }
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < t * kQ; i += kThreads) {
+    const int j = i / kQ, c = i % kQ;
+    if (c < nq) {
+      const int64_t o = (static_cast<int64_t>(tile) * t + j) * b + b0 + c;
+      out_v[o] = s_v[j * kLdOut + c];
+      out_g[o] = s_g[j * kLdOut + c];
     }
   }
 }
 
 }  // namespace
 
-// q: (b, d) bf16/f16, slab: (n, d) same dtype, mask: (n,) f32, out_v /
-// out_g: (n / tile_n, t, b) f32 / int32. Needs d % 64 == 0, tile_n a
-// multiple of 128 with 128 <= tile_n <= 8192 and n % tile_n == 0,
-// 1 <= t <= tile_n / 128, b >= 1 and 16-byte aligned pointers (the Python
-// wrapper checks all of these). Returns cudaGetLastError() after the launch.
-extern "C" int fs_group_candidates(const void* q, const void* slab, const void* mask,
-                                   void* out_v, void* out_g, int b, int d, long long n,
-                                   int tile_n, int t, int is_bf16, void* stream) {
-  if (b < 1 || d < kChunk || d % kChunk != 0 || tile_n < kGroup || tile_n % kGroup != 0 ||
-      tile_n > kGroup * kMaxGroupsPerTile || n < tile_n || n % tile_n != 0 || t < 1 ||
-      t > tile_n / kGroup)
+// gm: (b, n_groups) f32 group maxima (K1's output), out_v / out_g:
+// (n_groups / g, t, b) f32 / int32, g = tile_n / 128 groups a tile. Needs
+// 1 <= g <= 64, n_groups % g == 0, 1 <= t <= g, b >= 1 (the Python wrapper
+// checks all of these). Returns cudaGetLastError() after the launch.
+extern "C" int fs_tile_select(const void* gm, void* out_v, void* out_g, int b, long long n_groups, int g, int t,
+                              void* stream) {
+  if (b < 1 || g < 1 || g > kMaxG || n_groups < g || n_groups % g != 0 || n_groups > 0x7fffffffLL || t < 1 ||
+      t > g)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_tiles = n / tile_n;
-  const long long n_qtiles = (b + kQTile - 1) / kQTile;
-  const long long blocks = n_tiles * n_qtiles;
-  if (blocks > 0x7fffffffLL || n_tiles * (tile_n / kGroup) > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const uint16_t*>(q);
-  const auto* sp = static_cast<const uint16_t*>(slab);
-  const auto* mp = static_cast<const float*>(mask);
-  auto* vp = static_cast<float*>(out_v);
-  auto* gp = static_cast<int32_t*>(out_g);
-  const int g_tile = tile_n / kGroup;
-  if (is_bf16)
-    group_candidates_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        qp, sp, mp, vp, gp, b, d, g_tile, t, static_cast<int>(n_qtiles));
-  else
-    group_candidates_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        qp, sp, mp, vp, gp, b, d, g_tile, t, static_cast<int>(n_qtiles));
+  const long long n_qblocks = (b + kQ - 1) / kQ;
+  const long long blocks = n_groups / g * n_qblocks;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  tile_select_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(gm), static_cast<float*>(out_v), static_cast<int32_t*>(out_g), b,
+      static_cast<int>(n_groups), g, t, static_cast<int>(n_qblocks));
   return static_cast<int>(cudaGetLastError());
 }

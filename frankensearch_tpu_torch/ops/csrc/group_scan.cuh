@@ -1,20 +1,13 @@
-// The per-group scoring body of K5 (tile_topk.cu) and K6
-// (group_candidates.cu), for sm_90a.
+// The per-group scoring body of K5 (tile_topk.cu), for sm_90a.
 //
 // score_group_with() computes, for one 128-row group of the slab and a tile
 // of 64 queries, the dot products dot(bf16(q[b]), slab[r]) with bf16 (or
 // f16) products accumulated in f32 on the tensor cores (mma.sync
 // m16n8k16, k16 steps in ascending order), and hands them, with the
-// group's mask staged in shared memory, to an epilogue. score_group() is
-// that body with a max epilogue:
-//
-//     max_{r in group} ( dot(bf16(q[b]), slab[r]) + mask[r] )
-//
-// left in shared memory, where group_max_of(sm, c) reads the maximum for
-// query q0 + c. K1 (group_max.cu) computes the same values with wgmma in
-// the same k order, and the card tests hold it to these bits
-// (K1_DIGESTS: unchanged since K1 ran this body), so K6's group maxima are
-// K1's, and K5's scores are the values K1 takes the maximum of, bit for
+// group's mask staged in shared memory, to an epilogue. K1 (group_max.cu)
+// computes the same dot products with wgmma in the same k order, and the
+// card tests hold it to these bits (K1_DIGESTS: unchanged since K1 ran this
+// body), so K5's scores are the values K1 takes the maximum of, bit for
 // bit.
 //
 // Layout:
@@ -23,9 +16,6 @@
 //   * the group's rows and the query tile are staged through shared memory
 //     in 64-dim chunks with 16-byte loads; rows are padded to 72 elements so
 //     the fragment loads are free of bank conflicts;
-//   * the max epilogue adds the mask in f32 before the max, takes the max
-//     over the 128 rows in registers, across lanes with shuffles and across
-//     the 4 warps through shared memory.
 
 #pragma once
 
@@ -46,7 +36,6 @@ struct GroupSmem {
   __align__(16) uint16_t rows[kGroup * kLds];
   __align__(16) uint16_t q[kQTile * kLds];
   float mask[kGroup];
-  float red[kWarps][kQTile];
 };
 
 template <bool kBf16>
@@ -145,49 +134,6 @@ __device__ __forceinline__ void score_group_with(const uint16_t* __restrict__ q,
     __syncthreads();
   }
   epi(acc);
-}
-
-// The max body: score_group_with() whose epilogue adds the mask, takes
-// each warp's per-query maximum into sm.red and ends with a barrier, after
-// which group_max_of() may be read.
-template <bool kBf16>
-__device__ __forceinline__ void score_group(const uint16_t* __restrict__ q,
-                                            const uint16_t* __restrict__ slab,
-                                            const float* __restrict__ mask,
-                                            int64_t row0, int q0, int b, int d,
-                                            GroupSmem& sm) {
-  score_group_with<kBf16>(q, slab, mask, row0, q0, b, d, sm, [&](GroupAcc& acc) {
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float m = -INFINITY;
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int r = warp * 32 + mt * 16 + g;
-          m = fmaxf(m, acc[mt][nt][j] + sm.mask[r]);
-          m = fmaxf(m, acc[mt][nt][j + 2] + sm.mask[r + 8]);
-        }
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
-        if (g == 0) sm.red[warp][nt * 8 + 2 * t + j] = m;
-      }
-    }
-    __syncthreads();
-  });
-}
-
-// The group's maximum for query q0 + c, after score_group().
-__device__ __forceinline__ float group_max_of(const GroupSmem& sm, int c) {
-  float m = sm.red[0][c];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, sm.red[w][c]);
-  return m;
 }
 
 }  // namespace fs_scan

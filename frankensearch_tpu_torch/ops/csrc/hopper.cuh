@@ -1,13 +1,14 @@
-// Hopper (sm_90a) primitives for K1 (group_max.cu): mbarriers, 2-D TMA
-// loads, and warpgroup matrix multiplies (wgmma) reading both operands
+// Hopper (sm_90a) primitives for K1 and K4 (group_max.cu): mbarriers, 2-D
+// TMA loads, and warpgroup matrix multiplies (wgmma) reading both operands
 // from shared memory laid out by a TMA load with 128-byte swizzle.
 //
-// The wgmma wrappers are written out once per width N (the register list
-// of an m64nNk16 product with f32 accumulators is N/2 registers a thread),
-// for bf16 and f16 operands, both K-major. Accumulator register i of a
-// thread holds row 16*warp + lane/4 + 8*((i/2) % 2) and column
-// 8*(i/4) + 2*(lane%4) + i%2 of the 64 x N tile (warp = its warp in the
-// warpgroup).
+// The wgmma wrappers exist once per width N = 8 .. 256 (the register list
+// of an m64nN product is N/2 registers a thread), for bf16 and f16
+// operands (m64nNk16, f32 sums) and int8 operands (m64nNk32, s32 sums),
+// both K-major; either form takes one 32-byte k step of a 128-byte row.
+// Accumulator register i of a thread holds row 16*warp + lane/4 +
+// 8*((i/2) % 2) and column 8*(i/4) + 2*(lane%4) + i%2 of the 64 x N tile
+// (warp = its warp in the warpgroup), whatever the type.
 
 #pragma once
 
@@ -64,11 +65,12 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int x, i
       : "memory");
 }
 
-// A shared-memory matrix descriptor for a K-major operand of 64-element
-// (128-byte) rows in TMA's 128-byte swizzle: 8-row atoms of 1,024 bytes
-// (the stride byte offset); the leading byte offset is unused in this
-// layout. `p` must lie 1,024-byte aligned plus the k offset: +32 bytes
-// (+2 in the address field) steps one k16 slice along the row.
+// A shared-memory matrix descriptor for a K-major operand of 128-byte rows
+// (64 bf16/f16 or 128 int8 elements) in TMA's 128-byte swizzle: 8-row
+// atoms of 1,024 bytes (the stride byte offset); the leading byte offset
+// is unused in this layout. `p` must lie 1,024-byte aligned plus the k
+// offset: +32 bytes (+2 in the address field) steps one k16 (bf16/f16) or
+// k32 (int8) slice along the row.
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   uint64_t d = static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4);
   d |= static_cast<uint64_t>(16 >> 4) << 16;
@@ -91,142 +93,85 @@ __device__ __forceinline__ void fence_operands(float (&d)[kR]) {
 #pragma unroll
   for (int i = 0; i < kR; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int kR>
+__device__ __forceinline__ void fence_operands(int (&d)[kR]) {
+#pragma unroll
+  for (int i = 0; i < kR; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
-// d (+)= A (64 x 16, descriptor da) x B (N x 16, descriptor db)^T; with
-// scale_d == 0 the product overwrites d.
+// The accumulator list of an m64nN product, N/2 registers a thread: its
+// register names in the instruction (FS_REGS_<N/2>) and its operands
+// (FS_D<N/2>(C, 0), each written C(d[i]): "+f" for f32, "+r" for s32).
+#define FS_REGS_4 "%0, %1, %2, %3"
+#define FS_REGS_8 FS_REGS_4 ", %4, %5, %6, %7"
+#define FS_REGS_16 FS_REGS_8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define FS_REGS_32 FS_REGS_16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define FS_REGS_64 FS_REGS_32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define FS_REGS_128 FS_REGS_64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+#define FS_D4(C, i) C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3])
+#define FS_D8(C, i) FS_D4(C, i), FS_D4(C, i + 4)
+#define FS_D16(C, i) FS_D8(C, i), FS_D8(C, i + 8)
+#define FS_D32(C, i) FS_D16(C, i), FS_D16(C, i + 16)
+#define FS_D64(C, i) FS_D32(C, i), FS_D32(C, i + 32)
+#define FS_D128(C, i) FS_D64(C, i), FS_D64(C, i + 64)
+#define FS_F32(x) "+f"(x)
+#define FS_S32(x) "+r"(x)
+
+// One wgmma: INSTR on the accumulators REGS (operands in the variadic
+// part), descriptors da and db at operand indices A and B, scale_d at P;
+// TAIL is the f16/bf16 forms' scale-a, scale-b and transpose immediates
+// (the integer form has none).
+#define FS_WGMMA_ASM(INSTR, REGS, A, B, P, TAIL, ...)                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" P ", 0;\n" INSTR " {" REGS "}, %" A \
+               ", %" B ", p" TAIL ";\n}\n"                                              \
+               : __VA_ARGS__                                                           \
+               : "l"(da), "l"(db), "r"(scale_d))
+
+// d (+)= A (64 rows, descriptor da) x B (N rows, descriptor db)^T over one
+// 32-byte k step, both operands K-major: fma() for bf16 or f16 (k16, f32
+// sums), fma_s8() for int8 (k32, exact s32 sums). With scale_d == 0 the
+// product overwrites d.
 template <int kN>
 struct Wgmma;
 
-#define FS_WGMMA(TY)                                                        \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"                      \
-               "wgmma.mma_async.sync.aligned.m64n8k16.f32." TY "." TY " {"  \
-               "%0, %1, %2, %3"  \
-               "}, %4, %5, p, 1, 1, 0, 0;\n}\n"  \
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])  \
-               : "l"(da), "l"(db), "r"(scale_d))
-template <>
-struct Wgmma<8> {
-  template <bool kBf16>
-  static __device__ __forceinline__ void fma(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
-    if constexpr (kBf16) FS_WGMMA("bf16"); else FS_WGMMA("f16");
-  }
-};
-#undef FS_WGMMA
+#define FS_WGMMA_WIDTH(N, R, A, B, P)                                                                   \
+  template <>                                                                                           \
+  struct Wgmma<N> {                                                                                     \
+    template <bool kBf16>                                                                               \
+    static __device__ __forceinline__ void fma(float (&d)[R], uint64_t da, uint64_t db, int scale_d) {  \
+      if constexpr (kBf16)                                                                              \
+        FS_WGMMA_ASM("wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16", FS_REGS_##R, #A, #B,   \
+                     #P, ", 1, 1, 0, 0", FS_D##R(FS_F32, 0));                                            \
+      else                                                                                              \
+        FS_WGMMA_ASM("wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.f16.f16", FS_REGS_##R, #A, #B, #P, \
+                     ", 1, 1, 0, 0", FS_D##R(FS_F32, 0));                                                \
+    }                                                                                                   \
+    static __device__ __forceinline__ void fma_s8(int (&d)[R], uint64_t da, uint64_t db, int scale_d) { \
+      FS_WGMMA_ASM("wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8", FS_REGS_##R, #A, #B, #P, "",  \
+                   FS_D##R(FS_S32, 0));                                                                  \
+    }                                                                                                   \
+  };
+FS_WGMMA_WIDTH(8, 4, 4, 5, 6)
+FS_WGMMA_WIDTH(16, 8, 8, 9, 10)
+FS_WGMMA_WIDTH(32, 16, 16, 17, 18)
+FS_WGMMA_WIDTH(64, 32, 32, 33, 34)
+FS_WGMMA_WIDTH(128, 64, 64, 65, 66)
+FS_WGMMA_WIDTH(256, 128, 128, 129, 130)
 
-#define FS_WGMMA(TY)                                                        \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                      \
-               "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {"  \
-               "%0, %1, %2, %3, %4, %5, %6, %7"  \
-               "}, %8, %9, p, 1, 1, 0, 0;\n}\n"  \
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])  \
-               : "l"(da), "l"(db), "r"(scale_d))
-template <>
-struct Wgmma<16> {
-  template <bool kBf16>
-  static __device__ __forceinline__ void fma(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
-    if constexpr (kBf16) FS_WGMMA("bf16"); else FS_WGMMA("f16");
-  }
-};
-#undef FS_WGMMA
-
-#define FS_WGMMA(TY)                                                        \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                      \
-               "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"  \
-               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"  \
-               "}, %16, %17, p, 1, 1, 0, 0;\n}\n"  \
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
-                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])  \
-               : "l"(da), "l"(db), "r"(scale_d))
-template <>
-struct Wgmma<32> {
-  template <bool kBf16>
-  static __device__ __forceinline__ void fma(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
-    if constexpr (kBf16) FS_WGMMA("bf16"); else FS_WGMMA("f16");
-  }
-};
-#undef FS_WGMMA
-
-#define FS_WGMMA(TY)                                                        \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                      \
-               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"  \
-               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"  \
-               "}, %32, %33, p, 1, 1, 0, 0;\n}\n"  \
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
-                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
-                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
-                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
-               : "l"(da), "l"(db), "r"(scale_d))
-template <>
-struct Wgmma<64> {
-  template <bool kBf16>
-  static __device__ __forceinline__ void fma(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-    if constexpr (kBf16) FS_WGMMA("bf16"); else FS_WGMMA("f16");
-  }
-};
-#undef FS_WGMMA
-
-#define FS_WGMMA(TY)                                                        \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                      \
-               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"  \
-               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
-               "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
-               "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"  \
-               "}, %64, %65, p, 1, 1, 0, 0;\n}\n"  \
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
-                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
-                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
-                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),  \
-                 "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
-                 "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
-                 "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
-                 "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
-               : "l"(da), "l"(db), "r"(scale_d))
-template <>
-struct Wgmma<128> {
-  template <bool kBf16>
-  static __device__ __forceinline__ void fma(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-    if constexpr (kBf16) FS_WGMMA("bf16"); else FS_WGMMA("f16");
-  }
-};
-#undef FS_WGMMA
-
-#define FS_WGMMA(TY)                                                        \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"                      \
-               "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {"  \
-               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
-               "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
-               "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "  \
-               "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "  \
-               "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "  \
-               "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "  \
-               "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"  \
-               "}, %128, %129, p, 1, 1, 0, 0;\n}\n"  \
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
-                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
-                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
-                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),  \
-                 "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
-                 "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
-                 "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
-                 "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),  \
-                 "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),  \
-                 "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),  \
-                 "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),  \
-                 "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),  \
-                 "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),  \
-                 "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),  \
-                 "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),  \
-                 "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])  \
-               : "l"(da), "l"(db), "r"(scale_d))
-template <>
-struct Wgmma<256> {
-  template <bool kBf16>
-  static __device__ __forceinline__ void fma(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
-    if constexpr (kBf16) FS_WGMMA("bf16"); else FS_WGMMA("f16");
-  }
-};
-#undef FS_WGMMA
+#undef FS_WGMMA_WIDTH
+#undef FS_WGMMA_ASM
+#undef FS_F32
+#undef FS_S32
+#undef FS_REGS_4
+#undef FS_D4
+#undef FS_REGS_8
+#undef FS_D8
+#undef FS_REGS_16
+#undef FS_D16
+#undef FS_REGS_32
+#undef FS_D32
+#undef FS_REGS_64
+#undef FS_D64
+#undef FS_REGS_128
+#undef FS_D128
 }  // namespace fs_hopper

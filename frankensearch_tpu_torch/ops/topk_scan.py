@@ -9,10 +9,11 @@ Port of frankensearch_tpu/ops/topk_scan.py: the plain scan
 Hopper kernels: K1 (:func:`group_max`, csrc/group_max.cu), K2
 (:func:`gather_rescore`, csrc/gather_rescore.cu) and its int8 form
 (:func:`gather_rescore_i8`, the same source), K4 (:func:`group_max_int8`,
-csrc/group_max_int8.cu) and K5 (:func:`tile_topk`, csrc/tile_topk.cu).
-K6 (:func:`group_candidates`, csrc/group_candidates.cu) is the kernel of
-the A/B lane in ops/ab_primitives.py; it lives here beside K1, whose
-scoring body it shares.
+K1's kernel in its int8 form) and K5 (:func:`tile_topk`,
+csrc/tile_topk.cu). K6 (:func:`group_candidates`: K1, then
+:func:`tile_select` in csrc/group_candidates.cu) is the kernel of the A/B
+lane in ops/ab_primitives.py; it lives here beside K1, whose maxima it
+selects from.
 
 Each kernel wrapper runs its kernel on a CUDA tensor and its plain PyTorch
 twin (same semantics, the analog of Pallas ``interpret=True``) on a CPU
@@ -162,21 +163,18 @@ def group_max_plain(slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tenso
     return scores.view(b, slab.shape[0] // GROUP, GROUP).amax(dim=2)
 
 
-def group_max(slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """K1 (replaces ``_group_max_kernel``): (B, N/128) f32 masked group
-    maxima. CUDA tensors run csrc/group_max.cu; CPU tensors the plain twin."""
-    if slab.device.type == "cpu":
-        return group_max_plain(slab, queries, mask)
+def _check_group_max_operands(what: str, slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor) -> None:
     _check_kernel_operands(slab, queries)
     n, d = slab.shape
     if d % 64 or d > MAX_KERNEL_DIM:
-        raise ValueError(f"group_max needs dim % 64 == 0 and dim <= {MAX_KERNEL_DIM}, got {d}")
+        raise ValueError(f"{what} needs dim % 64 == 0 and dim <= {MAX_KERNEL_DIM}, got {d}")
     if mask.shape != (n,) or mask.dtype != torch.float32 or mask.device != slab.device:
         raise ValueError("mask must be (N,) f32 on the slab's device")
-    b = queries.shape[0]
-    out = torch.empty((b, n // GROUP), dtype=torch.float32, device=slab.device)
-    if b == 0:
-        return out
+
+
+def _launch_group_max(slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor, out: torch.Tensor) -> None:
+    """csrc/group_max.cu's K1 into ``out`` (B, N/128), B >= 1, operands
+    checked; counts nothing (its callers count their own kernel)."""
     q = _aligned(queries.to(slab.dtype))  # the kernel reads query rows with TMA
     mask = mask.contiguous()
     from frankensearch_tpu_torch.ops import _build
@@ -185,11 +183,24 @@ def group_max(slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor) -> 
     with torch.cuda.device(slab.device):
         rc = lib.fs_group_max(
             q.data_ptr(), slab.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            b, d, n, int(slab.dtype == torch.bfloat16),
+            q.shape[0], slab.shape[1], slab.shape[0], int(slab.dtype == torch.bfloat16),
             torch.cuda.current_stream(slab.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"group_max kernel launch failed: CUDA error {rc}")
+
+
+def group_max(slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """K1 (replaces ``_group_max_kernel``): (B, N/128) f32 masked group
+    maxima. CUDA tensors run csrc/group_max.cu; CPU tensors the plain twin."""
+    if slab.device.type == "cpu":
+        return group_max_plain(slab, queries, mask)
+    _check_group_max_operands("group_max", slab, queries, mask)
+    b = queries.shape[0]
+    out = torch.empty((b, slab.shape[0] // GROUP), dtype=torch.float32, device=slab.device)
+    if b == 0:
+        return out
+    _launch_group_max(slab, queries, mask, out)
     group_max.launches += 1
     return out
 
@@ -315,9 +326,9 @@ def _check_int8_operands(slab_i8: torch.Tensor, queries: torch.Tensor, query_dty
 
 def group_max_int8(slab_i8: torch.Tensor, q_i8: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """K4 (replaces ``_group_max_int8_kernel``): (B, N/128) f32 masked group
-    maxima of the exact int8 scores. CUDA tensors run
-    csrc/group_max_int8.cu; CPU tensors the plain twin. Bitwise equal to
-    the twin (exact int32 sums)."""
+    maxima of the exact int8 scores. CUDA tensors run K1's kernel in its
+    int8 form (csrc/group_max.cu, ``fs_group_max_int8``); CPU tensors the
+    plain twin. Bitwise equal to the twin (exact int32 sums)."""
     if slab_i8.device.type == "cpu":
         return group_max_int8_plain(slab_i8, q_i8, mask)
     _check_int8_operands(slab_i8, q_i8, torch.int8)
@@ -330,7 +341,7 @@ def group_max_int8(slab_i8: torch.Tensor, q_i8: torch.Tensor, mask: torch.Tensor
     out = torch.empty((b, n // GROUP), dtype=torch.float32, device=slab_i8.device)
     if b == 0:
         return out
-    q = _aligned(q_i8)
+    q = _aligned(q_i8)  # the kernel reads query rows with TMA
     mask = mask.contiguous()
     from frankensearch_tpu_torch.ops import _build
 
@@ -534,6 +545,58 @@ def argmax_passes(x: torch.Tensor, t: int) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(vals, dim=-1), torch.stack(cols, dim=-1)
 
 
+def tile_select_plain(gm: torch.Tensor, t: int, tile_n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of K6's selection: ``t`` :func:`argmax_passes` over each
+    tile's ``tile_n / 128`` groups of the (B, n_groups) maxima ``gm``.
+    Returns (T, t, B) f32 values and int32 global group ids."""
+    b, n_groups = gm.shape
+    g_tile = tile_n // GROUP
+    n_tiles = n_groups // g_tile
+    vals, cols = argmax_passes(gm.view(b, n_tiles, g_tile), t)  # (B, T, t)
+    gids = cols + torch.arange(n_tiles, dtype=torch.int64, device=gm.device)[None, :, None] * g_tile
+    return vals.permute(1, 2, 0).contiguous(), gids.permute(1, 2, 0).to(torch.int32).contiguous()
+
+
+def _check_tile_select(n_groups: int, t: int, tile_n: int) -> None:
+    if tile_n % GROUP or not GROUP <= tile_n <= MAX_CANDIDATE_TILE or (n_groups * GROUP) % tile_n:
+        raise ValueError(
+            f"K6 needs tile_n a multiple of {GROUP} up to {MAX_CANDIDATE_TILE} "
+            f"that divides N; got tile_n {tile_n}, N {n_groups * GROUP}"
+        )
+    if not 1 <= t <= tile_n // GROUP:
+        raise ValueError(f"K6 needs 1 <= t <= {tile_n // GROUP}, got {t}")
+
+
+def tile_select(gm: torch.Tensor, t: int, tile_n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6's selection on given (B, n_groups) f32 maxima: (T, t, B) values
+    and int32 global group ids of :func:`tile_select_plain`'s passes. CUDA
+    tensors run ``fs_tile_select`` (csrc/group_candidates.cu), bitwise the
+    twin's; CPU tensors the twin. :func:`group_candidates` runs it on K1's
+    maxima and counts its launches."""
+    if gm.device.type == "cpu":
+        return tile_select_plain(gm, t, tile_n)
+    if gm.dim() != 2 or gm.dtype != torch.float32:
+        raise ValueError(f"tile_select takes (B, n_groups) f32 maxima, got {gm.dtype} {tuple(gm.shape)}")
+    b, n_groups = gm.shape
+    _check_tile_select(n_groups, t, tile_n)
+    gm = gm.contiguous()
+    out_v = torch.empty((n_groups * GROUP // tile_n, t, b), dtype=torch.float32, device=gm.device)
+    out_g = torch.empty((n_groups * GROUP // tile_n, t, b), dtype=torch.int32, device=gm.device)
+    if b == 0:
+        return out_v, out_g
+    from frankensearch_tpu_torch.ops import _build
+
+    lib = _build.library()
+    with torch.cuda.device(gm.device):
+        rc = lib.fs_tile_select(
+            gm.data_ptr(), out_v.data_ptr(), out_g.data_ptr(), b, n_groups, tile_n // GROUP, t,
+            torch.cuda.current_stream(gm.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"tile_select kernel launch failed: CUDA error {rc}")
+    return out_v, out_g
+
+
 def group_candidates_plain(
     slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor, t: int, tile_n: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -541,58 +604,30 @@ def group_candidates_plain(
     (:func:`group_max_plain`), then ``t`` :func:`argmax_passes` over the
     tile's ``tile_n / 128`` groups. Returns (T, t, B) f32 values and int32
     global group ids."""
-    n = slab.shape[0]
-    b = queries.shape[0]
-    g_tile = tile_n // GROUP
-    n_tiles = n // tile_n
-    gm = group_max_plain(slab, queries, mask).view(b, n_tiles, g_tile)
-    vals, cols = argmax_passes(gm, t)  # (B, T, t)
-    gids = cols + torch.arange(n_tiles, dtype=torch.int64, device=slab.device)[None, :, None] * g_tile
-    return vals.permute(1, 2, 0).contiguous(), gids.permute(1, 2, 0).to(torch.int32).contiguous()
+    return tile_select_plain(group_max_plain(slab, queries, mask), t, tile_n)
 
 
 def group_candidates(
     slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor, t: int, tile_n: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K6 (replaces ``_group_candidates_kernel``): (T, t, B) per-tile top-t
-    group maxima and their global group ids. CUDA tensors run
-    csrc/group_candidates.cu (``tile_n`` a multiple of 128 up to 8192 that
-    divides N); CPU tensors the plain twin."""
+    group maxima and their global group ids. CUDA tensors run K1's kernel
+    (csrc/group_max.cu, not counted as a K1 launch) into a (B, N/128)
+    scratch, then :func:`tile_select`'s kernel (csrc/group_candidates.cu;
+    ``tile_n`` a multiple of 128 up to 8192 that divides N); CPU tensors
+    the plain twin."""
     if slab.device.type == "cpu":
         return group_candidates_plain(slab, queries, mask, t, tile_n)
-    _check_kernel_operands(slab, queries)
-    n, d = slab.shape
-    if d % 64:
-        raise ValueError(f"group_candidates needs dim % 64 == 0, got {d}")
-    if tile_n % GROUP or not GROUP <= tile_n <= MAX_CANDIDATE_TILE or n % tile_n:
-        raise ValueError(
-            f"group_candidates needs tile_n a multiple of {GROUP} up to {MAX_CANDIDATE_TILE} "
-            f"that divides N; got tile_n {tile_n}, N {n}"
-        )
-    if not 1 <= t <= tile_n // GROUP:
-        raise ValueError(f"group_candidates needs 1 <= t <= {tile_n // GROUP}, got {t}")
-    if mask.shape != (n,) or mask.dtype != torch.float32 or mask.device != slab.device:
-        raise ValueError("mask must be (N,) f32 on the slab's device")
+    _check_group_max_operands("group_candidates", slab, queries, mask)
+    _check_tile_select(slab.shape[0] // GROUP, t, tile_n)
     b = queries.shape[0]
-    out_v = torch.empty((n // tile_n, t, b), dtype=torch.float32, device=slab.device)
-    out_g = torch.empty((n // tile_n, t, b), dtype=torch.int32, device=slab.device)
+    gm = torch.empty((b, slab.shape[0] // GROUP), dtype=torch.float32, device=slab.device)
     if b == 0:
-        return out_v, out_g
-    q = _aligned(queries.to(slab.dtype))
-    mask = mask.contiguous()
-    from frankensearch_tpu_torch.ops import _build
-
-    lib = _build.library()
-    with torch.cuda.device(slab.device):
-        rc = lib.fs_group_candidates(
-            q.data_ptr(), slab.data_ptr(), mask.data_ptr(), out_v.data_ptr(), out_g.data_ptr(),
-            b, d, n, tile_n, t, int(slab.dtype == torch.bfloat16),
-            torch.cuda.current_stream(slab.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"group_candidates kernel launch failed: CUDA error {rc}")
+        return tile_select(gm, t, tile_n)
+    _launch_group_max(slab, queries, mask, gm)
+    out = tile_select(gm, t, tile_n)
     group_candidates.launches += 1
-    return out_v, out_g
+    return out
 
 
 group_candidates.launches = 0

@@ -31,21 +31,23 @@ JSON summary as the last line. The profiler table and the cProfile listing
 of each (cell, B) go to ``OUT_DIR/profile_<cell>_b<B>.txt``.
 
 ``python3 profile_chip.py --kernels [ROOT]`` times the flat lane's class
-step, K5, K1 and K2 instead, from the port package under ROOT (default: this
-checkout), so that an earlier tree unpacked elsewhere (``git archive
-<commit> frankensearch_tpu_torch native``) is timed on the same inputs:
-hybrid-1M's lexical arm (``chip_smoke.hybrid1m_lexical``), the first
-64-row flat tile its 256 queries give, each class's step (K3 with its
+step, K5, K1, K2, K6 and K4 instead, from the port package under ROOT
+(default: this checkout), so that an earlier tree unpacked elsewhere
+(``git archive <commit> frankensearch_tpu_torch native``) is timed on the
+same inputs: hybrid-1M's lexical arm (``chip_smoke.hybrid1m_lexical``), the
+first 64-row flat tile its 256 queries give, each class's step (K3 with its
 post-pass where the tree has one) and the whole ``_graded_scan_flat``; K5
 (``tile_topk``) on a seeded 1,007,616 x 256 bf16 slab of unit rows at the
-phase-5 shapes, then K1 (``group_max``) at B = 256, 8, 1 and K2
+phase-5 shapes, then K1 (``group_max``) at B = 256, 8, 1, K2
 (``gather_rescore``, the wrapper with its counting sort) at kk = 60, 30
-over each batch's top groups by K1, on the same slab. CUDA-event medians
+over each batch's top groups by K1, and K6 (``group_candidates``, 8192-row
+tiles) at t = 60, 30, on the same slab; then K4 (``group_max_int8``) at
+B = 256, 8, 1 on a seeded 1,007,616 x 256 int8 slab. CUDA-event medians
 of back-to-back calls, which include the host's enqueue wherever the card
-waits on it (K2's groups at B = 1 stay in L2 between calls); K1 and K2
-also get their device time (``device_ms``: torch.profiler's self device
-time of every kernel of one call of the wrapper). The last line is a JSON
-summary.
+waits on it (K2's groups at B = 1 stay in L2 between calls); K1, K2, K6
+and K4 also get their device time (``device_ms``: torch.profiler's self
+device time of every kernel of one call of the wrapper). The last line is
+a JSON summary.
 """
 
 from __future__ import annotations
@@ -189,14 +191,29 @@ def time_kernels(root: str) -> int:
             groups = torch.sort(ts.topk_desc_rowasc(gm, kk)[1].to(torch.int32), dim=1).values  # as the scan gives them
             k2_call = lambda: ts.gather_rescore(slab, q, groups)
             k2.append({"b": b, "kk": kk, "ms": cs.cuda_median_ms(k2_call, iters=20), "device_ms": device_ms(k2_call)})
-    for name, recs in (("K1", k1), ("K2", k2)):
+    k6 = []
+    for b in sorted({b for b, _ in K5_SHAPES}, reverse=True):
+        q = cs.unit_rows(gen, b, cs.DIM, dev)
+        for t in sorted({kk for bb, kk in K5_SHAPES if bb == b}, reverse=True):
+            k6_call = lambda: ts.group_candidates(slab, q, mask, t, cs.AB_TILE)
+            k6.append({"b": b, "kk": t, "ms": cs.cuda_median_ms(k6_call, iters=20), "device_ms": device_ms(k6_call)})
+    del slab
+    torch.cuda.empty_cache()
+    slab_i8 = torch.randint(-127, 128, (n, cs.DIM), generator=gen, device=dev, dtype=torch.int8)
+    k4 = []
+    for b in sorted({b for b, _ in K5_SHAPES}, reverse=True):
+        q_i8 = torch.randint(-127, 128, (b, cs.DIM), generator=gen, device=dev, dtype=torch.int8)
+        k4_call = lambda: ts.group_max_int8(slab_i8, q_i8, mask)
+        k4.append({"b": b, "ms": cs.cuda_median_ms(k4_call, iters=20), "device_ms": device_ms(k4_call)})
+    for name, recs in (("K1", k1), ("K2", k2), ("K6 (t as kk)", k6), ("K4", k4)):
         cs.log(f"{root}: {name} at N={n} (CUDA events / device): "
                + ", ".join(f"B={r['b']}" + (f" kk={r['kk']}" if "kk" in r else "") + f" {r['ms']:.4f} / {r['device_ms']:.4f}"
                            for r in recs) + " ms")
     cs.log(cs.gpu_line())
     print(json.dumps({"root": root, "flat_fused": fused, "flat_steps": steps, "flat_scan_ms": sum(st["ms"] for st in steps),
                       "graded_scan_flat_ms": lane_ms, "flat_b": q_ids.shape[0], "flat_t": q_ids.shape[1],
-                      "tile_topk": k5, "group_max": k1, "gather_rescore": k2}), flush=True)
+                      "tile_topk": k5, "group_max": k1, "gather_rescore": k2, "group_candidates": k6,
+                      "group_max_int8": k4}), flush=True)
     return 0
 
 

@@ -1,5 +1,5 @@
 """The port on an NVIDIA GPU: kernels K1-K6 and K2's int8 form against
-their plain twins, the deterministic lanes (dense, pruned and DAAT BM25,
+their plain twins (K6's selection also alone, on crafted maxima), the deterministic lanes (dense, pruned and DAAT BM25,
 device RRF) bitwise against the CPU, the int8 and per-tile scan lanes
 against their CPU twin pipelines, the A/B scan's K6 route bitwise against
 the K1/K2 route, and the Model2Vec pool and bag lane against the CPU.
@@ -16,9 +16,10 @@ card, for pinning them from an earlier tree.
 Tolerances: K1/K2/K2-i8/K5/K6 vs twin 1e-5 relative (bf16 and int8
 products are exact; the tensor-core and warp sums run in another order
 than the twins', so K5, K6's group ids and the scan lanes may also swap
-near ties); K5's scores and K6's maxima are K1's bits (one scoring
-body), and on inputs whose every score is exact in f32 K5 is bitwise its
-twin; K4's int32
+near ties); K5's scores and K6's maxima are K1's bits (K5 scores with
+K1's body, K6 with K1's kernel), and on inputs whose every score is exact
+in f32 K5 is bitwise its twin; K6's selection does no arithmetic, so it is
+bitwise its twin (the argmax passes) on any maxima; K4's int32
 sums are exact, so it is bitwise; the Model2Vec pool is elementwise f32
 adds in a fixed order, within 1e-6 of the CPU; K3 sums
 in its twin's order with unfused products and adds, then adds the hot
@@ -213,6 +214,47 @@ def test_group_max_int8_bitwise(cuda_device, b, d):
     assert torch.equal(got.view(torch.int32), on_card.view(torch.int32))
 
 
+@pytest.mark.parametrize("graded", [False, True])
+@pytest.mark.parametrize("d", [384, 1024])
+@pytest.mark.parametrize("b", [70, 300])
+def test_group_max_int8_bitwise_at_the_exactness_limit(cuda_device, b, d, graded):
+    """K4 at ragged query tiles (B = 70, 300) and widths up to d = 1024,
+    where all-127 rows give the largest sum that is still exact in f32
+    (127 * 127 * 1024 < 2^24), of both signs. A mask of 0 and -inf takes
+    the kernel's int32 max; ``graded`` adds finite nonzero mask values on
+    some rows, whose warps take the f32 path, in the same launch."""
+    gen = torch.Generator(device="cpu").manual_seed(b * d)
+    slab = torch.randint(-127, 128, (8192, d), generator=gen, dtype=torch.int8)
+    slab[:5] = 127
+    slab[200:203] = -127
+    q = torch.randint(-127, 128, (b, d), generator=gen, dtype=torch.int8)
+    q[0] = 127
+    q[b - 1] = -127
+    mask = torch.zeros(8192)
+    mask[1::7] = float("-inf")
+    mask[7936:] = float("-inf")  # a masked group
+    if graded:
+        mask[3::11] = -0.5
+        mask[4::97] = 0.25
+    got = topk_scan.group_max_int8(slab.to(cuda_device), q.to(cuda_device), mask.to(cuda_device)).cpu()
+    want = topk_scan.group_max_int8_plain(slab, q, mask)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert want[0, 0] == 127 * 127 * d and want[b - 1, 1] == 127 * 127 * d
+
+
+@pytest.mark.parametrize("tile_n,t", chip_smoke.SELECT_EDGES)
+def test_tile_select_bitwise_to_argmax_passes(cuda_device, tile_n, t):
+    """K6's selection kernel on crafted maxima (equal maxima in a tile,
+    +0.0 and -0.0 in one tie class in both orders, -inf groups between
+    finite ones, a fully masked tile), values and group ids bitwise the
+    argmax passes' on the CPU."""
+    gm = torch.from_numpy(chip_smoke.crafted_maxima(70, 4, tile_n // 128, seed=tile_n + t))
+    got_v, got_g = topk_scan.tile_select(gm.to(cuda_device), t, tile_n)
+    want_v, want_g = topk_scan.tile_select_plain(gm, t, tile_n)
+    assert torch.equal(got_g.cpu(), want_g)
+    assert torch.equal(got_v.cpu().view(torch.int32), want_v.view(torch.int32))
+
+
 @pytest.mark.parametrize("b,kk", [(1, 12), (8, 60), (70, 30)])
 def test_gather_rescore_i8_matches_twin(cuda_device, b, kk):
     gen = torch.Generator(device="cpu").manual_seed(b * kk)
@@ -328,10 +370,11 @@ def test_group_candidates_matches_twin_and_k1(cuda_device, b, dtype):
     mask[8192 + 3 * 128 :] = float("-inf")  # the last tile runs out after 3 groups
     slab, mask = slab.to(cuda_device, dtype), mask.to(cuda_device)
     q = torch.randn(b, 256, generator=gen).to(cuda_device)
-    launches = topk_scan.group_candidates.launches
+    launches = (topk_scan.group_candidates.launches, topk_scan.group_max.launches)
     got_v, got_g = topk_scan.group_candidates(slab, q, mask, 60, 8192)
     torch.cuda.synchronize()
-    assert topk_scan.group_candidates.launches == launches + 1
+    # one K6 launch; K1's kernel runs inside it and is not counted as K1
+    assert (topk_scan.group_candidates.launches, topk_scan.group_max.launches) == (launches[0] + 1, launches[1])
     want_v, want_g = topk_scan.group_candidates_plain(slab, q, mask, 60, 8192)
     chip_smoke.check_close(got_v, want_v, "K6 values")
     chip_smoke.check_group_ids(topk_scan.group_max_plain(slab, q, mask), got_g, want_g, "K6 group ids")
