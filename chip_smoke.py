@@ -13,7 +13,9 @@ Phases:
      the flat lane: tail scores, hot partial, padding mask, group maxima
      and rows, in one pass) bitwise on every length class at every (B, T)
      of phases 4 and 7; K4 (int8 group max) bitwise and K2-i8 (int8 gather
-     + rescore) within REL_TOL on phase 5's int8 slab; K5 (per-tile top-k)
+     + rescore) within REL_TOL on phase 5's int8 slab, its B=256 call
+     (group order) bitwise the concatenation of 32 B=8 calls on the same
+     rows (pair order); K5 (per-tile top-k)
      within REL_TOL on phase 2's slab, its first candidates bitwise K1's
      tile maxima, and bitwise on seeded adversarial tiles through both of
      its entries. It runs inside phases 2-7, after their main-path runs, so
@@ -949,7 +951,9 @@ def check_singletons_by_budget(what: str, queries, batch, singles, solo) -> int:
 def check_int8_kernels(cell: str, slab_i8, scale, mask, shapes: set) -> list[dict]:
     """Phase 1 for the int8 lane: K4 against its twin, bitwise, and K2's
     int8 form within REL_TOL, at each (B, kk) ``drive`` noted, with seeded
-    unit queries prepared as the lane prepares them."""
+    unit queries prepared as the lane prepares them. A batch that K2-i8
+    takes in group order is also held bitwise to its rows' B=8 calls, taken
+    in pair order: a row's scores must not depend on its batchmates."""
     import torch
 
     from frankensearch_tpu_torch.ops import topk_scan as ts
@@ -979,6 +983,13 @@ def check_int8_kernels(cell: str, slab_i8, scale, mask, shapes: set) -> list[dic
             r = ts.gather_rescore_i8(slab_i8, q_scaled, groups)
             err = check_close(r, ts.gather_rescore_i8_plain(slab_i8, q_scaled, groups),
                               f"phase1 {cell} K2-i8 B={b} kk={kk}")
+            if b >= ts.GATHER_I8_GROUP_MIN_B:
+                eights = torch.cat([ts.gather_rescore_i8(slab_i8, q_scaled[i : i + 8], groups[i : i + 8])
+                                    for i in range(0, b, 8)])
+                if not torch.equal(r.view(torch.int32), eights.view(torch.int32)):
+                    raise AssertionError(f"phase1 {cell} K2-i8 B={b} kk={kk}: the batch's bits differ from its "
+                                         f"rows' B=8 calls")
+                log(f"phase1 {cell} K2-i8 B={b} kk={kk}: bitwise its {len(range(0, b, 8))} B=8 calls")
             recs.append({"kernel": "gather_rescore_i8", "cell": cell, "n": n, "b": b, "kk": kk,
                          "ms": cuda_median_ms(lambda: ts.gather_rescore_i8(slab_i8, q_scaled, groups)),
                          "plain_ms": cuda_median_ms(lambda: ts.gather_rescore_i8_plain(slab_i8, q_scaled, groups)),

@@ -121,6 +121,8 @@ def library() -> ctypes.CDLL:
         lib.fs_group_max_int8.restype = i32
         lib.fs_gather_rescore_i8.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
         lib.fs_gather_rescore_i8.restype = i32
+        lib.fs_gather_rescore_i8_sorted.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
+        lib.fs_gather_rescore_i8_sorted.restype = i32
         lib.fs_tile_topk.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr]
         lib.fs_tile_topk.restype = i32
         lib.fs_tile_topk_wide.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr]

@@ -41,18 +41,44 @@
 // bytes. Ids outside [0, n/128) poison their 128 outputs with NaN. Any
 // b >= 1 and kk >= 1 launch.
 //
-// K2-i8, `fs_gather_rescore_i8` below, is the TPU kernel's `compute_f32`
-// form, reached from `scan_topk_hierarchical_int8`: int8 rows cast up to
-// f32 and dotted with an f32 query that carries the per-dim dequant scale,
+// K2-i8, `fs_gather_rescore_i8` and `fs_gather_rescore_i8_sorted` below,
+// replaces the same TPU kernel in its `compute_f32` form, which the
+// reference's int8 lane (`scan_topk_hierarchical_int8`) reaches through
+// `_gather_rescore_pallas`: int8 rows cast up to f32 and dotted with an f32
+// query that carries the per-dim dequant scale,
 //
 //     out[b, j*128 + r] = dot(q_scaled[b], float(slab_i8[groups[b, j]*128 + r]))
 //
-// with f32 products and sums. It reads half the bytes of the bf16 form for
-// the same rows (kk = 60, B = 256 at d = 256: 503 MB, 0.150 ms at 3.35
-// TB/s) and is bound by them alone. It keeps the first port's design: one
-// block per (query, group) pair, 4 warps of 32 rows, the query staged in
-// shared memory as f32, eight rows in flight per lane (16 int8 values per
-// 16-byte load), a butterfly of shuffles per row.
+// with f32 products and sums. Its bound is bytes: the distinct groups the
+// batch chose (about 6,750 at B = 256, kk = 60 on the 1M x 256 slab, 221 MB,
+// plus the 7.9 MB output: 0.068 ms at 3.35 TB/s; 2 FLOP a byte read is far
+// below the f32 rate). What held the first port (one block per pair, one
+// row per warp) back, and what this design does about each:
+//  1. Pair order read a group again for every query that chose it (503 MB).
+//     From GATHER_I8_GROUP_MIN_B queries up it runs on K2's plan as K2 does:
+//     one block per run of equal ids reads the group's 128 rows once into
+//     registers and loops over the run's queries; below, pair order.
+//  2. A row's d/16 chunks took one lane each, so at d = 256 lanes 16-31
+//     idled. Now at d <= 256 a row takes p lanes (the power of two >=
+//     d/16) and a lane holds its chunk of up to 8 rows (at d = 256 a warp
+//     takes its 32 rows in two steps of 16); the reduction leaves each row
+//     on one lane (two at d = 256), so a step's stores are contiguous.
+//     Wider rows keep a row per warp step (K2's layout: 16 chunks a lane
+//     across rows).
+//  3. `static_cast<float>` of a byte is an I2F, which runs at 16 results per
+//     clock per SM against 128 for FFMA: 503 M of them in half-empty warps
+//     were about the first port's whole 0.28 ms of device time. Now the
+//     byte x ^ 0x80 (= x + 128) goes into the low mantissa byte of 2^23 by
+//     one PRMT and one FADD takes 2^23 + 128 off: float(x) exactly.
+// The output bits are the first port's: each lane's chain is unchanged
+// (fmaf over a 16-byte chunk in dim order, then the chunk 32 further on,
+// from +0.0), and where that port's butterfly rounds xor 16 ... p met only
+// empty lanes (each adding +0.0), this one adds +0.0f once and runs the
+// rounds xor p/2 ... 1 inside the p-lane group
+// (tests/test_torch_gather_i8_order.py models both; K2I8_DIGESTS in
+// tests/test_torch_kernels_cuda.py pins them on the card). The query is
+// read from global memory (L1/L2) in 16-byte loads. Any d % 16 == 0 with
+// 16 <= d <= 12288.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -103,6 +129,16 @@ __device__ __forceinline__ void sum_round(float (&s)[kRows], int lane, int m) {
     }
   } else {
     s[0] = s[0] + __shfl_xor_sync(0xffffffffu, s[0], m);
+  }
+}
+
+// Rounds xor kM, kM/2, ..., 1 of the butterfly as a reduce-scatter: kW
+// sums a lane holds going in, halved each round down to one.
+template <int kW, int kM, int kRows>
+__device__ __forceinline__ void reduce_rows(float (&s)[kRows], int lane) {
+  if constexpr (kM >= 1) {
+    sum_round<kW>(s, lane, kM);
+    reduce_rows<(kW >= 2 ? kW / 2 : 1), kM / 2>(s, lane);
   }
 }
 
@@ -168,11 +204,7 @@ gather_rescore_kernel(const uint16_t* __restrict__ q,      // (b, d) slab dtype
           for (int r = 0; r < kRows; ++r) s[r] = dot8<kBf16>(v[r][ci], qv, s[r]);
         }
       }
-      sum_round<kRows>(s, lane, 16);
-      sum_round<(kRows >= 2 ? kRows / 2 : 1)>(s, lane, 8);
-      sum_round<(kRows >= 4 ? kRows / 4 : 1)>(s, lane, 4);
-      sum_round<(kRows >= 8 ? kRows / 8 : 1)>(s, lane, 2);
-      sum_round<(kRows >= 16 ? kRows / 16 : 1)>(s, lane, 1);
+      reduce_rows<kRows, 16>(s, lane);
       // lane l now holds row l / (32 / kRows) of the batch; its neighbours
       // below the next multiple of 32 / kRows hold the same bits
       if (lane % (32 / kRows) == 0)
@@ -348,90 +380,180 @@ extern "C" int fs_gather_rescore_sorted(const void* q, const void* slab, const v
 
 namespace {
 
-constexpr int kUnrollI8 = 8;  // rows in flight per lane (16 bytes each)
+constexpr int kMaxDimI8 = 12288;  // the first port's widest row (its query took 48 KB of shared memory)
+// Rows a lane holds where a row takes fewer than 32 lanes, and the blocks
+// an SM must hold at 128 < d <= 256 (kP = 16; it caps the registers at 80).
+// Left to itself ptxas gives that form 189 registers (255 and spills at 16
+// rows a lane): two blocks an SM, whose loads then hardly overlap the
+// other's arithmetic. Of the settings tried on the H100 (4 to 16 rows, 1
+// to 6 blocks, and a persistent grid), 8 rows and 6 blocks ran fastest.
+constexpr int kMaxRowsI8 = 8;
+constexpr int kMinBlocks16 = 6;
 
-__device__ __forceinline__ float dot16_i8(const uint4& v, const float* qv, float acc) {
+// Byte k of w (already xor 0x80808080) as an exact f32: the byte x ^ 0x80
+// = x + 128 (0..255) becomes the low mantissa byte of 2^23, and 2^23 + 128
+// comes off exactly. One PRMT and one FADD, in place of an I2F.
+template <int k>
+__device__ __forceinline__ float i8_to_f32(uint32_t wx) {
+  return __int_as_float(static_cast<int>(__byte_perm(wx, 0x4B000000u, 0x7540u | k))) - 8388736.0f;
+}
+
+// The first port's lane chain over one 16-byte chunk (its bytes xor 0x80):
+// 16 fmaf in dim order.
+__device__ __forceinline__ float dot16_i8(const uint4& v, const float (&qv)[16], float acc) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int8_t x = static_cast<int8_t>((w[i] >> (8 * j)) & 0xffu);
-      acc = fmaf(static_cast<float>(x), qv[4 * i + j], acc);
-    }
+    acc = fmaf(i8_to_f32<0>(w[i]), qv[4 * i], acc);
+    acc = fmaf(i8_to_f32<1>(w[i]), qv[4 * i + 1], acc);
+    acc = fmaf(i8_to_f32<2>(w[i]), qv[4 * i + 2], acc);
+    acc = fmaf(i8_to_f32<3>(w[i]), qv[4 * i + 3], acc);
   }
   return acc;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// kP: lanes a row takes (a power of two); kC: 16-byte chunks of a row a
+// lane holds (more than one only at kP = 32). Lane l takes chunks c = l %
+// kP + kP * i of kH rows at a time: rows r0 + (l / kP) * kH + h, h < kH,
+// where kH is kP up to kMaxRowsI8 at kP < 32 and 16 / kC (1 at kC = 32)
+// at kP = 32, as K2 holds them. The reduction leaves the row r0 + (l /
+// kP) * kH + (l % kP) / (kP / kH) on lane l (row l where kH = kP); the
+// lanes kP / kH apart below it hold the same bits.
+template <int kP, int kC>
+__global__ void __launch_bounds__(kThreads, kP == 16 ? kMinBlocks16 : 1)
 gather_rescore_i8_kernel(const float* __restrict__ q,         // (b, d) f32, scale folded in
                          const int8_t* __restrict__ slab,     // (n, d) int8
-                         const int32_t* __restrict__ groups,  // (b, kk)
+                         const int32_t* __restrict__ gids,    // (b*kk,) group ids, equal ids adjacent
+                         const int32_t* __restrict__ order,   // (b*kk,) pair of each position; null: itself
                          float* __restrict__ out,             // (b, kk*128)
-                         int kk, int d, int n_groups) {
-  extern __shared__ float s_q[];  // d floats
-  const int64_t pair = blockIdx.x;  // = query * kk + j
-  const int64_t bq = pair / kk;
+                         int total, int kk, uint64_t kk_magic, int d, int n_groups) {
+  constexpr int kH = kP < 32 ? (kP < kMaxRowsI8 ? kP : kMaxRowsI8) : (kC <= 16 ? 16 / kC : 1);
+  constexpr int kSpan = kH * (32 / kP);  // rows a warp holds at a time
+  constexpr int kShare = kP / kH;        // lanes that end with the same row
+  const int p0 = blockIdx.x;
+  const int gid = gids[p0];
+  if (p0 % kRunPairs != 0 && gids[p0 - 1] == gid) return;  // inside another block's run
+  int p1 = p0 + 1;
+  while (p1 < total && p1 % kRunPairs != 0 && gids[p1] == gid) ++p1;
+
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* dst = out + pair * kGroup;
-
-  const int gid = groups[pair];
   if (gid < 0 || gid >= n_groups) {  // never produced by the scan; poison
-    for (int r = threadIdx.x; r < kGroup; r += kThreads) dst[r] = NAN;
+    for (int p = p0; p < p1; ++p) {
+      const int64_t pair = order ? order[p] : p;
+      out[pair * kGroup + threadIdx.x] = NAN;
+    }
     return;
   }
-  for (int i = threadIdx.x; i < d; i += kThreads) s_q[i] = q[bq * d + i];
-  __syncthreads();
 
-  const int n_vec = d / 16;  // 16-byte vectors per row
-  const int8_t* rows =
-      slab + (static_cast<int64_t>(gid) * kGroup + warp * kRowsPerWarp) * d;
-  for (int r0 = 0; r0 < kRowsPerWarp; r0 += kUnrollI8) {
-    float part[kUnrollI8];
+  const int n_vec = d / 16;  // 16-byte chunks per row
+  const int sub = lane % kP;
+  const int row0 = (lane / kP) * kH;
+  const int8_t* rows = slab + (static_cast<int64_t>(gid) * kGroup + warp * kRowsPerWarp + row0) * d;
+  for (int r0 = 0; r0 < kRowsPerWarp; r0 += kSpan) {
+    uint4 v[kH][kC];
 #pragma unroll
-    for (int u = 0; u < kUnrollI8; ++u) part[u] = 0.0f;
-    for (int c = lane; c < n_vec; c += 32) {
-      float qv[16];
+    for (int h = 0; h < kH; ++h)
 #pragma unroll
-      for (int i = 0; i < 16; ++i) qv[i] = s_q[c * 16 + i];
-      uint4 v[kUnrollI8];
+      for (int ci = 0; ci < kC; ++ci) {
+        const int c = sub + kP * ci;
+        v[h][ci] = make_uint4(0u, 0u, 0u, 0u);
+        if (c < n_vec) {
+          const uint4 w = __ldg(reinterpret_cast<const uint4*>(rows + static_cast<int64_t>(r0 + h) * d + c * 16));
+          v[h][ci] = make_uint4(w.x ^ 0x80808080u, w.y ^ 0x80808080u, w.z ^ 0x80808080u, w.w ^ 0x80808080u);
+        }
+      }
+    for (int p = p0; p < p1; ++p) {
+      const int64_t pair = order ? order[p] : p;
+      const int64_t bq = kk > 1 ? static_cast<int64_t>(__umul64hi(static_cast<uint64_t>(pair), kk_magic)) : pair;
+      const float* qrow = q + bq * d;
+      float s[kH];
 #pragma unroll
-      for (int u = 0; u < kUnrollI8; ++u)
-        v[u] = __ldg(reinterpret_cast<const uint4*>(
-            rows + static_cast<int64_t>(r0 + u) * d + c * 16));
+      for (int h = 0; h < kH; ++h) s[h] = 0.0f;
 #pragma unroll
-      for (int u = 0; u < kUnrollI8; ++u) part[u] = dot16_i8(v[u], qv, part[u]);
-    }
+      for (int ci = 0; ci < kC; ++ci) {
+        const int c = sub + kP * ci;
+        if (c < n_vec) {
+          float qv[16];
 #pragma unroll
-    for (int u = 0; u < kUnrollI8; ++u) {
-      float s = part[u];
+          for (int i = 0; i < 4; ++i) {
+            const float4 f = __ldg(reinterpret_cast<const float4*>(qrow + c * 16) + i);
+            qv[4 * i] = f.x;
+            qv[4 * i + 1] = f.y;
+            qv[4 * i + 2] = f.z;
+            qv[4 * i + 3] = f.w;
+          }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) dst[warp * kRowsPerWarp + r0 + u] = s;
+          for (int h = 0; h < kH; ++h) s[h] = dot16_i8(v[h][ci], qv, s[h]);
+        }
+      }
+      if constexpr (kP < 32) {
+        // the first port's rounds xor 16 ... kP met only empty lanes (+0.0)
+#pragma unroll
+        for (int h = 0; h < kH; ++h) s[h] = s[h] + 0.0f;
+      }
+      reduce_rows<kH, kP / 2>(s, lane);
+      if (sub % kShare == 0) out[pair * kGroup + warp * kRowsPerWarp + r0 + row0 + sub / kShare] = s[0];
     }
   }
+}
+
+template <int kP, int kC>
+void launch_i8(const float* q, const int8_t* slab, const int32_t* gids, const int32_t* order, float* out, int total,
+               int kk, int d, int n_groups, cudaStream_t s) {
+  // pair / kk as a high product: with m = floor((2^64 - 1) / kk) + 1 and
+  // pair < 2^31, floor(pair * m / 2^64) is exact (the error is below 2^-33,
+  // the gap to the next integer at least 1 / kk); no integer divide, whose
+  // reciprocal costs I2F and F2I
+  const uint64_t magic = kk > 1 ? UINT64_MAX / static_cast<uint64_t>(kk) + 1 : 0;
+  gather_rescore_i8_kernel<kP, kC><<<static_cast<unsigned>(total), kThreads, 0, s>>>(q, slab, gids, order, out,
+                                                                                    total, kk, magic, d, n_groups);
+}
+
+int gather_rescore_i8(const void* q, const void* slab, const void* gids, const void* order, void* out, int b,
+                      int kk, int d, long long n, void* stream) {
+  if (b < 1 || kk < 1 || d < 16 || d % 16 != 0 || d > kMaxDimI8 || n < kGroup || n % kGroup != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = static_cast<long long>(b) * kk;
+  if (total > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* qp = static_cast<const float*>(q);
+  const auto* sp = static_cast<const int8_t*>(slab);
+  const auto* gp = static_cast<const int32_t*>(gids);
+  const auto* op = static_cast<const int32_t*>(order);
+  auto* outp = static_cast<float*>(out);
+  const int t = static_cast<int>(total);
+  const int n_groups = static_cast<int>(n / kGroup);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_vec = d / 16;
+  if (n_vec <= 1) launch_i8<1, 1>(qp, sp, gp, op, outp, t, kk, d, n_groups, s);
+  else if (n_vec <= 2) launch_i8<2, 1>(qp, sp, gp, op, outp, t, kk, d, n_groups, s);
+  else if (n_vec <= 4) launch_i8<4, 1>(qp, sp, gp, op, outp, t, kk, d, n_groups, s);
+  else if (n_vec <= 8) launch_i8<8, 1>(qp, sp, gp, op, outp, t, kk, d, n_groups, s);
+  else if (n_vec <= 16) launch_i8<16, 1>(qp, sp, gp, op, outp, t, kk, d, n_groups, s);
+  else if (n_vec <= 32) launch_i8<32, 1>(qp, sp, gp, op, outp, t, kk, d, n_groups, s);
+  else if (n_vec <= 64) launch_i8<32, 2>(qp, sp, gp, op, outp, t, kk, d, n_groups, s);
+  else if (n_vec <= 128) launch_i8<32, 4>(qp, sp, gp, op, outp, t, kk, d, n_groups, s);
+  else if (n_vec <= 256) launch_i8<32, 8>(qp, sp, gp, op, outp, t, kk, d, n_groups, s);
+  else if (n_vec <= 512) launch_i8<32, 16>(qp, sp, gp, op, outp, t, kk, d, n_groups, s);
+  else launch_i8<32, 32>(qp, sp, gp, op, outp, t, kk, d, n_groups, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q: (b, d) f32 (query x per-dim scale), slab: (n, d) int8, groups: (b, kk)
-// int32 group ids, out: (b, kk * 128) f32. Needs n % 128 == 0, d % 16 == 0
-// and 16-byte aligned pointers (the Python wrapper checks all of these).
-// Returns cudaGetLastError() after the launch.
-extern "C" int fs_gather_rescore_i8(const void* q, const void* slab, const void* groups,
-                                    void* out, int b, int kk, int d, long long n,
-                                    void* stream) {
-  if (b < 1 || kk < 1 || d < 16 || d % 16 != 0 || n < kGroup || n % kGroup != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = static_cast<long long>(b) * kk;
-  const size_t smem = static_cast<size_t>(d) * sizeof(float);
-  if (blocks > 0x7fffffffLL || smem > 48 * 1024)
-    return static_cast<int>(cudaErrorInvalidValue);
-  gather_rescore_i8_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const int8_t*>(slab),
-      static_cast<const int32_t*>(groups), static_cast<float*>(out), kk, d,
-      static_cast<int>(n / kGroup));
-  return static_cast<int>(cudaGetLastError());
+// int32 group ids in pair order, out: (b, kk * 128) f32. Equal ids that sit
+// side by side share one read of their group. Needs n % 128 == 0, d % 16
+// == 0, 16 <= d <= 12288 and 16-byte aligned pointers (the Python wrapper
+// checks all of these). Returns cudaGetLastError() after the launch.
+extern "C" int fs_gather_rescore_i8(const void* q, const void* slab, const void* groups, void* out, int b, int kk,
+                                    int d, long long n, void* stream) {
+  return gather_rescore_i8(q, slab, groups, nullptr, out, b, kk, d, n, stream);
+}
+
+// The group-major entry: gids and order as fs_gather_plan gives them (see
+// fs_gather_rescore_sorted). Otherwise as fs_gather_rescore_i8.
+extern "C" int fs_gather_rescore_i8_sorted(const void* q, const void* slab, const void* gids, const void* order,
+                                           void* out, int b, int kk, int d, long long n, void* stream) {
+  return gather_rescore_i8(q, slab, gids, order, out, b, kk, d, n, stream);
 }

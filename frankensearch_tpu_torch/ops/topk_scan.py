@@ -42,6 +42,17 @@ MAX_KERNEL_DIM = 8192
 #: batch size up. Below it the queries share few of the slab's groups, and
 #: the sort's four launches would cost more than the reads they save.
 GATHER_GROUP_MIN_B = 64
+#: The same for K2's int8 form, whose groups cost half K2's bytes to read
+#: again: the smallest measured batch at which group order ties or beats
+#: pair order on both clocks. ``profile_chip.py --kernels`` on an NVIDIA
+#: H100 80GB HBM3 at 700 W, kk = 60 over the 1M x 256 int8 slab, pair
+#: order against group order (plan included), CUDA events / device ms:
+#: B=128 0.1059 / 0.0786 against 0.1678 / 0.0826; B=192 0.1429 / 0.1150
+#: against 0.1448 / 0.1042; B=256 0.1811 / 0.1506 against 0.1668 / 0.1254.
+GATHER_I8_GROUP_MIN_B = 192
+#: widest dim K2's int8 form takes (the first port's: its f32 query row
+#: filled 48 KB of shared memory)
+MAX_I8_RESCORE_DIM = 12288
 
 
 class TopKResult(NamedTuple):
@@ -377,30 +388,38 @@ def gather_rescore_i8(
 ) -> torch.Tensor:
     """K2's int8 form (replaces ``_gather_rescore_kernel`` with
     ``compute_f32=True``): (B, kk) group ids -> (B, kk*128) f32 scores.
-    CUDA tensors run ``fs_gather_rescore_i8`` of csrc/gather_rescore.cu
-    (any B and kk); CPU tensors the plain twin."""
+    CUDA tensors run csrc/gather_rescore.cu (any B and kk, 16 <= dim <=
+    12288); CPU tensors the plain twin. From ``GATHER_I8_GROUP_MIN_B`` queries
+    up, K2's counting sort first puts the pairs in group order, so that
+    each group the batch chose is read once."""
     if slab_i8.device.type == "cpu":
         return gather_rescore_i8_plain(slab_i8, q_scaled, top_groups)
     _check_int8_operands(slab_i8, q_scaled, torch.float32)
     n, d = slab_i8.shape
-    if d % 16 or d * 4 > 48 * 1024:
-        raise ValueError(f"gather_rescore_i8 needs dim % 16 == 0 and dim <= 12288, got {d}")
+    if d % 16 or not 16 <= d <= MAX_I8_RESCORE_DIM:
+        raise ValueError(f"gather_rescore_i8 needs dim % 16 == 0 and 16 <= dim <= {MAX_I8_RESCORE_DIM}, got {d}")
     b, kk = top_groups.shape
     if b != q_scaled.shape[0] or top_groups.device != slab_i8.device:
         raise ValueError("top_groups must be (B, kk) on the slab's device")
     out = torch.empty((b, kk * GROUP), dtype=torch.float32, device=slab_i8.device)
     if b == 0 or kk == 0:
         return out
-    q = q_scaled.contiguous()
+    q = _aligned(q_scaled)  # the kernel reads query rows with 16-byte loads
     groups = top_groups.to(torch.int32).contiguous()
     from frankensearch_tpu_torch.ops import _build
 
     lib = _build.library()
     with torch.cuda.device(slab_i8.device):
-        rc = lib.fs_gather_rescore_i8(
-            q.data_ptr(), slab_i8.data_ptr(), groups.data_ptr(), out.data_ptr(), b, kk, d, n,
-            torch.cuda.current_stream(slab_i8.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(slab_i8.device).cuda_stream
+        if b < GATHER_I8_GROUP_MIN_B:
+            rc = lib.fs_gather_rescore_i8(q.data_ptr(), slab_i8.data_ptr(), groups.data_ptr(), out.data_ptr(),
+                                          b, kk, d, n, stream)
+        else:
+            plan, ids, pairs = _gather_plan_scratch(n // GROUP, b * kk, slab_i8.device)
+            rc = lib.fs_gather_plan(groups.data_ptr(), plan.data_ptr(), b * kk, n // GROUP, stream)
+            if rc == 0:
+                rc = lib.fs_gather_rescore_i8_sorted(q.data_ptr(), slab_i8.data_ptr(), ids, pairs, out.data_ptr(),
+                                                     b, kk, d, n, stream)
     if rc != 0:
         raise RuntimeError(f"gather_rescore_i8 kernel launch failed: CUDA error {rc}")
     gather_rescore_i8.launches += 1

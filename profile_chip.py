@@ -31,7 +31,7 @@ JSON summary as the last line. The profiler table and the cProfile listing
 of each (cell, B) go to ``OUT_DIR/profile_<cell>_b<B>.txt``.
 
 ``python3 profile_chip.py --kernels [ROOT]`` times the flat lane's class
-step, K5, K1, K2, K6 and K4 instead, from the port package under ROOT
+step, K5, K1, K2, K6, K4 and K2-i8 instead, from the port package under ROOT
 (default: this checkout), so that an earlier tree unpacked elsewhere
 (``git archive <commit> frankensearch_tpu_torch native``) is timed on the
 same inputs: hybrid-1M's lexical arm (``chip_smoke.hybrid1m_lexical``), the
@@ -42,12 +42,18 @@ phase-5 shapes, then K1 (``group_max``) at B = 256, 8, 1, K2
 (``gather_rescore``, the wrapper with its counting sort) at kk = 60, 30
 over each batch's top groups by K1, and K6 (``group_candidates``, 8192-row
 tiles) at t = 60, 30, on the same slab; then K4 (``group_max_int8``) at
-B = 256, 8, 1 on a seeded 1,007,616 x 256 int8 slab. CUDA-event medians
-of back-to-back calls, which include the host's enqueue wherever the card
-waits on it (K2's groups at B = 1 stay in L2 between calls); K1, K2, K6
-and K4 also get their device time (``device_ms``: torch.profiler's self
-device time of every kernel of one call of the wrapper). The last line is
-a JSON summary.
+B = 256, 8, 1 on a seeded 1,007,616 x 256 int8 slab and K2-i8
+(``gather_rescore_i8``, the wrapper with its counting sort where the tree
+has one) at kk = 60, 30 over each batch's top groups by K4, with its
+bound; where the tree has K2-i8's group order, also at B = 8 ... 256,
+kk = 60, forced into pair order and into group order (the crossover);
+last, semantic-1M-int8's ``search_batch`` at B = 256 and 1 (the lane
+end to end: its device time, K4's, K2-i8's and the plan's).
+CUDA-event medians of back-to-back calls, which include the host's
+enqueue wherever the card waits on it (K2's groups at B = 1 stay in L2
+between calls); K1, K2, K6, K4 and K2-i8 also get their device time
+(``device_ms``: torch.profiler's self device time of every kernel of one
+call of the wrapper). The last line is a JSON summary.
 """
 
 from __future__ import annotations
@@ -99,9 +105,10 @@ def profile_once(fn, path: str) -> tuple[float, float, float]:
     return device_ms, torch_prof_ms, cprofile_ms
 
 
-def device_ms(fn, iters: int = 10) -> float:
+def device_split(fn, iters: int = 10) -> tuple[float, dict]:
     """Device time of one call of ``fn``: the self device time of all its
-    kernels and copies under torch.profiler, over ``iters`` calls."""
+    kernels and copies under torch.profiler, over ``iters`` calls; and the
+    same per kernel name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -112,14 +119,38 @@ def device_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    return sum(e.self_device_time_total for e in events if e.device_type != DeviceType.CPU) / iters / 1000.0
+    by_name = {e.key: e.self_device_time_total / iters / 1000.0
+               for e in prof.key_averages() if e.device_type != DeviceType.CPU}
+    return sum(by_name.values()), by_name
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    return device_split(fn, iters)[0]
+
+
+def int8_cell(cs, dev, tmp: str):
+    """semantic-1M-int8: semantic-1M's vectors in an int8 ``TwoTierIndex``
+    served with ``scan_mode="int8"``; (searcher, queries)."""
+    from frankensearch_tpu_torch import TwoTierConfig, TwoTierIndex, TwoTierSearcher
+
+    _, index, emb, vecs, queries = cs.semantic_cell(dev, tempfile.mkdtemp(dir=tmp))
+    index8 = TwoTierIndex.create(
+        tempfile.mkdtemp(dir=tmp), vecs, index.fast.doc_ids, emb.identity(),
+        device=dev, slab_dtype="int8",
+    )
+    del index
+    return TwoTierSearcher(index8, emb, config=TwoTierConfig(fast_only=True, scan_mode="int8")), queries
 
 
 #: (B, kk) at which ``--kernels`` times K5 and K2 (K1 at each B): the serve
 #: batch, the fused lane's pad and a singleton at the searcher's two
 #: candidate budgets
 K5_SHAPES = ((256, 60), (256, 30), (8, 60), (8, 30), (1, 60), (1, 30))
+#: batches at which ``--kernels`` times K2-i8 in pair order and in group
+#: order (kk = 60), to place ``GATHER_I8_GROUP_MIN_B``
+CROSSOVER_BS = (8, 16, 32, 64, 128, 192, 256)
+#: per-dim dequant scale of the seeded int8 queries K2-i8 rescores with
+I8_SCALE = 1.0 / 127.0
 
 
 def time_kernels(root: str) -> int:
@@ -200,12 +231,56 @@ def time_kernels(root: str) -> int:
     del slab
     torch.cuda.empty_cache()
     slab_i8 = torch.randint(-127, 128, (n, cs.DIM), generator=gen, device=dev, dtype=torch.int8)
-    k4 = []
+    k4, k2i8, k2i8_modes = [], [], []
     for b in sorted({b for b, _ in K5_SHAPES}, reverse=True):
         q_i8 = torch.randint(-127, 128, (b, cs.DIM), generator=gen, device=dev, dtype=torch.int8)
         k4_call = lambda: ts.group_max_int8(slab_i8, q_i8, mask)
         k4.append({"b": b, "ms": cs.cuda_median_ms(k4_call, iters=20), "device_ms": device_ms(k4_call)})
-    for name, recs in (("K1", k1), ("K2", k2), ("K6 (t as kk)", k6), ("K4", k4)):
+        gm = ts.group_max_int8(slab_i8, q_i8, mask)
+        q_scaled = q_i8.to(torch.float32) * I8_SCALE
+        for kk in sorted({kk for bb, kk in K5_SHAPES if bb == b}, reverse=True):
+            groups = torch.sort(ts.topk_desc_rowasc(gm, kk)[1].to(torch.int32), dim=1).values  # as the lane gives them
+            call = lambda: ts.gather_rescore_i8(slab_i8, q_scaled, groups)
+            k2i8.append({"b": b, "kk": kk, "ms": cs.cuda_median_ms(call, iters=20), "device_ms": device_ms(call),
+                         "bound_ms": cs.bound(cs.gathered_bytes(slab_i8, groups) + cs.nbytes(q_scaled, groups)
+                                              + b * kk * ts.GROUP * 4, 2 * b * kk * ts.GROUP * cs.DIM, "f32")[0]})
+    from frankensearch_tpu_torch.ops import _build
+
+    if hasattr(_build.library(), "fs_gather_rescore_i8_sorted"):  # the tree has K2-i8's group order
+        min_b = ts.GATHER_I8_GROUP_MIN_B
+        for b in CROSSOVER_BS:
+            q_i8 = torch.randint(-127, 128, (b, cs.DIM), generator=gen, device=dev, dtype=torch.int8)
+            q_scaled = q_i8.to(torch.float32) * I8_SCALE
+            groups = torch.sort(ts.topk_desc_rowasc(ts.group_max_int8(slab_i8, q_i8, mask), 60)[1].to(torch.int32),
+                                dim=1).values
+            call = lambda: ts.gather_rescore_i8(slab_i8, q_scaled, groups)
+            rec = {"b": b, "kk": 60}
+            for mode, threshold in (("pair", b + 1), ("group", b)):
+                ts.GATHER_I8_GROUP_MIN_B = threshold
+                rec[mode] = {"ms": cs.cuda_median_ms(call, iters=20), "device_ms": device_ms(call)}
+            ts.GATHER_I8_GROUP_MIN_B = min_b
+            k2i8_modes.append(rec)
+        cs.log(f"{root}: K2-i8 pair order / group order at kk=60 (CUDA events / device): " + ", ".join(
+            f"B={r['b']} {r['pair']['ms']:.4f} / {r['pair']['device_ms']:.4f} vs "
+            f"{r['group']['ms']:.4f} / {r['group']['device_ms']:.4f}" for r in k2i8_modes) + " ms")
+    del slab_i8
+    torch.cuda.empty_cache()
+    lane = []
+    with tempfile.TemporaryDirectory(prefix="fs_kernels_") as tmp:
+        searcher, queries = int8_cell(cs, dev, tmp)
+        for b in (256, 1):
+            call = lambda: searcher.search_batch(queries[:b], k=cs.K)
+            for _ in range(3):
+                call()
+            total, by_name = device_split(call)
+            part = lambda word: sum(ms for key, ms in by_name.items() if word in key)
+            lane.append({"b": b, "device_ms": total, "k4_ms": part("group_max_kernel"),
+                         "k2i8_ms": part("gather_rescore_i8_kernel"), "plan_ms": part("gather_plan")})
+        del searcher
+    cs.log(f"{root}: semantic-1M-int8 search_batch, device ms: " + ", ".join(
+        f"B={r['b']} {r['device_ms']:.4f} (K4 {r['k4_ms']:.4f}, K2-i8 {r['k2i8_ms']:.4f}, plan {r['plan_ms']:.4f})"
+        for r in lane))
+    for name, recs in (("K1", k1), ("K2", k2), ("K6 (t as kk)", k6), ("K4", k4), ("K2-i8", k2i8)):
         cs.log(f"{root}: {name} at N={n} (CUDA events / device): "
                + ", ".join(f"B={r['b']}" + (f" kk={r['kk']}" if "kk" in r else "") + f" {r['ms']:.4f} / {r['device_ms']:.4f}"
                            for r in recs) + " ms")
@@ -213,7 +288,9 @@ def time_kernels(root: str) -> int:
     print(json.dumps({"root": root, "flat_fused": fused, "flat_steps": steps, "flat_scan_ms": sum(st["ms"] for st in steps),
                       "graded_scan_flat_ms": lane_ms, "flat_b": q_ids.shape[0], "flat_t": q_ids.shape[1],
                       "tile_topk": k5, "group_max": k1, "gather_rescore": k2, "group_candidates": k6,
-                      "group_max_int8": k4}), flush=True)
+                      "group_max_int8": k4, "gather_rescore_i8": k2i8, "gather_rescore_i8_modes": k2i8_modes,
+                      "int8_lane": lane}),
+          flush=True)
     return 0
 
 
@@ -254,17 +331,6 @@ def main() -> int:
         )
         return TwoTierSearcher(index, m2v, lexical=bm25, config=TwoTierConfig(fast_only=True)), queries
 
-    def semantic_int8(dev, tmp):
-        from frankensearch_tpu_torch import TwoTierConfig, TwoTierIndex, TwoTierSearcher
-
-        _, index, emb, vecs, queries = cs.semantic_cell(dev, tempfile.mkdtemp(dir=tmp))
-        index8 = TwoTierIndex.create(
-            tempfile.mkdtemp(dir=tmp), vecs, index.fast.doc_ids, emb.identity(),
-            device=dev, slab_dtype="int8",
-        )
-        del index
-        return TwoTierSearcher(index8, emb, config=TwoTierConfig(fast_only=True, scan_mode="int8")), queries
-
     def semantic_pallas(dev, tmp):
         from frankensearch_tpu_torch import TwoTierConfig, TwoTierSearcher
 
@@ -274,7 +340,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="fs_profile_") as tmp:
         for cell, build in (("semantic-1M", cs.semantic_cell), ("semantic-1M-pallas", semantic_pallas),
                             ("hybrid-60k", cs.hybrid_cell), ("hybrid-1M", hybrid1m),
-                            ("semantic-1M-int8", semantic_int8), ("hybrid-1M-m2v", hybrid1m_m2v)):
+                            ("semantic-1M-int8", lambda dev, tmp: int8_cell(cs, dev, tmp)), ("hybrid-1M-m2v", hybrid1m_m2v)):
             built = build(dev, tmp)
             searcher, queries = built[0], built[-1]
             for b in (256, 1):

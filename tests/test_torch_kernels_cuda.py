@@ -10,8 +10,8 @@ imports no jax, so it also runs where jax is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
 ``PYTHONPATH=ROOT python tests/test_torch_kernels_cuda.py`` prints the K2
-digests (``K2_DIGESTS``) that the port package under ROOT gives on the
-card, for pinning them from an earlier tree.
+and K2-i8 digests (``K2_DIGESTS``, ``K2I8_DIGESTS``) that the port package
+under ROOT gives on the card, for pinning them from an earlier tree.
 
 Tolerances: K1/K2/K2-i8/K5/K6 vs twin 1e-5 relative (bf16 and int8
 products are exact; the tensor-core and warp sums run in another order
@@ -240,6 +240,19 @@ def test_group_max_int8_bitwise_at_the_exactness_limit(cuda_device, b, d, graded
     want = topk_scan.group_max_int8_plain(slab, q, mask)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert want[0, 0] == 127 * 127 * d and want[b - 1, 1] == 127 * 127 * d
+
+
+@pytest.mark.parametrize("d", [8, 12304])
+def test_gather_rescore_i8_rejects_widths_outside_the_kernel(cuda_device, d):
+    """K2-i8 takes d % 16 == 0 with 16 <= d <= 12288; the wrapper raises on
+    a card tensor outside that (no twin to fall back to)."""
+    slab = torch.zeros(256, d, dtype=torch.int8, device=cuda_device)
+    q = torch.zeros(2, d, device=cuda_device)
+    groups = torch.zeros(2, 1, dtype=torch.int32, device=cuda_device)
+    launches = topk_scan.gather_rescore_i8.launches
+    with pytest.raises(ValueError, match="16 <= dim <= 12288"):
+        topk_scan.gather_rescore_i8(slab, q, groups)
+    assert topk_scan.gather_rescore_i8.launches == launches
 
 
 @pytest.mark.parametrize("tile_n,t", chip_smoke.SELECT_EDGES)
@@ -573,6 +586,79 @@ def test_gather_rescore_bits_equal_the_first_port(cuda_device, case):
     assert _k2_digest(cuda_device, case) == K2_DIGESTS[case]
 
 
+#: K2-i8's cases: (d, B, kk) on a 16,384-row int8 slab (2,048 rows at d =
+#: 12288), B = 256 group-major and B = 1, 8 in pair order, plus a batch
+#: whose queries all chose the same groups and one with ids outside the
+#: slab (NaN poison); d = 16 and 48 take the narrowest row layouts, 528 a
+#: row of 33 chunks, 12288 the widest d the kernel takes
+K2I8_CASES = [(256, b, kk) for b in (1, 8, 256) for kk in (30, 60)] + [
+    (256, "shared", 60), (256, "out_of_range", 60)] + [
+    (d, b, 60) for d in (128, 384, 1024) for b in (8, 256)] + [
+    (16, 8, 60), (48, 256, 60), (528, 8, 30), (12288, 8, 30)]
+
+#: sha256 of K2-i8's output bits on _k2i8_input's seeded data, as the first
+#: port's kernel (one block per (query, group) pair, one row per warp,
+#: `static_cast<float>` of each byte) gave them on the tree of commit 6a44cd9
+#: (H100, nvcc 12.9, `PYTHONPATH=ROOT python tests/test_torch_kernels_cuda.py`
+#: on that tree): the group-major design with full warps and the exact
+#: byte cast keeps each lane's fmaf chain and the butterfly's sums, so it
+#: must not change a bit, in pair order (B < 192) or group order
+K2I8_DIGESTS = {
+    (256, 1, 30): "062ad633f9dd29f5d3aec85bfdcdde2ce4a86bc5bcddabccff366022f5e128d2",
+    (256, 1, 60): "8e004c9ae02ceb438f3dd1fa7222ab5d74e1ca772fc49beac02f401edaf26b61",
+    (256, 8, 30): "7b9234e96a343011a6ee02a21684c2af958b57d99dccaa595965e8b09bde918f",
+    (256, 8, 60): "6015edd2de06b52475afedb2323752111bab4fab82fa10ebea816ae64f32fe8e",
+    (256, 256, 30): "f9f8a18ac1dc5c8cfcbea8a10e9ed724504548e866dc54ef127f81f27009d526",
+    (256, 256, 60): "9e0befb90d5f26002f9910aedb145e677e5e6e57d1428b8172ae959001351afd",
+    (256, 'shared', 60): "5453354654c4a13dd1b789b34309b5d8685b1c4836d8d0374e34f8eb2ce82040",
+    (256, 'out_of_range', 60): "46d152e2514a737c66e0c27e9604c2de05ff270b4dc4173d66988451b37781a9",
+    (128, 8, 60): "43805c5a766779e2b2624ca5847c83319ebd8ce529b1c5a69a0fadd7d2f58144",
+    (128, 256, 60): "efcb24264d5ffef353aaca8f32406a31a2f92bf0fef74d856e39e2f6296944cc",
+    (384, 8, 60): "5e1634c2cdad2866f7bbc47217e859dd8927ad44711f3824f762ccc260a2a2c3",
+    (384, 256, 60): "9bbf123fa6fb5f4068425a409d1aaf6e894aea786f05da0646692eaeaa0a3fce",
+    (1024, 8, 60): "7c74aee511fec74fa941befe085680c2e9137d1f0cadc3ba480fb3f89bd4b9cc",
+    (1024, 256, 60): "b357ff82b175150089860ac69e3fce1d014877873caa4a580d0f821dee69ba82",
+    (16, 8, 60): "727619464f1217590b441588766817839b7cce11bdb402a3e4bb86b594dcd930",
+    (48, 256, 60): "cea6ba55794dfc2fe510f84a55e01def3967184bc23545794b663be8484c8406",
+    (528, 8, 30): "11ea9bb3b1389b3abf1d3de3192058d1baa5427a59d9b4d7c10a4ee295cac44c",
+    (12288, 8, 30): "9689efc2db59e8d5fc463753252d60dc4e3e11a01a7b6f92fa8456bb02a713d3",
+}
+
+
+def _k2i8_input(d: int, b, kk: int):
+    gen = torch.Generator(device="cpu").manual_seed(20261018 + d)
+    n = 16384 if d <= 1024 else 2048
+    slab = torch.randint(-128, 128, (n, d), generator=gen, dtype=torch.int8)
+    slab[5:9] = 0  # zero rows: every product a signed zero
+    slab[9], slab[10] = 127, -128
+    nb = 256 if b in ("shared", "out_of_range") else b
+    q = torch.randn(nb, d, generator=gen) * (torch.rand(d, generator=gen) * 0.02)  # q x per-dim scale
+    q[0, : d // 2] = 0.0
+    ng = n // 128
+    if b == "shared":
+        groups = torch.sort(torch.randperm(ng, generator=gen)[:kk]).values.expand(nb, kk)
+    else:
+        groups = torch.sort(torch.stack([torch.randperm(ng, generator=gen)[:kk] for _ in range(nb)]), dim=1).values
+    groups = groups.to(torch.int32).contiguous()
+    if b == "out_of_range":
+        groups[3, 1], groups[7, 0], groups[7, 2], groups[200, kk - 1] = ng, -1, 1 << 30, -(1 << 30)
+    return slab, q, groups
+
+
+def _k2i8_digest(dev, case) -> str:
+    slab, q, groups = _k2i8_input(*case)
+    out = topk_scan.gather_rescore_i8(slab.to(dev), q.to(dev), groups.to(dev)).cpu()
+    return hashlib.sha256(out.view(torch.int32).numpy().tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("case", K2I8_CASES, ids=[f"d{d}-{b}-{kk}" for d, b, kk in K2I8_CASES])
+def test_gather_rescore_i8_bits_equal_the_first_port(cuda_device, case):
+    assert _k2i8_digest(cuda_device, case) == K2I8_DIGESTS[case]
+
+
 if __name__ == "__main__":
     for case in K2_CASES:
         print(f"    {case!r}: \"{_k2_digest(torch.device('cuda'), case)}\",")
+    print("K2I8_DIGESTS")
+    for case in K2I8_CASES:
+        print(f"    {case!r}: \"{_k2i8_digest(torch.device('cuda'), case)}\",")
