@@ -123,6 +123,32 @@ H1M_WORDS = 14
 H1M_ZIPF = 1.35
 H1M_MIN_POSTINGS = 1 << 21  # the blocked layout's threshold
 ORACLE_REL_TOL = 1e-5  # f32 device BM25 vs the exact f64 host sum
+Q_DIM = 384  # the quality tier's width: data/quality_encoder_384 is MiniLM-L6's H = 384
+QUALITY_ARTIFACT = "data/quality_encoder_384"
+#: cross-encoder/ms-marco-MiniLM-L-6-v2's config.json (its weights are not
+#: in the repository: phase 8 draws them from a seed)
+CE_CONFIG = {"vocab_size": 30522, "hidden": 384, "layers": 6, "heads": 12, "intermediate": 1536,
+             "max_position": 512}
+ENC_BATCHES = (256, 8, 1)  # the serve batch, the fused lane's pad, a singleton
+#: card vs CPU, the tolerances tests/test_torch_rerank.py states for the
+#: port against the reference: f32 sums in another order (quality vectors,
+#: cross-encoder scores), a bf16 rounding landing the other way, int8
+#: activations rounded to the neighbouring value (each such step moves a
+#: product by 1/127 of its row's largest activation, through six layers)
+ENC_F32_TOL = 1e-5
+ENC_BF16_TOL = 5e-4
+CE_F32_TOL = 1e-5
+CE_INT8_TOL = 5e-3
+#: a query's quality vector alone (B=1) against its row of the B=256
+#: forward, elementwise on unit vectors: the batch pads every query to the
+#: length bucket of its longest one, and cuBLAS picks its GEMM by row
+#: count, so the f32 sums may run in another order (f32); under bf16
+#: compute such a difference can move an intermediate's bf16 rounding (the
+#: bf16 tolerance above)
+SOLO_BATCH_TOL = {"f32": 1e-5, "bf16": ENC_BF16_TOL}
+LIFT_FLOOR = 0.0406  # the recorded held-out lift CI's lower end (tests/test_trained_quality_384.py)
+LIFT_TOL = 0.005  # card vs CPU mean lift on the same world
+LIFT_SEED = 11  # tools/train_quality_lift.py's world
 
 
 #: the kernels line: name, launch counter, source, the TPU kernel it
@@ -277,10 +303,11 @@ def launch_counters() -> dict:
             "K6": ts.group_candidates}
 
 
-def drive(fn, shapes: set, flat_inputs: dict | None = None):
+def drive(fn, shapes: set, flat_inputs: dict | None = None, *, dim: int | None = None):
     """Run ``fn`` with the kernels' launch counters zeroed; returns
     (result, {kernel: launches}) of that run alone. Adds to ``shapes`` the
-    kernel shapes of every scan in the run: a hierarchical scan runs K1 at
+    kernel shapes of every scan in the run (with ``dim``, of every
+    hierarchical scan over a slab of that width): a hierarchical scan runs K1 at
     ("group_max", B, 0) and K2 at ("gather_rescore", B, kk), an int8 scan
     K4 at ("group_max_int8", B, 0) and K2-i8 at ("gather_rescore_i8", B,
     kk), a per-tile scan K5 at ("tile_topk", B, kk). ``flat_inputs``
@@ -294,8 +321,9 @@ def drive(fn, shapes: set, flat_inputs: dict | None = None):
 
     def scan_noted(slab, queries, k, mask=None):
         b = queries.shape[0]
-        shapes.add(("group_max", b, 0))
-        shapes.add(("gather_rescore", b, min(k, slab.shape[0] // ts.GROUP)))
+        if dim is None or slab.shape[1] == dim:
+            shapes.add(("group_max", b, 0))
+            shapes.add(("gather_rescore", b, min(k, slab.shape[0] // ts.GROUP)))
         return scan(slab, queries, k, mask)
 
     def scan_i8_noted(slab_i8, scale, queries, k, mask=None, *, group_overfetch=1):
@@ -1642,6 +1670,335 @@ def phase7_hybrid_m2v(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[di
             launches, kernels)
 
 
+def lift_world(seed: int = LIFT_SEED):
+    """tools/train_quality_lift.py's paraphrase world, its held-out half: a
+    synonym dictionary (cwNNN <-> syNNN), 90 training topics drawn first
+    (only to keep the generator's sequence), then 45 held-out topics of
+    four docs each (the exact words, a paraphrase with one canonical
+    anchor, a partial match, noise) and a canonical-word query with graded
+    judgments. Returns ((doc id, text) list, queries, judgments, every
+    word)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_dict = 100
+    canon_words = [f"cw{i:03d}" for i in range(n_dict)]
+    syn_words = [f"sy{i:03d}" for i in range(n_dict)]
+    filler = [f"fil{i:03d}" for i in range(150)]
+
+    def draw_topic():
+        idx = rng.choice(n_dict, size=4, replace=False)
+        return [canon_words[i] for i in idx], [syn_words[i] for i in idx]
+
+    for _ in range(90):  # the training pairs' draws
+        draw_topic()
+        rng.choice(filler, size=4)
+
+    def pad():
+        return " ".join(rng.choice(filler, size=6))
+
+    docs, queries, qrels = [], [], []
+    for t in range(45):
+        canon, syns = draw_topic()
+        docs.append((f"ev{t}-exact", " ".join(canon) + " " + pad()))
+        docs.append((f"ev{t}-para", canon[0] + " " + " ".join(syns[1:]) + " " + pad()))
+        docs.append((f"ev{t}-part", " ".join(canon[:2]) + " " + pad()))
+        other = canon_words[rng.integers(n_dict)]
+        docs.append((f"ev{t}-noise", other + " " + pad()))
+        queries.append(" ".join(canon))
+        qrels.append({f"ev{t}-exact": 3.0, f"ev{t}-para": 2.0, f"ev{t}-part": 1.0})
+    return docs, queries, qrels, canon_words + syn_words + filler
+
+
+def ndcg_at_k(ranked: list[str], qrels: dict, k: int) -> float:
+    """nDCG@k with the log2(rank + 1) discount."""
+    import math
+
+    def dcg(rels):
+        total = 0.0  # added in rank order (sum() would compensate)
+        for i, rel in enumerate(rels[:k]):
+            total += rel / math.log2(i + 2)
+        return total
+
+    ideal = dcg(sorted(qrels.values(), reverse=True))
+    return dcg([qrels.get(d, 0.0) for d in ranked]) / ideal if ideal else 0.0
+
+
+def lift_eval(dev, world, quality, root: str, *, rescan: bool, timeout_ms: float | None = None):
+    """The lift world served on ``dev``: the term-identity Model2Vec fast
+    tier (128 dims, seed 3), ``quality`` as the quality tier, a
+    ``MemoryLexicalIndex``, and ``search()``'s phase stream per query.
+    Returns (Initial nDCG@10 per query, Refined nDCG@10 per query, phase-2
+    skip reasons)."""
+    import numpy as np
+
+    from frankensearch_tpu_torch import (IndexableDocument, MemoryLexicalIndex, Model2VecEmbedder,
+                                         SimpleWordTokenizer, TwoTierConfig, TwoTierIndex, TwoTierSearcher)
+    from frankensearch_tpu_torch.core.types import PhaseKind
+
+    docs, queries, qrels, words = world
+    rng = np.random.default_rng(3)
+    table = rng.standard_normal((len(words), 128)).astype(np.float32)
+    table /= np.linalg.norm(table, axis=1, keepdims=True)
+    fast = Model2VecEmbedder(table, SimpleWordTokenizer({w: i for i, w in enumerate(words)}), device=dev,
+                             embedder_id="fast-term-id", revision="tl1")
+    texts, ids = [t for _, t in docs], [d for d, _ in docs]
+    index = TwoTierIndex.create(root, fast.embed_batch(texts), ids, fast.identity(), device=dev,
+                                quality_vectors=quality.embed_batch(texts), quality_identity=quality.identity())
+    lex = MemoryLexicalIndex()
+    for d, t in docs:
+        lex.add_document(IndexableDocument(doc_id=d, content=t))
+    lex.commit()
+    cfg = TwoTierConfig(quality_rescan=rescan)
+    if timeout_ms is not None:
+        cfg = TwoTierConfig(quality_rescan=rescan, quality_timeout_ms=timeout_ms)
+    searcher = TwoTierSearcher(index, fast, lexical=lex, quality_embedder=quality, config=cfg,
+                               cache_query_embeddings=False)
+    initial, refined, skips = [], [], []
+    for q, rel in zip(queries, qrels):
+        out = searcher.search(q, k=10)
+        by_kind = {p.kind: p for p in out.phases}
+        init = by_kind[PhaseKind.INITIAL]
+        initial.append(ndcg_at_k([r.doc_id for r in init.results], rel, 10))
+        refined.append(ndcg_at_k([r.doc_id for r in by_kind.get(PhaseKind.REFINED, init).results], rel, 10))
+        skips.append(out.metrics.phase2_skip_reason)
+    searcher.close()
+    return initial, refined, skips
+
+
+def quality_index(dev, fast_index, identity):
+    """The fast tier of ``fast_index`` with a quality tier of seeded unit
+    rows x Q_DIM, one per doc, in the fast tier's doc order."""
+    import torch
+
+    from frankensearch_tpu_torch import DeviceVectorIndex, TwoTierIndex
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    vecs = unit_rows(gen, fast_index.fast.n_rows, Q_DIM, dev).cpu().numpy()
+    quality = DeviceVectorIndex(vecs, fast_index.fast.doc_ids, identity, device=dev)
+    return TwoTierIndex(fast_index.fast, quality)
+
+
+def phase_kinds(phases) -> list[str]:
+    return [p.kind.value for p in phases]
+
+
+def check_refined_singleton(what: str, one, want, strict: bool, q_err: float) -> None:
+    """A singleton's Refined results against its batch row: equal (doc
+    ids, fused, lexical, vector and quality scores) where its candidate
+    budgets and quality vector bits are the batch's; otherwise every doc
+    both lists hold has the same lexical and vector score bits and a
+    quality score within ``q_err`` x sqrt(Q_DIM) (a dot product of a unit
+    row with a query vector that moved by at most ``q_err`` per element)."""
+    got = [(r.doc_id, r.score, r.lexical_score, r.fast_score, r.quality_score) for r in one.results]
+    ref = [(r.doc_id, r.score, r.lexical_score, r.fast_score, r.quality_score) for r in want.results]
+    if strict:
+        if got != ref:
+            raise AssertionError(f"{what}: the singleton differs from its batch row")
+        return
+    lanes = {r[0]: r for r in ref}
+    shared = [r for r in got if r[0] in lanes]
+    if not shared:
+        raise AssertionError(f"{what}: the singleton shares no doc with its batch row")
+    bound = q_err * Q_DIM**0.5 + 1e-7
+    for r in shared:
+        w = lanes[r[0]]
+        if r[2:4] != w[2:4] or (r[4] is None) != (w[4] is None) or (
+                r[4] is not None and abs(r[4] - w[4]) > bound):
+            raise AssertionError(f"{what}: doc {r[0]} lane scores {r[2:]} vs its batch row's {w[2:]}")
+
+
+def phase8_quality(dev, tmp: str, semantic: dict, lexical: dict) -> tuple[dict, dict, list[dict]]:
+    """hybrid-1M-quality: phase 4's corpus and lexical arm over phase 2's
+    fast tier, with a 1M x 384 quality tier and the trained 384 encoder
+    (8a), a seeded cross-encoder at ms-marco-MiniLM-L-6-v2's configuration
+    (8b), and the held-out lift world on the card against the CPU (8c).
+    Returns its record, launches and kernel records."""
+    import numpy as np
+    import torch
+
+    from frankensearch_tpu_torch import TwoTierConfig, TwoTierSearcher
+    from frankensearch_tpu_torch.rerank.bert import BertConfig, init_params
+    from frankensearch_tpu_torch.rerank.cross_encoder import CrossEncoderReranker
+    from frankensearch_tpu_torch.rerank.encoder import load_artifact
+    from frankensearch_tpu_torch.rerank.tokenizer import WordPieceTokenizer
+
+    cpu = torch.device("cpu")
+    art = os.path.join(os.path.dirname(os.path.abspath(__file__)), QUALITY_ARTIFACT)
+    t0 = time.perf_counter()
+    q32 = load_artifact(art, device=dev)  # verify=True: the certificate, fail-closed
+    q16 = load_artifact(art, device=dev, compute="bf16")
+    c32 = load_artifact(art, device=cpu)
+    c16 = load_artifact(art, device=cpu, compute="bf16")
+    load_s = time.perf_counter() - t0
+    log(f"phase8 {QUALITY_ARTIFACT}: certificate verified on {dev} and on the CPU ({load_s:.1f} s)")
+    t0 = time.perf_counter()
+    index = quality_index(dev, semantic["index"], q32.identity())
+    build_s = time.perf_counter() - t0
+    log(f"phase8 quality tier {tuple(index.quality.slab.shape)} {index.quality.slab.dtype} ({build_s:.1f} s)")
+    bm25, queries, texts = lexical["bm25"], lexical["queries"], lexical["texts"]
+    singles = four_word_singletons(queries)
+    emb = semantic["emb"]
+
+    # --- 8a: the encoder alone, then search_batch and search() ---
+    rec: dict = {"artifact_load_s": load_s, "quality_index_build_s": build_s}
+    tok_t = q32.tokenize_batch(queries)[0].shape[1]
+    enc_ms = {}
+    for name, q_emb in (("f32", q32), ("bf16", q16)):
+        for b in ENC_BATCHES:
+            enc_ms[f"{name}_B{b}"] = cuda_median_ms(lambda: q_emb.forward_device(queries[:b]), iters=10)
+    rec.update({"encoder_ms": enc_ms, "encoder_t_B256": tok_t})
+    log(f"phase8 encoder forward (T={tok_t} at B=256; CUDA events, ms): {json.dumps(enc_ms)}")
+    sample = queries[:32]
+    for what, card, host, tol in (("f32", q32, c32, ENC_F32_TOL), ("bf16", q16, c16, ENC_BF16_TOL)):
+        err = float(np.abs(card.embed_batch(sample) - host.embed_batch(sample)).max())
+        rec[f"encoder_card_vs_cpu_{what}"] = err
+        if not err <= tol:
+            raise AssertionError(f"phase8: {what} quality vectors on the card differ from the CPU's by {err:.3e} > {tol}")
+    rows = [queries.index(q) for q in singles]
+    solo_batch = {}
+    for what, card in (("f32", q32), ("bf16", q16)):
+        vb = card.embed_batch(queries)
+        solo = np.stack([card.embed_batch([q])[0] for q in singles])
+        err = float(np.abs(solo - vb[rows]).max())
+        solo_batch[what] = {"bitwise": int(sum(np.array_equal(solo[i], vb[r]) for i, r in enumerate(rows))),
+                            "max_abs_diff": err}
+        if not err <= SOLO_BATCH_TOL[what]:
+            raise AssertionError(f"phase8: {what} B=1 quality vectors differ from their B=256 rows by {err:.3e}")
+    rec["solo_vs_batch"] = solo_batch
+    log(f"phase8 card vs CPU quality vectors: f32 {rec['encoder_card_vs_cpu_f32']:.3e} (tol {ENC_F32_TOL:g}), "
+        f"bf16 {rec['encoder_card_vs_cpu_bf16']:.3e} (tol {ENC_BF16_TOL:g}); B=1 vs B=256 rows: {json.dumps(solo_batch)}")
+    q_err = solo_batch["f32"]["max_abs_diff"]
+
+    searchers = {
+        rescan: TwoTierSearcher(index, emb, lexical=bm25, quality_embedder=q32,
+                                config=TwoTierConfig(quality_rescan=rescan), cache_query_embeddings=False)
+        for rescan in (False, True)
+    }
+    for s in searchers.values():  # warm-up: cuBLAS handles in the phase-2 worker, allocator, host caches
+        s.search_batch(queries, k=K)
+        for q in singles[:2]:
+            s.search(q, k=K)
+    shapes: set = set()
+
+    def main_path():
+        out = {}
+        for rescan, s in searchers.items():
+            batch, batch_ms = timed(lambda s=s: s.search_batch(queries, k=K))
+            solo = []
+            for q in singles:
+                seen = []
+                one, ms = timed(lambda q=q, s=s: s.search(q, k=K, on_phase=seen.append))
+                solo.append((one, seen, ms))
+            out[rescan] = (batch, batch_ms, solo)
+        return out
+
+    out, launches = drive(main_path, shapes, dim=Q_DIM)
+    need_launches("phase8", launches, ("K1", "K2", "K3"))
+    if not any(sh[0] == "group_max" for sh in shapes):
+        raise AssertionError("phase8: no hierarchical scan ran over the 384-wide quality tier")
+    for rescan, (batch, batch_ms, solo) in out.items():
+        tag = "rescan" if rescan else "aligned"
+        for j, o in enumerate(batch):
+            if o.metrics.quality_candidates < 1 or not any(r.quality_score is not None for r in o.results):
+                raise AssertionError(f"phase8 {tag}: query {j} carries no quality scores")
+        init_ms, ref_ms = [], []
+        for q, (one, seen, _ms) in zip(singles, solo):
+            kinds = phase_kinds(seen)
+            if kinds != ["initial", "refined"] or one.metrics.phase2_skip_reason or one.metrics.phase3_skip_reason:
+                raise AssertionError(f"phase8 {tag}: singleton {q!r} phases {kinds}, skip "
+                                     f"{one.metrics.phase2_skip_reason!r}/{one.metrics.phase3_skip_reason!r}")
+            strict = class_budgets([q]) == class_budgets(queries) and q_err == 0.0
+            check_refined_singleton(f"phase8 {tag} {q!r}", one, batch[queries.index(q)], strict, q_err)
+            init_ms.append(seen[0].latency_ms)
+            ref_ms.append(seen[1].latency_ms)
+        rec[tag] = {"batch_ms": batch_ms, "initial_ms": init_ms, "refined_ms": ref_ms,
+                    "quality_candidates_mean": float(np.mean([o.metrics.quality_candidates for o in batch]))}
+        log(f"phase8 {tag} search_batch B=256 (Refined): {batch_ms:.2f} ms; search() Initial "
+            + ", ".join(f"{t:.2f}" for t in init_ms) + " ms; Refined " + ", ".join(f"{t:.2f}" for t in ref_ms) + " ms")
+    log(f"phase8 launches {launches}; every singleton reached REFINED with no skip reason (default "
+        f"{TwoTierConfig().quality_timeout_ms:g} ms timeout); lanes equal to the batch rows")
+    kernels = check_kernels("hybrid-1M-quality", index.quality.slab, index.quality._effective_mask(None, None), shapes)
+
+    # --- 8b: Reranked ---
+    ce_cfg = BertConfig(**CE_CONFIG)
+    ce_state = init_params(ce_cfg, torch.Generator().manual_seed(SEED + 9))
+    ce_tok = WordPieceTokenizer(q32.tokenizer.vocab, max_len=512)
+
+    def text_fn(doc_id):
+        return texts[int(doc_id[4:])]
+
+    rerank = {}
+    for form in ("f32", "int8"):
+        rr = CrossEncoderReranker(ce_state, ce_cfg, ce_tok, device=dev, reranker_id="ms-marco-MiniLM-L-6-v2-seeded",
+                                  int8=form == "int8")
+        host = CrossEncoderReranker(ce_state, ce_cfg, ce_tok, device=cpu, int8=form == "int8")
+        s = TwoTierSearcher(index, emb, lexical=bm25, quality_embedder=q32, reranker=rr,
+                            config=TwoTierConfig(rerank_enabled=True), cache_query_embeddings=False, text_fn=text_fn)
+        s.search(singles[0], k=K)  # warm-up
+
+        def reranked():
+            res = []
+            for q in singles:
+                seen = []
+                res.append((s.search(q, k=K, on_phase=seen.append), seen))
+            return res
+
+        res, l8b = drive(reranked, set())
+        launches = {n: launches[n] + l8b[n] for n in launches}
+        ms, err = [], 0.0
+        for q, (one, seen) in zip(singles, res):
+            kinds = phase_kinds(seen)
+            if kinds != ["initial", "refined", "reranked"] or one.metrics.phase2_skip_reason \
+                    or one.metrics.phase3_skip_reason:
+                raise AssertionError(f"phase8 rerank {form}: singleton {q!r} phases {kinds}, skip "
+                                     f"{one.metrics.phase2_skip_reason!r}/{one.metrics.phase3_skip_reason!r}")
+            ms.append(one.metrics.phase3_ms)
+            pairs = [(r.doc_id, text_fn(r.doc_id)) for r in seen[1].results]
+            got = rr.score_pairs(q, pairs)
+            want = host.score_pairs(q, pairs)
+            g = np.array([x.score for x in got])
+            if not ((g >= 0.0) & (g <= 1.0)).all():
+                raise AssertionError(f"phase8 rerank {form}: scores outside [0, 1]")
+            err = max(err, float(np.abs(g - np.array([x.score for x in want])).max()))
+        tol = CE_F32_TOL if form == "f32" else CE_INT8_TOL
+        if not err <= tol:
+            raise AssertionError(f"phase8 rerank {form}: card vs CPU scores differ by {err:.3e} > {tol}")
+        pairs = [(f"doc-{i:07d}", texts[i]) for i in range(20)]
+        rr.score_pairs(singles[0], pairs)
+        t_pairs = timed(lambda: rr.score_pairs(singles[0], pairs))[1]
+        rerank[form] = {"phase3_ms": ms, "card_vs_cpu": err, "score_20_pairs_ms": t_pairs}
+        log(f"phase8 rerank {form}: every singleton reached RERANKED; phase 3 "
+            + ", ".join(f"{t:.2f}" for t in ms) + f" ms; 20 pairs {t_pairs:.2f} ms; card vs CPU scores "
+            f"{err:.3e} (tol {tol:g})")
+        s.close()
+    rec["rerank"] = rerank
+
+    # --- 8c: the held-out lift, card against CPU ---
+    world = lift_world()
+    lift = {}
+    for rescan in (False, True):
+        tag = "rescan" if rescan else "default"
+        i_c, r_c, skips = lift_eval(dev, world, q32, os.path.join(tmp, f"lift-card-{tag}"), rescan=rescan)
+        i_h, r_h, _ = lift_eval(cpu, world, c32, os.path.join(tmp, f"lift-cpu-{tag}"), rescan=rescan, timeout_ms=0)
+        if any(skips):
+            raise AssertionError(f"phase8 lift {tag}: phase-2 skips on the card {sorted(set(skips) - {None})}")
+        card = float(np.mean(r_c) - np.mean(i_c))
+        host_lift = float(np.mean(r_h) - np.mean(i_h))
+        lift[tag] = {"initial": float(np.mean(i_c)), "refined": float(np.mean(r_c)), "lift": card,
+                     "cpu_lift": host_lift, "per_query_equal": i_c == i_h and r_c == r_h}
+        log(f"phase8 lift {tag}: card Initial {np.mean(i_c):.4f} Refined {np.mean(r_c):.4f} lift {card:+.4f}; "
+            f"CPU lift {host_lift:+.4f}")
+        if abs(card - host_lift) > LIFT_TOL or card < LIFT_FLOOR:
+            raise AssertionError(f"phase8 lift {tag}: {card:+.4f} (CPU {host_lift:+.4f}, floor {LIFT_FLOOR})")
+    rec["lift"] = lift
+    for s in searchers.values():
+        s.close()
+    del searchers, index
+    torch.cuda.empty_cache()
+    return rec, launches, kernels
+
+
 def main() -> int:
     # the port must reach neither jax nor the JAX package, even indirectly
     sys.modules["jax"] = None
@@ -1687,14 +2044,16 @@ def main() -> int:
         t0 = time.perf_counter()
         ab_rec, l6, k6 = phase6_ab_scan(dev, semantic)
         wall["phase6_s"] = time.perf_counter() - t0
-        del semantic
         t0 = time.perf_counter()
         m2v_rec, l7, k7 = phase7_hybrid_m2v(dev, tmp, lexical)
         wall["phase7_s"] = time.perf_counter() - t0
-        del lexical
+        t0 = time.perf_counter()
+        quality_rec, l8, k8 = phase8_quality(dev, tmp, semantic, lexical)
+        wall["phase8_s"] = time.perf_counter() - t0
+        del semantic, lexical
         log("phase wall times: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
 
-    records = k2 + k3 + k4 + k5 + k6 + k7
+    records = k2 + k3 + k4 + k5 + k6 + k7 + k8
     kernels = []
     for name, key, src, replaces, cell in KERNELS:
         recs = [r for r in records if r["kernel"] == name]
@@ -1709,7 +2068,7 @@ def main() -> int:
         bound_ms = sum(r["bound"][0] for r in head) / len(head)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7)),
+            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8)),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": sum(r["ms"] for r in head) / len(head), "plain_ms": sum(r["plain_ms"] for r in head) / len(head),
             "bound_ms": bound_ms,
@@ -1718,7 +2077,7 @@ def main() -> int:
             "shapes": [{k: (v if k != "bound" else v[0]) for k, v in r.items() if k != "kernel"} for r in recs],
         })
     log(json.dumps({"semantic": sem, "hybrid": hyb, "hybrid_1m": h1m, "scan_modes": modes, "ab_scan": ab_rec,
-                    "hybrid_1m_m2v": m2v_rec, "wall_s": wall}))
+                    "hybrid_1m_m2v": m2v_rec, "hybrid_1m_quality": quality_rec, "wall_s": wall}))
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
     print(json.dumps({

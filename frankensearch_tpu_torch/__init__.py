@@ -9,8 +9,11 @@ recall certificates, embedders, host fusion, the lexical CPU oracle and
 tokenizer, the native ingest binding) are its own copies, at the same
 relative paths, and write byte-compatible artifacts.
 
-Ported so far: batched hybrid search through the Initial phase —
-``TwoTierSearcher.search_batch`` over ``TwoTierIndex`` (fast tier) and
+Ported so far: the progressive two-tier search — ``TwoTierSearcher.search``
+streams Initial, Refined (a BERT quality tier, ``rerank/``) and Reranked (a
+cross-encoder), with boolean/phrase queries — and batched hybrid search
+with the Refined phase — ``TwoTierSearcher.search_batch`` over
+``TwoTierIndex`` (fast and quality tiers) and
 ``DeviceBm25Index`` at any lexical scale (dense lane; blocked flat,
 pruned and DAAT lanes from 2,097,152 postings) — and the fast tier's
 ``scan_mode`` lanes ``"int8"`` (the int8 capacity slab) and ``"pallas"``

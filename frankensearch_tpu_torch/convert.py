@@ -106,3 +106,16 @@ def model2vec_from_arrays(
         table = _to_tensor(table).to(torch.float32).numpy()
     tokenizer = SimpleWordTokenizer(dict(vocab), unk_id=unk_id, lowercase=lowercase)
     return Model2VecEmbedder(np.asarray(table, dtype=np.float32), tokenizer, device=device, **kwargs)
+
+
+def bert_params_from_arrays(flat: Mapping[str, np.ndarray], cfg) -> dict[str, torch.Tensor]:
+    """The port's BERT state (rerank/bert.py names, CPU tensors) from the
+    reference's parameters as numpy, keyed by jax's ``keystr`` paths
+    (``"['layers'][0]['q']['w']"``, the keys of an ``ftenc.v1`` artifact's
+    ``params.npz``). f32 and int8 layouts both map; every parameter that
+    ``cfg`` needs must be there, in its shape."""
+    from frankensearch_tpu_torch.rerank.bert import check_state, port_name
+
+    state = {port_name(key): torch.from_numpy(np.array(value, copy=True)) for key, value in flat.items()}
+    check_state(cfg, state)
+    return state

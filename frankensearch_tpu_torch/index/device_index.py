@@ -322,6 +322,16 @@ class DeviceVectorIndex:
 
     # -- search ------------------------------------------------------------
 
+    def row_for(self, doc_id: str) -> int | None:
+        return self._row_of.get(doc_id)
+
+    def vector_for_row(self, row: int) -> np.ndarray:
+        return self._vectors_f32[row]
+
+    def vectors_f32(self) -> np.ndarray:
+        """All rows as f32 (the host copy), row-indexed."""
+        return self._vectors_f32[: self.n_rows]
+
     def _effective_mask(
         self,
         search_filter: SearchFilter | None,

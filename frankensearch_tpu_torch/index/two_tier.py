@@ -5,8 +5,10 @@ Port of ``TwoTierIndex.create`` / ``TwoTierIndex.open`` /
 the port's copies of the FTVI/WAL modules, which write and read the
 reference's bytes: both packages open the same on-disk artifact, int8
 artifacts included. Recall certificates persist in the generation
-manifest and rebind on open. WAL appends, deletes, compaction and the
-quality tier's aligned rescoring (phase 2) are not ported yet.
+manifest and rebind on open. The quality tier serves phase 2: the
+aligned rescore of phase 1's hits (``quality_scores_for_hits``) and a
+full quality-tier scan (``search_quality``). WAL appends, deletes and
+compaction are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from frankensearch_tpu_torch.core.errors import IndexCorrupted, IndexNotFound
-from frankensearch_tpu_torch.core.types import ClassifiedHits
+from frankensearch_tpu_torch.core.types import ClassifiedHits, VectorHit
 from frankensearch_tpu_torch.index.durability import (
     ParityProtector,
     artifact_mutation_lock,
@@ -80,6 +82,23 @@ class TwoTierIndex:
         self.fast = fast
         self.quality = quality
         self.root = root
+        self._realign()
+
+    def _realign(self) -> None:
+        """Fast-tier row -> quality-tier row of the same doc (-1 where the
+        quality tier lacks it); the identity when both tiers hold the same
+        doc ids in the same order."""
+        self._fast_to_quality = None
+        if self.quality is None:
+            return
+        fast_ids, quality = self.fast.doc_ids, self.quality
+        if fast_ids == quality.doc_ids:
+            self._fast_to_quality = np.arange(len(fast_ids), dtype=np.int64)
+            return
+        row_of = quality._row_of
+        self._fast_to_quality = np.fromiter(
+            (row_of.get(d, -1) for d in fast_ids), dtype=np.int64, count=len(fast_ids)
+        )
 
     @classmethod
     def open(
@@ -186,6 +205,35 @@ class TwoTierIndex:
     def search_fast_classified(self, query: np.ndarray, k: int, **kwargs) -> ClassifiedHits:
         """Phase-1 vector arm (two_tier.rs:1358)."""
         return self.fast.search_classified(query, k, **kwargs)
+
+    def quality_scores_for_hits(
+        self,
+        quality_query: np.ndarray,
+        hits: Sequence[VectorHit],
+    ) -> dict[str, float]:
+        """Aligned quality rescoring of the phase-1 pool (two_tier.rs:1566):
+        each hit's quality row dotted with the quality query in f32 on the
+        host copy, no second scan."""
+        if self.quality is None:
+            return {}
+        rows = []
+        keep: list[str] = []
+        for h in hits:
+            q_row = self._fast_to_quality[h.row] if h.row >= 0 else -1
+            if q_row >= 0:
+                rows.append(int(q_row))
+                keep.append(h.doc_id)
+        if not rows:
+            return {}
+        scores = self.quality.scores_for_rows(quality_query, rows)
+        return {doc_id: float(s) for doc_id, s in zip(keep, scores)}
+
+    def search_quality(self, quality_query: np.ndarray, k: int, **kwargs) -> ClassifiedHits:
+        """Full quality-tier retrieval (owner-backed path,
+        searcher.rs:2081-2110)."""
+        if self.quality is None:
+            return ClassifiedHits(hits=())
+        return self.quality.search_classified(quality_query, k, **kwargs)
 
     def doc_count(self) -> int:
         return self.fast.live_count

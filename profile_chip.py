@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the time goes: profile the PyTorch port's main path on one NVIDIA GPU.
 
-Usage: ``python3 profile_chip.py [OUT_DIR]`` (or ``--kernels [ROOT]``,
-below) from the root of a checkout (one CUDA card). OUT_DIR, where the
-reports go, defaults to ``build/profile``.
+Usage: ``python3 profile_chip.py [OUT_DIR [CELL ...]]`` (or ``--kernels
+[ROOT]``, below) from the root of a checkout (one CUDA card). OUT_DIR,
+where the reports go, defaults to ``build/profile``; naming CELLs profiles
+only those.
 
 Builds the cells of ``chip_smoke.py`` (semantic-1M, semantic-1M-pallas:
 the same index served with ``scan_mode="pallas"`` (K5), hybrid-60k,
@@ -11,7 +12,11 @@ hybrid-1M: the 1M-doc BM25 arm over the semantic cell's vectors,
 semantic-1M-int8: the semantic cell's vectors in an int8 ``TwoTierIndex``
 served with ``scan_mode="int8"``, and hybrid-1M-m2v: the same BM25 arm with
 a Model2Vec fast tier, its docs embedded through the bag lane and its
-queries embedded inside the fused phase-1 pass) and, for
+queries embedded inside the fused phase-1 pass, and hybrid-1M-quality:
+hybrid-1M with phase 8's 1M x 384 quality tier and the trained 384
+encoder (``data/quality_encoder_384``), served through the Refined phase
+with the query-embedding cache off, so that every call runs the encoder)
+and, for
 each at B = 256 and B = 1 (the cell's first query), after three warm-up calls
 of ``TwoTierSearcher.search_batch``:
 
@@ -337,10 +342,24 @@ def main() -> int:
         _, index, emb, _, queries = cs.semantic_cell(dev, tempfile.mkdtemp(dir=tmp))
         return TwoTierSearcher(index, emb, config=TwoTierConfig(fast_only=True, scan_mode="pallas")), queries
 
+    def hybrid1m_quality(dev, tmp):
+        from frankensearch_tpu_torch import TwoTierSearcher
+        from frankensearch_tpu_torch.rerank.encoder import load_artifact
+
+        _, index, emb, _, _ = cs.semantic_cell(dev, tempfile.mkdtemp(dir=tmp))
+        bm25, queries, _, _, _ = cs.hybrid1m_lexical(dev)
+        quality = load_artifact(os.path.join(HERE, cs.QUALITY_ARTIFACT), device=dev)
+        index = cs.quality_index(dev, index, quality.identity())
+        return TwoTierSearcher(index, emb, lexical=bm25, quality_embedder=quality,
+                               cache_query_embeddings=False), queries
+
     with tempfile.TemporaryDirectory(prefix="fs_profile_") as tmp:
         for cell, build in (("semantic-1M", cs.semantic_cell), ("semantic-1M-pallas", semantic_pallas),
                             ("hybrid-60k", cs.hybrid_cell), ("hybrid-1M", hybrid1m),
-                            ("semantic-1M-int8", lambda dev, tmp: int8_cell(cs, dev, tmp)), ("hybrid-1M-m2v", hybrid1m_m2v)):
+                            ("semantic-1M-int8", lambda dev, tmp: int8_cell(cs, dev, tmp)), ("hybrid-1M-m2v", hybrid1m_m2v),
+                            ("hybrid-1M-quality", hybrid1m_quality)):
+            if len(sys.argv) > 2 and cell not in sys.argv[2:]:
+                continue
             built = build(dev, tmp)
             searcher, queries = built[0], built[-1]
             for b in (256, 1):

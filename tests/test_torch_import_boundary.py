@@ -6,7 +6,8 @@ every object from the port's own types and serves a tiny hybrid
 ``search_batch`` on the CPU: over the dense lexical lane, over the blocked
 (split, flat, DAAT) layout, through the ``int8`` (certified) and
 ``pallas`` scan modes, and with a Model2Vec fast tier (the fully fused
-lane), then runs the A/B scan lane. A static check reads every import statement of the
+lane), then runs the A/B scan lane, and a phrase query through the
+Refined and Reranked phases (a BERT quality tier and a cross-encoder). A static check reads every import statement of the
 port's files, ``chip_smoke.py`` and ``profile_chip.py``: none may name
 ``frankensearch_tpu`` or ``jax``.
 """
@@ -99,6 +100,28 @@ q = torch.zeros(2, index.fast.slab.shape[1])
 q[:, :32] = torch.from_numpy(m2v.embed_batch(["vector search", "sqlite log"]))
 hits = ab_primitives.scan_topk_hierarchical_ab(index.fast.slab, q, 2, emit="tile_topk", tile_n=1024)
 assert hits.indices[0, 0] == 3 and hits.indices[1, 0] == 4, hits
+# the Refined and Reranked phases: a quality tier, a BERT encoder and a
+# cross-encoder, through search() and search_batch
+from frankensearch_tpu_torch.core.types import PhaseKind
+from frankensearch_tpu_torch.rerank.cross_encoder import random_cross_encoder
+from frankensearch_tpu_torch.rerank.encoder import random_transformer_embedder
+words = sorted({w for d in docs for w in d.content.split()})
+quality = random_transformer_embedder(words, device=dev, hidden=32, layers=1, heads=2)
+with tempfile.TemporaryDirectory() as root:
+    texts = [d.content for d in docs]
+    index = fst.TwoTierIndex.create(
+        root, emb.embed_batch(texts), [d.doc_id for d in docs], emb.identity(), device=dev,
+        quality_vectors=quality.embed_batch(texts), quality_identity=quality.identity())
+    searcher = fst.TwoTierSearcher(index, emb, lexical=mem, quality_embedder=quality,
+        reranker=random_cross_encoder(words, device=dev, hidden=32, layers=1, heads=2),
+        config=fst.TwoTierConfig(quality_timeout_ms=0, rerank_enabled=True),
+        text_fn={d.doc_id: d.content for d in docs}.get)
+    out = searcher.search('"write ahead" log', k=3)
+    assert [p.kind for p in out.phases] == [PhaseKind.INITIAL, PhaseKind.REFINED, PhaseKind.RERANKED]
+    assert out.results[0].doc_id == "d4", out.results
+    batch = searcher.search_batch(["vector search", '"write ahead"'], k=3)
+    assert batch[1].results[0].doc_id == "d4" and batch[0].results[0].quality_score is not None
+    searcher.close()
 assert sys.modules["jax"] is None and sys.modules["frankensearch_tpu"] is None
 assert not [m for m in sys.modules if m.startswith(("jax.", "frankensearch_tpu."))]
 print("OK")

@@ -2,7 +2,10 @@
 their plain twins (K6's selection also alone, on crafted maxima), the deterministic lanes (dense, pruned and DAAT BM25,
 device RRF) bitwise against the CPU, the int8 and per-tile scan lanes
 against their CPU twin pipelines, the A/B scan's K6 route bitwise against
-the K1/K2 route, and the Model2Vec pool and bag lane against the CPU.
+the K1/K2 route, the Model2Vec pool and bag lane against the CPU, K1 and
+K2 at the quality tier's width (384), the int8 GEMM behind the encoder at
+padded shapes (exact), and the trained 384 encoder's forward against the
+CPU (f32, bf16, int8).
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -654,6 +657,61 @@ def _k2i8_digest(dev, case) -> str:
 @pytest.mark.parametrize("case", K2I8_CASES, ids=[f"d{d}-{b}-{kk}" for d, b, kk in K2I8_CASES])
 def test_gather_rescore_i8_bits_equal_the_first_port(cuda_device, case):
     assert _k2i8_digest(cuda_device, case) == K2I8_DIGESTS[case]
+
+
+@pytest.mark.parametrize("kk", [30, 60])
+@pytest.mark.parametrize("b", [1, 8, 256])
+def test_k1_k2_at_the_quality_width_match_twins(cuda_device, b, kk):
+    """K1 and K2 over a 384-wide bf16 slab (the quality tier's rescan) at
+    the serve batch, the fused lane's pad and a singleton."""
+    gen = torch.Generator(device="cpu").manual_seed(b * 100 + kk)
+    slab = torch.randn(32768, 384, generator=gen)
+    slab = (slab / slab.norm(dim=1, keepdim=True)).to(cuda_device, torch.bfloat16)
+    q = torch.randn(b, 384, generator=gen).to(cuda_device)
+    mask = torch.zeros(32768, device=cuda_device)
+    mask[32000:] = float("-inf")
+    gm = topk_scan.group_max(slab, q, mask)
+    torch.testing.assert_close(gm, topk_scan.group_max_plain(slab, q, mask), rtol=1e-5, atol=1e-5)
+    groups = torch.sort(torch.topk(gm, kk, dim=1).indices.to(torch.int32), dim=1).values
+    r = topk_scan.gather_rescore(slab, q, groups)
+    torch.testing.assert_close(r, topk_scan.gather_rescore_plain(slab, q, groups), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 384, 1), (5, 1536, 384), (16, 384, 1536), (300, 384, 1)])
+def test_int8_matmul_padded_shapes_exact(cuda_device, m, k, n):
+    """torch._int_mm behind rerank.bert.int8_matmul at shapes its rules
+    refuse unpadded (16 rows or fewer, n = 1): zero padding keeps the int32
+    sums exact."""
+    from frankensearch_tpu_torch.rerank.bert import int8_matmul
+
+    gen = torch.Generator(device="cpu").manual_seed(m + n)
+    x = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    got = int8_matmul(x.to(cuda_device), w.to(cuda_device)).cpu()
+    assert got.dtype == torch.int32
+    assert torch.equal(got.to(torch.int64), x.to(torch.int64) @ w.to(torch.int64))
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
+def test_encoder_forward_card_vs_cpu(cuda_device, form):
+    """The trained 384 encoder's forward on the card against the port on
+    the CPU, within tests/test_torch_rerank.py's stated tolerances (card and
+    CPU sum in different orders; int8 sums are exact)."""
+    import dataclasses
+
+    from frankensearch_tpu_torch.rerank.bert import Bert, quantize_linear_weights
+    from frankensearch_tpu_torch.rerank.encoder import load_artifact
+
+    cpu = load_artifact(chip_smoke.QUALITY_ARTIFACT, device=torch.device("cpu"))
+    cfg = dataclasses.replace(cpu.cfg, compute="bf16" if form == "bf16" else "f32")
+    state = quantize_linear_weights(cpu.params) if form == "int8" else cpu.params
+    texts = ["cw001 cw002 sy003", "the quick brown fox", "fil010", "cw050 sy051 fil052 cw053 sy054"]
+    ids, mask = cpu.tokenize_batch(texts)
+    ids, mask = torch.from_numpy(ids).long(), torch.from_numpy(mask)
+    want = Bert(cfg, state, device=torch.device("cpu")).embed_forward(ids, mask)
+    got = Bert(cfg, state, device=cuda_device).embed_forward(ids.to(cuda_device), mask.to(cuda_device)).cpu()
+    tol = {"f32": chip_smoke.ENC_F32_TOL, "bf16": chip_smoke.ENC_BF16_TOL, "int8": 2e-3}[form]
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
 if __name__ == "__main__":

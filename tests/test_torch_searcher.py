@@ -187,10 +187,6 @@ def test_split_corpus_batch_matches_reference(split_stacks, monkeypatch, divisor
 
 
 def test_unported_lanes_raise(stacks):
-    with pytest.raises(NotImplementedError, match="boolean/phrase"):
-        stacks["port"].search_batch(['"exact phrase" w1'], k=5)
-    with pytest.raises(NotImplementedError, match="phase 2"):
-        TwoTierSearcher(stacks["index"], stacks["emb"], quality_embedder=stacks["emb"])
     for mode in ("mrl", "ivf"):
         with pytest.raises(NotImplementedError, match=mode):
             stacks["index"].fast.search_batch(np.ones((1, 64), np.float32), 3, mode=mode)
