@@ -62,14 +62,35 @@ Phases:
      RRF bitwise against the host oracle, singletons against their batch
      rows, the lexical pools against phase 4's, vector recall@10 against an
      exact f32 scan of the pass's own query vectors, and the results against
-     the same batch embedded on the host first.
+     the same batch embedded on the host first;
+  8. hybrid-1M with a 1M x 384 quality tier (hybrid-1M-quality): the trained
+     encoder, the Refined phase of ``search_batch`` and ``search()`` (aligned
+     rescore and rescan, K1/K2 at d = 384), a seeded cross-encoder, and the
+     held-out lift against the CPU;
+  9. the scan lanes and the write path: semantic-1M-f32 (phase 2's vectors
+     as an f32 slab; ``auto`` on K1 and K2's f32 forms and ``pallas`` on
+     K5's, B = 256, 8, 1, doc sets against the plain f32 scan up to ties
+     within F32_TIE_REL at the k-th score); semantic-1M-mrl (phase 2's
+     index with ``mrl_search_dims=64``, recall@10, a B=8 subset against the
+     same op on CPU copies); the int4 two-pass scan over phase 2's vectors
+     (a B=8 subset against the CPU); semantic-1M-ivf (a clustered 1M
+     corpus, its IVF arm built on the card: build time, recall@10 at nprobe
+     8 and 32, scanned fraction, full probe against the hierarchical scan up
+     to ties within bf16 rounding, K2 at the probe's shapes against its
+     twin, a calibrated nprobe certified, persisted, served behind the gate
+     and rebound after a reopen); the write path over phase 2's index (10,000
+     appends, 1,000 deletes, a WAL sync: each appended doc its own top hit,
+     no deleted doc returned, ``mode="ivf"`` refused until ``enable_ivf()``
+     runs again, then ``compact()`` and a reopen with the top-10 bitwise
+     unchanged).
 
 The kernels line gives each kernel's time, its twin's, and its bound: the
 larger of the bytes it must move (each input read once, each output
 written once; a gather counts the distinct groups it reads) over 3.35 TB/s
 and its operations over the H100's dense peak for their type (integer
-compares at the INT32 lanes' rate). Each entry is one launch at its
-headline shape; K3's is the mean over the length classes of one flat scan
+compares at the INT32 lanes' rate). K1, K2 and K5 on an f32 slab (their
+FFMA forms) and K2 at the IVF probe's shapes have entries of their own.
+Each entry is one launch at its headline shape; K3's is the mean over the length classes of one flat scan
 at the widest batch tile, the unit its launch count counts.
 
 The kernels' launch counters are zeroed right before each phase drives the
@@ -149,6 +170,24 @@ SOLO_BATCH_TOL = {"f32": 1e-5, "bf16": ENC_BF16_TOL}
 LIFT_FLOOR = 0.0406  # the recorded held-out lift CI's lower end (tests/test_trained_quality_384.py)
 LIFT_TOL = 0.005  # card vs CPU mean lift on the same world
 LIFT_SEED = 11  # tools/train_quality_lift.py's world
+F32_TIE_REL = 1e-6  # f32 slab lanes vs the plain f32 scan: the same f32 products summed in another order
+MRL_DIMS = 64  # semantic-1M-mrl's pass-1 dims (the reference's default search_dims)
+MRL_CPU_TOL = 1e-6  # MRL card vs CPU: f32 sums in another order
+IVF_CENTRES = 2_000  # the clustered corpus's centres: the IVF arm's default cluster count at 1M docs
+IVF_SPREAD = 0.125  # per-dim noise: |noise| ~ 2 at d = 256, as tests/test_ivf.py's 0.25 at d = 64
+IVF_QUERY_NOISE = 0.025  # |noise| ~ 0.4 at d = 256, as that test's 0.05 at d = 64
+IVF_NPROBES = (8, 32)  # the default ivf_nprobe and a wider probe
+#: calibrate_nprobe's target: per-query recall@10 is a multiple of 0.1, and
+#: so is the certified recall (a lower quantile of it): 0.9 is the highest
+#: target short of every query's full top-10
+IVF_TARGET_RECALL = 0.9
+#: the nprobe values calibrated: a certified (lower-quantile) recall of 0.9
+#: can take hundreds of probes where the capacity-balanced assignment has
+#: placed docs away from their nearest clusters
+IVF_CANDIDATES = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+IVF_OWN_HIT_FLOOR = 0.99  # appended docs found first by the rebuilt arm at nprobe 8 (spill can place a doc past its probes)
+APPEND_DOCS = 10_000
+DELETE_DOCS = 1_000  # half of them appended docs, half phase 2's
 
 
 #: the kernels line: name, launch counter, source, the TPU kernel it
@@ -168,6 +207,14 @@ KERNELS = (
      "frankensearch_tpu/ops/topk_scan.py:114", "semantic-1M"),
     ("group_candidates", "K6", "frankensearch_tpu_torch/ops/csrc/group_candidates.cu",
      "frankensearch_tpu/ops/ab_primitives.py:103", "semantic-1M"),
+    ("group_max_f32", "K1-f32", "frankensearch_tpu_torch/ops/csrc/group_max.cu",
+     "frankensearch_tpu/ops/topk_scan.py:220", "semantic-1M-f32"),
+    ("gather_rescore_f32", "K2-f32", "frankensearch_tpu_torch/ops/csrc/gather_rescore.cu",
+     "frankensearch_tpu/ops/topk_scan.py:362", "semantic-1M-f32"),
+    ("tile_topk_f32", "K5-f32", "frankensearch_tpu_torch/ops/csrc/tile_topk.cu",
+     "frankensearch_tpu/ops/topk_scan.py:114", "semantic-1M-f32"),
+    ("gather_rescore_ivf", "K2-ivf", "frankensearch_tpu_torch/ops/csrc/gather_rescore.cu",
+     "frankensearch_tpu/ops/topk_scan.py:362", "semantic-1M-ivf"),
 )
 
 
@@ -237,7 +284,7 @@ def check_kernels(cell: str, slab, mask, shapes: set, done: set = frozenset()) -
             raise AssertionError(f"phase1 {cell}: the main path gave {name} no shape")
     gen = torch.Generator(device=slab.device).manual_seed(SEED + 1)
     n, d = slab.shape
-    kind = "bf16" if slab.dtype == torch.bfloat16 else "f16"
+    kind, form = kernel_form(slab)
     recs = []
     todo = shapes - set(done)
     for b in sorted({s[1] for s in shapes if s[0] == "group_max"}, reverse=True):
@@ -247,7 +294,7 @@ def check_kernels(cell: str, slab, mask, shapes: set, done: set = frozenset()) -
             err = check_close(gm, ts.group_max_plain(slab, q, mask), f"phase1 {cell} K1 B={b}")
             ms = cuda_median_ms(lambda: ts.group_max(slab, q, mask))
             plain_ms = cuda_median_ms(lambda: ts.group_max_plain(slab, q, mask))
-            recs.append({"kernel": "group_max", "cell": cell, "n": n, "b": b, "kk": None,
+            recs.append({"kernel": "group_max" + form, "cell": cell, "n": n, "b": b, "kk": None,
                          "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
                          "bound": bound(nbytes(slab, q, mask, gm), 2 * b * n * d, kind)})
         for kk in sorted(s[2] for s in todo if s[0] == "gather_rescore" and s[1] == b):
@@ -258,12 +305,21 @@ def check_kernels(cell: str, slab, mask, shapes: set, done: set = frozenset()) -
                               f"phase1 {cell} K2 B={b} kk={kk}")
             ms = cuda_median_ms(lambda: ts.gather_rescore(slab, q, groups))
             plain_ms = cuda_median_ms(lambda: ts.gather_rescore_plain(slab, q, groups))
-            recs.append({"kernel": "gather_rescore", "cell": cell, "n": n, "b": b, "kk": kk,
+            recs.append({"kernel": "gather_rescore" + form, "cell": cell, "n": n, "b": b, "kk": kk,
                          "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
                          "bound": bound(gathered_bytes(slab, groups) + nbytes(q, groups, r),
                                         2 * r.numel() * d, kind)})
     log_kernel_records(cell, recs)
     return recs
+
+
+def kernel_form(slab) -> tuple[str, str]:
+    """(the operations' type for the bound, the kernels line's name suffix)
+    of a slab: bf16/f16 score on the tensor cores, f32 by FFMA (the kernels'
+    f32 forms, entries of their own on the kernels line)."""
+    import torch
+
+    return {torch.bfloat16: ("bf16", ""), torch.float16: ("f16", ""), torch.float32: ("f32", "_f32")}[slab.dtype]
 
 
 def log_kernel_records(cell: str, recs: list[dict]) -> None:
@@ -1048,7 +1104,7 @@ def check_tile_rows(slab, q, mask, got_s, got_i, what: str) -> None:
         raise AssertionError(f"{what}: a row appears twice in one tile's candidates")
 
 
-def check_tile_kernel(cell: str, slab, mask, shapes: set) -> list[dict]:
+def check_tile_kernel(cell: str, slab, mask, shapes: set, *, edges: bool = True) -> list[dict]:
     """Phase 1 for K5: the kernel against its twin at each (B, kk)
     ``drive`` noted, with seeded unit queries. The twin's and the kernel's
     f32 sums differ in order, so near ties may swap: the sorted scores of
@@ -1056,7 +1112,7 @@ def check_tile_kernel(cell: str, slab, mask, shapes: set) -> list[dict]:
     candidate row the kernel names is a distinct row of its tile whose
     plain score is the kernel's. The kernel's scores are K1's bits: each
     (tile, query)'s first candidate is bitwise the largest of K1's 16 group
-    maxima over the tile. Then :func:`check_tile_edges`."""
+    maxima over the tile. Then, with ``edges``, :func:`check_tile_edges`."""
     import torch
 
     from frankensearch_tpu_torch.ops import topk_scan as ts
@@ -1066,7 +1122,7 @@ def check_tile_kernel(cell: str, slab, mask, shapes: set) -> list[dict]:
         raise AssertionError(f"phase1 {cell}: the main path gave tile_topk no shape")
     gen = torch.Generator(device=slab.device).manual_seed(SEED + 6)
     n, d = slab.shape
-    kind = "bf16" if slab.dtype == torch.bfloat16 else "f16"
+    kind, form = kernel_form(slab)
     recs = []
     for b, kk in reversed(todo):
         q = unit_rows(gen, b, d, slab.device)
@@ -1078,7 +1134,7 @@ def check_tile_kernel(cell: str, slab, mask, shapes: set) -> list[dict]:
         k1_first = ts.group_max(slab, q, mask).view(b, n // ts.TILE_N, ts.TILE_N // ts.GROUP).amax(dim=2)
         if not torch.equal(got_s[:, 0, :].T.contiguous().view(torch.int32), k1_first.view(torch.int32)):
             raise AssertionError(f"phase1 {cell} K5 B={b} kk={kk}: a first candidate is not K1's tile maximum")
-        recs.append({"kernel": "tile_topk", "cell": cell, "n": n, "b": b, "kk": kk,
+        recs.append({"kernel": "tile_topk" + form, "cell": cell, "n": n, "b": b, "kk": kk,
                      "ms": cuda_median_ms(lambda: ts.tile_topk(slab, q, mask, kk)),
                      "plain_ms": cuda_median_ms(lambda: ts.tile_topk_plain(slab, q, mask, kk), warmup=1, iters=5),
                      "max_abs_err": err,
@@ -1086,7 +1142,8 @@ def check_tile_kernel(cell: str, slab, mask, shapes: set) -> list[dict]:
                      "bound": bound(nbytes(slab, q, mask, got_s, got_i), 2 * b * n * d, kind)})
     log_kernel_records(cell, recs)
     log(f"phase1 {cell} K5 first candidates bitwise equal to K1's tile maxima at (B, kk) {todo}")
-    check_tile_edges(slab.device)
+    if edges:
+        check_tile_edges(slab.device)
     return recs
 
 
@@ -1999,6 +2056,374 @@ def phase8_quality(dev, tmp: str, semantic: dict, lexical: dict) -> tuple[dict, 
     return rec, launches, kernels
 
 
+def serve_sizes(searcher, queries: list[str], texts: list[str] | None = None) -> dict:
+    """``search_batch`` at B = 256 (``queries``), 8 (their first 8) and 1
+    (each of those alone, or of ``texts``): {size: (outcomes, host ms)}."""
+    b256 = timed(lambda: searcher.search_batch(queries, k=K))
+    b8 = timed(lambda: searcher.search_batch(queries[:8], k=K))
+    solo = [timed(lambda q=q: searcher.search_batch([q], k=K)) for q in (texts or queries[:8])]
+    return {"B256": b256, "B8": b8, "B1": ([o[0][0] for o in solo], [o[1] for o in solo])}
+
+
+def sizes_ms(out: dict) -> dict:
+    return {"B256_ms": out["B256"][1], "B8_ms": out["B8"][1], "B1_ms": out["B1"][1]}
+
+
+def check_sets(what: str, got_rows, want_rows, score_of, kth, tol: float) -> int:
+    """Per query, the rows ``got_rows`` names equal ``want_rows``'s, except
+    where a differing row's score (``score_of(j, row)``) lies within ``tol``
+    (relative, at least absolute) of the query's k-th score ``kth[j]``.
+    Returns how many queries differ only at such ties."""
+    off = 0
+    for j, (got, want) in enumerate(zip(got_rows, want_rows)):
+        if set(got) == set(want):
+            continue
+        for row in set(got) ^ set(want):
+            if abs(score_of(j, row) - kth[j]) > tol * max(abs(kth[j]), 1.0):
+                raise AssertionError(f"{what}: query {j} row {row} differs from the reference scan")
+        off += 1
+    return off
+
+
+def same_topk(got, want, rel: float, what: str) -> None:
+    """Two (B, k) top-k results, query by query as :func:`same_ranking`."""
+    pairs = [[list(zip(i, s)) for i, s in zip(r.indices.tolist(), r.scores.tolist())] for r in (got, want)]
+    for j, (g, w) in enumerate(zip(*pairs)):
+        same_ranking(g, w, rel, f"{what} query {j}")
+
+
+def doc_rows(out) -> list[int]:
+    return [int(r.doc_id.split("-")[1]) for r in out.results]
+
+
+def clustered_cell(rng):
+    """The IVF cell's corpus: 1M unit rows around IVF_CENTRES seeded
+    centres, and 256 queries near corpus rows (tests/test_ivf.py's
+    ``test_high_recall_on_clustered_data`` at full size). Returns (rows,
+    queries)."""
+    import numpy as np
+
+    centres = rng.standard_normal((IVF_CENTRES, DIM), dtype=np.float32)
+    centres /= np.linalg.norm(centres, axis=1, keepdims=True)
+    x = centres[np.repeat(np.arange(IVF_CENTRES), N_DOCS // IVF_CENTRES)]
+    x += IVF_SPREAD * rng.standard_normal((N_DOCS, DIM), dtype=np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[rng.choice(N_DOCS, size=256, replace=False)] + IVF_QUERY_NOISE * rng.standard_normal((256, DIM), dtype=np.float32)
+    return x, q / np.linalg.norm(q, axis=1, keepdims=True)
+
+
+def check_ivf_kernel(cell: str, arm, shapes: set) -> list[dict]:
+    """Phase 1 for K2 at the IVF probe's shapes: at each (B, nprobe) the
+    main path ran, the probe's sorted group ids for seeded near-corpus
+    queries, K2 against its twin within REL_TOL (the twin in chunks of
+    queries where its f32 candidates would pass 4 GB)."""
+    import torch
+
+    from frankensearch_tpu_torch.index.ivf import probe_groups
+    from frankensearch_tpu_torch.ops import topk_scan as ts
+
+    slab = arm.slab
+    d = slab.shape[1]
+    gen = torch.Generator(device=slab.device).manual_seed(SEED + 11)
+    recs = []
+    for b, nprobe in sorted(shapes, reverse=True):
+        rows = torch.randint(0, slab.shape[0], (b,), generator=gen, device=slab.device)
+        q = slab[rows].to(torch.float32) + 0.02 * torch.randn(b, d, generator=gen, device=slab.device)
+        ids = torch.sort(probe_groups(arm.centroids, q, nprobe=nprobe, gpc=arm.groups_per_cluster), dim=1).values
+        kk = ids.shape[1]
+        step = max(1, int(4e9 // (kk * 128 * d * 4)))
+
+        def plain():
+            return torch.cat([ts.gather_rescore_plain(slab, q[i : i + step], ids[i : i + step])
+                              for i in range(0, b, step)])
+
+        r = ts.gather_rescore(slab, q, ids)
+        err = check_close(r, plain(), f"phase1 {cell} K2 B={b} kk={kk} (nprobe {nprobe})")
+        recs.append({"kernel": "gather_rescore_ivf", "cell": cell, "n": slab.shape[0], "b": b, "kk": kk,
+                     "ms": cuda_median_ms(lambda: ts.gather_rescore(slab, q, ids)),
+                     "plain_ms": cuda_median_ms(plain, warmup=1, iters=5), "max_abs_err": err,
+                     "bound": bound(gathered_bytes(slab, ids) + nbytes(q, ids, r), 2 * r.numel() * d, "bf16")})
+    log_kernel_records(cell, recs)
+    return recs
+
+
+def phase9_scan_lanes(dev, tmp: str, semantic: dict) -> tuple[dict, dict, list[dict]]:
+    """Every scan lane ``TwoTierConfig`` selects, and the live index's write
+    path: semantic-1M-f32 (phase 2's vectors as an f32 slab: ``auto`` on K1
+    and K2's f32 forms, ``pallas`` on K5's), semantic-1M-mrl (phase 2's bf16
+    index, ``mrl_search_dims=64``), semantic-1M-ivf (a clustered 1M corpus,
+    its IVF arm built on the card, probed by K2; calibrated, certified and
+    served behind the gate), the int4 two-pass scan over phase 2's vectors,
+    and appends, deletes, WAL sync, compaction and reopening of phase 2's
+    index."""
+    import numpy as np
+    import torch
+
+    from frankensearch_tpu_torch import TwoTierConfig, TwoTierIndex, TwoTierSearcher
+    from frankensearch_tpu_torch.core.errors import InvalidConfig, UncertifiedScanMode
+    from frankensearch_tpu_torch.index.device_index import DeviceVectorIndex
+    from frankensearch_tpu_torch.index.ivf import calibrate_nprobe
+    from frankensearch_tpu_torch.ops import topk_scan as ts
+    from frankensearch_tpu_torch.ops.quantize import calibrate_int4
+
+    vecs, emb, queries = semantic["vecs"], semantic["emb"], semantic["queries"]
+    ids = [f"doc-{i:07d}" for i in range(N_DOCS)]
+    qv = torch.from_numpy(emb.embed_batch(queries)).to(dev)
+    rec: dict = {}
+    launches: dict = {}
+    kernels: list[dict] = []
+
+    def count(phase, got, names, renamed=None):
+        need_launches(phase, got, names)
+        for name, n in got.items():
+            key = (renamed or {}).get(name, name)
+            launches[key] = launches.get(key, 0) + n
+
+    # semantic-1M-f32: K1, K2 and K5 in their f32 forms
+    t0 = time.perf_counter()
+    f32 = TwoTierIndex(DeviceVectorIndex(vecs, ids, emb.identity(), device=dev, slab_dtype="f32"))
+    f32_build_s = time.perf_counter() - t0
+    slab, mask = f32.fast.slab, f32.fast._effective_mask(None, None)
+    exact = ts.scan_topk_xla(slab, qv, K, mask)  # the plain f32 scan on the card
+    f32_rows = exact.indices.cpu().tolist()
+    f32_kth = exact.scores[:, -1].cpu().tolist()
+
+    def f32_score(j, row):
+        return float(qv[j] @ slab[row])
+
+    shapes: set = set()
+    f32_rec = {"build_s": f32_build_s, "slab_bytes": nbytes(slab)}
+    for mode, names in (("auto", ("K1", "K2")), ("pallas", ("K5",))):
+        searcher = TwoTierSearcher(f32, emb, config=TwoTierConfig(fast_only=True, scan_mode=mode))
+        drive(lambda: searcher.search_batch(queries[:8], k=K), shapes)  # warm-up
+        out, got = drive(lambda: serve_sizes(searcher, queries), shapes)
+        count(f"phase9 f32 {mode}", got, names, {"K1": "K1-f32", "K2": "K2-f32", "K5": "K5-f32"})
+        off = check_sets(f"phase9 f32 {mode} B=256", [doc_rows(o) for o in out["B256"][0]], f32_rows,
+                         f32_score, f32_kth, F32_TIE_REL)
+        check_sets(f"phase9 f32 {mode} B=8", [doc_rows(o) for o in out["B8"][0]], f32_rows[:8],
+                   f32_score, f32_kth, F32_TIE_REL)
+        check_sets(f"phase9 f32 {mode} B=1", [doc_rows(o) for o in out["B1"][0]], f32_rows[:8],
+                   f32_score, f32_kth, F32_TIE_REL)
+        log(f"phase9 f32 {mode}: B=256 {out['B256'][1]:.2f} ms, B=8 {out['B8'][1]:.2f} ms, singletons "
+            + ", ".join(f"{t:.2f}" for t in out["B1"][1]) + f" ms; doc sets equal to the plain f32 scan "
+            f"({off} of 256 differ only at ties within {F32_TIE_REL:g} of the k-th score)")
+        f32_rec[mode] = {**sizes_ms(out), "tie_queries": off}
+    rec["f32"] = f32_rec
+    kernels += check_kernels("semantic-1M-f32", slab, mask, shapes)
+    kernels += check_tile_kernel("semantic-1M-f32", slab, mask, shapes, edges=False)
+    del f32, slab, mask, exact, searcher
+    torch.cuda.empty_cache()
+
+    # semantic-1M-mrl: phase 2's bf16 index, the first 64 dims, then a rescore
+    index = semantic["index"]
+    mrl = TwoTierSearcher(index, emb, config=TwoTierConfig(fast_only=True, mrl_search_dims=MRL_DIMS))
+    drive(lambda: mrl.search_batch(queries[:8], k=K), set())  # warm-up
+    out, got = drive(lambda: serve_sizes(mrl, queries), set())
+    count("phase9 mrl", got, ())
+    recall = recall_at_k(out["B256"][0], semantic["exact_ids"])
+    fast = index.fast
+    slab, mask = fast.slab, fast._effective_mask(None, None)
+    card = ts.scan_topk_mrl(slab, qv[:8], K, mask, search_dims=MRL_DIMS)
+    cpu = ts.scan_topk_mrl(slab.cpu(), qv[:8].cpu(), K, mask.cpu(), search_dims=MRL_DIMS)
+    same_topk(card, cpu, MRL_CPU_TOL, "phase9 mrl B=8 card vs CPU")
+    log(f"phase9 mrl (search_dims {MRL_DIMS}): B=256 {out['B256'][1]:.2f} ms, B=8 {out['B8'][1]:.2f} ms, "
+        "singletons " + ", ".join(f"{t:.2f}" for t in out["B1"][1]) + f" ms; recall@10 vs exact f32 scan "
+        f"{recall:.4f}; B=8 equal to the CPU within {MRL_CPU_TOL:g}")
+    rec["mrl"] = {**sizes_ms(out), "recall_at_10": recall, "search_dims": MRL_DIMS}
+    del mrl, out
+
+    # int4: phase 2's vectors packed to 4 bits, rescored on phase 2's bf16 slab
+    t0 = time.perf_counter()
+    padded = np.zeros((fast.n_pad, fast.d_pad), dtype=np.float32)
+    padded[:N_DOCS, :DIM] = vecs
+    q4 = calibrate_int4(padded)
+    del padded
+    packed, scale = torch.from_numpy(q4.packed).to(dev), torch.from_numpy(q4.scale).to(dev)
+    pack_s = time.perf_counter() - t0
+    int4_ms = {}
+    for b in (256, 8, 1):
+        res, int4_ms[f"B{b}_ms"] = timed(lambda b=b: ts.scan_topk_int4_two_pass(packed, scale, slab, qv[:b], K, mask))
+        if b == 256:
+            int4_recall = float(np.mean([len(set(r) & set(e.tolist())) / K for r, e in
+                                         zip(res.indices.cpu().tolist(), semantic["exact_ids"])]))
+    card = ts.scan_topk_int4_two_pass(packed, scale, slab, qv[:8], K, mask)
+    cpu = ts.scan_topk_int4_two_pass(packed.cpu(), scale.cpu(), slab.cpu(), qv[:8].cpu(), K, mask.cpu())
+    same_topk(card, cpu, REL_TOL, "phase9 int4 B=8 card vs CPU")
+    log(f"phase9 int4: packed {nbytes(packed)} bytes in {pack_s:.1f} s; " + ", ".join(
+        f"{k} {v:.2f}" for k, v in int4_ms.items()) + f"; recall@10 {int4_recall:.4f}; B=8 equal to the CPU "
+        f"within {REL_TOL:g}")
+    rec["int4"] = {**int4_ms, "recall_at_10": int4_recall, "packed_bytes": nbytes(packed), "pack_s": pack_s}
+    del packed, scale, q4
+
+    # semantic-1M-ivf: a clustered corpus, its IVF arm built on the card
+    rng = np.random.default_rng(SEED + 9)
+    x, xq = clustered_cell(rng)
+    root = os.path.join(tmp, "ivf")
+    t0 = time.perf_counter()
+    ivf_index = TwoTierIndex.create(root, x, ids, emb.identity(), device=dev)
+    create_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ivf_index.fast.enable_ivf()  # ends in host copies of the preferences: synchronous
+    ivf_build_s = time.perf_counter() - t0
+    arm = ivf_index.fast._ivf
+    ivf_exact = ts.scan_topk_xla(torch.from_numpy(x).to(dev), torch.from_numpy(xq).to(dev), K,
+                                 precise=True).indices.cpu().numpy()
+    # the index's own exact scan (the arm's bf16 precision): what
+    # certify_scan_mode measures the lane against
+    lane_exact = ivf_index.fast.search_batch(xq, K, mode="xla").indices.cpu().numpy()
+    ivf_shapes: set = set()
+
+    def ivf_path():
+        out = {}
+        for nprobe in IVF_NPROBES:
+            for b in (256, 8, 1):
+                ivf_shapes.add((b, nprobe))
+                out[(b, nprobe)] = timed(lambda: ivf_index.fast.search_batch(xq[:b], K, mode="ivf", nprobe=nprobe))
+        ivf_shapes.add((8, arm.n_clusters))
+        out["full"] = timed(lambda: ivf_index.fast.search_batch(xq[:8], K, mode="ivf", nprobe=arm.n_clusters))
+        return out
+
+    ivf_index.fast.search_batch(xq[:8], K, mode="ivf")  # warm-up
+    out, got = drive(ivf_path, set())
+    count("phase9 ivf", got, ("K2",), {"K2": "K2-ivf"})
+    ivf_rec = {"create_s": create_s, "build_s": ivf_build_s, "n_clusters": arm.n_clusters, "cap": arm.cap,
+               "groups_per_cluster": arm.groups_per_cluster, "arm_slab_bytes": nbytes(arm.slab)}
+    def mean_recall(rows, exact):
+        return float(np.mean([len(set(r) & set(e)) / K for r, e in zip(rows.tolist(), exact.tolist())]))
+
+    for nprobe in IVF_NPROBES:
+        rows = out[(256, nprobe)][0].indices.cpu().numpy()
+        ivf_rec[f"nprobe{nprobe}"] = {
+            "recall_at_10": mean_recall(rows, ivf_exact),
+            "recall_at_10_lane_precision": mean_recall(rows, lane_exact),
+            "scanned_fraction": arm.scanned_fraction(nprobe),
+            **{f"B{b}_ms": out[(b, nprobe)][1] for b in (256, 8, 1)},
+        }
+    hier = ivf_index.fast.search_batch(xq[:8], K, mode="hierarchical")
+    q8 = torch.from_numpy(xq[:8]).to(dev).to(torch.bfloat16).to(torch.float32)
+    ivf_slab = ivf_index.fast.slab
+    off = check_sets("phase9 ivf full probe B=8", out["full"][0].indices.cpu().tolist(), hier.indices.cpu().tolist(),
+                     lambda j, row: float(q8[j] @ ivf_slab[row].to(torch.float32)),
+                     hier.scores[:, -1].cpu().tolist(), BF16_DOT_BOUND)
+    ivf_rec["full_probe_ms"] = out["full"][1]
+    log(f"phase9 ivf: index {create_s:.1f} s, arm {ivf_build_s:.1f} s ({arm.n_clusters} clusters, cap {arm.cap}); "
+        + "; ".join(f"nprobe {p}: recall@10 {ivf_rec[f'nprobe{p}']['recall_at_10']:.4f} (vs the bf16 scan "
+                    f"{ivf_rec[f'nprobe{p}']['recall_at_10_lane_precision']:.4f}), scanned "
+                    f"{ivf_rec[f'nprobe{p}']['scanned_fraction']:.4f}, B=256/8/1 "
+                    + "/".join(f"{ivf_rec[f'nprobe{p}'][f'B{b}_ms']:.2f}" for b in (256, 8, 1)) + " ms"
+                    for p in IVF_NPROBES)
+        + f"; full probe B=8 {out['full'][1]:.2f} ms, doc sets equal to the hierarchical scan ({off} of 8 "
+        f"differ only at ties within {BF16_DOT_BOUND:.3g})")
+    kernels += check_ivf_kernel("semantic-1M-ivf", arm, ivf_shapes)
+
+    # calibrate, certify and persist, serve behind the gate, reopen
+    t0 = time.perf_counter()
+    cal = calibrate_nprobe(arm, xq, lane_exact, k=K, target_recall=IVF_TARGET_RECALL, candidates=IVF_CANDIDATES)
+    if cal is None:
+        raise AssertionError(f"phase9 ivf: no nprobe in {IVF_CANDIDATES} certifies recall@10 >= {IVF_TARGET_RECALL}")
+    nprobe = int(cal.parameter_value)
+    cert = ivf_index.certify_fast_scan_mode("ivf", K, xq, nprobe=nprobe)
+    cert_s = time.perf_counter() - t0
+    gated_cfg = TwoTierConfig(fast_only=True, scan_mode="ivf", ivf_nprobe=nprobe,
+                              require_recall_certificate=True, min_certified_recall=0.8)
+    try:
+        TwoTierSearcher(ivf_index, emb, config=TwoTierConfig(
+            fast_only=True, scan_mode="ivf", require_recall_certificate=True,
+            min_certified_recall=1.01)).search_batch(queries[:8], k=K)
+    except UncertifiedScanMode as e:
+        log(f"phase9 ivf gate refuses an unmeetable floor: {e}")
+    else:
+        raise AssertionError("phase9 ivf: the gate served below its floor")
+    gated = TwoTierSearcher(ivf_index, emb, config=gated_cfg)
+    (g_batch, g_ms), got = drive(lambda: timed(lambda: gated.search_batch(queries, k=K)), set())
+    count("phase9 ivf gated", got, ("K2",), {"K2": "K2-ivf"})
+    if not all(len(o.results) == K for o in g_batch):
+        raise AssertionError("phase9 ivf: the gated searcher returned short results")
+    reopened = TwoTierIndex.open(root, device=dev)
+    if reopened.fast.recall_certificate("ivf") != cert:
+        raise AssertionError("phase9 ivf: the reopened index did not rebind the persisted certificate")
+    log(f"phase9 ivf certificate ({cert_s:.1f} s): calibrated nprobe {nprobe} (certified {cal.certified_recall:.4f}); "
+        f"certified recall@{cert.k} {cert.certified_recall:.4f} (mean {cert.mean_recall:.4f}); gated B=256 "
+        f"{g_ms:.2f} ms; rebound after reopen")
+    ivf_rec["certificate"] = {**cert.to_record(), "calibrated_nprobe": nprobe, "certify_s": cert_s,
+                              "gated_batch_ms": g_ms}
+    rec["ivf"] = ivf_rec
+    del ivf_index, reopened, gated, arm, x, hier, ivf_slab
+    torch.cuda.empty_cache()
+
+    # the write path over phase 2's index: append, delete, sync, compact, reopen
+    wrng = np.random.default_rng(SEED + 10)
+    new = wrng.standard_normal((APPEND_DOCS, DIM), dtype=np.float32)
+    new /= np.linalg.norm(new, axis=1, keepdims=True)
+    new_ids = [f"new-{i:07d}" for i in range(APPEND_DOCS)]
+    gone = new_ids[: DELETE_DOCS // 2] + [ids[i] for i in wrng.choice(N_DOCS, DELETE_DOCS // 2, replace=False)]
+    gone_set = set(gone)
+    index.wal_sync = "deferred"
+    t0 = time.perf_counter()
+    index.fast.enable_ivf()
+    first_arm_s = time.perf_counter() - t0
+
+    def write_path():
+        w = {}
+        _, w["append_ms"] = timed(lambda: index.append_fast(new_ids, new))
+        try:
+            index.fast.search_batch(new[:8], K, mode="ivf")
+        except InvalidConfig:
+            w["ivf_refused"] = True
+        _, w["delete_ms"] = timed(lambda: index.delete(gone))
+        _, w["sync_ms"] = timed(index.sync_wal)
+        top1, w["own_hit_ms"] = timed(lambda: [index.fast.hydrate(index.fast.search_batch(new[i : i + 1000], 1))
+                                             for i in range(0, APPEND_DOCS, 1000)])
+        w["top1"] = [h[0].doc_id if h else None for chunk in top1 for h in chunk]
+        dq = np.stack([index.fast.vector_for_row(index.fast.row_for(d)) for d in gone])
+        w["gone_hits"] = index.fast.hydrate(index.fast.search_batch(dq, K))
+        t0 = time.perf_counter()
+        index.fast.enable_ivf()
+        w["rebuild_arm_s"] = time.perf_counter() - t0
+        w["ivf_top1"] = index.fast.hydrate(index.fast.search_batch(new[DELETE_DOCS:DELETE_DOCS + 256], 1,
+                                                                   mode="ivf", nprobe=8))
+        w["pre"] = index.fast.hydrate(index.fast.search_batch(qv.cpu().numpy(), K))
+        t0 = time.perf_counter()
+        compacted = index.compact()
+        w["compact_s"] = time.perf_counter() - t0
+        w["stats"] = {k: v.__dict__ for k, v in compacted.last_vacuum_stats.items()}
+        t0 = time.perf_counter()
+        reopened = TwoTierIndex.open(index.root, device=dev)
+        w["reopen_s"] = time.perf_counter() - t0
+        w["post"] = reopened.fast.hydrate(reopened.fast.search_batch(qv.cpu().numpy(), K))
+        return w
+
+    w, got = drive(write_path, set())
+    count("phase9 write path", got, ("K1", "K2"))
+    if not w.get("ivf_refused"):
+        raise AssertionError("phase9 write path: mode='ivf' served after an append, before enable_ivf()")
+    own = [t == d for t, d in zip(w["top1"], new_ids) if d not in gone_set]
+    if not all(own):
+        raise AssertionError(f"phase9 write path: {own.count(False)} appended docs are not their own top hit")
+    seen = [h.doc_id for hits in (w["gone_hits"] + w["pre"]) for h in hits] + [t for t in w["top1"] if t]
+    if gone_set & set(seen):
+        raise AssertionError(f"phase9 write path: deleted docs came back: {sorted(gone_set & set(seen))[:5]}")
+    ivf_own = float(np.mean([bool(h) and h[0].doc_id == d
+                             for h, d in zip(w["ivf_top1"], new_ids[DELETE_DOCS:DELETE_DOCS + 256])]))
+    if ivf_own < IVF_OWN_HIT_FLOOR:
+        raise AssertionError(f"phase9 write path: the rebuilt IVF arm finds {ivf_own} of the appended docs")
+    bitwise = [[(h.doc_id, h.score) for h in a] == [(h.doc_id, h.score) for h in b]
+               for a, b in zip(w["pre"], w["post"])]
+    if not all(bitwise):
+        raise AssertionError(f"phase9 write path: {bitwise.count(False)} queries' top-10 changed across "
+                             "compact() and reopen")
+    log(f"phase9 write path: append {APPEND_DOCS} {w['append_ms']:.1f} ms, delete {DELETE_DOCS} "
+        f"{w['delete_ms']:.1f} ms, sync {w['sync_ms']:.1f} ms; every appended doc its own top hit, no deleted "
+        f"doc returned; ivf refused after the append, the rebuilt arm ({w['rebuild_arm_s']:.1f} s, first "
+        f"{first_arm_s:.1f} s) finds {ivf_own:.4f} of 256 appended docs first at nprobe 8; compact "
+        f"{w['compact_s']:.1f} s, reopen {w['reopen_s']:.1f} s, top-10 of 256 queries bitwise unchanged")
+    rec["write_path"] = {k: w[k] for k in ("append_ms", "delete_ms", "sync_ms", "own_hit_ms", "rebuild_arm_s",
+                                           "compact_s", "reopen_s", "stats")}
+    rec["write_path"].update({"first_arm_s": first_arm_s, "ivf_own_hit": ivf_own})
+    log(f"phase9 launches on the main path: {launches}")
+    return rec, launches, kernels
+
+
 def main() -> int:
     # the port must reach neither jax nor the JAX package, even indirectly
     sys.modules["jax"] = None
@@ -2050,10 +2475,13 @@ def main() -> int:
         t0 = time.perf_counter()
         quality_rec, l8, k8 = phase8_quality(dev, tmp, semantic, lexical)
         wall["phase8_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lanes_rec, l9, k9 = phase9_scan_lanes(dev, tmp, semantic)
+        wall["phase9_s"] = time.perf_counter() - t0
         del semantic, lexical
         log("phase wall times: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
 
-    records = k2 + k3 + k4 + k5 + k6 + k7 + k8
+    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9
     kernels = []
     for name, key, src, replaces, cell in KERNELS:
         recs = [r for r in records if r["kernel"] == name]
@@ -2068,7 +2496,7 @@ def main() -> int:
         bound_ms = sum(r["bound"][0] for r in head) / len(head)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8)),
+            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9)),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": sum(r["ms"] for r in head) / len(head), "plain_ms": sum(r["plain_ms"] for r in head) / len(head),
             "bound_ms": bound_ms,
@@ -2077,7 +2505,8 @@ def main() -> int:
             "shapes": [{k: (v if k != "bound" else v[0]) for k, v in r.items() if k != "kernel"} for r in recs],
         })
     log(json.dumps({"semantic": sem, "hybrid": hyb, "hybrid_1m": h1m, "scan_modes": modes, "ab_scan": ab_rec,
-                    "hybrid_1m_m2v": m2v_rec, "hybrid_1m_quality": quality_rec, "wall_s": wall}))
+                    "hybrid_1m_m2v": m2v_rec, "hybrid_1m_quality": quality_rec, "scan_lanes": lanes_rec,
+                    "wall_s": wall}))
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
     print(json.dumps({

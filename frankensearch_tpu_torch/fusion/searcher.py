@@ -825,6 +825,8 @@ class TwoTierSearcher:
             res = self.index.fast.search_batch(
                 fast_vecs, sem_budget, search_filter=search_filter,
                 mode="mrl" if cfg.mrl_search_dims else cfg.scan_mode,
+                mrl_search_dims=cfg.mrl_search_dims,
+                nprobe=cfg.ivf_nprobe,
             )
             hydrated = self.index.fast.hydrate(res)
             for j, i in enumerate(live):
@@ -1089,7 +1091,10 @@ class TwoTierSearcher:
             t_scan = time.monotonic()
             classified: ClassifiedHits = self.index.search_fast_classified(
                 query_vec, sem_budget, search_filter=search_filter,
+                mrl_search_dims=cfg.mrl_search_dims,
+                mrl_rescore_top_k=cfg.mrl_rescore_top_k,
                 mode="mrl" if cfg.mrl_search_dims else cfg.scan_mode,
+                nprobe=cfg.ivf_nprobe,
             )
             metrics.vector_scan_ms = (time.monotonic() - t_scan) * 1000.0
             metrics.scan_docs = self.index.fast.live_count

@@ -5,9 +5,12 @@ the replayed WAL) is normalized, padded and uploaded once; tombstones,
 filters and padding all lower to one additive f32 mask. The slab is padded
 to a multiple of 8192 rows and 128 dims, so the hierarchical scan (kernels
 K1/K2), its int8 capacity lane (K4, K2's int8 form) and the per-tile
-top-k scan (K5) always apply on CUDA. The int8 arm (a per-dim calibrated
-int8 copy of the slab) is preloaded from an int8 artifact or calibrated on
-first use; recall certificates gate the approximate int8 lane.
+top-k scan (K5) always apply on CUDA, at every slab dtype (bf16, f16,
+f32). The int8 arm (a per-dim calibrated int8 copy of the slab) is
+preloaded from an int8 artifact or calibrated on first use; the IVF arm
+(index/ivf.py) is built by :meth:`DeviceVectorIndex.enable_ivf` and dropped
+by an append. Recall certificates gate the approximate int8, MRL and IVF
+lanes.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from frankensearch_tpu_torch.core.errors import DimensionMismatch
+from frankensearch_tpu_torch.core.errors import DimensionMismatch, InvalidConfig
 from frankensearch_tpu_torch.core.filter import SearchFilter
 from frankensearch_tpu_torch.core.types import ClassifiedHits, VectorHit, ZeroSignalReason
 from frankensearch_tpu_torch.index.fsvi import EmbeddingIdentity, FtviFile
@@ -128,6 +131,9 @@ class DeviceVectorIndex:
         self.n_pad, self.d_pad = slab.shape
         # int8 arm (lazy): (padded int8 slab, (d_pad,) f32 scale) on the device
         self._int8 = None
+        # IVF arm (enable_ivf) and the row count it was built over
+        self._ivf = None
+        self._ivf_built_rows = -1
 
     @classmethod
     def from_padded(
@@ -353,16 +359,26 @@ class DeviceVectorIndex:
         *,
         search_filter: SearchFilter | None = None,
         metadata: Sequence[Mapping | None] | None = None,
-        mode: str = "auto",  # "auto" | "hierarchical" | "xla" | "int8" | "pallas"
+        mode: str = "auto",  # "auto" | "hierarchical" | "xla" | "int8" | "pallas" | "mrl" | "ivf"
+        mrl_search_dims: int | None = None,
+        mrl_rescore_top_k: int = 30,
         int8_candidate_multiplier: int = 4,
+        nprobe: int = 8,
     ) -> topk_scan.TopKResult:
         """Batched scan; returns device (scores, indices). Rows are slab
         rows; use :meth:`hydrate` to map to doc ids. ``auto`` is the
-        hierarchical kernel scan on CUDA and the plain scan on the CPU.
-        ``int8`` is the capacity lane over the int8 arm: K4 + K2's int8
-        form on CUDA, the plain two-pass scan (a pool of ``k *
-        int8_candidate_multiplier`` rescored against the slab) on the CPU.
-        ``pallas`` is the per-tile top-k scan (K5 on CUDA)."""
+        hierarchical kernel scan on CUDA and the plain scan on the CPU; it
+        resolves before the MRL check, as in the reference, so
+        ``mrl_search_dims`` alone selects nothing (the searcher asks for
+        ``mrl`` itself). ``int8`` is the capacity lane over the int8 arm:
+        K4 + K2's int8 form on CUDA, the plain two-pass scan (a pool of
+        ``k * int8_candidate_multiplier`` rescored against the slab) on the
+        CPU. ``pallas`` is the per-tile top-k scan (K5 on CUDA). ``mrl`` is
+        the Matryoshka two-pass scan over the first ``mrl_search_dims``
+        (default 64) dims, rescoring ``mrl_rescore_top_k``. ``ivf`` probes
+        ``nprobe`` clusters of the IVF arm (K2 on CUDA), with this index's
+        mask permuted into the arm; it raises ``InvalidConfig`` until
+        :meth:`enable_ivf` has built the arm over the current rows."""
         q = np.asarray(queries, dtype=np.float32)
         if q.ndim == 1:
             q = q[None, :]
@@ -375,10 +391,15 @@ class DeviceVectorIndex:
 
         if mode == "auto":
             mode = "hierarchical" if self.device.type == "cuda" else "xla"
-        if mode in ("mrl", "ivf"):
-            raise NotImplementedError(
-                f"scan mode {mode!r} is not ported yet (ROADMAP: the MRL/IVF lanes)"
+        if mode == "mrl":
+            return topk_scan.scan_topk_mrl(
+                self.slab, q_dev, k, mask,
+                search_dims=mrl_search_dims or 64, rescore_top_k=mrl_rescore_top_k,
             )
+        if mode == "ivf":
+            if self._ivf is None or self._ivf_built_rows != self.n_rows:
+                raise InvalidConfig("ivf arm not built for the current rows; call enable_ivf()")
+            return self._ivf.search_batch(q[:, : self.dim], k, nprobe=nprobe, extra_row_mask=mask)
         if mode == "int8":
             i8_slab, scale = self._int8_arm()
             if self.device.type == "cuda":
@@ -452,6 +473,21 @@ class DeviceVectorIndex:
             "wal_live": int(wal_live),
             "wal_tombstones": int(wal_tomb),
         }
+
+    def enable_ivf(self, n_clusters: int | None = None, **kwargs) -> None:
+        """Build the IVF arm over the live rows on this index's device
+        (k-means is an expensive build step, hence explicit). The arm
+        snapshots the current rows: an append drops it and ``mode="ivf"``
+        raises until it is built again; tombstones and filters stay live
+        through the mask. ``kwargs`` go to ``IvfDeviceIndex`` (``dtype``,
+        a torch dtype, default bf16; ``seed``; ``kmeans_iters``;
+        ``capacity_slack``)."""
+        from frankensearch_tpu_torch.index.ivf import IvfDeviceIndex
+
+        self._ivf = IvfDeviceIndex(
+            self._vectors_f32[: self.n_rows], n_clusters, device=self.device, **kwargs
+        )
+        self._ivf_built_rows = self.n_rows
 
     def _int8_arm(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The int8 arm, calibrated from the host rows on first use."""

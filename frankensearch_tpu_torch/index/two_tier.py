@@ -1,25 +1,29 @@
 """Two-tier index: fast tier + optional quality tier (PyTorch port).
 
-Port of ``TwoTierIndex.create`` / ``TwoTierIndex.open`` /
-``certify_fast_scan_mode`` from frankensearch_tpu/index/two_tier.py, over
-the port's copies of the FTVI/WAL modules, which write and read the
-reference's bytes: both packages open the same on-disk artifact, int8
-artifacts included. Recall certificates persist in the generation
-manifest and rebind on open. The quality tier serves phase 2: the
-aligned rescore of phase 1's hits (``quality_scores_for_hits``) and a
-full quality-tier scan (``search_quality``). WAL appends, deletes and
-compaction are not ported yet.
+Port of frankensearch_tpu/index/two_tier.py (all but its mesh-sharded
+open), over the port's copies of the FTVI/WAL modules, which write and
+read the reference's bytes: both packages open the same on-disk artifact,
+int8 artifacts included. Recall certificates persist in the generation
+manifest and rebind on open. The quality tier serves phase 2: the aligned
+rescore of phase 1's hits (``quality_scores_for_hits``) and a full
+quality-tier scan (``search_quality``). The write path appends and
+tombstones through each tier's WAL sidecar (``append_fast``,
+``append_quality``, ``delete``, group-committed by ``sync_wal`` under
+``wal_sync="deferred"``) and folds them back into the artifacts with
+``compact``.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from frankensearch_tpu_torch.core.errors import IndexCorrupted, IndexNotFound
+from frankensearch_tpu_torch.core.generation import refresh_manifest
 from frankensearch_tpu_torch.core.types import ClassifiedHits, VectorHit
 from frankensearch_tpu_torch.index.durability import (
     ParityProtector,
@@ -61,6 +65,22 @@ def _open_ftvi_repairing(path: str, verify: bool) -> FtviFile:
         return FtviFile(path, verify_slab=verify)
 
 
+@dataclass(frozen=True)
+class VacuumStats:
+    """Compaction accounting (parity: index/src/lib.rs:703 VacuumStats)."""
+
+    records_before: int
+    records_after: int
+    tombstones_folded: int
+    bytes_before: int
+    bytes_after: int
+    wal_bytes_folded: int
+
+    @property
+    def bytes_reclaimed(self) -> int:
+        return max(self.bytes_before - self.bytes_after, 0)
+
+
 def _fast_path(root: str) -> str:
     primary = os.path.join(root, FAST_FILE)
     if os.path.exists(primary):
@@ -82,6 +102,14 @@ class TwoTierIndex:
         self.fast = fast
         self.quality = quality
         self.root = root
+        #: WAL durability policy for appends and tombstones: "always" fsyncs
+        #: each batch; "deferred" group-commits, the caller fsyncs once per
+        #: cycle with sync_wal()
+        self.wal_sync: str = "always"
+        self.last_vacuum_stats: dict[str, VacuumStats] = {}
+        # per tier, the WAL prefix this open materialized (compact folds
+        # and truncates exactly that much)
+        self._wal_consumed: dict[str, int] = {}
         self._realign()
 
     def _realign(self) -> None:
@@ -113,17 +141,18 @@ class TwoTierIndex:
         fast_path = _fast_path(root)
         if not os.path.exists(fast_path):
             raise IndexNotFound(f"no fast-tier artifact under {root}")
+        fast_wal = WriteAheadLog(fast_path + ".wal").replay()
+        wal_consumed = {FAST_FILE: fast_wal.bytes_consumed}
         fast = DeviceVectorIndex.from_ftvi(
-            _open_ftvi_repairing(fast_path, verify),
-            WriteAheadLog(fast_path + ".wal").replay(),
-            device=device, slab_dtype=slab_dtype,
+            _open_ftvi_repairing(fast_path, verify), fast_wal, device=device, slab_dtype=slab_dtype,
         )
         quality = None
         quality_path = os.path.join(root, QUALITY_FILE)
         if os.path.exists(quality_path):
+            quality_wal = WriteAheadLog(quality_path + ".wal").replay()
+            wal_consumed[QUALITY_FILE] = quality_wal.bytes_consumed
             quality = DeviceVectorIndex.from_ftvi(
-                _open_ftvi_repairing(quality_path, verify),
-                WriteAheadLog(quality_path + ".wal").replay(),
+                _open_ftvi_repairing(quality_path, verify), quality_wal,
                 device=device, slab_dtype=slab_dtype,
             )
         # persisted recall certificates: rebind the manifest's certificates
@@ -133,7 +162,9 @@ class TwoTierIndex:
         certs = load_persisted_certificates(root, fast.scan_state_signature())
         if certs:
             fast._recall_certs = dict(certs)
-        return cls(fast, quality, root=root)
+        index = cls(fast, quality, root=root)
+        index._wal_consumed = wal_consumed
+        return index
 
     @classmethod
     def create(
@@ -197,6 +228,87 @@ class TwoTierIndex:
             if sig is not None:
                 persist_certificate(self.root, mode, cert, sig)
         return cert
+
+    def compact(self) -> "TwoTierIndex":
+        """Fold the WALs and tombstones back into the base artifacts (written
+        as bf16 FTVI, as the reference does), truncate each WAL by the prefix
+        this open materialized, refresh the generation manifest and reopen
+        (bf16, on the same device). Per-tier stats land in the reopened
+        index's ``last_vacuum_stats``."""
+        if self.root is None:
+            raise ValueError("compact requires a rooted index")
+        stats: dict[str, VacuumStats] = {}
+        for tier, fname in ((self.fast, FAST_FILE), (self.quality, QUALITY_FILE)):
+            if tier is None:
+                continue
+            live = tier._valid_host[: tier.n_rows]
+            ids = [d for d, ok in zip(tier.doc_ids, live) if ok]
+            path = os.path.join(self.root, fname)
+            bytes_before = os.path.getsize(path) if os.path.exists(path) else 0
+            wal_path = path + ".wal"
+            wal_bytes = os.path.getsize(wal_path) if os.path.exists(wal_path) else 0
+            write_ftvi(path, tier._vectors_f32[: tier.n_rows][live], ids, tier.identity, dtype="bf16")
+            # truncate only the prefix this open materialized: batches another
+            # writer appended after it survive (replay re-applies our own as
+            # idempotent upserts); an unknown boundary (0) keeps everything
+            WriteAheadLog(wal_path).truncate(consumed=self._wal_consumed.get(fname, 0))
+            # the WAL was rewritten: a second compact of this object keeps all
+            self._wal_consumed[fname] = 0
+            stats[fname] = VacuumStats(
+                records_before=tier.n_rows,
+                records_after=len(ids),
+                tombstones_folded=int((~live).sum()),
+                bytes_before=bytes_before + wal_bytes,
+                bytes_after=os.path.getsize(path),
+                wal_bytes_folded=wal_bytes,
+            )
+        # the artifacts changed: the manifest's hashes follow (commit_seq bumps)
+        refresh_manifest(self.root)
+        compacted = TwoTierIndex.open(self.root, device=self.fast.device)
+        compacted.last_vacuum_stats = stats
+        return compacted
+
+    # -- appends and tombstones (WAL path) -----------------------------------
+
+    def _wal(self, fname: str, *, sync: str = "always") -> WriteAheadLog:
+        path = _fast_path(self.root) if fname == FAST_FILE else os.path.join(self.root, fname)
+        return WriteAheadLog(path + ".wal", sync=sync)
+
+    def append_fast(self, doc_ids: Sequence[str], vectors: np.ndarray) -> None:
+        """Durable append through the fast tier's WAL, then the in-memory
+        functional update (which drops the IVF arm)."""
+        if self.root is not None:
+            self._wal(FAST_FILE, sync=self.wal_sync).append(doc_ids, vectors)
+        self.fast = self.fast.with_appended(doc_ids, vectors)
+        self._realign()
+
+    def append_quality(self, doc_ids: Sequence[str], vectors: np.ndarray) -> None:
+        if self.quality is None:
+            raise ValueError("index has no quality tier")
+        if self.root is not None:
+            self._wal(QUALITY_FILE, sync=self.wal_sync).append(doc_ids, vectors)
+        self.quality = self.quality.with_appended(doc_ids, vectors)
+        self._realign()
+
+    def delete(self, doc_ids: Sequence[str]) -> None:
+        """Tombstone docs in both tiers, durably through their WALs."""
+        if self.root is not None:
+            self._wal(FAST_FILE, sync=self.wal_sync).tombstone(doc_ids)
+            if self.quality is not None:
+                self._wal(QUALITY_FILE, sync=self.wal_sync).tombstone(doc_ids)
+        self.fast = self.fast.with_tombstones(doc_ids)
+        if self.quality is not None:
+            self.quality = self.quality.with_tombstones(doc_ids)
+        self._realign()
+
+    def sync_wal(self) -> None:
+        """Group-commit point under ``wal_sync="deferred"``: fsync both
+        tiers' WAL sidecars (a no-op when nothing was deferred)."""
+        if self.root is None:
+            return
+        self._wal(FAST_FILE).sync()
+        if self.quality is not None:
+            self._wal(QUALITY_FILE).sync()
 
     @property
     def has_quality_tier(self) -> bool:

@@ -41,6 +41,17 @@
 // bytes. Ids outside [0, n/128) poison their 128 outputs with NaN. Any
 // b >= 1 and kk >= 1 launch.
 //
+// K2's f32 form (kind 2: an f32 slab and query, f32 products and sums, the
+// TPU kernel on an f32 slab) is the same kernel, plan and pair order with
+// 16-byte chunks of 4 floats in place of 8 bf16/f16: lane c sums 4 fmaf
+// over chunk c, then c + 32, ..., and the same reduce-scatter. A lane holds
+// at most 32 chunks of a row, so d <= 4096. Its bound is bytes as K2's,
+// twice the bf16 form's: the distinct groups at 4 bytes a dim. The IVF
+// probe (index/ivf.py) calls K2 too, with kk = nprobe x groups per cluster
+// sorted per query (48 at 1M docs, 2,000 clusters, nprobe 8; 12,000 at
+// full probe): queries probing the same clusters share groups, which the
+// plan's runs (at most kRunPairs pairs a block) read once.
+//
 // K2-i8, `fs_gather_rescore_i8` and `fs_gather_rescore_i8_sorted` below,
 // replaces the same TPU kernel in its `compute_f32` form, which the
 // reference's int8 lane (`scan_topk_hierarchical_int8`) reaches through
@@ -94,22 +105,35 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kGroup / kWarps;
 constexpr int kRunPairs = 16;  // most (query, group) pairs one block scores
 
-template <bool kBf16>
+// The operands' element type: the entry points' `kind` argument.
+enum Kind : int { kF16 = 0, kBf16 = 1, kF32 = 2 };
+
+// Elements in a 16-byte chunk.
+__host__ __device__ constexpr int chunk_elems(int kind) { return kind == kF32 ? 4 : 8; }
+
+template <int kKind>
 __device__ __forceinline__ float to_f32(uint16_t x) {
-  if constexpr (kBf16) {
+  if constexpr (kKind == kBf16) {
     return __uint_as_float(static_cast<uint32_t>(x) << 16);
   } else {
     return __half2float(__ushort_as_half(x));
   }
 }
 
-template <bool kBf16>
-__device__ __forceinline__ float dot8(const uint4& v, const float* qv, float acc) {
+// One 16-byte chunk of a row dotted with the query's chunk qv, in dim
+// order, onto acc.
+template <int kKind>
+__device__ __forceinline__ float dot_chunk(const uint4& v, const float* qv, float acc) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  if constexpr (kKind == kF32) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    acc = fmaf(to_f32<kBf16>(static_cast<uint16_t>(w[i] & 0xffffu)), qv[2 * i], acc);
-    acc = fmaf(to_f32<kBf16>(static_cast<uint16_t>(w[i] >> 16)), qv[2 * i + 1], acc);
+    for (int i = 0; i < 4; ++i) acc = fmaf(__uint_as_float(w[i]), qv[i], acc);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc = fmaf(to_f32<kKind>(static_cast<uint16_t>(w[i] & 0xffffu)), qv[2 * i], acc);
+      acc = fmaf(to_f32<kKind>(static_cast<uint16_t>(w[i] >> 16)), qv[2 * i + 1], acc);
+    }
   }
   return acc;
 }
@@ -145,9 +169,9 @@ __device__ __forceinline__ void reduce_rows(float (&s)[kRows], int lane) {
 // kCpl: 16-byte chunks of a row a lane holds (a power of two), so a warp
 // holds kRows = 16 / kCpl rows at once in 64 registers (one row in 128 at
 // kCpl = 32). Holding 32 rows at kCpl = 1 spills.
-template <bool kBf16, int kCpl>
+template <int kKind, int kCpl>
 __global__ void __launch_bounds__(kThreads)
-gather_rescore_kernel(const uint16_t* __restrict__ q,      // (b, d) slab dtype
+gather_rescore_kernel(const uint16_t* __restrict__ q,      // (b, d) slab dtype (f32: 2 halves an element)
                       const uint16_t* __restrict__ slab,   // (n, d)
                       const int32_t* __restrict__ gids,    // (b*kk,) group ids, equal ids adjacent
                       const int32_t* __restrict__ order,   // (b*kk,) pair of each position; null: itself
@@ -170,8 +194,11 @@ gather_rescore_kernel(const uint16_t* __restrict__ q,      // (b, d) slab dtype
     return;
   }
 
-  const int n_vec = d / 8;  // 16-byte chunks per row
-  const uint16_t* rows = slab + (static_cast<int64_t>(gid) * kGroup + warp * kRowsPerWarp) * d;
+  constexpr int kE = chunk_elems(kKind);
+  constexpr int kHalves = kKind == kF32 ? 2 : 1;  // 16-bit words an element
+  const int n_vec = d / kE;  // 16-byte chunks per row
+  const int ld = d * kHalves;  // a row's 16-bit words
+  const uint16_t* rows = slab + (static_cast<int64_t>(gid) * kGroup + warp * kRowsPerWarp) * ld;
   for (int r0 = 0; r0 < kRowsPerWarp; r0 += kRows) {
     uint4 v[kRows][kCpl];
 #pragma unroll
@@ -179,12 +206,12 @@ gather_rescore_kernel(const uint16_t* __restrict__ q,      // (b, d) slab dtype
 #pragma unroll
       for (int ci = 0; ci < kCpl; ++ci) {
         const int c = lane + 32 * ci;
-        v[r][ci] = c < n_vec ? __ldg(reinterpret_cast<const uint4*>(rows + static_cast<int64_t>(r0 + r) * d + c * 8))
+        v[r][ci] = c < n_vec ? __ldg(reinterpret_cast<const uint4*>(rows + static_cast<int64_t>(r0 + r) * ld + c * 8))
                              : make_uint4(0u, 0u, 0u, 0u);
       }
     for (int p = p0; p < p1; ++p) {
       const int64_t pair = order ? order[p] : p;
-      const uint16_t* qrow = q + (pair / kk) * d;
+      const uint16_t* qrow = q + (pair / kk) * ld;
       float s[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) s[r] = 0.0f;
@@ -197,11 +224,15 @@ gather_rescore_kernel(const uint16_t* __restrict__ q,      // (b, d) slab dtype
           float qv[8];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            qv[2 * i] = to_f32<kBf16>(static_cast<uint16_t>(w[i] & 0xffffu));
-            qv[2 * i + 1] = to_f32<kBf16>(static_cast<uint16_t>(w[i] >> 16));
+            if constexpr (kKind == kF32) {
+              qv[i] = __uint_as_float(w[i]);
+            } else {
+              qv[2 * i] = to_f32<kKind>(static_cast<uint16_t>(w[i] & 0xffffu));
+              qv[2 * i + 1] = to_f32<kKind>(static_cast<uint16_t>(w[i] >> 16));
+            }
           }
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) s[r] = dot8<kBf16>(v[r][ci], qv, s[r]);
+          for (int r = 0; r < kRows; ++r) s[r] = dot_chunk<kKind>(v[r][ci], qv, s[r]);
         }
       }
       reduce_rows<kRows, 16>(s, lane);
@@ -213,29 +244,31 @@ gather_rescore_kernel(const uint16_t* __restrict__ q,      // (b, d) slab dtype
   }
 }
 
-template <bool kBf16>
+template <int kKind>
 int launch_rescore(int cpl, const uint16_t* q, const uint16_t* slab, const int32_t* gids, const int32_t* order,
                    float* out, int total, int kk, int d, int n_groups, cudaStream_t s) {
   const unsigned grid = static_cast<unsigned>(total);
   switch (cpl) {
-    case 1: gather_rescore_kernel<kBf16, 1><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
-    case 2: gather_rescore_kernel<kBf16, 2><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
-    case 4: gather_rescore_kernel<kBf16, 4><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
-    case 8: gather_rescore_kernel<kBf16, 8><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
-    case 16: gather_rescore_kernel<kBf16, 16><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
-    default: gather_rescore_kernel<kBf16, 32><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
+    case 1: gather_rescore_kernel<kKind, 1><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
+    case 2: gather_rescore_kernel<kKind, 2><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
+    case 4: gather_rescore_kernel<kKind, 4><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
+    case 8: gather_rescore_kernel<kKind, 8><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
+    case 16: gather_rescore_kernel<kKind, 16><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
+    default: gather_rescore_kernel<kKind, 32><<<grid, kThreads, 0, s>>>(q, slab, gids, order, out, total, kk, d, n_groups); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int gather_rescore(const void* q, const void* slab, const void* gids, const void* order, void* out, int b, int kk,
-                   int d, long long n, int is_bf16, void* stream) {
-  if (b < 1 || kk < 1 || d < 8 || d % 8 != 0 || d > 8192 || n < kGroup || n % kGroup != 0)
+                   int d, long long n, int kind, void* stream) {
+  const int elems = chunk_elems(kind);
+  if (b < 1 || kk < 1 || kind < kF16 || kind > kF32 || d < 8 || d % 8 != 0 || d > 32 * 32 * elems || n < kGroup ||
+      n % kGroup != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long total = static_cast<long long>(b) * kk;
   if (total > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  int cpl = 1;  // chunks a lane holds per row: ceil(d / 8 / 32), rounded up to a power of two
-  while (cpl * 32 * 8 < d) cpl *= 2;
+  int cpl = 1;  // chunks a lane holds per row: ceil(d / elems / 32), rounded up to a power of two
+  while (cpl * 32 * elems < d) cpl *= 2;
   const auto* qp = static_cast<const uint16_t*>(q);
   const auto* sp = static_cast<const uint16_t*>(slab);
   const auto* gp = static_cast<const int32_t*>(gids);
@@ -243,8 +276,10 @@ int gather_rescore(const void* q, const void* slab, const void* gids, const void
   auto* outp = static_cast<float*>(out);
   const int n_groups = static_cast<int>(n / kGroup);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_rescore<true>(cpl, qp, sp, gp, op, outp, static_cast<int>(total), kk, d, n_groups, s)
-                 : launch_rescore<false>(cpl, qp, sp, gp, op, outp, static_cast<int>(total), kk, d, n_groups, s);
+  const int t = static_cast<int>(total);
+  if (kind == kF32) return launch_rescore<kF32>(cpl, qp, sp, gp, op, outp, t, kk, d, n_groups, s);
+  if (kind == kBf16) return launch_rescore<kBf16>(cpl, qp, sp, gp, op, outp, t, kk, d, n_groups, s);
+  return launch_rescore<kF16>(cpl, qp, sp, gp, op, outp, t, kk, d, n_groups, s);
 }
 
 constexpr int kPlanThreads = 256;  // count and scatter: one thread a pair
@@ -335,14 +370,15 @@ gather_plan_scatter(const int32_t* __restrict__ groups, const int32_t* __restric
 
 }  // namespace
 
-// q: (b, d) bf16/f16, slab: (n, d) same dtype, groups: (b, kk) int32 group
-// ids in pair order, out: (b, kk * 128) f32. Equal ids that sit side by side
-// share one read of their group. Needs n % 128 == 0, d % 8 == 0, d <= 8192
-// and 16-byte aligned pointers (the Python wrapper checks all of these).
-// Returns cudaGetLastError() after the launch.
+// q: (b, d) of the slab's dtype, slab: (n, d) f16 (kind 0), bf16 (kind 1)
+// or f32 (kind 2), groups: (b, kk) int32 group ids in pair order, out: (b,
+// kk * 128) f32. Equal ids that sit side by side share one read of their
+// group. Needs n % 128 == 0, d % 8 == 0, d <= 8192 (f32: 4096) and 16-byte
+// aligned pointers (the Python wrapper checks all of these). Returns
+// cudaGetLastError() after the launch.
 extern "C" int fs_gather_rescore(const void* q, const void* slab, const void* groups, void* out, int b, int kk,
-                                 int d, long long n, int is_bf16, void* stream) {
-  return gather_rescore(q, slab, groups, nullptr, out, b, kk, d, n, is_bf16, stream);
+                                 int d, long long n, int kind, void* stream) {
+  return gather_rescore(q, slab, groups, nullptr, out, b, kk, d, n, kind, stream);
 }
 
 // K2's group order, a counting sort: groups (total,) int32 ids -> in
@@ -374,8 +410,8 @@ extern "C" int fs_gather_plan(const void* groups, void* scratch, int total, int 
 // order (b*kk,) int32 the pair b_i * kk + j of each (fs_gather_plan's
 // gids and order). Otherwise as fs_gather_rescore.
 extern "C" int fs_gather_rescore_sorted(const void* q, const void* slab, const void* gids, const void* order,
-                                        void* out, int b, int kk, int d, long long n, int is_bf16, void* stream) {
-  return gather_rescore(q, slab, gids, order, out, b, kk, d, n, is_bf16, stream);
+                                        void* out, int b, int kk, int d, long long n, int kind, void* stream) {
+  return gather_rescore(q, slab, gids, order, out, b, kk, d, n, kind, stream);
 }
 
 namespace {

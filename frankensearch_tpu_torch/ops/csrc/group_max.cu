@@ -55,6 +55,18 @@
 // The tensor maps are encoded on the host for every call
 // (cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint: the
 // library links no libcuda) and passed as __grid_constant__ parameters.
+//
+// K1 on an f32 slab (`fs_group_max` with kind 2) is a kernel of its own:
+// the TPU kernel's dot_general on f32 operands is f32 products and sums,
+// which wgmma cannot give (TF32 rounds the operands). It scores each
+// (group, tile of up to 64 queries) with the FFMA body of scan_f32.cuh
+// (K5's f32 form shares it, so K5's candidates are these scores' bits),
+// adds the mask, takes the max over the thread's 4 rows, then over the 8
+// lanes of equal t (shuffles) and the 4 warps (shared memory). A block is
+// one (group, query tile), the query tile fastest, so a group's blocks run
+// side by side and read it from L2 after the first. It is FFMA-bound (see
+// scan_f32.cuh): 1.97 ms at 1,007,616 x 256, B = 256, against 0.31 ms of
+// bytes.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -65,6 +77,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "scan_f32.cuh"
 
 using namespace fs_hopper;
 
@@ -373,6 +386,78 @@ int dispatch(int tile, const void* q, const void* slab, const float* mask, float
   }
 }
 
+// K1's f32 form: one block per (group, tile of 8 * kNT queries).
+template <int kNT>
+__global__ void __launch_bounds__(fs_scan_f32::kThreads)
+group_max_f32_kernel(const float* __restrict__ q,     // (b, d)
+                     const float* __restrict__ slab,  // (n, d)
+                     const float* __restrict__ mask,  // (n,) additive
+                     float* __restrict__ out,         // (b, n_groups)
+                     int b, int d, int n_groups, int n_qtiles) {
+  constexpr int kQ = kNT * 8;
+  constexpr int kWarpsF = fs_scan_f32::kWarps;
+  __shared__ fs_scan_f32::GroupSmemF32 sm;
+  __shared__ float red[kWarpsF][kQ];
+  const int q0 = (blockIdx.x % n_qtiles) * kQ;
+  const int grp = blockIdx.x / n_qtiles;
+  fs_scan_f32::score_group_f32_with<kNT>(
+      q, slab, mask, static_cast<int64_t>(grp) * kGroup, q0, b, d, sm, [&](auto& acc) {
+        const int warp = threadIdx.x >> 5;
+        const int lane = threadIdx.x & 31;
+        const int g = lane >> 2;
+        const int t = lane & 3;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float m = -INFINITY;
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                m = fmaxf(m, acc[mt][nt][2 * h + j] + sm.mask[warp * 32 + mt * 16 + g + 8 * h]);
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
+            if (g == 0) red[warp][nt * 8 + 2 * t + j] = m;
+          }
+        __syncthreads();
+        const int c = threadIdx.x;
+        if (c < kQ && q0 + c < b) {
+          float m = red[0][c];
+#pragma unroll
+          for (int w = 1; w < kWarpsF; ++w) m = fmaxf(m, red[w][c]);
+          out[static_cast<int64_t>(q0 + c) * n_groups + grp] = m;
+        }
+      });
+}
+
+template <int kNT>
+int launch_f32(const void* q, const void* slab, const float* mask, float* out, int b, int d, long long n,
+               cudaStream_t s) {
+  const long long n_qtiles = (b + kNT * 8 - 1) / (kNT * 8);
+  const long long blocks = n_qtiles * (n / kGroup);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  group_max_f32_kernel<kNT><<<static_cast<unsigned>(blocks), fs_scan_f32::kThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(slab), mask, out, b, d, static_cast<int>(n / kGroup),
+      static_cast<int>(n_qtiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 form's query tile: the smallest of 8, 16, 32, 64 that holds b.
+int run_f32(const void* q, const void* slab, const void* mask, void* out, int b, int d, long long n, void* stream) {
+  if (b < 1 || d < fs_scan_f32::kChunk || d % fs_scan_f32::kChunk != 0 || n < kGroup || n % kGroup != 0 ||
+      n / kGroup > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* mp = static_cast<const float*>(mask);
+  auto* op = static_cast<float*>(out);
+  if (b <= 8) return launch_f32<1>(q, slab, mp, op, b, d, n, s);
+  if (b <= 16) return launch_f32<2>(q, slab, mp, op, b, d, n, s);
+  if (b <= 32) return launch_f32<4>(q, slab, mp, op, b, d, n, s);
+  return launch_f32<8>(q, slab, mp, op, b, d, n, s);
+}
+
 // Checks the shapes, picks the query tile (the smallest width that holds b,
 // halved until its rows fit kQBudget) and launches.
 int run(int kind, const void* q, const void* slab, const void* mask, void* out, int b, int d, long long n,
@@ -397,13 +482,15 @@ int run(int kind, const void* q, const void* slab, const void* mask, void* out, 
 
 }  // namespace
 
-// K1. q: (b, d) bf16/f16, slab: (n, d) same dtype, mask: (n,) f32,
-// out: (b, n / 128) f32. Needs n % 128 == 0, d % 64 == 0, d <= 8192, b >= 1
-// and 16-byte aligned pointers (the Python wrapper checks all of these).
-// Returns cudaGetLastError() after the launch.
+// K1. q: (b, d) of the slab's dtype, slab: (n, d) f16 (kind 0), bf16 (kind
+// 1) or f32 (kind 2), mask: (n,) f32, out: (b, n / 128) f32. Needs n % 128
+// == 0, d % 64 == 0, d <= 8192, b >= 1 and 16-byte aligned pointers (the
+// Python wrapper checks all of these). Returns cudaGetLastError() after the
+// launch.
 extern "C" int fs_group_max(const void* q, const void* slab, const void* mask, void* out, int b, int d,
-                            long long n, int is_bf16, void* stream) {
-  return run(is_bf16 ? kBf16 : kF16, q, slab, mask, out, b, d, n, stream);
+                            long long n, int kind, void* stream) {
+  if (kind == 2) return run_f32(q, slab, mask, out, b, d, n, stream);
+  return run(kind == 1 ? kBf16 : kF16, q, slab, mask, out, b, d, n, stream);
 }
 
 // K4. q: (b, d) int8 prepared queries, slab: (n, d) int8, mask: (n,) f32,

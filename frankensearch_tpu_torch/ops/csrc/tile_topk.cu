@@ -49,8 +49,19 @@
 // wide budgets. One block = one tile x 16 queries, 8 warps: it scores the
 // tile into a (16 x 2048) f32 block of shared memory (128 KB), then runs kk
 // argmax passes per query, a warp-shuffle reduction each.
+//
+// The f32 forms (kind 2: an f32 slab and query, f32 products and sums, the
+// TPU kernel on an f32 slab) keep both entries' selection code and score by
+// FFMA in place of mma.sync: the list entry with K1's f32 body
+// (scan_f32.cuh, the same accumulator layout, so K5's candidates are K1's
+// f32 scores bit for bit), the wide entry with one row a lane against the
+// 16 queries, the same fmaf chain (dims ascending from +0.0), so the same
+// bits. The wide f32 entry takes d <= 1024 (its f32 query rows share the
+// block's shared memory with the 128 KB score block). The f32 scan is
+// FFMA-bound: 1.32e11 FLOP at 1M x 256, B = 256 (1.97 ms at 67 TFLOP/s).
 
 #include "group_scan.cuh"
+#include "scan_f32.cuh"
 
 using namespace fs_scan;
 
@@ -64,11 +75,13 @@ constexpr int kLdL = kMaxK + 1;                   // list stride (64-bit words)
 constexpr int kChunks = kGroup / 32;              // 32-row chunks per group
 constexpr int kQPerWarp = kQTile / kWarps;        // 16
 constexpr int kMergeQ = 2;  // queries a warp merges at once, their steps interleaved
+constexpr int kF32 = 2;     // the `kind` of an f32 slab (0 f16, 1 bf16)
 
 struct TopkSmem {
   union {
-    GroupSmem g;                   // staging of score_group_with()
-    float staged[kQTile][kLdSt];   // the group's scores, query-major
+    GroupSmem g;                     // staging of score_group_with()
+    fs_scan_f32::GroupSmemF32 gf;    // staging of score_group_f32_with()
+    float staged[kQTile][kLdSt];     // the group's scores, query-major
   } u;
   unsigned long long list[kQTile][kLdL];   // running top kk keys, descending
   unsigned char slots[kWarps][kMergeQ][kGroup];  // a warp's packed survivor rows
@@ -185,10 +198,24 @@ __device__ __forceinline__ void merge_survivors(unsigned long long* const (&L)[k
   __syncwarp();
 }
 
-template <bool kBf16>
+// The scores of one group (score_group_with, or its f32 form) into epi.
+template <int kKind, class Epilogue>
+__device__ __forceinline__ void score_group(const void* q, const void* slab, const float* mask, int64_t row0,
+                                            int q0, int b, int d, TopkSmem& sm, Epilogue&& epi) {
+  if constexpr (kKind == kF32) {
+    static_assert(fs_scan_f32::kMaxQ == kQTile && fs_scan_f32::kThreads == kThreads, "one block shape");
+    fs_scan_f32::score_group_f32_with<kQTile / 8>(static_cast<const float*>(q), static_cast<const float*>(slab),
+                                                  mask, row0, q0, b, d, sm.u.gf, epi);
+  } else {
+    score_group_with<kKind == 1>(static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(slab), mask, row0,
+                                 q0, b, d, sm.u.g, epi);
+  }
+}
+
+template <int kKind>
 __global__ void __launch_bounds__(kThreads)
-tile_topk_kernel(const uint16_t* __restrict__ q,     // (b, d) slab dtype
-                 const uint16_t* __restrict__ slab,  // (n, d)
+tile_topk_kernel(const void* __restrict__ q,     // (b, d) slab dtype
+                 const void* __restrict__ slab,  // (n, d)
                  const float* __restrict__ mask,     // (n,) additive
                  float* __restrict__ out_s,          // (n_tiles, kk, b)
                  int32_t* __restrict__ out_i,        // (n_tiles, kk, b)
@@ -207,9 +234,9 @@ tile_topk_kernel(const uint16_t* __restrict__ q,     // (b, d) slab dtype
   const int t = lane & 3;
   const unsigned lanes_below = (1u << lane) - 1u;
 
+  const float* gmask = kKind == kF32 ? sm.u.gf.mask : sm.u.g.mask;  // the group's staged mask
   for (int lg = 0; lg < kGroupsPerTile; ++lg) {
-    score_group_with<kBf16>(q, slab, mask, row_base + lg * kGroup, q0, b, d, sm.u.g,
-                            [&](GroupAcc& acc) {
+    score_group<kKind>(q, slab, mask, row_base + lg * kGroup, q0, b, d, sm, [&](auto& acc) {
       // score + mask, the add K1 makes before its maximum
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
@@ -217,7 +244,7 @@ tile_topk_kernel(const uint16_t* __restrict__ q,     // (b, d) slab dtype
         for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
           for (int c = 0; c < 4; ++c)
-            acc[mt][nt][c] = acc[mt][nt][c] + sm.u.g.mask[warp * 32 + mt * 16 + g + (c >> 1) * 8];
+            acc[mt][nt][c] = acc[mt][nt][c] + gmask[warp * 32 + mt * 16 + g + (c >> 1) * 8];
       __syncthreads();  // the score block overwrites the mask and the staging
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
@@ -362,18 +389,57 @@ __device__ __forceinline__ void lane_best(const float* s, int lane, float& v, in
   }
 }
 
-template <bool kBf16>
+// The wide entry's f32 scores: lane l of warp w takes row 256w + r32 + l
+// against the chunk's 16 queries (broadcast from shared memory), one fmaf
+// chain over the dims in ascending order each, K1's f32 bits.
+__device__ __forceinline__ void wide_scores_f32(const float* __restrict__ q, const float* __restrict__ slab,
+                                                const float* __restrict__ mask, float* s_scores, float* s_q,
+                                                int64_t row_base, int q0, int b, int d) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int ldq = d + 4;
+  for (int i = tid; i < kWQChunk * (d / 4); i += kWThreads) {
+    const int r = i / (d / 4);
+    const int c = (i % (d / 4)) * 4;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (q0 + r < b) v = __ldg(reinterpret_cast<const float4*>(q + static_cast<int64_t>(q0 + r) * d + c));
+    *reinterpret_cast<float4*>(&s_q[r * ldq + c]) = v;
+  }
+  __syncthreads();
+  for (int r32 = 0; r32 < kWRowsPerWarp; r32 += 32) {
+    const int r = warp * kWRowsPerWarp + r32 + lane;
+    const float* row = slab + (row_base + r) * d;
+    float acc[kWQChunk];
+#pragma unroll
+    for (int j = 0; j < kWQChunk; ++j) acc[j] = 0.0f;
+    for (int k = 0; k < d; k += 4) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(row + k));
+#pragma unroll
+      for (int j = 0; j < kWQChunk; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(&s_q[j * ldq + k]);
+        acc[j] = fmaf(x.x, v.x, acc[j]);
+        acc[j] = fmaf(x.y, v.y, acc[j]);
+        acc[j] = fmaf(x.z, v.z, acc[j]);
+        acc[j] = fmaf(x.w, v.w, acc[j]);
+      }
+    }
+    const float m = mask[row_base + r];
+#pragma unroll
+    for (int j = 0; j < kWQChunk; ++j) s_scores[j * kWLdS + r] = acc[j] + m;
+  }
+}
+
+template <int kKind>
 __global__ void __launch_bounds__(kWThreads)
-tile_topk_wide_kernel(const uint16_t* __restrict__ q,     // (b, d) slab dtype
-                      const uint16_t* __restrict__ slab,  // (n, d)
+tile_topk_wide_kernel(const void* __restrict__ q_any,     // (b, d) slab dtype
+                      const void* __restrict__ slab_any,  // (n, d)
                       const float* __restrict__ mask,     // (n,) additive
                       float* __restrict__ out_s,          // (n_tiles, kk, b)
                       int32_t* __restrict__ out_i,        // (n_tiles, kk, b)
                       int b, int d, int kk, int n_qchunks) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_scores = reinterpret_cast<float*>(smem);  // [kWQChunk][kWLdS]
-  uint16_t* s_q = reinterpret_cast<uint16_t*>(s_scores + kWQChunk * kWLdS);
-  const int ldq = d + 8;  // padded query row stride (bank-conflict free)
 
   const int tile = blockIdx.x / n_qchunks;
   const int q0 = (blockIdx.x % n_qchunks) * kWQChunk;
@@ -381,15 +447,25 @@ tile_topk_wide_kernel(const uint16_t* __restrict__ q,     // (b, d) slab dtype
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
 
-  for (int i = tid; i < kWQChunk * (d / 2); i += kWThreads) {
-    const int r = i / (d / 2);
-    const int c = (i % (d / 2)) * 2;
-    uint32_t v = 0u;
-    if (q0 + r < b) v = *reinterpret_cast<const uint32_t*>(q + static_cast<int64_t>(q0 + r) * d + c);
-    *reinterpret_cast<uint32_t*>(&s_q[r * ldq + c]) = v;
+  if constexpr (kKind == kF32) {
+    wide_scores_f32(static_cast<const float*>(q_any), static_cast<const float*>(slab_any), mask, s_scores,
+                    s_scores + kWQChunk * kWLdS, row_base, q0, b, d);
+  } else {
+    constexpr bool kBf16 = kKind == 1;
+    const auto* q = static_cast<const uint16_t*>(q_any);
+    const auto* slab = static_cast<const uint16_t*>(slab_any);
+    uint16_t* s_q = reinterpret_cast<uint16_t*>(s_scores + kWQChunk * kWLdS);
+    const int ldq = d + 8;  // padded query row stride (bank-conflict free)
+    const int g = lane >> 2;
+    const int t = lane & 3;
+
+    for (int i = tid; i < kWQChunk * (d / 2); i += kWThreads) {
+      const int r = i / (d / 2);
+      const int c = (i % (d / 2)) * 2;
+      uint32_t v = 0u;
+      if (q0 + r < b) v = *reinterpret_cast<const uint32_t*>(q + static_cast<int64_t>(q0 + r) * d + c);
+      *reinterpret_cast<uint32_t*>(&s_q[r * ldq + c]) = v;
   }
   __syncthreads();
 
@@ -437,6 +513,7 @@ tile_topk_wide_kernel(const uint16_t* __restrict__ q,     // (b, d) slab dtype
       }
     }
   }
+  }
   __syncthreads();
 
   // selection: warp w serves queries 2w and 2w+1 of the chunk
@@ -476,21 +553,21 @@ int launch(Kernel kernel, unsigned blocks, int threads, size_t smem, cudaStream_
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<blocks, threads, smem, s>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(slab),
-      static_cast<const float*>(mask), static_cast<float*>(out_s), static_cast<int32_t*>(out_i),
+      q, slab, static_cast<const float*>(mask), static_cast<float*>(out_s), static_cast<int32_t*>(out_i),
       b, d, kk, per_tile);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q: (b, d) bf16/f16, slab: (n, d) same dtype, mask: (n,) f32, out_s /
-// out_i: (n / 2048, kk, b) f32 / int32. Needs n % 2048 == 0, d % 64 == 0,
-// 1 <= kk <= 64, b >= 1 and 16-byte aligned pointers (the Python wrapper
-// checks all of these). Returns cudaGetLastError() after the launch.
+// q: (b, d) of the slab's dtype, slab: (n, d) f16 (kind 0), bf16 (kind 1)
+// or f32 (kind 2), mask: (n,) f32, out_s / out_i: (n / 2048, kk, b) f32 /
+// int32. Needs n % 2048 == 0, d % 64 == 0, 1 <= kk <= 64, b >= 1 and
+// 16-byte aligned pointers (the Python wrapper checks all of these).
+// Returns cudaGetLastError() after the launch.
 extern "C" int fs_tile_topk(const void* q, const void* slab, const void* mask,
                             void* out_s, void* out_i, int b, int d, long long n,
-                            int kk, int is_bf16, void* stream) {
+                            int kk, int kind, void* stream) {
   if (b < 1 || d < kChunk || d % kChunk != 0 || n < kTile || n % kTile != 0 ||
       kk < 1 || kk > kMaxK)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -499,30 +576,38 @@ extern "C" int fs_tile_topk(const void* q, const void* slab, const void* mask,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = sizeof(TopkSmem);
-  return is_bf16
-      ? launch(tile_topk_kernel<true>, static_cast<unsigned>(blocks), kThreads, smem, s,
-               q, slab, mask, out_s, out_i, b, d, kk, static_cast<int>(n_qtiles))
-      : launch(tile_topk_kernel<false>, static_cast<unsigned>(blocks), kThreads, smem, s,
-               q, slab, mask, out_s, out_i, b, d, kk, static_cast<int>(n_qtiles));
+  const unsigned grid = static_cast<unsigned>(blocks);
+  const int per_tile = static_cast<int>(n_qtiles);
+  if (kind == kF32)
+    return launch(tile_topk_kernel<kF32>, grid, kThreads, smem, s, q, slab, mask, out_s, out_i, b, d, kk, per_tile);
+  if (kind == 1)
+    return launch(tile_topk_kernel<1>, grid, kThreads, smem, s, q, slab, mask, out_s, out_i, b, d, kk, per_tile);
+  return launch(tile_topk_kernel<0>, grid, kThreads, smem, s, q, slab, mask, out_s, out_i, b, d, kk, per_tile);
 }
 
 // The wide entry: as fs_tile_topk, for 1 <= kk <= 2048, d % 16 == 0,
-// d <= 2048 and 4-byte aligned pointers.
+// d <= 2048 (f32: 1024) and 16-byte aligned pointers.
 extern "C" int fs_tile_topk_wide(const void* q, const void* slab, const void* mask,
                                  void* out_s, void* out_i, int b, int d, long long n,
-                                 int kk, int is_bf16, void* stream) {
-  if (b < 1 || d < 16 || d % 16 != 0 || d > 2048 || n < kTile || n % kTile != 0 ||
+                                 int kk, int kind, void* stream) {
+  if (b < 1 || d < 16 || d % 16 != 0 || d > (kind == kF32 ? 1024 : 2048) || n < kTile || n % kTile != 0 ||
       kk < 1 || kk > kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n_qchunks = (b + kWQChunk - 1) / kWQChunk;
   const long long blocks = n / kTile * n_qchunks;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(kWQChunk) * kWLdS * sizeof(float) +
-                      static_cast<size_t>(kWQChunk) * (d + 8) * sizeof(uint16_t);
+  const size_t q_bytes = kind == kF32 ? static_cast<size_t>(kWQChunk) * (d + 4) * sizeof(float)
+                                      : static_cast<size_t>(kWQChunk) * (d + 8) * sizeof(uint16_t);
+  const size_t smem = static_cast<size_t>(kWQChunk) * kWLdS * sizeof(float) + q_bytes;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16
-      ? launch(tile_topk_wide_kernel<true>, static_cast<unsigned>(blocks), kWThreads, smem, s,
-               q, slab, mask, out_s, out_i, b, d, kk, static_cast<int>(n_qchunks))
-      : launch(tile_topk_wide_kernel<false>, static_cast<unsigned>(blocks), kWThreads, smem, s,
-               q, slab, mask, out_s, out_i, b, d, kk, static_cast<int>(n_qchunks));
+  const unsigned grid = static_cast<unsigned>(blocks);
+  const int per_tile = static_cast<int>(n_qchunks);
+  if (kind == kF32)
+    return launch(tile_topk_wide_kernel<kF32>, grid, kWThreads, smem, s, q, slab, mask, out_s, out_i, b, d, kk,
+                  per_tile);
+  if (kind == 1)
+    return launch(tile_topk_wide_kernel<1>, grid, kWThreads, smem, s, q, slab, mask, out_s, out_i, b, d, kk,
+                  per_tile);
+  return launch(tile_topk_wide_kernel<0>, grid, kWThreads, smem, s, q, slab, mask, out_s, out_i, b, d, kk,
+                per_tile);
 }

@@ -4,8 +4,9 @@ Port of frankensearch_tpu/ops/topk_scan.py: the plain scan
 (:func:`scan_topk_xla`), the hierarchical group-max scan
 (:func:`scan_topk_hierarchical`), its int8 capacity lane
 (:func:`scan_topk_hierarchical_int8`), the per-tile top-k scan
-(:func:`scan_topk_pallas`) and the plain int8 two-pass scan
-(:func:`scan_topk_int8_two_pass`). Their TPU kernels become hand-written
+(:func:`scan_topk_pallas`), the plain int8 and packed int4 two-pass scans
+(:func:`scan_topk_int8_two_pass`, :func:`scan_topk_int4_two_pass`) and the
+Matryoshka two-pass scan (:func:`scan_topk_mrl`). Their TPU kernels become hand-written
 Hopper kernels: K1 (:func:`group_max`, csrc/group_max.cu), K2
 (:func:`gather_rescore`, csrc/gather_rescore.cu) and its int8 form
 (:func:`gather_rescore_i8`, the same source), K4 (:func:`group_max_int8`,
@@ -53,6 +54,9 @@ GATHER_I8_GROUP_MIN_B = 192
 #: widest dim K2's int8 form takes (the first port's: its f32 query row
 #: filled 48 KB of shared memory)
 MAX_I8_RESCORE_DIM = 12288
+#: widest dim K2's f32 form takes: a lane holds its 16-byte chunks of a row
+#: in at most 128 registers, as K2's widest bf16 row
+MAX_F32_RESCORE_DIM = 4096
 
 
 class TopKResult(NamedTuple):
@@ -143,12 +147,15 @@ def scan_topk_xla(
 # --------------------------------------------------------------------------
 
 
+#: the slab dtypes the scan kernels take, as their C entry points' ``kind``
+#: argument: bf16 and f16 score on the tensor cores, f32 by FFMA (exact f32
+#: products, TF32 stays off)
+_KINDS = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
 def _check_kernel_operands(slab: torch.Tensor, queries: torch.Tensor) -> None:
-    if slab.dtype not in (torch.bfloat16, torch.float16):
-        raise NotImplementedError(
-            f"the CUDA scan kernels take bf16/f16 slabs, got {slab.dtype} "
-            "(f32 slabs on CUDA: ROADMAP, the int8/MRL/IVF lanes item)"
-        )
+    if slab.dtype not in _KINDS:
+        raise ValueError(f"the CUDA scan kernels take bf16/f16/f32 slabs, got {slab.dtype}")
     if slab.dim() != 2 or queries.dim() != 2 or queries.shape[1] != slab.shape[1]:
         raise ValueError(f"shape mismatch: slab {tuple(slab.shape)}, queries {tuple(queries.shape)}")
     if queries.device != slab.device:
@@ -194,7 +201,7 @@ def _launch_group_max(slab: torch.Tensor, queries: torch.Tensor, mask: torch.Ten
     with torch.cuda.device(slab.device):
         rc = lib.fs_group_max(
             q.data_ptr(), slab.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            q.shape[0], slab.shape[1], slab.shape[0], int(slab.dtype == torch.bfloat16),
+            q.shape[0], slab.shape[1], slab.shape[0], _KINDS[slab.dtype],
             torch.cuda.current_stream(slab.device).cuda_stream,
         )
     if rc != 0:
@@ -203,7 +210,8 @@ def _launch_group_max(slab: torch.Tensor, queries: torch.Tensor, mask: torch.Ten
 
 def group_max(slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """K1 (replaces ``_group_max_kernel``): (B, N/128) f32 masked group
-    maxima. CUDA tensors run csrc/group_max.cu; CPU tensors the plain twin."""
+    maxima. CUDA tensors run csrc/group_max.cu (bf16/f16 on ``wgmma``, f32
+    by FFMA on csrc/scan_f32.cuh); CPU tensors the plain twin."""
     if slab.device.type == "cpu":
         return group_max_plain(slab, queries, mask)
     _check_group_max_operands("group_max", slab, queries, mask)
@@ -252,15 +260,17 @@ def gather_rescore(
 ) -> torch.Tensor:
     """K2 (replaces ``_gather_rescore_kernel``): (B, kk) group ids ->
     (B, kk*128) f32 scores. CUDA tensors run csrc/gather_rescore.cu (any B
-    and kk); CPU tensors the plain twin. From ``GATHER_GROUP_MIN_B``
+    and kk; bf16/f16 rows, or f32 rows up to ``MAX_F32_RESCORE_DIM``
+    dims); CPU tensors the plain twin. From ``GATHER_GROUP_MIN_B``
     queries up, a counting sort on the card first puts the pairs in group
     order, so that each group the batch chose is read once."""
     if slab.device.type == "cpu":
         return gather_rescore_plain(slab, queries, top_groups)
     _check_kernel_operands(slab, queries)
     n, d = slab.shape
-    if d % 8 or d > MAX_KERNEL_DIM:
-        raise ValueError(f"gather_rescore needs dim % 8 == 0 and dim <= {MAX_KERNEL_DIM}, got {d}")
+    d_max = MAX_F32_RESCORE_DIM if slab.dtype == torch.float32 else MAX_KERNEL_DIM
+    if d % 8 or d > d_max:
+        raise ValueError(f"gather_rescore needs dim % 8 == 0 and dim <= {d_max}, got {d}")
     b, kk = top_groups.shape
     if b != queries.shape[0] or top_groups.device != slab.device:
         raise ValueError("top_groups must be (B, kk) on the slab's device")
@@ -274,16 +284,16 @@ def gather_rescore(
     lib = _build.library()
     with torch.cuda.device(slab.device):
         stream = torch.cuda.current_stream(slab.device).cuda_stream
-        bf16 = int(slab.dtype == torch.bfloat16)
+        kind = _KINDS[slab.dtype]
         if b < GATHER_GROUP_MIN_B:
             rc = lib.fs_gather_rescore(q.data_ptr(), slab.data_ptr(), groups.data_ptr(), out.data_ptr(),
-                                       b, kk, d, n, bf16, stream)
+                                       b, kk, d, n, kind, stream)
         else:
             plan, ids, pairs = _gather_plan_scratch(n // GROUP, b * kk, slab.device)
             rc = lib.fs_gather_plan(groups.data_ptr(), plan.data_ptr(), b * kk, n // GROUP, stream)
             if rc == 0:
                 rc = lib.fs_gather_rescore_sorted(q.data_ptr(), slab.data_ptr(), ids, pairs, out.data_ptr(),
-                                                  b, kk, d, n, bf16, stream)
+                                                  b, kk, d, n, kind, stream)
     if rc != 0:
         raise RuntimeError(f"gather_rescore kernel launch failed: CUDA error {rc}")
     gather_rescore.launches += 1
@@ -469,18 +479,20 @@ def tile_topk(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5 (replaces ``_tile_topk_kernel``): (T, kk, B) per-tile top-kk
     scores and slab rows. CUDA tensors run csrc/tile_topk.cu (tiles of
-    2048 rows): its threshold-list entry, on K1's scoring body, for
-    ``kk <= TILE_TOPK_LIST_K`` and dim % 64 == 0, else its wide entry
-    (argmax passes; counted in ``tile_topk.wide_launches`` as well); CPU
-    tensors the plain twin."""
+    2048 rows): its threshold-list entry, on K1's scoring body (an f32
+    slab: K1's FFMA body), for ``kk <= TILE_TOPK_LIST_K`` and dim % 64 ==
+    0, else its wide entry (argmax passes; counted in
+    ``tile_topk.wide_launches`` as well); CPU tensors the plain twin."""
     if slab.device.type == "cpu":
         return tile_topk_plain(slab, queries, mask, kk, tile_n)
     _check_kernel_operands(slab, queries)
     n, d = slab.shape
     if tile_n != TILE_N or n % TILE_N:
         raise ValueError(f"tile_topk runs {TILE_N}-row tiles over a multiple of them, got {tile_n}, {n}")
-    if d % 16 or d > 2048 or not 1 <= kk <= TILE_N:
-        raise ValueError(f"tile_topk needs dim % 16 == 0, dim <= 2048 and 1 <= kk <= {TILE_N}; got {d}, {kk}")
+    wide = kk > TILE_TOPK_LIST_K or d % 64 != 0
+    d_max = 1024 if wide and slab.dtype == torch.float32 else 2048  # the wide entry's f32 query rows
+    if d % 16 or d > d_max or not 1 <= kk <= TILE_N:
+        raise ValueError(f"tile_topk needs dim % 16 == 0, dim <= {d_max} and 1 <= kk <= {TILE_N}; got {d}, {kk}")
     if mask.shape != (n,) or mask.dtype != torch.float32 or mask.device != slab.device:
         raise ValueError("mask must be (N,) f32 on the slab's device")
     b = queries.shape[0]
@@ -493,11 +505,10 @@ def tile_topk(
     from frankensearch_tpu_torch.ops import _build
 
     lib = _build.library()
-    wide = kk > TILE_TOPK_LIST_K or d % 64 != 0
     with torch.cuda.device(slab.device):
         rc = (lib.fs_tile_topk_wide if wide else lib.fs_tile_topk)(
             q.data_ptr(), slab.data_ptr(), mask.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            b, d, n, kk, int(slab.dtype == torch.bfloat16),
+            b, d, n, kk, _KINDS[slab.dtype],
             torch.cuda.current_stream(slab.device).cuda_stream,
         )
     if rc != 0:
@@ -778,9 +789,78 @@ def scan_topk_int8_two_pass(
     rough = _apply_additive_mask(int8_dot(prepare_query_int8(queries, slab_scale), slab_i8), mask)
     _, cand_idx = topk_desc_rowasc(rough, pool)  # (B, pool)
     cand_rows = slab_exact[cand_idx].to(torch.float32)  # (B, pool, D)
-    exact = torch.einsum("bd,bpd->bp", queries.to(torch.float32), cand_rows)
+    return _rescore_pool(cand_idx, torch.einsum("bd,bpd->bp", queries.to(torch.float32), cand_rows), mask, k)
+
+
+def _rescore_pool(
+    cand_idx: torch.Tensor, exact: torch.Tensor, mask: torch.Tensor | None, k: int
+) -> TopKResult:
+    """Pass 2's tail of the two-pass scans: the pool's mask, then its exact
+    top-k."""
     if mask is not None:
         exact = exact + mask[cand_idx].to(torch.float32)
-    top_s, pos = topk_desc_rowasc(exact, min(k, pool))
-    top_i = torch.gather(cand_idx, 1, pos)
-    return _finalize(*_pad_topk(top_s, top_i, k))
+    top_s, pos = topk_desc_rowasc(exact, min(k, exact.shape[1]))
+    return _finalize(*_pad_topk(top_s, torch.gather(cand_idx, 1, pos), k))
+
+
+def scan_topk_int4_two_pass(
+    slab_packed: torch.Tensor,  # (N, D//2) uint8, low nibble = even dim
+    slab_scale: torch.Tensor,  # (D,) f32
+    slab_exact: torch.Tensor,  # (N, D) exact-dtype slab
+    queries: torch.Tensor,  # (B, D) f32
+    k: int,
+    mask: torch.Tensor | None = None,
+    *,
+    candidate_multiplier: int = 6,
+) -> TopKResult:
+    """Packed 4-bit two-pass scan (the reference's
+    ``scan_topk_int4_two_pass``, which no Pallas kernel serves). Pass 1
+    unpacks the nibbles to int8 and ranks every row by the exact int32 dot
+    with the int8 lane's prepared query (on CUDA ``torch._int_mm`` through
+    :func:`~frankensearch_tpu_torch.ops.vector_math.int8_matmul`, on the
+    CPU an int32 product), keeping a pool of ``k * candidate_multiplier``.
+    Pass 2 rescores the pool's rows of ``slab_exact`` against the query
+    rounded to ``slab_exact``'s dtype (the reference's ``astype``, unlike
+    the int8 and MRL scans' f32 query), f32 sums."""
+    from frankensearch_tpu_torch.ops.quantize import unpack_int4_device
+    from frankensearch_tpu_torch.ops.vector_math import int8_matmul
+
+    n = slab_packed.shape[0]
+    pool = min(max(k * candidate_multiplier, k), n)
+    q_i8 = prepare_query_int8(queries, slab_scale)
+    # rows x queries, so that _int_mm's (k, n) operand is the small query block
+    rough = int8_matmul(unpack_int4_device(slab_packed), q_i8.T.contiguous()).T.to(torch.float32)
+    _, cand_idx = topk_desc_rowasc(_apply_additive_mask(rough, mask), pool)
+    cand_rows = slab_exact[cand_idx].to(torch.float32)  # (B, pool, D)
+    q = queries.to(slab_exact.dtype).to(torch.float32)
+    return _rescore_pool(cand_idx, torch.einsum("bd,bpd->bp", q, cand_rows), mask, k)
+
+
+def scan_topk_mrl(
+    slab: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    mask: torch.Tensor | None = None,
+    *,
+    search_dims: int = 64,
+    rescore_top_k: int = 30,
+) -> TopKResult:
+    """Matryoshka two-pass scan (the reference's ``scan_topk_mrl``, which no
+    Pallas kernel serves; plain PyTorch on both devices). Pass 1 scans the
+    first ``search_dims`` dims with the truncated query renormalised and
+    rounded to the slab dtype (f32 sums); pass 2 rescores a pool of
+    ``max(k, rescore_top_k)`` rows at full dim against the f32 query (the
+    rows cast to f32: not K2, which rounds the query to the slab dtype)."""
+    n, d = slab.shape
+    sd = min(search_dims, d)
+    pool = min(max(k, rescore_top_k), n)
+    q_trunc = queries[:, :sd].to(torch.float32)
+    q_trunc = q_trunc / torch.clamp(torch.linalg.vector_norm(q_trunc, dim=1, keepdim=True), min=1e-12)
+    from frankensearch_tpu_torch.ops.vector_math import mm_bf16_f32
+
+    q_trunc = q_trunc.to(slab.dtype)
+    rough = q_trunc @ slab[:, :sd].T if slab.dtype == torch.float32 else mm_bf16_f32(q_trunc, slab[:, :sd].T)
+    _, cand_idx = topk_desc_rowasc(_apply_additive_mask(rough, mask), pool)
+    cand_rows = slab[cand_idx].to(torch.float32)  # (B, pool, D)
+    exact = torch.einsum("bd,bpd->bp", queries.to(torch.float32), cand_rows)
+    return _rescore_pool(cand_idx, exact, mask, k)

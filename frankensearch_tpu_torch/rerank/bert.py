@@ -36,6 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from frankensearch_tpu_torch.ops.vector_math import int8_matmul, mm_bf16_f32
+
 
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
@@ -148,38 +150,6 @@ def quantize_linear_weights(state: Mapping[str, Any]) -> dict[str, torch.Tensor]
         out[name[:-2] + ".w_int8"] = torch.from_numpy(wi8)
         out[name[:-2] + ".w_scale"] = torch.from_numpy(scale.astype(np.float32))
     return out
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def int8_matmul(x_i8: torch.Tensor, w_i8: torch.Tensor) -> torch.Tensor:
-    """(m, k) int8 x (k, n) int8 -> (m, n) exact int32 sums. On CUDA
-    ``torch._int_mm``, whose shape rules (more than 16 rows, k and n
-    multiples of 8) are met by zero padding, which adds exact zeros; on
-    the CPU an int32 product."""
-    m, k = x_i8.shape
-    n = w_i8.shape[1]
-    if not x_i8.is_cuda:
-        return torch.matmul(x_i8.to(torch.int32), w_i8.to(torch.int32))
-    m_pad, k_pad, n_pad = max(_round_up(m, 8), 24), _round_up(k, 8), _round_up(n, 8)
-    if (m_pad, k_pad) != (m, k):
-        x_i8 = torch.nn.functional.pad(x_i8, (0, k_pad - k, 0, m_pad - m))
-    if (k_pad, n_pad) != (k, n):
-        w_i8 = torch.nn.functional.pad(w_i8, (0, n_pad - n, 0, k_pad - k))
-    return torch._int_mm(x_i8, w_i8.contiguous())[:m, :n]
-
-
-def mm_bf16_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """bf16 (..., m, k) x bf16 (..., k, n) -> f32 sums and output (batched
-    over one leading dim at most). On CUDA cuBLAS with an f32 output; on
-    the CPU the bf16 values widened to f32 (exact products, f32 sums)."""
-    if not a.is_cuda:
-        return torch.matmul(a.to(torch.float32), b.to(torch.float32))
-    if a.dim() == 3:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.mm(a, b, out_dtype=torch.float32)
 
 
 class Dense(nn.Module):

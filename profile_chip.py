@@ -15,8 +15,11 @@ a Model2Vec fast tier, its docs embedded through the bag lane and its
 queries embedded inside the fused phase-1 pass, and hybrid-1M-quality:
 hybrid-1M with phase 8's 1M x 384 quality tier and the trained 384
 encoder (``data/quality_encoder_384``), served through the Refined phase
-with the query-embedding cache off, so that every call runs the encoder)
-and, for
+with the query-embedding cache off, so that every call runs the encoder;
+semantic-1M-f32: the semantic cell's vectors as an f32 slab (K1 and K2's
+f32 forms); semantic-1M-mrl: the semantic cell with
+``mrl_search_dims=64``; semantic-1M-ivf: chip_smoke's clustered 1M corpus
+with its IVF arm, ``scan_mode="ivf"`` at the default nprobe 8) and, for
 each at B = 256 and B = 1 (the cell's first query), after three warm-up calls
 of ``TwoTierSearcher.search_batch``:
 
@@ -353,11 +356,39 @@ def main() -> int:
         return TwoTierSearcher(index, emb, lexical=bm25, quality_embedder=quality,
                                cache_query_embeddings=False), queries
 
+    def semantic_f32(dev, tmp):
+        from frankensearch_tpu_torch import TwoTierConfig, TwoTierIndex, TwoTierSearcher
+        from frankensearch_tpu_torch.index.device_index import DeviceVectorIndex
+
+        _, index, emb, vecs, queries = cs.semantic_cell(dev, tempfile.mkdtemp(dir=tmp))
+        f32 = TwoTierIndex(DeviceVectorIndex(vecs, index.fast.doc_ids, emb.identity(), device=dev,
+                                             slab_dtype="f32"))
+        return TwoTierSearcher(f32, emb, config=TwoTierConfig(fast_only=True)), queries
+
+    def semantic_mrl(dev, tmp):
+        from frankensearch_tpu_torch import TwoTierConfig, TwoTierSearcher
+
+        _, index, emb, _, queries = cs.semantic_cell(dev, tempfile.mkdtemp(dir=tmp))
+        return TwoTierSearcher(index, emb, config=TwoTierConfig(fast_only=True, mrl_search_dims=cs.MRL_DIMS)), queries
+
+    def semantic_ivf(dev, tmp):
+        import numpy as np
+
+        from frankensearch_tpu_torch import TwoTierConfig, TwoTierIndex, TwoTierSearcher
+
+        _, _, emb, _, queries = cs.semantic_cell(dev, tempfile.mkdtemp(dir=tmp))
+        x, _ = cs.clustered_cell(np.random.default_rng(cs.SEED + 9))
+        index = TwoTierIndex.create(tempfile.mkdtemp(dir=tmp), x, [f"doc-{i:07d}" for i in range(cs.N_DOCS)],
+                                    emb.identity(), device=dev)
+        index.fast.enable_ivf()
+        return TwoTierSearcher(index, emb, config=TwoTierConfig(fast_only=True, scan_mode="ivf")), queries
+
     with tempfile.TemporaryDirectory(prefix="fs_profile_") as tmp:
         for cell, build in (("semantic-1M", cs.semantic_cell), ("semantic-1M-pallas", semantic_pallas),
                             ("hybrid-60k", cs.hybrid_cell), ("hybrid-1M", hybrid1m),
                             ("semantic-1M-int8", lambda dev, tmp: int8_cell(cs, dev, tmp)), ("hybrid-1M-m2v", hybrid1m_m2v),
-                            ("hybrid-1M-quality", hybrid1m_quality)):
+                            ("hybrid-1M-quality", hybrid1m_quality), ("semantic-1M-f32", semantic_f32),
+                            ("semantic-1M-mrl", semantic_mrl), ("semantic-1M-ivf", semantic_ivf)):
             if len(sys.argv) > 2 and cell not in sys.argv[2:]:
                 continue
             built = build(dev, tmp)

@@ -4,8 +4,11 @@ device RRF) bitwise against the CPU, the int8 and per-tile scan lanes
 against their CPU twin pipelines, the A/B scan's K6 route bitwise against
 the K1/K2 route, the Model2Vec pool and bag lane against the CPU, K1 and
 K2 at the quality tier's width (384), the int8 GEMM behind the encoder at
-padded shapes (exact), and the trained 384 encoder's forward against the
-CPU (f32, bf16, int8).
+padded shapes (exact), the trained 384 encoder's forward against the
+CPU (f32, bf16, int8), the f32 forms of K1, K2 and K5 against their twins
+(K5's candidates and K1's maxima the same bits, a row's bits independent
+of its batch), K2 at the IVF probe's shapes, and the MRL, int4 and IVF
+lanes against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -58,7 +61,7 @@ def cuda_device():
     return resolve_device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("b", [1, 8, 70])
 def test_kernels_match_twins(cuda_device, b, dtype):
     gen = torch.Generator(device="cpu").manual_seed(b)
@@ -82,9 +85,13 @@ def test_kernels_match_twins(cuda_device, b, dtype):
 
 
 def test_kernels_reject_unsupported_operands(cuda_device):
-    slab = torch.zeros(256, 64, device=cuda_device)  # f32 slab
-    with pytest.raises(NotImplementedError):
+    """An f64 slab has no kernel form (f32 has one since the scan lanes took
+    f32 slabs): the wrapper raises, and launches nothing."""
+    slab = torch.zeros(256, 64, dtype=torch.float64, device=cuda_device)
+    launches = topk_scan.group_max.launches
+    with pytest.raises(ValueError, match="bf16/f16/f32"):
         topk_scan.group_max(slab, torch.zeros(1, 64, device=cuda_device), torch.zeros(256, device=cuda_device))
+    assert topk_scan.group_max.launches == launches
 
 
 def test_dense_bm25_bitwise_cpu_vs_gpu(cuda_device):
@@ -284,7 +291,7 @@ def test_gather_rescore_i8_matches_twin(cuda_device, b, kk):
     torch.testing.assert_close(got, topk_scan.gather_rescore_i8_plain(slab, q, groups), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("b,kk", [(1, 10), (8, 60), (70, 30)])
 def test_tile_topk_matches_twin(cuda_device, b, kk, dtype):
     slab, mask, gen = _unit_slab(b + kk)
@@ -720,3 +727,99 @@ if __name__ == "__main__":
     print("K2I8_DIGESTS")
     for case in K2I8_CASES:
         print(f"    {case!r}: \"{_k2i8_digest(torch.device('cuda'), case)}\",")
+
+
+# --------------------------------------------------------------------------
+# the f32 forms (K1, K2, K5 by FFMA), K2 at the IVF probe's shapes, and the
+# MRL, int4 and IVF lanes
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [64, 256, 1024])
+@pytest.mark.parametrize("b", [1, 9, 33, 256, 300])
+def test_f32_forms_share_k1_bits(cuda_device, b, d):
+    """K1's f32 form against its twin (1e-5: FFMA chains in dim order
+    against cuBLAS's f32 order), K5's f32 candidates (list entry, kk <= 64;
+    wide entry, kk = 100) bitwise K1's maxima, and a row's bits the same
+    alone and in the batch."""
+    slab, mask, gen = _unit_slab(b + d, n=8192, d=d)
+    slab, mask = slab.to(cuda_device), mask.to(cuda_device)
+    q = torch.randn(b, d, generator=gen).to(cuda_device)
+    gm = topk_scan.group_max(slab, q, mask)
+    torch.testing.assert_close(gm, topk_scan.group_max_plain(slab, q, mask), rtol=1e-5, atol=1e-5)
+    tile_max = gm.view(b, -1, topk_scan.TILE_N // 128).amax(dim=2)
+    for kk in (10, 100):
+        s, _ = topk_scan.tile_topk(slab, q, mask, kk)
+        assert torch.equal(s[:, 0, :].T.contiguous().view(torch.int32), tile_max.view(torch.int32)), kk
+    alone = topk_scan.group_max(slab, q[b - 1 :], mask)
+    assert torch.equal(alone.view(torch.int32), gm[b - 1 :].view(torch.int32))
+
+
+@pytest.mark.parametrize("b,kk", [(1, 12), (8, 60), (70, 30), (256, 60)])
+def test_gather_rescore_f32_matches_twin(cuda_device, b, kk):
+    """K2's f32 form in pair order (B < 64) and on the group-major plan."""
+    slab, _, gen = _unit_slab(b * kk)
+    slab = slab.to(cuda_device)
+    q = torch.randn(b, 256, generator=gen).to(cuda_device)
+    groups = torch.randint(0, 128, (b, kk), generator=gen, dtype=torch.int32).to(cuda_device)
+    got = topk_scan.gather_rescore(slab, q, groups)
+    torch.testing.assert_close(got, topk_scan.gather_rescore_plain(slab, q, groups), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [8192, 4104])
+def test_f32_forms_reject_widths_outside_the_kernels(cuda_device, d):
+    slab = torch.zeros(256, d, device=cuda_device)
+    with pytest.raises(ValueError, match="4096"):
+        topk_scan.gather_rescore(slab, torch.zeros(2, d, device=cuda_device),
+                                 torch.zeros(2, 1, dtype=torch.int32, device=cuda_device))
+
+
+@pytest.mark.parametrize("b,nprobe", [(1, 8), (8, 8), (256, 8), (8, 64)])
+def test_gather_rescore_at_the_ivf_probe_shapes(cuda_device, b, nprobe):
+    """The IVF probe's K2 call: kk = nprobe x 6 groups per cluster, ids
+    sorted per query, queries sharing clusters (drawn from 16 hot ones);
+    nprobe = 64 probes every cluster of the slab."""
+    gen = torch.Generator(device="cpu").manual_seed(b * nprobe)
+    n_clusters, gpc = 64, 6
+    slab = torch.randn(n_clusters * gpc * 128, 256, generator=gen)
+    slab = (slab / slab.norm(dim=1, keepdim=True)).to(cuda_device, torch.bfloat16)
+    q = torch.randn(b, 256, generator=gen).to(cuda_device)
+    hot = torch.randperm(n_clusters, generator=gen)[:16]
+    probe = torch.stack([
+        torch.randperm(n_clusters, generator=gen)[:nprobe] if nprobe == n_clusters
+        else hot[torch.randperm(16, generator=gen)[:nprobe]] for _ in range(b)
+    ])
+    ids = (probe[:, :, None] * gpc + torch.arange(gpc)).reshape(b, -1).sort(dim=1).values
+    ids = ids.to(torch.int32).to(cuda_device)
+    got = topk_scan.gather_rescore(slab, q, ids)
+    torch.testing.assert_close(got, topk_scan.gather_rescore_plain(slab, q, ids), rtol=1e-5, atol=1e-5)
+
+
+def test_mrl_int4_and_ivf_lanes_gpu_vs_cpu(cuda_device):
+    """MRL and int4 (plain ops on both devices) and the IVF arm (built on the
+    card; full probe equals the exact scan up to bf16 near ties) on the
+    card against the CPU."""
+    from frankensearch_tpu_torch.index.ivf import IvfDeviceIndex
+    from frankensearch_tpu_torch.ops.quantize import calibrate_int4
+
+    slab, mask, gen = _unit_slab(5)
+    q = torch.randn(8, 256, generator=gen)
+    bf = slab.to(torch.bfloat16)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for dims in (64, 256):
+            s_d = slab.to(dtype)
+            cpu = topk_scan.scan_topk_mrl(s_d, q, 10, mask, search_dims=dims)
+            gpu = topk_scan.scan_topk_mrl(s_d.to(cuda_device), q.to(cuda_device), 10, mask.to(cuda_device),
+                                          search_dims=dims)
+            _same_up_to_near_ties(gpu, cpu)
+    q4 = calibrate_int4(slab.numpy())
+    packed, scale = torch.from_numpy(q4.packed), torch.from_numpy(q4.scale)
+    cpu = topk_scan.scan_topk_int4_two_pass(packed, scale, bf, q, 10, mask)
+    gpu = topk_scan.scan_topk_int4_two_pass(packed.to(cuda_device), scale.to(cuda_device), bf.to(cuda_device),
+                                            q.to(cuda_device), 10, mask.to(cuda_device))
+    _same_up_to_near_ties(gpu, cpu)
+    x = slab[:6000].numpy()
+    ivf = IvfDeviceIndex(x, n_clusters=16, device=cuda_device)
+    full = ivf.search_batch(q.numpy(), 10, nprobe=16)
+    exact = topk_scan.scan_topk_xla(torch.from_numpy(x).to(torch.bfloat16), q, 10)
+    _same_up_to_near_ties(full, exact, rel=2.0 ** -8)

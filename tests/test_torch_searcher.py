@@ -187,9 +187,18 @@ def test_split_corpus_batch_matches_reference(split_stacks, monkeypatch, divisor
 
 
 def test_unported_lanes_raise(stacks):
-    for mode in ("mrl", "ivf"):
-        with pytest.raises(NotImplementedError, match=mode):
-            stacks["index"].fast.search_batch(np.ones((1, 64), np.float32), 3, mode=mode)
+    """No lane raises NotImplementedError: ``mrl`` serves the reference's
+    rows, and ``ivf`` refuses with the reference's ``InvalidConfig`` only
+    while the index has no IVF arm (tests/test_torch_ivf.py and
+    tests/test_torch_scan_lanes.py hold both lanes to the reference)."""
+    from frankensearch_tpu_torch.core.errors import InvalidConfig
+
+    q = np.ones((1, 64), np.float32)
+    got = stacks["index"].fast.search_batch(q, 3, mode="mrl")
+    want = stacks["ref_index"].fast.search_batch(q, 3, mode="mrl")
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))
+    with pytest.raises(InvalidConfig, match="enable_ivf"):
+        stacks["index"].fast.search_batch(q, 3, mode="ivf")
 
 
 def test_resolve_device_never_falls_back(monkeypatch):
