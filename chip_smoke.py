@@ -1185,9 +1185,10 @@ def adversarial_tile_inputs(n_tiles: int, d: int, b: int, seed: int):
 
 def check_tile_edges(dev) -> None:
     """K5's edge cases on the card: :func:`adversarial_tile_inputs` over 8
-    tiles at B = EDGE_B, bf16 and f16, every kk of EDGE_KKS (both entries of
-    the kernel): rows and score bits equal to the twin's, and each first
-    candidate bitwise K1's tile maximum."""
+    tiles at B = EDGE_B (a full and a ragged 64-query tile), bf16, f16 and
+    f32, every kk of EDGE_KKS (both entries of the kernel): rows and score
+    bits equal to the twin's, and each first candidate bitwise K1's tile
+    maximum."""
     import torch
 
     from frankensearch_tpu_torch.ops import topk_scan as ts
@@ -1195,7 +1196,8 @@ def check_tile_edges(dev) -> None:
     slab_np, q_np, mask_np = adversarial_tile_inputs(8, DIM, EDGE_B, SEED + 9)
     q, mask = torch.from_numpy(q_np).to(dev), torch.from_numpy(mask_np).to(dev)
     wide0 = ts.tile_topk.wide_launches
-    for dtype in (torch.bfloat16, torch.float16):
+    dtypes = (torch.bfloat16, torch.float16, torch.float32)
+    for dtype in dtypes:
         slab = torch.from_numpy(slab_np).to(dev, dtype)
         k1_first = ts.group_max(slab, q, mask).view(EDGE_B, 8, 16).amax(dim=2)
         for kk in EDGE_KKS:
@@ -1207,10 +1209,10 @@ def check_tile_edges(dev) -> None:
                                      f"first at {bad.nonzero()[0].tolist()}")
             if not torch.equal(got_s[:, 0, :].T.contiguous().view(torch.int32), k1_first.view(torch.int32)):
                 raise AssertionError(f"phase1 K5 edges {dtype} kk={kk}: a first candidate is not K1's tile maximum")
-    if ts.tile_topk.wide_launches - wide0 != 2 * sum(kk > ts.TILE_TOPK_LIST_K for kk in EDGE_KKS):
+    if ts.tile_topk.wide_launches - wide0 != len(dtypes) * sum(kk > ts.TILE_TOPK_LIST_K for kk in EDGE_KKS):
         raise AssertionError("phase1 K5 edges: the wide entry did not run for every kk above the list entry's")
     log(f"phase1 K5 edges (8 tiles x {DIM}, B={EDGE_B}, ties, masked rows, a masked tile, a 3-row tile; "
-        f"kk {list(EDGE_KKS)}, bf16 and f16, list and wide entries): rows and score bits equal to the twin's, "
+        f"kk {list(EDGE_KKS)}, bf16, f16 and f32, list and wide entries): rows and score bits equal to the twin's, "
         "first candidates equal to K1's tile maxima")
 
 

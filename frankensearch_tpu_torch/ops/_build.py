@@ -25,7 +25,7 @@ SOURCES = ("group_max.cu", "gather_rescore.cu", "flat_score.cu", "tile_topk.cu",
 #: headers the sources include (part of the build's hash): group_scan.cuh
 #: is the mma.sync scoring body of K5, hopper.cuh the TMA, mbarrier and
 #: wgmma primitives of K1 and K4 (group_max.cu), scan_f32.cuh the FFMA
-#: scoring body of K1's and K5's f32 forms
+#: scoring body of K1's f32 form
 HEADERS = ("group_scan.cuh", "hopper.cuh", "scan_f32.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (

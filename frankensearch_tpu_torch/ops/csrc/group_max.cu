@@ -60,7 +60,8 @@
 // the TPU kernel's dot_general on f32 operands is f32 products and sums,
 // which wgmma cannot give (TF32 rounds the operands). It scores each
 // (group, tile of up to 64 queries) with the FFMA body of scan_f32.cuh
-// (K5's f32 form shares it, so K5's candidates are these scores' bits),
+// (K5's f32 form scores with the same fmaf chain, so K5's candidates are
+// these scores' bits),
 // adds the mask, takes the max over the thread's 4 rows, then over the 8
 // lanes of equal t (shuffles) and the 4 warps (shared memory). A block is
 // one (group, query tile), the query tile fastest, so a group's blocks run

@@ -1,5 +1,6 @@
-// The f32 scoring body of K1 (group_max.cu) and K5 (tile_topk.cu), for
-// sm_90a.
+// The f32 scoring body of K1 (group_max.cu), for sm_90a. K5's f32 entry
+// (tile_topk.cu) scores with its own staging and the same fmaf chain, so
+// the same bits.
 //
 // score_group_f32_with() computes, for one 128-row group of an f32 slab
 // and a tile of kNT * 8 queries, the dot products dot(q[b], slab[r]) with

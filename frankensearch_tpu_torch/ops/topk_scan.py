@@ -480,8 +480,9 @@ def tile_topk(
     """K5 (replaces ``_tile_topk_kernel``): (T, kk, B) per-tile top-kk
     scores and slab rows. CUDA tensors run csrc/tile_topk.cu (tiles of
     2048 rows): its threshold-list entry, on K1's scoring body (an f32
-    slab: K1's FFMA body), for ``kk <= TILE_TOPK_LIST_K`` and dim % 64 ==
-    0, else its wide entry (argmax passes; counted in
+    slab: an FFMA scan with K1's f32 bits, overlapped with the selection,
+    on a query tile sized to the batch), for ``kk <= TILE_TOPK_LIST_K`` and
+    dim % 64 == 0, else its wide entry (argmax passes; counted in
     ``tile_topk.wide_launches`` as well); CPU tensors the plain twin."""
     if slab.device.type == "cpu":
         return tile_topk_plain(slab, queries, mask, kk, tile_n)

@@ -17,7 +17,8 @@ hybrid-1M with phase 8's 1M x 384 quality tier and the trained 384
 encoder (``data/quality_encoder_384``), served through the Refined phase
 with the query-embedding cache off, so that every call runs the encoder;
 semantic-1M-f32: the semantic cell's vectors as an f32 slab (K1 and K2's
-f32 forms); semantic-1M-mrl: the semantic cell with
+f32 forms); semantic-1M-f32-pallas: the same served with
+``scan_mode="pallas"`` (K5's f32 form); semantic-1M-mrl: the semantic cell with
 ``mrl_search_dims=64``; semantic-1M-ivf: chip_smoke's clustered 1M corpus
 with its IVF arm, ``scan_mode="ivf"`` at the default nprobe 8) and, for
 each at B = 256 and B = 1 (the cell's first query), after three warm-up calls
@@ -35,7 +36,9 @@ of ``TwoTierSearcher.search_batch``:
     for the total.
 
 Prints one line per (cell, B), then the card's name and power limit, then a
-JSON summary as the last line. The profiler table and the cProfile listing
+JSON summary as the last line. More than one cell runs as a process per
+cell, and each trace is checked against the port's launch counters (see
+``traced``): a row whose trace missed a launch says so. The profiler table and the cProfile listing
 of each (cell, B) go to ``OUT_DIR/profile_<cell>_b<B>.txt``.
 
 ``python3 profile_chip.py --kernels [ROOT]`` times the flat lane's class
@@ -62,11 +65,20 @@ enqueue wherever the card waits on it (K2's groups at B = 1 stay in L2
 between calls); K1, K2, K6, K4 and K2-i8 also get their device time
 (``device_ms``: torch.profiler's self device time of every kernel of one
 call of the wrapper). The last line is a JSON summary.
+
+``python3 profile_chip.py --k5-split [ROOT]`` splits K5-f32 (the per-tile
+top-k on an f32 slab, 1,007,616 x 256, kk = 60, B = 256, 8, 1) of the
+tree under ROOT into its scan and its selection: it times the kernel as it
+is and two scratch builds of it made under ``build/k5split/`` (one without
+the selection, one whose scan is replaced by hashed scores; see
+``K5_SPLIT_PATCHES``), each in a process of its own, and prints the ptxas
+report of the list entry's instances and K5 (bf16) at B = 256 beside it.
 """
 
 from __future__ import annotations
 
 import cProfile
+import hashlib
 import io
 import json
 import os
@@ -80,18 +92,64 @@ REPS = 10
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def profile_once(fn, path: str) -> tuple[float, float, float]:
-    """(device ms, host ms under torch.profiler, host ms under cProfile) of
-    one call each; writes both reports to ``path``."""
+#: the port's kernels as their names begin in a trace, by the launch
+#: counters (chip_smoke.launch_counters) whose launches run them: K6 runs
+#: K1's kernel, then its own
+TRACED_KERNELS = (
+    (("K1", "K4", "K6"), ("group_max_kernel<", "group_max_f32_kernel<")),
+    (("K2", "K2-i8"), ("gather_rescore_kernel<", "gather_rescore_i8_kernel<")),
+    (("K3",), ("flat_fused_kernel",)),
+    (("K5",), ("tile_topk_kernel<", "tile_topk_f32_kernel<", "tile_topk_wide_kernel<")),
+    (("K6",), ("tile_select_kernel",)),
+)
+#: the idle seconds around the calls in each profiler run a call gets
+#: before its trace counts as incomplete
+TRACE_PADS = (0.0, 0.05, 0.5)
+
+
+def traced(fn, iters: int = 1):
+    """``iters`` calls of ``fn`` under torch.profiler, ending in a device
+    sync: (profiler, host ms of the calls, missing, pad) for the first run
+    whose trace holds a kernel event for every launch the port's wrappers
+    counted in it; ``missing`` names the kernels that the last run's trace
+    still lacked. Traces taken late in a process have missed the
+    first long kernel of a call (K1-f32, K4, K5-f32) while holding the
+    rest, so each retry idles longer inside the profiled run before and
+    after the calls (TRACE_PADS)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        torch_prof_ms = (time.perf_counter() - t0) * 1000.0
+    import chip_smoke as cs
+
+    counters = cs.launch_counters()
+    for pad in TRACE_PADS:
+        before = {name: w.launches for name, w in counters.items()}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1000.0
+            time.sleep(pad)
+        launched = {name: w.launches - before[name] for name, w in counters.items()}
+        names = [e.name for e in prof.events() if e.device_type != DeviceType.CPU]
+        missing = [kernels[0] for wrappers, kernels in TRACED_KERNELS
+                   if sum(any(k in n for k in kernels) for n in names) < sum(launched[w] for w in wrappers)]
+        if not missing:
+            break
+    return prof, host_ms, missing, pad
+
+
+def profile_once(fn, path: str) -> tuple[float, float, float, list, float]:
+    """(device ms, host ms under torch.profiler, host ms under cProfile,
+    kernels the trace missed, the run's idle pad) of one call each (see
+    :func:`traced`); writes both reports to ``path``."""
+    import torch
+    from torch.autograd import DeviceType
+
+    prof, torch_prof_ms, missing, pad = traced(fn)
     events = prof.key_averages()
     device_ms = sum(
         e.self_device_time_total for e in events if e.device_type != DeviceType.CPU
@@ -110,23 +168,22 @@ def profile_once(fn, path: str) -> tuple[float, float, float]:
     with open(path, "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=30))
         f.write(f"\ncProfile ({cprofile_ms:.2f} ms host):\n{listing.getvalue()}")
-    return device_ms, torch_prof_ms, cprofile_ms
+    return device_ms, torch_prof_ms, cprofile_ms, missing, pad
 
 
 def device_split(fn, iters: int = 10) -> tuple[float, dict]:
     """Device time of one call of ``fn``: the self device time of all its
-    kernels and copies under torch.profiler, over ``iters`` calls; and the
-    same per kernel name."""
+    kernels and copies under torch.profiler, over ``iters`` calls (a trace
+    that holds all the port's launches, see :func:`traced`, else
+    RuntimeError); and the same per kernel name."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    prof, _, missing, _ = traced(fn, iters)
+    if missing:
+        raise RuntimeError(f"torch.profiler's trace missed launches of {missing} in {len(TRACE_PADS)} profiled runs")
     by_name = {e.key: e.self_device_time_total / iters / 1000.0
                for e in prof.key_averages() if e.device_type != DeviceType.CPU}
     return sum(by_name.values()), by_name
@@ -302,6 +359,176 @@ def time_kernels(root: str) -> int:
     return 0
 
 
+#: (B, kk) at which ``--k5-split`` times K5-f32: the serve batch, the
+#: fused lane's pad and a singleton at the searcher's budget
+K5_SPLIT_SHAPES = ((256, 60), (8, 60), (1, 60))
+
+#: Scratch builds of K5-f32's list entry for ``--k5-split``, as textual
+#: patches of a tree's ``tile_topk.cu`` (the first form whose old strings
+#: all appear): "nosel" skips the selection after each group's scan,
+#: "noscan" replaces the scan with hashed scores in [-0.5, 0.5) (what the
+#: selection meets on random rows: as many survivors), written as the
+#: scan's epilogue would write them. None is a kernel of the port.
+_HASH_SCORE = ("__device__ __forceinline__ float split_hash(long long r, int c) {\n"
+               "  unsigned h = static_cast<unsigned>(r) * 2654435761u ^ static_cast<unsigned>(c) * 40503u;\n"
+               "  h ^= h >> 13; h *= 0x5bd1e995u; h ^= h >> 15;\n"
+               "  return static_cast<float>(h >> 8) * (1.0f / 16777216.0f) - 0.5f;\n}\n")
+K5_SPLIT_PATCHES = {
+    "first port (one role, the selection after each group)": {
+        "nosel": [("    const int col0 = lg * kGroup;\n    if (lg == 0) {",
+                   "    if (kKind == kF32) continue;  // scratch: no selection\n"
+                   "    const int col0 = lg * kGroup;\n    if (lg == 0) {")],
+        "noscan": [("// The scores of one group (score_group_with, or its f32 form) into epi.",
+                    _HASH_SCORE + "// The scores of one group (score_group_with, or its f32 form) into epi."),
+                   ("    fs_scan_f32::score_group_f32_with<kQTile / 8>(static_cast<const float*>(q), "
+                    "static_cast<const float*>(slab),\n"
+                    "                                                  mask, row0, q0, b, d, sm.u.gf, epi);",
+                    "    for (int i = threadIdx.x; i < kGroup; i += kThreads) sm.u.gf.mask[i] = mask[row0 + i];\n"
+                    "    __syncthreads();\n"
+                    "    float acc[2][kQTile / 8][4];\n"
+                    "    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;\n"
+                    "#pragma unroll\n    for (int mt = 0; mt < 2; ++mt)\n"
+                    "#pragma unroll\n      for (int nt = 0; nt < kQTile / 8; ++nt)\n"
+                    "#pragma unroll\n        for (int c = 0; c < 4; ++c)\n"
+                    "          acc[mt][nt][c] = split_hash(row0 + w * 32 + mt * 16 + (l >> 2) + (c >> 1) * 8,\n"
+                    "                                      q0 + nt * 8 + 2 * (l & 3) + (c & 1));\n"
+                    "    epi(acc);")],
+    },
+    "two roles (8 scan warps beside the selection warps)": {
+        "nosel": [("    const ScoreRow* staged = scores[buf];\n    if (grp == 0) {",
+                   "    const ScoreRow* staged = scores[buf];\n    if (grp >= 0) {  // scratch: no selection\n"
+                   "    } else if (grp == 0) {")],
+        # nosel with the query loads (8 of a scan thread's 12 a step) once a
+        # stage: wrong scores, the scan's time with a third of its loads
+        "nosel_hoisted": [("    const ScoreRow* staged = scores[buf];\n    if (grp == 0) {",
+                           "    const ScoreRow* staged = scores[buf];\n    if (grp >= 0) {  // scratch: no selection\n"
+                           "    } else if (grp == 0) {"),
+                          ("(&qs[(c0 + nt * 8 + 2 * t + j) * ldq + k]);",
+                           "(&qs[(c0 + nt * 8 + 2 * t + j) * ldq + 0]);  // scratch: hoisted")],
+        "noscan": [("// The scan role (warps 0-7)", _HASH_SCORE + "// The scan role (warps 0-7)"),
+                   ("    for (int kc = 0; kc < n_ch; ++kc) {\n      const int it = grp * n_ch + kc;",
+                    "#pragma unroll\n    for (int mt = 0; mt < kMT; ++mt)\n"
+                    "#pragma unroll\n      for (int nt = 0; nt < kWN; ++nt)\n"
+                    "#pragma unroll\n        for (int c = 0; c < 4; ++c)\n"
+                    "          acc[mt][nt][c] = split_hash(row_base + grp * kGroup + r0 + mt * 16 + g + 8 * (c >> 1),\n"
+                    "                                      q0 + c0 + nt * 8 + 2 * t + (c & 1));\n"
+                    "    for (int kc = n_ch; kc < n_ch; ++kc) {  // scratch: no scan\n"
+                    "      const int it = grp * n_ch + kc;")],
+    },
+}
+
+
+def k5_split(root: str) -> int:
+    """``--k5-split [ROOT]``: K5-f32's list entry of the tree under ROOT at
+    K5_SPLIT_SHAPES on a seeded 1,007,616 x 256 f32 slab, as it is ("full")
+    and as the two scratch builds of K5_SPLIT_PATCHES, each copy of the
+    package under ``build/k5split/`` and timed in a process of its own (all
+    three built first, in parallel); with the ptxas report of the kernel's
+    f32 instances. Scan share = noscan's complement: full - noscan is the
+    time the scan adds, full - nosel the time the selection adds."""
+    import shutil
+    import subprocess
+
+    src = open(os.path.join(root, "frankensearch_tpu_torch", "ops", "csrc", "tile_topk.cu")).read()
+    form, patches = next((f, p) for f, p in K5_SPLIT_PATCHES.items()
+                         if all(old in src for pairs in p.values() for old, _ in pairs))
+    base = os.path.join(HERE, "build", "k5split", hashlib.sha256(src.encode()).hexdigest()[:12])
+    roots = {}
+    for variant, pairs in [("full", [])] + list(patches.items()):
+        vroot = os.path.join(base, variant)
+        shutil.rmtree(vroot, ignore_errors=True)
+        os.makedirs(vroot)
+        for part in ("frankensearch_tpu_torch", "native", "chip_smoke.py"):
+            path = os.path.join(root, part)
+            if os.path.isdir(path):
+                shutil.copytree(path, os.path.join(vroot, part), ignore=shutil.ignore_patterns("__pycache__"))
+            elif os.path.exists(path):
+                shutil.copy(path, vroot)
+        text = src
+        for old, new in pairs:
+            text = text.replace(old, new, 1)
+        with open(os.path.join(vroot, "frankensearch_tpu_torch", "ops", "csrc", "tile_topk.cu"), "w") as f:
+            f.write(text)
+        roots[variant] = vroot
+    me = os.path.abspath(__file__)
+    builds = [subprocess.Popen([sys.executable, me, "--k5-time", r, "build"]) for r in roots.values()]
+    if any(p.wait() for p in builds):
+        raise RuntimeError("a K5-f32 split build failed")
+    out = {"root": root, "form": form, "variants": {}}
+    for variant, vroot in roots.items():
+        run = subprocess.run([sys.executable, me, "--k5-time", vroot], capture_output=True, text=True, check=True)
+        out["variants"][variant] = json.loads(run.stdout.strip().splitlines()[-1])
+    for variant, rec in out["variants"].items():
+        load = rec["b256_under_load"]
+        print(f"{root} K5-f32 {variant}: " + ", ".join(f"B={r['b']} kk={r['kk']} {r['ms']:.4f} ms"
+                                                       for r in rec["times"])
+              + f"; K5 bf16 B=256 kk=60 {rec['bf16_b256_kk60_ms']:.4f} ms; at B=256 the SM clock "
+              f"{load['sm_mhz']:.0f} MHz, {load['power_w']:.1f} W ({load['samples']} samples)", flush=True)
+        for line in rec["ptxas"]:
+            print(f"  {line}", flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def k5_time(root: str, build_only: bool) -> int:
+    """``--k5-time ROOT [build]``: one tree's K5-f32 at K5_SPLIT_SHAPES (the
+    worker of ``--k5-split``); the last line is a JSON record."""
+    import torch
+
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    from frankensearch_tpu_torch.ops import _build
+    from frankensearch_tpu_torch.ops import topk_scan as ts
+
+    lib = _build.library_path()
+    if build_only:
+        return 0
+    ptxas, entry = [], None
+    for line in lib.with_suffix(".log").read_text().splitlines():  # the list entry's f32 instances
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "tile_topk" in line and "wide" not in line else None
+        elif entry and ("spill" in line or "Used" in line):
+            ptxas.append(f"{entry}: {line.strip()}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 10)
+    n = 1_007_616
+    slab = cs.unit_rows(gen, n, cs.DIM, dev)
+    mask = torch.zeros(n, device=dev)
+    mask[cs.N_DOCS:] = float("-inf")
+    times = []
+    for b, kk in K5_SPLIT_SHAPES:
+        q = cs.unit_rows(gen, b, cs.DIM, dev)
+        times.append({"b": b, "kk": kk, "ms": cs.cuda_median_ms(lambda: ts.tile_topk(slab, q, mask, kk), iters=20)})
+    q = cs.unit_rows(gen, 256, cs.DIM, dev)
+    clocks = under_load(lambda: ts.tile_topk(slab, q, mask, 60))
+    slab = slab.to(torch.bfloat16)  # K5 (bf16) at the serve batch: the selection code it shares
+    bf16_ms = cs.cuda_median_ms(lambda: ts.tile_topk(slab, q, mask, 60), iters=20)
+    print(json.dumps({"root": root, "times": times, "bf16_b256_kk60_ms": bf16_ms, "ptxas": ptxas,
+                      "b256_under_load": clocks, "gpu": cs.gpu_line()}), flush=True)
+    return 0
+
+
+def under_load(fn, seconds: float = 2.0) -> dict:
+    """The card's SM clock (MHz) and power draw (W) while ``fn`` runs back
+    to back for ``seconds``: medians of nvidia-smi's samples every 100 ms."""
+    import subprocess
+
+    import torch
+
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+                            "-lms", "100"], stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    smi.terminate()
+    out, _ = smi.communicate(timeout=30)
+    samples = [[float(x) for x in line.split(",")] for line in out.strip().splitlines()[2:] if "," in line]
+    return {"sm_mhz": statistics.median(c for c, _ in samples), "power_w": statistics.median(w for _, w in samples),
+            "samples": len(samples)}
+
+
 def main() -> int:
     # the port must reach neither jax nor the JAX package, even indirectly
     sys.modules["jax"] = None
@@ -314,6 +541,10 @@ def main() -> int:
     sys.path.insert(0, HERE)
     if len(sys.argv) > 1 and sys.argv[1] == "--kernels":
         return time_kernels(os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else HERE)
+    if len(sys.argv) > 1 and sys.argv[1] == "--k5-split":
+        return k5_split(os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else HERE)
+    if len(sys.argv) > 2 and sys.argv[1] == "--k5-time":
+        return k5_time(os.path.abspath(sys.argv[2]), sys.argv[3:] == ["build"])
     import chip_smoke as cs
     from frankensearch_tpu_torch.device import resolve_device
 
@@ -356,14 +587,14 @@ def main() -> int:
         return TwoTierSearcher(index, emb, lexical=bm25, quality_embedder=quality,
                                cache_query_embeddings=False), queries
 
-    def semantic_f32(dev, tmp):
+    def semantic_f32(dev, tmp, scan_mode="auto"):
         from frankensearch_tpu_torch import TwoTierConfig, TwoTierIndex, TwoTierSearcher
         from frankensearch_tpu_torch.index.device_index import DeviceVectorIndex
 
         _, index, emb, vecs, queries = cs.semantic_cell(dev, tempfile.mkdtemp(dir=tmp))
         f32 = TwoTierIndex(DeviceVectorIndex(vecs, index.fast.doc_ids, emb.identity(), device=dev,
                                              slab_dtype="f32"))
-        return TwoTierSearcher(f32, emb, config=TwoTierConfig(fast_only=True)), queries
+        return TwoTierSearcher(f32, emb, config=TwoTierConfig(fast_only=True, scan_mode=scan_mode)), queries
 
     def semantic_mrl(dev, tmp):
         from frankensearch_tpu_torch import TwoTierConfig, TwoTierSearcher
@@ -383,14 +614,30 @@ def main() -> int:
         index.fast.enable_ivf()
         return TwoTierSearcher(index, emb, config=TwoTierConfig(fast_only=True, scan_mode="ivf")), queries
 
+    cells = (("semantic-1M", cs.semantic_cell), ("semantic-1M-pallas", semantic_pallas),
+             ("hybrid-60k", cs.hybrid_cell), ("hybrid-1M", hybrid1m),
+             ("semantic-1M-int8", lambda dev, tmp: int8_cell(cs, dev, tmp)), ("hybrid-1M-m2v", hybrid1m_m2v),
+             ("hybrid-1M-quality", hybrid1m_quality), ("semantic-1M-f32", semantic_f32),
+             ("semantic-1M-f32-pallas", lambda dev, tmp: semantic_f32(dev, tmp, "pallas")),
+             ("semantic-1M-mrl", semantic_mrl), ("semantic-1M-ivf", semantic_ivf))
+    cells = [(cell, build) for cell, build in cells if len(sys.argv) <= 2 or cell in sys.argv[2:]]
+    if len(cells) > 1:
+        # a process per cell: a trace taken after another cell's profiled
+        # runs has missed launches of the port's kernels, the first cell's
+        # traces in a process never did (measured on the H100)
+        import subprocess
+
+        for cell, _ in cells:
+            run = subprocess.run([sys.executable, os.path.abspath(__file__), out_dir, cell],
+                                 stdout=subprocess.PIPE, text=True, check=True)
+            lines = run.stdout.strip().splitlines()
+            print("\n".join(lines[:-2]), flush=True)  # its log, without its card line and summary
+            rows += json.loads(lines[-1])["profile"]
+        cs.log(cs.gpu_line())
+        print(json.dumps({"profile": rows}), flush=True)
+        return 0
     with tempfile.TemporaryDirectory(prefix="fs_profile_") as tmp:
-        for cell, build in (("semantic-1M", cs.semantic_cell), ("semantic-1M-pallas", semantic_pallas),
-                            ("hybrid-60k", cs.hybrid_cell), ("hybrid-1M", hybrid1m),
-                            ("semantic-1M-int8", lambda dev, tmp: int8_cell(cs, dev, tmp)), ("hybrid-1M-m2v", hybrid1m_m2v),
-                            ("hybrid-1M-quality", hybrid1m_quality), ("semantic-1M-f32", semantic_f32),
-                            ("semantic-1M-mrl", semantic_mrl), ("semantic-1M-ivf", semantic_ivf)):
-            if len(sys.argv) > 2 and cell not in sys.argv[2:]:
-                continue
+        for cell, build in cells:
             built = build(dev, tmp)
             searcher, queries = built[0], built[-1]
             for b in (256, 1):
@@ -402,7 +649,7 @@ def main() -> int:
                 for _ in range(3):
                     call()
                 host = [cs.timed(call)[1] for _ in range(REPS)]
-                device_ms, torch_prof_ms, cprofile_ms = profile_once(
+                device_ms, torch_prof_ms, cprofile_ms, missing, pad = profile_once(
                     call, os.path.join(out_dir, f"profile_{cell}_b{b}.txt")
                 )
                 row = {
@@ -414,12 +661,16 @@ def main() -> int:
                     "host_ms_under_torch_profiler": torch_prof_ms,
                     "host_ms_under_cprofile": cprofile_ms,
                     "embed_fused": searcher.last_phase1_embed_fused,
+                    "trace_missed": missing,
+                    "trace_pad_s": pad,
                 }
                 rows.append(row)
                 cs.log(f"{cell} B={b}: host {row['host_ms_median']:.3f} ms median of {REPS} "
                        f"({row['host_ms_min']:.3f}-{row['host_ms_max']:.3f}); device {device_ms:.3f} ms; "
                        f"idle {row['idle_share']:.3f}; under torch.profiler {torch_prof_ms:.3f} ms, "
-                       f"under cProfile {cprofile_ms:.3f} ms; embed in the pass {row['embed_fused']}")
+                       f"under cProfile {cprofile_ms:.3f} ms; embed in the pass {row['embed_fused']}; "
+                       f"trace idle pad {pad} s"
+                       + (f"; the trace MISSED {missing}: device ms and idle share are not whole" if missing else ""))
             del built, searcher
             torch.cuda.empty_cache()
     cs.log(cs.gpu_line())

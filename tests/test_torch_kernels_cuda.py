@@ -15,9 +15,10 @@ imports no jax, so it also runs where jax is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-``PYTHONPATH=ROOT python tests/test_torch_kernels_cuda.py`` prints the K2
-and K2-i8 digests (``K2_DIGESTS``, ``K2I8_DIGESTS``) that the port package
-under ROOT gives on the card, for pinning them from an earlier tree.
+``PYTHONPATH=ROOT python tests/test_torch_kernels_cuda.py`` prints the K2,
+K2-i8 and K5-f32 digests (``K2_DIGESTS``, ``K2I8_DIGESTS``,
+``K5F32_DIGESTS``) that the port package under ROOT gives on the card, for
+pinning them from an earlier tree.
 
 Tolerances: K1/K2/K2-i8/K5/K6 vs twin 1e-5 relative (bf16 and int8
 products are exact; the tensor-core and warp sums run in another order
@@ -364,7 +365,7 @@ def test_group_max_bits_unchanged_by_the_header_split(cuda_device, dtype, b):
     assert digest == K1_DIGESTS[(str(dtype), b)]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("kk", [1, 2, 7, 64, 65, 2048])
 def test_tile_topk_edges_bitwise(cuda_device, kk, dtype):
     """K5 on chip_smoke's adversarial tiles (every score exact in f32):
@@ -721,14 +722,6 @@ def test_encoder_forward_card_vs_cpu(cuda_device, form):
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
-if __name__ == "__main__":
-    for case in K2_CASES:
-        print(f"    {case!r}: \"{_k2_digest(torch.device('cuda'), case)}\",")
-    print("K2I8_DIGESTS")
-    for case in K2I8_CASES:
-        print(f"    {case!r}: \"{_k2i8_digest(torch.device('cuda'), case)}\",")
-
-
 # --------------------------------------------------------------------------
 # the f32 forms (K1, K2, K5 by FFMA), K2 at the IVF probe's shapes, and the
 # MRL, int4 and IVF lanes
@@ -823,3 +816,138 @@ def test_mrl_int4_and_ivf_lanes_gpu_vs_cpu(cuda_device):
     full = ivf.search_batch(q.numpy(), 10, nprobe=16)
     exact = topk_scan.scan_topk_xla(torch.from_numpy(x).to(torch.bfloat16), q, 10)
     _same_up_to_near_ties(full, exact, rel=2.0 ** -8)
+
+
+#: K5-f32's cases: (d, B, kk) on an 8-tile f32 slab, every query-tile width
+#: (B = 1 .. 256, ragged tiles at 5, 9, 33, 65) and kk from 1 to the list
+#: entry's widest
+K5F32_CASES = [(d, b, kk) for d in (256, 64) for b in (1, 5, 8, 9, 33, 64, 65, 256) for kk in (1, 10, 60, 64)]
+
+#: sha256 of K5-f32's (out_s, out_i) bits on _k5f32_input's seeded data, as
+#: the first f32 list entry (one block per (tile, 64 queries), the selection
+#: after each group's scan) gave them on the tree of commit 7f543f5 (H100,
+#: nvcc 12.9, `PYTHONPATH=ROOT python tests/test_torch_kernels_cuda.py` on
+#: that tree): every score is one fmaf chain in dim order and the list keeps
+#: the top kk by a total order, so no redesign may change a bit
+K5F32_DIGESTS = {
+    (256, 1, 1): "27d57ed5fbe1efb4b96908c8da1cf275bd66b28913dab312788c3e362c47d4b4",
+    (256, 1, 10): "0c0e2b93bee511389e9d069a3d15978e7d49bf846260d187b4f2e30d354e6205",
+    (256, 1, 60): "f2e6a0823c8df96a9ae6c7bb3aa625c0ffa8602c4671eaa2c50ef39833a68f3f",
+    (256, 1, 64): "125fab9a56a18b99630292719b0b563b05220d3861964c38328d2fc662683de9",
+    (256, 5, 1): "07bc76d622abf62b5e8e811cf42088a3d92fc2942ef31f4902327e63cfddf4ab",
+    (256, 5, 10): "ceb16cb80f1bee88fbf5c4d5ddc634557d53c42d6a608d11a13877ae0d8b9b5c",
+    (256, 5, 60): "ef978ca1e9f787db986deb45ff4470ef220743855baf1c232d7f84467525194c",
+    (256, 5, 64): "a4060c1338184b1ecd6b178db6aa7695a3a39e60828762ae1f505acbb8253911",
+    (256, 8, 1): "5937f7a38c13060194fb75ea53b02475eea2fbbd66db259784864e1f72463111",
+    (256, 8, 10): "6bde78fcf64762ac466fa3e0ffe2bcb3d48731a59285c18dd5254d809b2d58fd",
+    (256, 8, 60): "f24627b35e351a9cbbfd923b976a0171cfbb67a3f5592af1eea62b1f99ab7a10",
+    (256, 8, 64): "b482de3a61cdf79ef610c2628242a65f8f8cc113b8bf8edfe8c48edc3c7ee648",
+    (256, 9, 1): "72d078ddf80ef06fd327f0594c220db6b20fc75f726117a5e50a5fc6affe75d4",
+    (256, 9, 10): "135d1659359d7415426c6df4fceecf1446a43fe8121102d6c5e3b340cb6789bf",
+    (256, 9, 60): "24086030783fea8f89f3cc8d11f939bef92622a9e93db3629b9c68a2418dcec4",
+    (256, 9, 64): "53b541387cac924f8003da2faa660b6bc62a0a761ae9a481470ed41c82f12cbd",
+    (256, 33, 1): "e1afcb6c1ece5c56e17d5be7ecaf7bd4de8b1e2b6f362082a121c8c2fdad60a5",
+    (256, 33, 10): "f09aa18e63f4e752f1c862b5dd3f707a3c446423bf268798e30125dcaa911c47",
+    (256, 33, 60): "55a4fef2702353b8604e97fe1a8ca9d36c7b5ed0e7c79216ddc9bc5b4767556d",
+    (256, 33, 64): "d264577dafe6675466ea0e5f8ee661ca8fa8c097f8bd9499fb9c56caa0fb044c",
+    (256, 64, 1): "0fc319b260f998a41ac2e6d7e23913da61328619b2341cd18cc4cbb1bcf7e24f",
+    (256, 64, 10): "956a74e5dd7fb6e0cd50cd38c4792072ff7f9bc56963ccc14b21010fcc4b6d38",
+    (256, 64, 60): "545c8a9c0c9e5afad05aed775ab731427da0b360293603c2459d7fb944e47b5e",
+    (256, 64, 64): "52c65f95b19937407b1fc653965f553ec7e55a0b12c6231228518c51b16c2c9b",
+    (256, 65, 1): "fc4dd50f0e6635a061bcc942307f39c991ac46ebc9aeaaf01e45495d6820fe29",
+    (256, 65, 10): "410b5bda69c460ac8f00780dee3355f0d02528903c49a30f9693ae91e92c0f56",
+    (256, 65, 60): "24f4cae7171b9d4c8f91142be283ecc4394db353b71597fa49cb1f74a3339af0",
+    (256, 65, 64): "9703ea1f55cb3beca3a3df618dced444e6360ce1517d9b6085065c0410e10f4b",
+    (256, 256, 1): "909facf4d23c0808d5c0f33d93bd6b408420cd83bd12bdf6df7947232488e91c",
+    (256, 256, 10): "5bcd426dad6bfb15365cbee9585f5778e985cd9e988e3ff571879c72eec507fb",
+    (256, 256, 60): "abd0960cf342031e73041f84eaf05f2da4f9668c6a605eba402241fe82b53350",
+    (256, 256, 64): "879d403836e5085b86ebd6e0336833525f8aee15d1102c86ee9a5957fec415da",
+    (64, 1, 1): "09aef11012186df82e4dacb9c0802f38aad505116c2652490cc4f0656f577e5b",
+    (64, 1, 10): "2e0d75897eb9b996db3b9730c17044bc8e4d3ba72ed47cf66e47aceb27b7fa1d",
+    (64, 1, 60): "bafed995b6586a0bd28c3c9044e577423619db69521079152ad3d5b86212b055",
+    (64, 1, 64): "b2b10b5c5f738809b6ae983b937da5a9b0882c28e3af6657c8059303f9a7a446",
+    (64, 5, 1): "279b50a68bf70f981584d2c82e3ec58e1b2218464920a39ef31d383a3689a91f",
+    (64, 5, 10): "0fbd44d04c0df79a9f7eb02631bf3deab1562b23f130223fd8a9209513ec16df",
+    (64, 5, 60): "97437d4c10d64da7a3e380646d063ea9d4bbcb28f47c9c347d45585db4f5a54f",
+    (64, 5, 64): "af194acd45b21a1f3be32c70f2ee39b935c661f6f35f01085edb6fc996072ba7",
+    (64, 8, 1): "b3b73d9fc112adb65d28994f0c433be249b7829f577a711aaa132f8cc988296c",
+    (64, 8, 10): "6d80a1756d016303975cdad6072946f2197241579c5f0406d451b2ee4be88a75",
+    (64, 8, 60): "66597f40da946241411779cd0341f2f32f152f93d84a5850583c4e4fc32072c4",
+    (64, 8, 64): "d344b3f4814d2c31b9aaf90dbe6325cd1d5c429ea502eb773e6827523d086586",
+    (64, 9, 1): "6f7f22ca555ab01aa2037b55336efd11f5de29aa97a6faf976295286143989c9",
+    (64, 9, 10): "4d180322848dfa0aee40c95d2919994640649f293e1df928188eed1292198845",
+    (64, 9, 60): "9528aaa1c2956a0c926b0f9c4de4e09b64911f4e2ed46bb0c58b95a4c18a0ed1",
+    (64, 9, 64): "a7b03c630cb796e2cb4af376783b5ce71f1a070cd47ad8f130c79155d634cd82",
+    (64, 33, 1): "6712dd560c35895918c4f9ee163c263ec225638e5b92a7b19dd2e76f53237afb",
+    (64, 33, 10): "70633eae9dbcd5ee60e10258b5cafdf83a4e62d3230525725c71f1395120aa91",
+    (64, 33, 60): "51eb37331739af1f051ba17a09d613c5840f55d289ee4eda93ba4079f1e8cc72",
+    (64, 33, 64): "bc4c442740d0ac1e803de704f3242435d08d255b21c3f7c8dedacc695e0b43ec",
+    (64, 64, 1): "4c824ae45642ad7a3f63b3e3e466ad65db3afadd057653af6a61776fe36e0ac4",
+    (64, 64, 10): "ae33efb5a9b7e99ae1647b9085313acf738543563fc4b66f3ea07d5bfd7bceaa",
+    (64, 64, 60): "a1bfc8cea2ff928f4c01a73dfba85cd96b1e353fdcddc8caa984c7717e461722",
+    (64, 64, 64): "68e4053994892cddf607e00ff6134f6de6ff0d170219e5f85d5ca2dc86cfbc47",
+    (64, 65, 1): "aeb6500fc715cfa2bb71feda090ee3dd049e2b1fe9987c2b9974d1719fb69e81",
+    (64, 65, 10): "82c42f4b290226b43bd72156123e70c61c95be797e9b07c878949bb6827888da",
+    (64, 65, 60): "83433ae87ac80fcd8e5a293794e3df6c136a52dae826d441b02e6630e91e42cc",
+    (64, 65, 64): "fe9c1c11c72eaa94270df393e3d7677c5723750c80a07fdf104688f029d6191c",
+    (64, 256, 1): "41c04818d7ab0c1c827ab21278d379762199b76f5c4af768cf4548a939f11550",
+    (64, 256, 10): "578f94c63a86059aeb74c6409c03682a12e4aff344149518778b453f5414db04",
+    (64, 256, 60): "5f15ae772cc447190feaae9b5a3dc6ec0a219086c37dd5fdf5b5842cc639c174",
+    (64, 256, 64): "2795028695befb34afe85d314fb4f6b18c805dba0a62b278389e4a62b53798a0",
+}
+
+
+def _k5f32_input(d: int, b: int):
+    gen = torch.Generator(device="cpu").manual_seed(20261019 + d)
+    slab = torch.randn(16384, d, generator=gen)
+    slab = slab / slab.norm(dim=1, keepdim=True)
+    q = torch.randn(b, d, generator=gen)
+    mask = torch.where(torch.rand(16384, generator=gen) < 0.1, float("-inf"), 0.0)
+    mask[5 * 2048 : 6 * 2048] = float("-inf")  # a masked tile
+    mask[6 * 2048 : 7 * 2048] = float("-inf")  # a tile of three live rows
+    mask[6 * 2048 + torch.tensor([0, 1000, 2047])] = 0.0
+    return slab, q, mask
+
+
+def _k5f32_digest(dev, case) -> str:
+    d, b, kk = case
+    slab, q, mask = (x.to(dev) for x in _k5f32_input(d, b))
+    out_s, out_i = topk_scan.tile_topk(slab, q, mask, kk)
+    return hashlib.sha256(out_s.cpu().view(torch.int32).numpy().tobytes()
+                          + out_i.cpu().numpy().tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("case", K5F32_CASES, ids=[f"d{d}-{b}-{kk}" for d, b, kk in K5F32_CASES])
+def test_tile_topk_f32_bits_equal_the_first_port(cuda_device, case):
+    assert _k5f32_digest(cuda_device, case) == K5F32_DIGESTS[case]
+
+
+@pytest.mark.parametrize("b", [1, 8, 9, 16, 17, 32, 33, 64, 65, 300])
+def test_tile_topk_f32_query_tiles_match_twin_and_solo(cuda_device, b):
+    """Every query-tile width of K5-f32's list entry (8, 16, 32, 64 queries,
+    full and ragged) against its twin (1e-5, near ties may swap), its rows
+    distinct and in their tiles, and the first and last query's bits the
+    same alone as in the batch."""
+    slab, mask, gen = _unit_slab(b + 1000)
+    mask[2048 + 3 : 4096] = float("-inf")  # tile 1 holds 3 live rows: it runs out
+    slab, mask = slab.to(cuda_device), mask.to(cuda_device)
+    q = torch.randn(b, 256, generator=gen).to(cuda_device)
+    got_s, got_i = topk_scan.tile_topk(slab, q, mask, 60)
+    want_s, _ = topk_scan.tile_topk_plain(slab, q, mask, 60)
+    chip_smoke.check_close(got_s, want_s, "K5-f32 scores")
+    chip_smoke.check_tile_rows(slab, q, mask, got_s, got_i, "K5-f32 rows")
+    for j in {0, b - 1}:
+        one_s, one_i = topk_scan.tile_topk(slab, q[j : j + 1], mask, 60)
+        assert torch.equal(one_s[:, :, 0].view(torch.int32), got_s[:, :, j].view(torch.int32)), j
+        assert torch.equal(one_i[:, :, 0], got_i[:, :, j]), j
+
+
+if __name__ == "__main__":
+    for case in K2_CASES:
+        print(f"    {case!r}: \"{_k2_digest(torch.device('cuda'), case)}\",")
+    print("K2I8_DIGESTS")
+    for case in K2I8_CASES:
+        print(f"    {case!r}: \"{_k2i8_digest(torch.device('cuda'), case)}\",")
+    print("K5F32_DIGESTS")
+    for case in K5F32_CASES:
+        print(f"    {case!r}: \"{_k5f32_digest(torch.device('cuda'), case)}\",")

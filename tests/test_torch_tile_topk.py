@@ -8,7 +8,8 @@ and rows and score bits are compared exactly: duplicated rows and a zero
 query row (exact ties: the first column wins), masked rows, a fully masked
 tile (every slot column 0 at -inf), and a tile with three finite rows, so
 kk above 3 reaches the -inf column-0 padding. Three tiles of 2048 rows,
-d = 128, kk <= 64.
+d = 128, kk <= 64, on a bf16 slab and on an f32 slab (the reference's K5
+then takes f32 products and sums; the inputs are exact in both).
 """
 
 import numpy as np
@@ -22,6 +23,8 @@ from frankensearch_tpu_torch.ops import topk_scan as tts
 from tests.test_torch_int8_scan import _ref_tile_topk as ref_tile_topk
 
 N_TILES, D = 3, 128
+#: the slab types: the reference's array type beside the port's
+DTYPES = {"bf16": (jnp.bfloat16, torch.bfloat16), "f32": (jnp.float32, torch.float32)}
 
 
 @pytest.fixture(scope="module")
@@ -30,11 +33,12 @@ def tiles():
 
 
 @pytest.mark.parametrize("kk", [1, 2, 7, 64])
-def test_tile_topk_twin_equals_reference_on_adversarial_tiles(tiles, kk):
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_tile_topk_twin_equals_reference_on_adversarial_tiles(tiles, dtype, kk):
     slab, q, mask = tiles
-    want_s, want_i = ref_tile_topk(jnp.asarray(slab, jnp.bfloat16), q, mask, kk)
-    got_s, got_i = tts.tile_topk(torch.from_numpy(slab).to(torch.bfloat16), torch.from_numpy(q),
-                                 torch.from_numpy(mask), kk)
+    jdt, tdt = DTYPES[dtype]
+    want_s, want_i = ref_tile_topk(jnp.asarray(slab, jdt), q, mask, kk)
+    got_s, got_i = tts.tile_topk(torch.from_numpy(slab).to(tdt), torch.from_numpy(q), torch.from_numpy(mask), kk)
     assert got_s.shape == (N_TILES, kk, 5)
     np.testing.assert_array_equal(got_i.numpy(), want_i)
     np.testing.assert_array_equal(got_s.numpy().view(np.uint32), want_s.view(np.uint32))
@@ -45,11 +49,12 @@ def test_tile_topk_twin_equals_reference_on_adversarial_tiles(tiles, kk):
     assert (got_i[2, live:].numpy() == 4096).all() and np.isneginf(got_s[2, live:].numpy()).all()
 
 
-def test_tile_topk_ties_come_out_column_ascending(tiles):
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_tile_topk_ties_come_out_column_ascending(tiles, dtype):
     """The zero query row ties every live column of tile 0: the twin lists
     them in column order, as the reference's first-column argmax does."""
     slab, q, mask = tiles
-    got_s, got_i = tts.tile_topk(torch.from_numpy(slab).to(torch.bfloat16), torch.from_numpy(q),
+    got_s, got_i = tts.tile_topk(torch.from_numpy(slab).to(DTYPES[dtype][1]), torch.from_numpy(q),
                                  torch.from_numpy(mask), 64)
     live = np.flatnonzero(mask[:2048] == 0.0)[:64]
     np.testing.assert_array_equal(got_i[0, :, 1].numpy(), live)
