@@ -82,7 +82,23 @@ Phases:
      appends, 1,000 deletes, a WAL sync: each appended doc its own top hit,
      no deleted doc returned, ``mode="ivf"`` refused until ``enable_ivf()``
      runs again, then ``compact()`` and a reopen with the top-10 bitwise
-     unchanged).
+     unchanged);
+ 10. built-1M-m2v, the library's entry point: ``IndexBuilder(root)`` (no
+     device named: the card) over phase 4's 1M docs with phase 7's
+     Model2Vec table (the embed through the bag lane on the card, the
+     default bf16 slab), its stats and artifacts checked (every doc kept,
+     an FLXB generation, sidecars); ``open_hybrid(root)`` (the FLXB arm on
+     the card in the split layout, behind a ``DeltaLexicalIndex``); phase
+     7's batch and singletons through the fused lane, K1, K2 and K3
+     counted, doc ids, fused scores and lexical pools bitwise phase 7's,
+     the device RRF bitwise the host oracle; 10,000 new docs (the vector
+     tier's append, then ``handle.delta``) each the top lexical hit of its
+     unique term before a seal; an incremental seal to a two-segment
+     stack on the card whose top-10 equals an exact f64 host BM25 over
+     1,010,000 docs; 1,000 deletes (half new) never returned, before or
+     after a reopen, across which the stack's lexical and the vector
+     arm's top-10 stay bitwise; K1, K2 and K3 against their twins at the
+     phase's shapes.
 
 The kernels line gives each kernel's time, its twin's, and its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -774,45 +790,57 @@ def check_flat_kernel(cell: str, classes, flat_inputs: dict, *, timed: bool = Tr
     return recs
 
 
-def lexical_oracle_check(bm25, queries: list[str], k: int) -> int:
+def lexical_oracle_check(arm, queries: list[str], k: int, *, phase: str = "phase4") -> int:
     """The device lanes' top-k against an exact f64 host BM25 (a scipy
-    sparse product over all postings, hot and tail): equal doc sets up to
-    ties within ORACLE_REL_TOL at the k-th score, scores within it too.
-    Returns how many queries' sets were equal outright."""
+    sparse product over all postings, hot and tail; for a segment stack,
+    each segment's postings with the stack's global idf weights): equal doc
+    sets up to ties within ORACLE_REL_TOL at the k-th score, scores within
+    it too. Returns how many queries' sets were equal outright."""
     import numpy as np
     from scipy import sparse
 
-    terms, docs, tfs = bm25._post_host
-    x = sparse.csr_matrix(
-        (tfs.astype(np.float64), (docs.astype(np.int64), terms.astype(np.int64))),
-        shape=(bm25.n_docs, bm25.vocab_size),
-    )
-    q = np.zeros((bm25.vocab_size, len(queries)), np.float64)
-    for j, text in enumerate(queries):
-        for tid, w in bm25._query_terms(text):
-            q[tid, j] = np.float32(w)
-    exact = np.asarray(x @ q)  # (N, Q)
-    got = bm25.search_candidates_batch(queries, k)
+    from frankensearch_tpu_torch.lexical.segments import SegmentedBm25
+
+    if isinstance(arm, SegmentedBm25):
+        segments, pairs = arm.segments, arm.query_pairs(queries)
+    else:
+        segments, pairs = [arm], [[arm._query_terms(text) for text in queries]]
+    cols, doc_ids = [], []
+    for seg, seg_pairs in zip(segments, pairs):
+        terms, docs, tfs = seg._post_host
+        x = sparse.csr_matrix(
+            (tfs.astype(np.float64), (docs.astype(np.int64), terms.astype(np.int64))),
+            shape=(seg.n_docs, seg.vocab_size),
+        )
+        q = np.zeros((seg.vocab_size, len(queries)), np.float64)
+        for j, query_pairs in enumerate(seg_pairs):
+            for tid, w in query_pairs:
+                q[tid, j] = np.float32(w)
+        cols.append(np.asarray(x @ q))  # (N_seg, Q)
+        doc_ids += seg.doc_ids
+    exact = np.concatenate(cols)
+    row_of = {d: r for r, d in enumerate(doc_ids)}
+    got = arm.search_candidates_batch(queries, k)
     outright = 0
     for j, cands in enumerate(got):
         col = exact[:, j]
         pos = np.flatnonzero(col > 0.0)
         top = pos[np.argsort(-col[pos], kind="stable")][:k]
-        want = {bm25.doc_ids[r] for r in top}
+        want = {doc_ids[r] for r in top}
         have = {c.doc_id for c in cands}
         for c in cands:
-            e = col[bm25._row_of[c.doc_id]]
+            e = col[row_of[c.doc_id]]
             if abs(c.score - e) > ORACLE_REL_TOL * e:
-                raise AssertionError(f"phase4 oracle query {j}: {c.doc_id} scored {c.score}, exact {e}")
+                raise AssertionError(f"{phase} oracle query {j}: {c.doc_id} scored {c.score}, exact {e}")
         if len(have) != len(want):
-            raise AssertionError(f"phase4 oracle query {j}: {len(have)} docs, exact top-k has {len(want)}")
+            raise AssertionError(f"{phase} oracle query {j}: {len(have)} docs, exact top-k has {len(want)}")
         if have == want:
             outright += 1
             continue
         kth = col[top[-1]]
         for d in have ^ want:
-            if abs(col[bm25._row_of[d]] - kth) > ORACLE_REL_TOL * kth:
-                raise AssertionError(f"phase4 oracle query {j}: {d} differs away from the k-th score")
+            if abs(col[row_of[d]] - kth) > ORACLE_REL_TOL * kth:
+                raise AssertionError(f"{phase} oracle query {j}: {d} differs away from the k-th score")
     return outright
 
 
@@ -1562,9 +1590,11 @@ def m2v_embedder(dev):
     return random_model2vec(vocab, dim=DIM, seed=SEED + 7, device=dev)
 
 
-def phase7_hybrid_m2v(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
+def phase7_hybrid_m2v(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict], dict]:
     """hybrid-1M-m2v: phase 4's corpus and lexical arm with a seeded
-    Model2Vec fast tier, served through the fully fused lane."""
+    Model2Vec fast tier, served through the fully fused lane. Returns its
+    record, launches and kernel records, and for phase 10 the embedder with
+    the batch's and the singletons' result rows and lexical pools."""
     import numpy as np
     import torch
 
@@ -1719,14 +1749,16 @@ def phase7_hybrid_m2v(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[di
         f"another bf16 value give vector hits equal up to ties within {BF16_DOT_BOUND:.3e}")
     kernels = check_kernels("hybrid-1M-m2v", index.fast.slab, index.fast._effective_mask(None, None), shapes)
     check_flat_kernel("hybrid-1M-m2v", bm25._blocked.classes, flat_inputs, timed=False)
-    del searcher, host, index, m2v, vecs
+    del searcher, host, index, vecs
     torch.cuda.empty_cache()
     return ({"batch_ms": batch_ms, "single_ms": single_ms, "lanes": lanes, "recall_at_10": recall,
              "recall_at_10_lane_precision": recall_lane, "f32_miss_max_gap": worst_gap,
              "singletons_bitwise": bitwise,
              "embed_s": [embed_s / 1000.0, embed2_s / 1000.0], "embed_docs_per_s": docs_per_s,
              "table_s": table_s, "index_build_s": build_s, "host_embed_other_bf16_query": moved},
-            launches, kernels)
+            launches, kernels,
+            {"m2v": m2v, "rows": [rows_of(o) for o in batch], "solo": [rows_of(o) for o in solo],
+             "pools": pools})
 
 
 def lift_world(seed: int = LIFT_SEED):
@@ -2426,6 +2458,198 @@ def phase9_scan_lanes(dev, tmp: str, semantic: dict) -> tuple[dict, dict, list[d
     return rec, launches, kernels
 
 
+def host_median_ms(fn, *, warmup: int = 2, iters: int = 10) -> float:
+    """Median host wall ms of ``fn`` (synchronized) over ``iters`` warm calls."""
+    for _ in range(warmup):
+        timed(fn)
+    return statistics.median(timed(fn)[1] for _ in range(iters))
+
+
+def sidecars_of(path: str) -> bool:
+    return os.path.exists(path + ".fsum") and os.path.exists(path + ".fspar")
+
+
+def phase10_built_m2v(dev, tmp: str, lexical: dict, m2v_run: dict) -> tuple[dict, dict, list[dict]]:
+    """built-1M-m2v: phase 4's 1M docs and phase 7's Model2Vec embedder
+    through the library's entry point: ``IndexBuilder.build()`` writes a
+    root (the bag-lane embed on the card, the FTVI slab, the JSON oracle
+    and its packed FLXB arm, the metadata store, sidecars, the manifest),
+    ``open_hybrid`` opens it on the card (the packed arm behind the delta),
+    and phase 7's traffic goes through the fused lane with bitwise phase 7's
+    results. Then 10,000 writes (the vector tier's append, then the lexical
+    delta) searchable before a seal, an incremental seal (a two-segment
+    stack held to an exact f64 BM25), 1,000 deletes and a reopen."""
+    import numpy as np
+    import torch
+
+    from frankensearch_tpu_torch import (
+        BulkDeviceBm25Index, EmbedderStack, IndexableDocument, IndexBuilder, TwoTierConfig, open_hybrid,
+    )
+    from frankensearch_tpu_torch.lexical.delta import DeltaLease, DeltaLexicalIndex
+    from frankensearch_tpu_torch.lexical.segments import SegmentedBm25
+
+    m2v, texts, queries, singles = m2v_run["m2v"], lexical["texts"], lexical["queries"], lexical["singles"]
+    root = os.path.join(tmp, "built")
+    docs = [IndexableDocument(doc_id=f"doc-{i:07d}", content=t) for i, t in enumerate(texts)]  # phase 4's ids
+    t0 = time.perf_counter()
+    stats = IndexBuilder(root).with_documents(docs).with_embedder_stack(EmbedderStack(fast=m2v)).build()
+    build_s = time.perf_counter() - t0
+    del docs
+    with open(os.path.join(root, "lexical", "CURRENT")) as f:
+        gen_dir = os.path.join(root, "lexical", f.read().strip())
+    flexb = os.path.join(gen_dir, "index.flexb")
+    if stats.doc_count != H1M_DOCS or stats.skipped_low_signal or stats.per_doc_errors or stats.error_count:
+        raise AssertionError(f"phase10: build stats {stats.doc_count} docs, {stats.skipped_low_signal} skipped, "
+                             f"{stats.error_count} errors")
+    if not os.path.exists(flexb) or not sidecars_of(flexb) or not sidecars_of(os.path.join(root, "vector.fast.idx")):
+        raise AssertionError("phase10: no FLXB generation, or an artifact without its sidecars")
+    sizes = {k: v for k, v in vars(stats.sizes).items()}
+    log(f"phase10 IndexBuilder.build() of {stats.doc_count} docs: {build_s:.1f} s; sizes {sizes}; "
+        f"warnings {stats.warnings}")
+
+    config = TwoTierConfig(fast_only=True)  # phase 7's searcher config
+    t0 = time.perf_counter()
+    handle = open_hybrid(root, fast_embedder=m2v, config=config)
+    open_s = time.perf_counter() - t0
+    delta, searcher = handle.delta, handle.searcher
+    sealed = delta.sealed if isinstance(delta, DeltaLexicalIndex) else None
+    if searcher.lexical is not delta or type(sealed) is not BulkDeviceBm25Index or sealed.device != dev:
+        raise AssertionError(f"phase10: the searcher's arm is {type(searcher.lexical).__name__} over "
+                             f"{type(sealed).__name__}, not a delta over a packed arm on the card")
+    tm = sealed._term_major()
+    if sealed._hot is None or sealed._blocked is None or tm is None or not tm.packed:
+        raise AssertionError("phase10: the packed arm did not load into the split layout")
+    log(f"phase10 open_hybrid: {open_s:.1f} s; a DeltaLexicalIndex over the FLXB arm on {sealed.device} "
+        f"(hot arm {sealed._hot.n_hot} terms, {len(sealed._blocked.classes)} flat classes, packed DAAT)")
+
+    # the fused lane over the opened root: phase 7's traffic, phase 7's bits
+    shapes: set = set()
+    drive(lambda: searcher.search_batch(queries[:8], k=K), shapes)  # warm-up
+    pools: dict = {}
+    fill = searcher._fill_fused
+
+    def fill_noted(fused, live, *rest):
+        if not pools:
+            pools.update({i: [(c.doc_id, c.score) for c in fused[1][j]] for j, i in enumerate(live)})
+        return fill(fused, live, *rest)
+
+    def main_path():
+        searcher._fill_fused = fill_noted
+        try:
+            return serve(searcher, queries, singles)
+        finally:
+            del searcher._fill_fused
+
+    flat_inputs: dict = {}
+    (batch, batch_ms, solo, single_ms), launches = drive(main_path, shapes, flat_inputs)
+    need_launches("phase10", launches, ("K1", "K2", "K3"))
+    if not all(o.metrics.phase1_fused for o in batch + solo) or searcher.last_fusion_path != "device":
+        raise AssertionError("phase10: the fused phase-1 lane with the device fusion did not run")
+    if [rows_of(o) for o in batch] != m2v_run["rows"] or [rows_of(o) for o in solo] != m2v_run["solo"]:
+        raise AssertionError("phase10: the opened root's results differ from phase 7's")
+    if pools != m2v_run["pools"]:
+        raise AssertionError("phase10: the lexical pools differ from phase 7's")
+    searcher._device_rrf_tail = lambda *args: (None, None)
+    oracle = searcher.search_batch(queries, k=K)
+    del searcher._device_rrf_tail
+    if [rows_of(o) for o in oracle] != m2v_run["rows"] or searcher.last_fusion_path != "host_vectorized":
+        raise AssertionError("phase10: the device RRF differs from the host oracle")
+    b256_ms = host_median_ms(lambda: searcher.search_batch(queries, k=K))
+    b1_ms = host_median_ms(lambda: searcher.search_batch(singles[:1], k=K))
+    log(f"phase10 fused lane over the opened root: B=256 {batch_ms:.2f} ms, then host median {b256_ms:.2f} ms "
+        f"(10 warm calls), B=1 {b1_ms:.2f} ms; doc ids, fused scores and lexical pools of the batch and the "
+        "singletons bitwise phase 7's; device RRF bitwise the host oracle")
+    kernels = check_kernels("built-1M-m2v", handle.index.fast.slab, handle.index.fast._effective_mask(None, None),
+                            shapes)
+    kernels += check_flat_kernel("built-1M-m2v", sealed._blocked.classes, flat_inputs)
+
+    # writes before a seal: the oracle arm serves them on the unfused path
+    rng = np.random.default_rng(SEED + 10)
+    vocab = np.array([f"w{i:05d}" for i in range(H1M_VOCAB)])
+    common = vocab[(rng.zipf(H1M_ZIPF, size=(APPEND_DOCS, 2)) - 1) % H1M_VOCAB]
+    new_ids = [f"new-{i:05d}" for i in range(APPEND_DOCS)]
+    unique = [f"u{i:05d}x" for i in range(APPEND_DOCS)]
+    new_texts = [f"{term} {a} {b}" for term, (a, b) in zip(unique, common)]
+    delta.lease = DeltaLease(max_docs=2 * APPEND_DOCS, max_age_s=3600.0)  # one window, sealed below
+    t0 = time.perf_counter()
+    handle.index.append_fast(new_ids, m2v.embed_batch(new_texts))  # the vector tier's WAL, as a writer does
+    for doc_id, text in zip(new_ids, new_texts):
+        delta.add_document(IndexableDocument(doc_id=doc_id, content=text))
+    delta.commit()
+    write_s = time.perf_counter() - t0
+    probe = sorted(rng.choice(APPEND_DOCS, 256, replace=False).tolist())
+    before_seal = searcher.search_batch([unique[i] for i in probe], k=K)
+    if any(o.metrics.phase1_fused for o in before_seal):
+        raise AssertionError("phase10: unsealed writes took the fused lane")
+    for i, out in zip(probe, before_seal):
+        top = max((r for r in out.results if r.lexical_score is not None), key=lambda r: r.lexical_score, default=None)
+        if top is None or top.doc_id != new_ids[i]:
+            raise AssertionError(f"phase10: new doc {new_ids[i]} is not its unique term's top lexical hit")
+    log(f"phase10 {APPEND_DOCS} writes (append_fast, then handle.delta) in {write_s:.1f} s; 256 of their unique terms "
+        "each return their doc as the top lexical hit before the seal (the oracle arm, unfused)")
+
+    t0 = time.perf_counter()
+    receipt = delta.seal()
+    seal_s = time.perf_counter() - t0
+    stack = delta.sealed
+    if (not os.path.exists(os.path.join(root, "lexical", receipt.generation, "seg-001.flexb"))
+            or not isinstance(stack, SegmentedBm25) or len(stack.segments) != 2
+            or any(seg.device != dev for seg in stack.segments)):
+        raise AssertionError("phase10: the seal did not load a two-segment stack on the card")
+    t0 = time.perf_counter()
+    outright = lexical_oracle_check(stack, queries, K, phase="phase10")
+    log(f"phase10 incremental seal {seal_s:.1f} s ({receipt.docs_sealed} docs, seg-001.flexb); the stack's "
+        f"lexical top-{K} of the 256 queries vs exact f64 host BM25 over {stack.n_docs} docs: {outright} equal, "
+        f"{256 - outright} differ only at ties within {ORACLE_REL_TOL:g} ({time.perf_counter() - t0:.1f} s)")
+
+    # deletes across every arm, then a reopen
+    victims = sorted(rng.choice(H1M_DOCS, DELETE_DOCS // 2, replace=False).tolist())
+    gone = {f"doc-{i:07d}" for i in victims} | {new_ids[i] for i in rng.choice(APPEND_DOCS, DELETE_DOCS // 2,
+                                                                               replace=False)}
+    lex_before = [[(c.doc_id, c.score) for c in r] for r in stack.search_candidates_batch(queries, K)]
+    t0 = time.perf_counter()
+    handle.delete(sorted(gone))
+    delete_s = time.perf_counter() - t0
+    probes = queries + [f"u{int(d[4:]):05d}x" for d in sorted(gone) if d.startswith("new-")]
+    after = searcher.search_batch(probes, k=K)
+    if any(r.doc_id in gone for o in after for r in o.results):
+        raise AssertionError("phase10: a deleted doc was returned")
+    qvecs = m2v.embed_batch(queries)
+
+    def vector_top(index):  # (doc id, score) rows: a reopen may place the rows elsewhere in the slab
+        top = index.fast.search_batch(qvecs, K)
+        ids = index.fast.doc_ids
+        return [[(ids[r], s) for r, s in zip(rows, scores) if r >= 0]
+                for rows, scores in zip(top.indices.cpu().tolist(), top.scores.cpu().tolist())]
+
+    vec_before = vector_top(handle.index)
+    handle.close()
+    t0 = time.perf_counter()
+    again = open_hybrid(root, fast_embedder=m2v, config=config)
+    reopen_s = time.perf_counter() - t0
+    restack = again.delta.sealed
+    if not isinstance(restack, SegmentedBm25) or len(restack.segments) != 2:
+        raise AssertionError("phase10: the reopened root did not load the segment stack")
+    lex_after = [[(c.doc_id, c.score) for c in r] for r in restack.search_candidates_batch(queries, K)]
+    vec_after = vector_top(again.index)
+    if lex_after != lex_before:
+        raise AssertionError("phase10: the stack's lexical top-10 changed across the reopen")
+    if vec_after != vec_before:
+        raise AssertionError("phase10: the vector arm's top-10 changed across the reopen")
+    reopened = again.searcher.search_batch(probes, k=K)
+    if any(r.doc_id in gone for o in reopened for r in o.results):
+        raise AssertionError("phase10: a deleted doc was returned after the reopen")
+    log(f"phase10 {len(gone)} deletes ({DELETE_DOCS // 2} new) in {delete_s:.1f} s: none returned before or "
+        f"after a reopen ({reopen_s:.1f} s); the stack's lexical and the vector arm's top-{K} bitwise across it")
+    again.close()
+    del handle, again, stack, restack, sealed
+    torch.cuda.empty_cache()
+    return ({"build_s": build_s, "open_s": open_s, "seal_s": seal_s, "reopen_s": reopen_s, "write_s": write_s,
+             "delete_s": delete_s, "sizes": sizes, "batch_ms": batch_ms, "single_ms": single_ms,
+             "b256_host_median_ms": b256_ms, "b1_host_median_ms": b1_ms, "oracle_equal": outright},
+            launches, kernels)
+
+
 def main() -> int:
     # the port must reach neither jax nor the JAX package, even indirectly
     sys.modules["jax"] = None
@@ -2472,7 +2696,7 @@ def main() -> int:
         ab_rec, l6, k6 = phase6_ab_scan(dev, semantic)
         wall["phase6_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        m2v_rec, l7, k7 = phase7_hybrid_m2v(dev, tmp, lexical)
+        m2v_rec, l7, k7, m2v_run = phase7_hybrid_m2v(dev, tmp, lexical)
         wall["phase7_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         quality_rec, l8, k8 = phase8_quality(dev, tmp, semantic, lexical)
@@ -2480,10 +2704,14 @@ def main() -> int:
         t0 = time.perf_counter()
         lanes_rec, l9, k9 = phase9_scan_lanes(dev, tmp, semantic)
         wall["phase9_s"] = time.perf_counter() - t0
-        del semantic, lexical
+        del semantic
+        t0 = time.perf_counter()
+        built_rec, l10, k10 = phase10_built_m2v(dev, tmp, lexical, m2v_run)
+        wall["phase10_s"] = time.perf_counter() - t0
+        del lexical, m2v_run
         log("phase wall times: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
 
-    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9
+    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9 + k10
     kernels = []
     for name, key, src, replaces, cell in KERNELS:
         recs = [r for r in records if r["kernel"] == name]
@@ -2498,7 +2726,7 @@ def main() -> int:
         bound_ms = sum(r["bound"][0] for r in head) / len(head)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9)),
+            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9, l10)),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": sum(r["ms"] for r in head) / len(head), "plain_ms": sum(r["plain_ms"] for r in head) / len(head),
             "bound_ms": bound_ms,
@@ -2508,7 +2736,7 @@ def main() -> int:
         })
     log(json.dumps({"semantic": sem, "hybrid": hyb, "hybrid_1m": h1m, "scan_modes": modes, "ab_scan": ab_rec,
                     "hybrid_1m_m2v": m2v_rec, "hybrid_1m_quality": quality_rec, "scan_lanes": lanes_rec,
-                    "wall_s": wall}))
+                    "built_1m_m2v": built_rec, "wall_s": wall}))
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
     print(json.dumps({

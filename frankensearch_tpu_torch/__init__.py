@@ -22,6 +22,11 @@ pruned and DAAT lanes from 2,097,152 postings) — and the fast tier's
 pass (``embed_corpus`` embeds a corpus through the native bag lane), and
 ``ops/ab_primitives.scan_topk_hierarchical_ab`` keeps the reference's
 retired A/B scan lanes, the per-tile group candidates kernel among them.
+``IndexBuilder(root).build()`` writes a root (FTVI tiers, the JSON lexical
+oracle and its packed FLXB arm, the SQLite metadata store, sidecars and the
+generation manifest) and ``open_hybrid(root)`` serves it, the packed arm
+behind the lease-bounded delta (writes searchable before a seal,
+incremental seals as a segment stack).
 """
 
 from frankensearch_tpu_torch.core.config import TwoTierConfig, TwoTierMetrics
@@ -34,6 +39,9 @@ __all__ = [
     "VectorHit",
     "FusedHit",
     "IndexableDocument",
+    "IndexBuilder",
+    "open_hybrid",
+    "EmbedderStack",
     "resolve_device",
     "TwoTierSearcher",
     "TwoTierIndex",
@@ -51,6 +59,14 @@ __all__ = [
 
 def __getattr__(name):
     """Lazy facade re-exports (importing the package loads no torch code)."""
+    if name in ("IndexBuilder", "open_hybrid"):
+        from frankensearch_tpu_torch import builder
+
+        return getattr(builder, name)
+    if name == "EmbedderStack":
+        from frankensearch_tpu_torch.embed.stack import EmbedderStack
+
+        return EmbedderStack
     if name == "resolve_device":
         from frankensearch_tpu_torch.device import resolve_device
 

@@ -112,5 +112,5 @@ def _is_low_signal(text: str) -> bool:
         return True
     if len(text) < 3:
         return True
-    alnum = sum(1 for c in text if c.isalnum())
+    alnum = sum(map(str.isalnum, text))
     return alnum / len(text) < 0.15

@@ -123,6 +123,11 @@ def embed_corpus(
         via_bag = bag_embed_corpus(embedder, texts, wire_dtype=wire_dtype)
         if via_bag is not None:
             return via_bag
+    return embed_batches(embedder, texts, batch=batch)
+
+
+def embed_batches(embedder, texts: Sequence[str], *, batch: int = 2048) -> np.ndarray:
+    """``embed_batch`` over ``batch``-text chunks, concatenated."""
     texts = list(texts)
     if not texts:
         return np.zeros((0, embedder.dim), dtype=np.float32)

@@ -247,7 +247,7 @@ class TwoTierSearcher:
         gates don't hold."""
         if rrf_ctx is None:
             return None, None
-        if fast.tombstoned_ids():
+        if self.index.tombstoned_ids():
             return None, None
         row_map = self._vecrow_to_lexrow(fast, arm)
         if row_map is None:
@@ -290,6 +290,7 @@ class TwoTierSearcher:
         filters, non-auto scan modes, an empty lexical arm, no query vectors
         and no Model2Vec embedder)."""
         from frankensearch_tpu_torch.index.device_index import DeviceVectorIndex
+        from frankensearch_tpu_torch.lexical.delta import DeltaLexicalIndex
         from frankensearch_tpu_torch.lexical.device_bm25 import DeviceBm25Index
         from frankensearch_tpu_torch.ops import hybrid_phase1 as hp
 
@@ -297,6 +298,9 @@ class TwoTierSearcher:
             return None
         fast = self.index.fast
         arm = self.lexical
+        if isinstance(arm, DeltaLexicalIndex):
+            # the sealed device arm, or the host oracle while writes are unsealed
+            arm = arm._read_arm()
         if type(fast) is not DeviceVectorIndex or not isinstance(arm, DeviceBm25Index):
             return None
         if arm.n_docs == 0:
@@ -490,7 +494,7 @@ class TwoTierSearcher:
             self.last_fusion_path = "device"
             return {i: rows_to_fused_hits(ent[j], arm.doc_ids) for j, i in enumerate(live)}
         fast = self.index.fast
-        if fast.tombstoned_ids():
+        if self.index.tombstoned_ids():
             return None  # supersession pruning is per-doc: scalar path
         row_map = self._vecrow_to_lexrow(fast, arm)
         if row_map is None:
@@ -546,7 +550,7 @@ class TwoTierSearcher:
     def _drop_superseded(self, pool):
         """Cross-arm supersession (search.rs:276-300): a doc tombstoned in
         the vector index must not resurface through the lexical arm."""
-        dead = self.index.fast.tombstoned_ids()
+        dead = self.index.tombstoned_ids()
         if not dead:
             return pool
         return [r for r in pool if r.doc_id not in dead]

@@ -11,9 +11,7 @@ overhead), plus the cheap verify-on-open digest sidecar (``.fsum``,
 the reference's xxh3 fast-path role), protect-on-commit, atomic sidecar
 swap, and quarantine + rebuild-callback when parity can't recover.
 
-The port's copy of frankensearch_tpu/index/durability.py. It leaves out
-the FLXB lexical artifact's intrinsic check: the port reads no FLXB
-artifact yet, so ``intrinsic_check_for`` knows FTVI (``.idx``) files only.
+The port's copy of frankensearch_tpu/index/durability.py.
 """
 
 from __future__ import annotations
@@ -372,6 +370,14 @@ def intrinsic_check_for(path: str):
             return True
 
         return _ftvi
+    if name.endswith(".flexb"):
+        def _flexb(p: str) -> bool:
+            from frankensearch_tpu_torch.lexical.flexb import read_sections
+
+            read_sections(p)
+            return True
+
+        return _flexb
     return None
 
 

@@ -81,12 +81,26 @@ class VacuumStats:
         return max(self.bytes_before - self.bytes_after, 0)
 
 
-def _fast_path(root: str) -> str:
-    primary = os.path.join(root, FAST_FILE)
-    if os.path.exists(primary):
-        return primary
-    fallback = os.path.join(root, FAST_FALLBACK_FILE)
-    return fallback if os.path.exists(fallback) else primary
+@dataclass(frozen=True)
+class TwoTierPaths:
+    """The tiers' artifact paths under one root."""
+
+    root: str
+
+    @property
+    def fast(self) -> str:
+        primary = os.path.join(self.root, FAST_FILE)
+        if os.path.exists(primary):
+            return primary
+        fallback = os.path.join(self.root, FAST_FALLBACK_FILE)
+        return fallback if os.path.exists(fallback) else primary
+
+    @property
+    def quality(self) -> str:
+        return os.path.join(self.root, QUALITY_FILE)
+
+    def wal_for(self, idx_path: str) -> str:
+        return idx_path + ".wal"
 
 
 class TwoTierIndex:
@@ -110,6 +124,10 @@ class TwoTierIndex:
         # per tier, the WAL prefix this open materialized (compact folds
         # and truncates exactly that much)
         self._wal_consumed: dict[str, int] = {}
+        # deleted doc ids that hold no fast-tier row (a WAL append deleted
+        # before this open, a doc only another arm holds): tombstoned all
+        # the same, so the searcher's supersession hides them everywhere
+        self._rowless_tombstones: frozenset[str] = frozenset()
         self._realign()
 
     def _realign(self) -> None:
@@ -138,7 +156,7 @@ class TwoTierIndex:
         verify: bool = False,
     ) -> "TwoTierIndex":
         """Open the on-disk tiers (artifact + replayed WAL) onto ``device``."""
-        fast_path = _fast_path(root)
+        fast_path = TwoTierPaths(root).fast
         if not os.path.exists(fast_path):
             raise IndexNotFound(f"no fast-tier artifact under {root}")
         fast_wal = WriteAheadLog(fast_path + ".wal").replay()
@@ -164,6 +182,7 @@ class TwoTierIndex:
             fast._recall_certs = dict(certs)
         index = cls(fast, quality, root=root)
         index._wal_consumed = wal_consumed
+        index._rowless_tombstones = frozenset(d for d in fast_wal.tombstones if fast.row_for(d) is None)
         return index
 
     @classmethod
@@ -271,7 +290,7 @@ class TwoTierIndex:
     # -- appends and tombstones (WAL path) -----------------------------------
 
     def _wal(self, fname: str, *, sync: str = "always") -> WriteAheadLog:
-        path = _fast_path(self.root) if fname == FAST_FILE else os.path.join(self.root, fname)
+        path = TwoTierPaths(self.root).fast if fname == FAST_FILE else os.path.join(self.root, fname)
         return WriteAheadLog(path + ".wal", sync=sync)
 
     def append_fast(self, doc_ids: Sequence[str], vectors: np.ndarray) -> None:
@@ -280,6 +299,7 @@ class TwoTierIndex:
         if self.root is not None:
             self._wal(FAST_FILE, sync=self.wal_sync).append(doc_ids, vectors)
         self.fast = self.fast.with_appended(doc_ids, vectors)
+        self._rowless_tombstones -= set(doc_ids)
         self._realign()
 
     def append_quality(self, doc_ids: Sequence[str], vectors: np.ndarray) -> None:
@@ -297,6 +317,7 @@ class TwoTierIndex:
             if self.quality is not None:
                 self._wal(QUALITY_FILE, sync=self.wal_sync).tombstone(doc_ids)
         self.fast = self.fast.with_tombstones(doc_ids)
+        self._rowless_tombstones |= {d for d in doc_ids if self.fast.row_for(d) is None}
         if self.quality is not None:
             self.quality = self.quality.with_tombstones(doc_ids)
         self._realign()
@@ -309,6 +330,14 @@ class TwoTierIndex:
         self._wal(FAST_FILE).sync()
         if self.quality is not None:
             self._wal(QUALITY_FILE).sync()
+
+    def tombstoned_ids(self) -> frozenset:
+        """Every deleted doc id: the fast tier's tombstoned rows, and the
+        deletes that hold no row there (the reference counts only the
+        rows, so a WAL append deleted before a reopen resurfaced through a
+        lexical generation sealed before the delete)."""
+        rowless = self._rowless_tombstones
+        return self.fast.tombstoned_ids() | rowless if rowless else self.fast.tombstoned_ids()
 
     @property
     def has_quality_tier(self) -> bool:

@@ -742,6 +742,7 @@ def _upload_postings(index, terms_all, docs_all, tf_all, raw=None, *, device) ->
         docs_all.astype(np.int32),
         tf_all.astype(np.float32),
     )
+    index._raw_host = raw  # the FLXB writer's raw sections
     index._cold_host = index._post_host
     index._cold_raw = raw
     index.cold_posting_count = p
@@ -795,6 +796,10 @@ class _FieldArm:
     idf_host: np.ndarray  # (V_field,) f32, indexed by (tid - base)
     boost: np.float32
     base: int = 0
+    #: docs-with-term per field (the idf numerator input): segmented reads
+    #: (lexical/segments.py) sum these across segments to weight every
+    #: segment with the global corpus's idf; None on FLXB-loaded arms
+    df_host: np.ndarray | None = None
 
 
 class DeviceBm25Index(LexicalRead):
@@ -831,9 +836,11 @@ class DeviceBm25Index(LexicalRead):
             cache_flat[ford * 256 : (ford + 1) * 256] = cache
             bk_arr[ford] = np.float32(boost) * (BM25_K1 + np.float32(1.0))
             idf_host = np.zeros(len(vocab), dtype=np.float32)
+            df_host = np.zeros(len(vocab), dtype=np.int64)
             for i, term in enumerate(vocab):
                 plist = field_postings[term]
                 idf_host[i] = idf(n, len(plist))
+                df_host[i] = len(plist)
                 for doc_id, tf in plist.items():
                     fid = docs[doc_id].fieldnorm_id.get(fname, 0)
                     tf32 = np.float32(tf)
@@ -849,7 +856,8 @@ class DeviceBm25Index(LexicalRead):
                     raw_tf.append(int(tf))
                     raw_fx.append(ford * 256 + int(fid))
             arms[fname] = _FieldArm(
-                term_ids=term_ids, idf_host=idf_host, boost=boost, base=vocab_offset
+                term_ids=term_ids, idf_host=idf_host, boost=boost, base=vocab_offset,
+                df_host=df_host,
             )
             vocab_offset += len(vocab)
         self._init_state(
@@ -1103,6 +1111,11 @@ class DeviceBm25Index(LexicalRead):
         return index
 
 
+class NativePostingsUnavailable(RuntimeError):
+    """The native postings builder cannot serve this corpus (no native
+    library, or text it does not tokenize): the bulk index does not apply."""
+
+
 class BulkDeviceBm25Index(DeviceBm25Index):
     """Device BM25 built straight from the native ingest kernel's flat
     arrays: tokenize+accumulate in C++, vectorized numpy for idf /
@@ -1139,7 +1152,7 @@ class BulkDeviceBm25Index(DeviceBm25Index):
         for ford, fname in enumerate(_FIELDS):
             bp = native.build_postings_native(field_texts[fname])
             if bp is None:
-                raise RuntimeError(
+                raise NativePostingsUnavailable(
                     "native kernel unavailable or non-ASCII corpus; use "
                     "DeviceBm25Index(MemoryLexicalIndex.bulk_build(docs)) instead"
                 )
@@ -1152,7 +1165,8 @@ class BulkDeviceBm25Index(DeviceBm25Index):
             fieldnorm_ids = np.searchsorted(norm_table, counts, side="right") - 1
             cache = tf_norm_cache(avgdl)
             n_terms = len(bp.terms)
-            df = np.bincount(bp.post_term, minlength=n_terms).astype(np.float32)
+            df_i = np.bincount(bp.post_term, minlength=n_terms)
+            df = df_i.astype(np.float32)
             big_n = np.float32(n_docs)
             idf_host = np.log1p(
                 (big_n - df + np.float32(0.5)) / (df + np.float32(0.5))
@@ -1176,6 +1190,7 @@ class BulkDeviceBm25Index(DeviceBm25Index):
                 idf_host=idf_host,
                 boost=boost,
                 base=vocab_offset,
+                df_host=df_i.astype(np.int64),
             )
             vocab_offset += n_terms
         if parts_term:

@@ -8,28 +8,16 @@ adds hyphen splitting + CJK handling (cass compat lane, not ported).
 
 from __future__ import annotations
 
+import re
+
 MAX_TOKEN_LEN = 40
+_ALNUM_RUN = re.compile(r"[^\W_]+")
 
 
 def simple_tokenize(text: str) -> list[str]:
     """Alphanumeric-run tokenizer + lowercase (Tantivy SimpleTokenizer +
     LowerCaser semantics: a token is a maximal run of unicode alphanumeric
     chars; tokens longer than 40 chars are dropped, as Tantivy's
-    RemoveLongFilter(40) default in the reference schema)."""
-    tokens: list[str] = []
-    start = -1
-    for i, c in enumerate(text):
-        if c.isalnum():
-            if start < 0:
-                start = i
-        else:
-            if start >= 0:
-                tok = text[start:i]
-                if len(tok) <= MAX_TOKEN_LEN:
-                    tokens.append(tok.lower())
-                start = -1
-    if start >= 0:
-        tok = text[start:]
-        if len(tok) <= MAX_TOKEN_LEN:
-            tokens.append(tok.lower())
-    return tokens
+    RemoveLongFilter(40) default in the reference schema). ``[^\\W_]``
+    is exactly ``str.isalnum``: a word character other than ``_``."""
+    return [t.lower() for t in _ALNUM_RUN.findall(text) if len(t) <= MAX_TOKEN_LEN]

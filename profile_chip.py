@@ -20,7 +20,9 @@ semantic-1M-f32: the semantic cell's vectors as an f32 slab (K1 and K2's
 f32 forms); semantic-1M-f32-pallas: the same served with
 ``scan_mode="pallas"`` (K5's f32 form); semantic-1M-mrl: the semantic cell with
 ``mrl_search_dims=64``; semantic-1M-ivf: chip_smoke's clustered 1M corpus
-with its IVF arm, ``scan_mode="ivf"`` at the default nprobe 8) and, for
+with its IVF arm, ``scan_mode="ivf"`` at the default nprobe 8;
+built-1M-m2v: hybrid-1M-m2v's docs and table through ``IndexBuilder`` and
+``open_hybrid``, the packed lexical arm behind its delta) and, for
 each at B = 256 and B = 1 (the cell's first query), after three warm-up calls
 of ``TwoTierSearcher.search_batch``:
 
@@ -570,6 +572,19 @@ def main() -> int:
         )
         return TwoTierSearcher(index, m2v, lexical=bm25, config=TwoTierConfig(fast_only=True)), queries
 
+    def built1m_m2v(dev, tmp):
+        from frankensearch_tpu_torch import EmbedderStack, IndexableDocument, IndexBuilder, TwoTierConfig, open_hybrid
+
+        bm25, queries, _, _, texts = cs.hybrid1m_lexical(dev)
+        del bm25
+        m2v = cs.m2v_embedder(dev)
+        root = tempfile.mkdtemp(dir=tmp)
+        IndexBuilder(root, device=dev).with_documents(
+            IndexableDocument(doc_id=f"doc-{i:07d}", content=t) for i, t in enumerate(texts)
+        ).with_embedder_stack(EmbedderStack(fast=m2v)).build()
+        handle = open_hybrid(root, fast_embedder=m2v, config=TwoTierConfig(fast_only=True), device=dev)
+        return handle.searcher, queries
+
     def semantic_pallas(dev, tmp):
         from frankensearch_tpu_torch import TwoTierConfig, TwoTierSearcher
 
@@ -619,7 +634,8 @@ def main() -> int:
              ("semantic-1M-int8", lambda dev, tmp: int8_cell(cs, dev, tmp)), ("hybrid-1M-m2v", hybrid1m_m2v),
              ("hybrid-1M-quality", hybrid1m_quality), ("semantic-1M-f32", semantic_f32),
              ("semantic-1M-f32-pallas", lambda dev, tmp: semantic_f32(dev, tmp, "pallas")),
-             ("semantic-1M-mrl", semantic_mrl), ("semantic-1M-ivf", semantic_ivf))
+             ("semantic-1M-mrl", semantic_mrl), ("semantic-1M-ivf", semantic_ivf),
+             ("built-1M-m2v", built1m_m2v))
     cells = [(cell, build) for cell, build in cells if len(sys.argv) <= 2 or cell in sys.argv[2:]]
     if len(cells) > 1:
         # a process per cell: a trace taken after another cell's profiled

@@ -7,7 +7,9 @@ every object from the port's own types and serves a tiny hybrid
 (split, flat, DAAT) layout, through the ``int8`` (certified) and
 ``pallas`` scan modes, and with a Model2Vec fast tier (the fully fused
 lane), then runs the A/B scan lane, and a phrase query through the
-Refined and Reranked phases (a BERT quality tier and a cross-encoder). A static check reads every import statement of the
+Refined and Reranked phases (a BERT quality tier and a cross-encoder), then
+builds a root with ``IndexBuilder``, serves it through ``open_hybrid`` and
+seals a write. A static check reads every import statement of the
 port's files, ``chip_smoke.py`` and ``profile_chip.py``: none may name
 ``frankensearch_tpu`` or ``jax``.
 """
@@ -21,7 +23,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 
 SCRIPT = r"""
-import sys, tempfile
+import os, sys, tempfile
 sys.modules["jax"] = None
 sys.modules["frankensearch_tpu"] = None
 import numpy as np
@@ -122,6 +124,20 @@ with tempfile.TemporaryDirectory() as root:
     batch = searcher.search_batch(["vector search", '"write ahead"'], k=3)
     assert batch[1].results[0].doc_id == "d4" and batch[0].results[0].quality_score is not None
     searcher.close()
+# the library's entry point: a built root, opened, served, written and sealed
+with tempfile.TemporaryDirectory() as root:
+    stats = fst.IndexBuilder(root, device="cpu").with_documents(docs).with_embedder_stack(
+        fst.EmbedderStack(fast=emb)).build()
+    assert stats.doc_count == 5 and os.path.exists(os.path.join(root, "metadata.db"))
+    h = fst.open_hybrid(root, fast_embedder=emb, device="cpu", config=fst.TwoTierConfig(fast_only=True))
+    out = h.searcher.search_batch(["vector search", "write ahead log"], k=3)
+    assert out[0].results[0].doc_id == "d3" and out[1].results[0].doc_id == "d4", out
+    assert h.searcher.last_fusion_path == "device"
+    h.delta.add_document(IndexableDocument(doc_id="d5", content="zeppelin fresh arrival"))
+    h.delta.commit()
+    assert h.delta.search_candidates("zeppelin", 3)[0].doc_id == "d5"
+    assert h.delta.seal().generation and type(h.delta.sealed).__name__ == "SegmentedBm25"
+    h.close()
 assert sys.modules["jax"] is None and sys.modules["frankensearch_tpu"] is None
 assert not [m for m in sys.modules if m.startswith(("jax.", "frankensearch_tpu."))]
 print("OK")
