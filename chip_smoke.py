@@ -98,7 +98,20 @@ Phases:
      1,010,000 docs; 1,000 deletes (half new) never returned, before or
      after a reopen, across which the stack's lexical and the vector
      arm's top-10 stay bitwise; K1, K2 and K3 against their twins at the
-     phase's shapes.
+     phase's shapes;
+ 11. cli-1M, the product CLI: phase 4's 1M docs as a JSONL corpus through
+     ``cli index`` (in process, no ``--device``: the card; the default
+     stack, HashEmbedder(256), a bf16 slab and the FLXB arm), then ``cli
+     serve --warmup --serve-max-batch 256 --coalesce-ms 200`` in process on
+     a pipe: phase 4's 256 queries as pipelined ``search`` frames coalesced
+     into one ``search_batch`` (K1, K2 and K3 counted), eight singletons
+     each followed by a ``ping`` (so through ``search()``), a ``search_batch``
+     op, a stream search, ``status`` and ``shutdown``; every reply bitwise
+     (through JSON) the library's ``search_batch`` / ``search()`` over the
+     same root (``open_hybrid``), the root's lexical top-k against an exact
+     f64 BM25; ``version``, ``doctor --verify`` and a one-shot ``search``
+     as subprocesses (``python -m frankensearch_tpu_torch.cli``, on the
+     card); K1, K2 and K3 against their twins at the phase's shapes.
 
 The kernels line gives each kernel's time, its twin's, and its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -2650,6 +2663,264 @@ def phase10_built_m2v(dev, tmp: str, lexical: dict, m2v_run: dict) -> tuple[dict
             launches, kernels)
 
 
+CLI_MAX_BATCH = 256  # serve --serve-max-batch: phase 4's whole batch in one search_batch
+CLI_COALESCE_MS = 200  # serve --coalesce-ms: time for the pipelined frames to arrive
+CLI_WAIT_S = 900  # longest wait for a reply (the serve loop opens a 1M-doc root first)
+
+
+class LineCollector:
+    """A stdout stand-in for an in-process ``serve``: keeps each line it
+    is given with the host clock at its arrival."""
+
+    def __init__(self) -> None:
+        import threading
+
+        self.lines: list[str] = []
+        self.times: list[float] = []
+        self._part = ""
+        self._cond = threading.Condition()
+
+    def write(self, text: str) -> int:
+        with self._cond:
+            self._part += text
+            while "\n" in self._part:
+                line, self._part = self._part.split("\n", 1)
+                self.lines.append(line)
+                self.times.append(time.perf_counter())
+            self._cond.notify_all()
+        return len(text)
+
+    def flush(self) -> None:
+        pass
+
+    def wait(self, n: int) -> float:
+        """Block until ``n`` lines have arrived; the n-th line's time."""
+        with self._cond:
+            if not self._cond.wait_for(lambda: len(self.lines) >= n, timeout=CLI_WAIT_S):
+                raise AssertionError(f"phase11: serve wrote {len(self.lines)} lines, {n} awaited")
+            return self.times[n - 1]
+
+
+def run_cli(argv: list[str]) -> dict:
+    """One in-process CLI call (``--format json``): its envelope."""
+    import contextlib
+    import io
+
+    from frankensearch_tpu_torch.cli import main as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["--format", "json", *argv])
+    env = json.loads(out.getvalue())
+    if rc != 0 or not env["ok"]:
+        raise AssertionError(f"phase11: {argv[0]} failed: {env.get('error')}")
+    return env
+
+
+def cli_subprocess(argv: list[str]) -> tuple[dict, float]:
+    """``python -m frankensearch_tpu_torch.cli --format json ARGV`` (no
+    ``--device``: the card) from the checkout: (envelope, wall s)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "frankensearch_tpu_torch.cli", "--format", "json", *argv],
+                          cwd=repo, env=dict(os.environ, PYTHONPATH=repo), capture_output=True, text=True,
+                          timeout=CLI_WAIT_S)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase11: cli {argv[0]} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout), wall_s
+
+
+def json_rows(results) -> list:
+    """Result rows as the serve loop writes them, through JSON."""
+    return json.loads(json.dumps([r.to_dict() for r in results], default=str))
+
+
+def serve_session(root: str, queries: list[str], singles: list[str]) -> dict:
+    """``cli serve`` in-process on ``root`` with ``--warmup``: the batch's
+    ``search`` frames written at once (one coalesced ``search_batch``;
+    twice, the second time warm), each singleton followed by a ``ping`` (which ends the coalescing window
+    at once, so the singleton goes through ``search()`` without waiting
+    out ``--coalesce-ms``), a ``search_batch`` op, a ``stream`` search,
+    ``status`` and ``shutdown``. Each step's frames are written once the
+    replies to the last have arrived. Returns the replies and host times
+    (frame write to its step's last reply), and the pressure fractions the
+    server sensed."""
+    import threading
+
+    from frankensearch_tpu_torch.cli import main as cli
+    from frankensearch_tpu_torch.ops import pressure
+
+    sensed = {"host": [], "device": []}
+    host_sense, device_sense = pressure.sense_host_memory, pressure.sense_device_hbm
+
+    def host_noted():
+        sensed["host"].append(host_sense())
+        return sensed["host"][-1]
+
+    def device_noted(device):
+        sensed["device"].append(device_sense(device))
+        return sensed["device"][-1]
+
+    collector = LineCollector()
+    read_fd, write_fd = os.pipe()
+    steps: dict = {}
+    failed: list = []
+
+    def client():
+        try:
+            with os.fdopen(write_fd, "w") as w:
+                def send(name: str, frames: list[dict], n_replies: int) -> None:
+                    at = len(collector.lines)
+                    t0 = time.perf_counter()
+                    w.write("".join(json.dumps(f) + "\n" for f in frames))
+                    w.flush()
+                    steps[name] = (at, at + n_replies, (collector.wait(at + n_replies) - t0) * 1e3)
+
+                steps["ready"] = (0, 1, (collector.wait(1) - t_start) * 1e3)  # the warmup report
+                for name in ("batch", "batch_again"):  # the first real batch, then the same one warm
+                    send(name, [{"op": "search", "query": q, "k": K} for q in queries], len(queries))
+                for i, q in enumerate(singles):
+                    send(f"single{i}", [{"op": "search", "query": q, "k": K}, {"op": "ping"}], 2)
+                send("search_batch", [{"op": "search_batch", "queries": queries, "k": K}], 1)
+                send("stream", [{"op": "search", "query": singles[0], "k": K, "stream": True}], 3)
+                send("status", [{"op": "status"}], 1)
+                send("shutdown", [{"op": "shutdown"}], 1)
+        except BaseException as e:  # noqa: BLE001 - re-raised on the main thread
+            failed.append(e)
+
+    stdin, stdout = sys.stdin, sys.stdout
+    pressure.sense_host_memory, pressure.sense_device_hbm = host_noted, device_noted
+    sys.stdin, sys.stdout = os.fdopen(read_fd, "r"), collector
+    feeder = threading.Thread(target=client, daemon=True)
+    try:
+        t_start = time.perf_counter()
+        feeder.start()
+        rc = cli.main(["serve", "--root", root, "--serve-max-batch", str(CLI_MAX_BATCH),
+                       "--coalesce-ms", str(CLI_COALESCE_MS), "--warmup"])
+        feeder.join(timeout=CLI_WAIT_S)
+    finally:
+        sys.stdin.close()
+        sys.stdin, sys.stdout = stdin, stdout
+        pressure.sense_host_memory, pressure.sense_device_hbm = host_sense, device_sense
+    if failed:
+        raise failed[0]
+    if rc != 0 or feeder.is_alive():
+        raise AssertionError(f"phase11: serve exited {rc}, client alive {feeder.is_alive()}")
+    lines = [json.loads(x) for x in collector.lines]
+    return {"replies": {name: lines[a:b] for name, (a, b, _) in steps.items()},
+            "ms": {name: ms for name, (_, _, ms) in steps.items()}, "sensed": sensed}
+
+
+def phase11_cli(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
+    """cli-1M: the product CLI over phase 4's 1M docs. ``index`` (in
+    process, no ``--device``: the card; the default stack, HashEmbedder(256),
+    a bf16 slab and the FLXB arm) builds a root from a JSONL corpus; ``serve
+    --warmup`` answers phase 4's 256 queries as one coalesced batch, eight
+    singletons through ``search()``, a ``search_batch`` op, a stream search
+    and ``status``, every reply bitwise the library's over the same root
+    (``open_hybrid``); the lexical top-k against an exact f64 BM25; then
+    ``version``, ``doctor --verify`` and a one-shot ``search`` in
+    subprocesses, each on the card."""
+    import torch
+
+    from frankensearch_tpu_torch import BulkDeviceBm25Index, open_hybrid
+    from frankensearch_tpu_torch.lexical.delta import DeltaLexicalIndex
+    from frankensearch_tpu_torch.ops.pressure import PressureState
+
+    texts, queries, singles = lexical["texts"], lexical["queries"], lexical["singles"]
+    corpus, root = os.path.join(tmp, "cli_corpus.jsonl"), os.path.join(tmp, "cli_root")
+    with open(corpus, "w", encoding="utf-8") as f:
+        f.writelines(json.dumps({"id": f"doc-{i:07d}", "content": t}) + "\n" for i, t in enumerate(texts))
+    t0 = time.perf_counter()
+    built = run_cli(["index", corpus, "--root", root])["data"]
+    index_s = time.perf_counter() - t0
+    if built["doc_count"] != len(texts) or built["error_count"] or built["semantic"]:
+        raise AssertionError(f"phase11: index built {built}")
+    log(f"phase11 cli index of {built['doc_count']} docs: {index_s:.1f} s; sizes {built['sizes']}")
+
+    shapes: set = set()
+    flat_inputs: dict = {}
+    session, launches = drive(lambda: serve_session(root, queries, singles), shapes, flat_inputs)
+    need_launches("phase11", launches, ("K1", "K2", "K3"))
+    replies, ms, sensed = session["replies"], session["ms"], session["sensed"]
+    warm = replies["ready"][0]
+    if not warm["ok"] or warm["data"]["op"] != "warmup":
+        raise AssertionError(f"phase11: serve --warmup reported {warm}")
+
+    t0 = time.perf_counter()
+    oracle = open_hybrid(root)
+    open_s = time.perf_counter() - t0
+    sealed = oracle.delta.sealed if isinstance(oracle.delta, DeltaLexicalIndex) else None
+    if type(sealed) is not BulkDeviceBm25Index or sealed.device != dev or sealed._blocked is None:
+        raise AssertionError("phase11: the opened root's lexical arm is not the FLXB arm on the card, split")
+    want = oracle.searcher.search_batch(queries, k=K)
+    if not all(o.metrics.phase1_fused for o in want) or oracle.searcher.last_fusion_path != "device":
+        raise AssertionError("phase11: the library's batch did not take the fused lane")
+    want_rows = [json_rows(o.results) for o in want]
+    for batch in (replies["batch"], replies["batch_again"]):
+        if [r.get("meta") for r in batch] != [{"coalesced": len(queries)}] * len(queries):
+            raise AssertionError(f"phase11: the batch did not coalesce into one call: {batch[0].get('meta')}")
+        if [r["data"] for r in batch] != want_rows:
+            raise AssertionError("phase11: the coalesced replies differ from the library's search_batch")
+    op = replies["search_batch"][0]["data"]
+    if [r["query"] for r in op] != queries or [r["results"] for r in op] != want_rows:
+        raise AssertionError("phase11: the search_batch op differs from the library's search_batch")
+    solo_rows = [json_rows(oracle.searcher.search(q, k=K).results) for q in singles]
+    for i, q in enumerate(singles):
+        reply, pong = replies[f"single{i}"]
+        if pong["data"] != {"op": "pong"} or "meta" in reply or reply["data"] != solo_rows[i]:
+            raise AssertionError(f"phase11: singleton {q!r} differs from the library's search()")
+    frames = replies["stream"]
+    if [f["seq"] for f in frames] != [1, 2, 3] or [f["kind"] for f in frames] != ["phase", "metrics", "end"]:
+        raise AssertionError(f"phase11: stream frames {[(f.get('seq'), f.get('kind')) for f in frames]}")
+    if frames[0]["payload"]["results"] != solo_rows[0] or frames[1]["payload"]["device_kind"] != dev.type:
+        raise AssertionError("phase11: the stream's phase frame differs from search()")
+    status = replies["status"][0]["data"]
+    if (status["doc_count"] != len(texts) or status["lexical"] is not True or status["reloads"]
+            or status["pressure"] not in PressureState.__members__):
+        raise AssertionError(f"phase11: status {status}")
+    log(f"phase11 serve: ready (open + warmup) {ms['ready'] / 1e3:.1f} s, warmup {warm['data']}; "
+        f"{len(queries)} pipelined searches coalesced into one search_batch, frame write to last reply "
+        f"{ms['batch']:.2f} ms, the same batch again {ms['batch_again']:.2f} ms; singletons (search + ping) " + ", ".join(f"{ms[f'single{i}']:.2f}"
+                                                                       for i in range(len(singles)))
+        + f" ms; search_batch op {ms['search_batch']:.2f} ms; status {status}; pressure fractions sensed "
+        f"(host, device): last ({sensed['host'][-1]:.4f}, {sensed['device'][-1]:.6f}), max "
+        f"({max(sensed['host']):.4f}, {max(sensed['device']):.6f}) over {len(sensed['host'])} observations")
+    log(f"phase11 the library over the same root (open_hybrid {open_s:.1f} s): the coalesced replies and the "
+        f"search_batch op bitwise its search_batch, the singletons and the stream's phase bitwise its search()")
+
+    t0 = time.perf_counter()
+    outright = lexical_oracle_check(sealed, queries, K, phase="phase11")
+    log(f"phase11 the root's lexical top-{K} of {len(queries)} queries vs exact f64 host BM25: {outright} equal, "
+        f"{len(queries) - outright} differ only at ties within {ORACLE_REL_TOL:g} ({time.perf_counter() - t0:.1f} s)")
+    kernels = check_kernels("cli-1M", oracle.index.fast.slab, oracle.index.fast._effective_mask(None, None), shapes)
+    kernels += check_flat_kernel("cli-1M", sealed._blocked.classes, flat_inputs)
+    oracle.close()
+    del oracle, sealed, want
+    torch.cuda.empty_cache()
+
+    version, version_s = cli_subprocess(["version"])
+    if len(version["data"]["devices"]) != torch.cuda.device_count() or version["data"]["torch"] != torch.__version__:
+        raise AssertionError(f"phase11: version {version['data']}")
+    doctor, doctor_s = cli_subprocess(["doctor", "--root", root, "--verify"])
+    checks = {c["check"]: c for c in doctor["data"]["findings"]}
+    if (not doctor["data"]["healthy"] or checks["cuda"]["ok"] != (dev.type == "cuda")
+            or "CRC verified" not in checks["lexical_generation"]["detail"]
+            or "slab CRC verified" not in checks["fast_artifact_integrity"]["detail"]):
+        raise AssertionError(f"phase11: doctor {doctor['data']['findings']}")
+    one, search_s = cli_subprocess(["search", singles[0], "--root", root, "-k", str(K)])
+    if one["meta"]["device"] != dev.type or [{k: v for k, v in r.items() if k != "snippet"}
+                                           for r in one["data"]] != solo_rows[0]:
+        raise AssertionError(f"phase11: the one-shot search differs from search(): {one['data'][:2]}")
+    log(f"phase11 subprocesses: version {version_s:.1f} s (devices {version['data']['devices']}), doctor --verify "
+        f"{doctor_s:.1f} s (healthy, slab and FLXB CRCs verified), one-shot search {search_s:.1f} s (rows "
+        "bitwise search()'s, on cuda)")
+    return ({"index_s": index_s, "sizes": built["sizes"], "serve_ms": ms, "warmup": warm["data"],
+             "open_s": open_s, "oracle_equal": outright, "sensed_last": [sensed["host"][-1], sensed["device"][-1]],
+             "version_s": version_s, "doctor_s": doctor_s, "search_s": search_s}, launches, kernels)
+
+
 def main() -> int:
     # the port must reach neither jax nor the JAX package, even indirectly
     sys.modules["jax"] = None
@@ -2708,10 +2979,14 @@ def main() -> int:
         t0 = time.perf_counter()
         built_rec, l10, k10 = phase10_built_m2v(dev, tmp, lexical, m2v_run)
         wall["phase10_s"] = time.perf_counter() - t0
-        del lexical, m2v_run
+        del m2v_run, lexical["bm25"]
+        t0 = time.perf_counter()
+        cli_rec, l11, k11 = phase11_cli(dev, tmp, lexical)
+        wall["phase11_s"] = time.perf_counter() - t0
+        del lexical
         log("phase wall times: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
 
-    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9 + k10
+    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9 + k10 + k11
     kernels = []
     for name, key, src, replaces, cell in KERNELS:
         recs = [r for r in records if r["kernel"] == name]
@@ -2726,7 +3001,7 @@ def main() -> int:
         bound_ms = sum(r["bound"][0] for r in head) / len(head)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9, l10)),
+            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9, l10, l11)),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": sum(r["ms"] for r in head) / len(head), "plain_ms": sum(r["plain_ms"] for r in head) / len(head),
             "bound_ms": bound_ms,
@@ -2736,7 +3011,7 @@ def main() -> int:
         })
     log(json.dumps({"semantic": sem, "hybrid": hyb, "hybrid_1m": h1m, "scan_modes": modes, "ab_scan": ab_rec,
                     "hybrid_1m_m2v": m2v_rec, "hybrid_1m_quality": quality_rec, "scan_lanes": lanes_rec,
-                    "built_1m_m2v": built_rec, "wall_s": wall}))
+                    "built_1m_m2v": built_rec, "cli_1m": cli_rec, "wall_s": wall}))
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
     print(json.dumps({

@@ -26,13 +26,19 @@ retired A/B scan lanes, the per-tile group candidates kernel among them.
 oracle and its packed FLXB arm, the SQLite metadata store, sidecars and the
 generation manifest) and ``open_hybrid(root)`` serves it, the packed arm
 behind the lease-bounded delta (writes searchable before a seal,
-incremental seals as a segment stack).
+incremental seals as a segment stack). The product CLI
+(``python -m frankensearch_tpu_torch.cli``) runs ``index``, ``search``,
+``serve`` and the commands around them on the card (``--device cpu`` for
+the CPU).
 """
 
 from frankensearch_tpu_torch.core.config import TwoTierConfig, TwoTierMetrics
 from frankensearch_tpu_torch.core.types import FusedHit, IndexableDocument, ScoredResult, VectorHit
 
+__version__ = "0.1.0"
+
 __all__ = [
+    "__version__",
     "TwoTierConfig",
     "TwoTierMetrics",
     "ScoredResult",

@@ -135,6 +135,10 @@ class DeviceVectorIndex:
         self._ivf = None
         self._ivf_built_rows = -1
 
+    @property
+    def record_count(self) -> int:
+        return self.n_rows
+
     @classmethod
     def from_padded(
         cls,

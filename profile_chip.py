@@ -22,7 +22,10 @@ f32 forms); semantic-1M-f32-pallas: the same served with
 ``mrl_search_dims=64``; semantic-1M-ivf: chip_smoke's clustered 1M corpus
 with its IVF arm, ``scan_mode="ivf"`` at the default nprobe 8;
 built-1M-m2v: hybrid-1M-m2v's docs and table through ``IndexBuilder`` and
-``open_hybrid``, the packed lexical arm behind its delta) and, for
+``open_hybrid``, the packed lexical arm behind its delta; cli-1M: the same
+docs as a JSONL corpus through the CLI's ``index`` (the default stack,
+HashEmbedder(256)), opened as ``cli serve`` opens it, so that its
+``search_batch`` is the call a coalesced serve batch makes) and, for
 each at B = 256 and B = 1 (the cell's first query), after three warm-up calls
 of ``TwoTierSearcher.search_batch``:
 
@@ -585,6 +588,16 @@ def main() -> int:
         handle = open_hybrid(root, fast_embedder=m2v, config=TwoTierConfig(fast_only=True), device=dev)
         return handle.searcher, queries
 
+    def cli1m(dev, tmp):
+        from frankensearch_tpu_torch import open_hybrid
+
+        _, queries, _, _, texts = cs.hybrid1m_lexical(dev)
+        corpus, root = os.path.join(tmp, "cli_corpus.jsonl"), tempfile.mkdtemp(dir=tmp)
+        with open(corpus, "w", encoding="utf-8") as f:
+            f.writelines(json.dumps({"id": f"doc-{i:07d}", "content": t}) + "\n" for i, t in enumerate(texts))
+        cs.run_cli(["index", corpus, "--root", root])
+        return open_hybrid(root, device=dev).searcher, queries
+
     def semantic_pallas(dev, tmp):
         from frankensearch_tpu_torch import TwoTierConfig, TwoTierSearcher
 
@@ -635,7 +648,7 @@ def main() -> int:
              ("hybrid-1M-quality", hybrid1m_quality), ("semantic-1M-f32", semantic_f32),
              ("semantic-1M-f32-pallas", lambda dev, tmp: semantic_f32(dev, tmp, "pallas")),
              ("semantic-1M-mrl", semantic_mrl), ("semantic-1M-ivf", semantic_ivf),
-             ("built-1M-m2v", built1m_m2v))
+             ("built-1M-m2v", built1m_m2v), ("cli-1M", cli1m))
     cells = [(cell, build) for cell, build in cells if len(sys.argv) <= 2 or cell in sys.argv[2:]]
     if len(cells) > 1:
         # a process per cell: a trace taken after another cell's profiled

@@ -9,9 +9,9 @@ every object from the port's own types and serves a tiny hybrid
 lane), then runs the A/B scan lane, and a phrase query through the
 Refined and Reranked phases (a BERT quality tier and a cross-encoder), then
 builds a root with ``IndexBuilder``, serves it through ``open_hybrid`` and
-seals a write. A static check reads every import statement of the
-port's files, ``chip_smoke.py`` and ``profile_chip.py``: none may name
-``frankensearch_tpu`` or ``jax``.
+seals a write, then runs the CLI's ``index`` and ``search``. A static
+check reads every import statement of the port's files, ``chip_smoke.py``
+and ``profile_chip.py``: none may name ``frankensearch_tpu`` or ``jax``.
 """
 
 import ast
@@ -138,6 +138,19 @@ with tempfile.TemporaryDirectory() as root:
     assert h.delta.search_candidates("zeppelin", 3)[0].doc_id == "d5"
     assert h.delta.seal().generation and type(h.delta.sealed).__name__ == "SegmentedBm25"
     h.close()
+# the CLI: index a JSONL corpus, then search it
+import contextlib, io, json
+from frankensearch_tpu_torch.cli.main import main as cli
+with tempfile.TemporaryDirectory() as tmp:
+    corpus = os.path.join(tmp, "c.jsonl")
+    with open(corpus, "w") as f:
+        f.write("\n".join(json.dumps({"id": d.doc_id, "content": d.content}) for d in docs))
+    for argv in (["index", corpus], ["search", "write ahead log"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli(["--format", "json", *argv, "--root", os.path.join(tmp, "ix"), "--device", "cpu"]) == 0
+        env = json.loads(buf.getvalue())
+    assert env["data"][0]["doc_id"] == "d4" and env["meta"]["device"] == "cpu", env
 assert sys.modules["jax"] is None and sys.modules["frankensearch_tpu"] is None
 assert not [m for m in sys.modules if m.startswith(("jax.", "frankensearch_tpu."))]
 print("OK")
