@@ -95,10 +95,8 @@ Phases:
      tier's append, then ``handle.delta``) each the top lexical hit of its
      unique term before a seal; an incremental seal to a two-segment
      stack on the card whose top-10 equals an exact f64 host BM25 over
-     1,010,000 docs; 1,000 deletes (half new) never returned, before or
-     after a reopen, across which the stack's lexical and the vector
-     arm's top-10 stay bitwise; K1, K2 and K3 against their twins at the
-     phase's shapes;
+     1,010,000 docs; 1,000 deletes (half new) never returned; K1, K2 and K3
+     against their twins at the phase's shapes;
  11. cli-1M, the product CLI: phase 4's 1M docs as a JSONL corpus through
      ``cli index`` (in process, no ``--device``: the card; the default
      stack, HashEmbedder(256), a bf16 slab and the FLXB arm), then ``cli
@@ -108,10 +106,30 @@ Phases:
      each followed by a ``ping`` (so through ``search()``), a ``search_batch``
      op, a stream search, ``status`` and ``shutdown``; every reply bitwise
      (through JSON) the library's ``search_batch`` / ``search()`` over the
-     same root (``open_hybrid``), the root's lexical top-k against an exact
-     f64 BM25; ``version``, ``doctor --verify`` and a one-shot ``search``
-     as subprocesses (``python -m frankensearch_tpu_torch.cli``, on the
-     card); K1, K2 and K3 against their twins at the phase's shapes.
+     handle serve opened, the root's lexical top-k against an exact
+     f64 BM25; ``version`` and ``doctor --verify`` as subprocesses
+     (``python -m frankensearch_tpu_torch.cli``, on the card); K1, K2 and
+     K3 against their twins at the phase's shapes;
+ 12. cli-live-1M, the CLI's live-ingest and interactive path over phase
+     11's root: a 20,000-doc second root (phase 3's corpus, ``cli
+     index``) and a one-shot ``search`` subprocess over it (rows bitwise
+     ``search()``'s, on the card); ``cli daemon --concurrency 4`` over it
+     as a subprocess, a burst of 64 embeds from 8 threads bitwise the
+     local HashEmbedder(256); ``cli watch`` twice (768 new docs, then
+     modified, deleted, renamed and created files and dropped NDJSON
+     records under ``--durability-window``: the fast appends within the
+     spare rows and the seals at exit timed); ``cli tui`` in process (phase
+     4's queries, a token query for every changed doc, prefix chains,
+     boolean and negated lines, ``:status``, ``:metrics``): every line's
+     results bitwise the library's over the handle it opened, each
+     created, modified, renamed and untouched doc its token's top hit, no
+     gone id returned, the pool reused, K1, K2 and K3 counted; ``search
+     --federate`` over both roots with ``--daemon-socket`` (coverage 2/2,
+     every embed served by the daemon, whose ``requests_served`` equals
+     the requests sent); ``daemon --wal-poll`` folding the WAL with the
+     fast top-10 unchanged across a reopen; ``shadow --candidate device``
+     on the card (no shadow error; a divergence only at a tie); K1, K2
+     and K3 against their twins at the phase's shapes.
 
 The kernels line gives each kernel's time, its twin's, and its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -133,6 +151,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -804,11 +823,12 @@ def check_flat_kernel(cell: str, classes, flat_inputs: dict, *, timed: bool = Tr
 
 
 def lexical_oracle_check(arm, queries: list[str], k: int, *, phase: str = "phase4") -> int:
-    """The device lanes' top-k against an exact f64 host BM25 (a scipy
-    sparse product over all postings, hot and tail; for a segment stack,
-    each segment's postings with the stack's global idf weights): equal doc
-    sets up to ties within ORACLE_REL_TOL at the k-th score, scores within
-    it too. Returns how many queries' sets were equal outright."""
+    """The device lanes' top-k against an exact f64 host BM25 (each query's
+    column summed in f64 over its terms' postings, hot and tail; for a
+    segment stack, each segment's postings with the stack's global idf
+    weights): equal doc sets up to ties within ORACLE_REL_TOL at the k-th
+    score, scores within it too. Returns how many queries' sets were equal
+    outright."""
     import numpy as np
     from scipy import sparse
 
@@ -818,26 +838,33 @@ def lexical_oracle_check(arm, queries: list[str], k: int, *, phase: str = "phase
         segments, pairs = arm.segments, arm.query_pairs(queries)
     else:
         segments, pairs = [arm], [[arm._query_terms(text) for text in queries]]
-    cols, doc_ids = [], []
-    for seg, seg_pairs in zip(segments, pairs):
+    postings, doc_ids = [], []
+    for seg in segments:
         terms, docs, tfs = seg._post_host
-        x = sparse.csr_matrix(
+        postings.append(sparse.csc_matrix(  # a term's postings are its column (duplicates summed)
             (tfs.astype(np.float64), (docs.astype(np.int64), terms.astype(np.int64))),
-            shape=(seg.n_docs, seg.vocab_size),
-        )
-        q = np.zeros((seg.vocab_size, len(queries)), np.float64)
-        for j, query_pairs in enumerate(seg_pairs):
-            for tid, w in query_pairs:
-                q[tid, j] = np.float32(w)
-        cols.append(np.asarray(x @ q))  # (N_seg, Q)
+            shape=(seg.n_docs, seg.vocab_size)))
         doc_ids += seg.doc_ids
-    exact = np.concatenate(cols)
     row_of = {d: r for r, d in enumerate(doc_ids)}
+
+    def exact_column(j: int):
+        parts = []
+        for x, seg_pairs in zip(postings, pairs):
+            col = np.zeros(x.shape[0], np.float64)
+            for tid, w in {tid: w for tid, w in seg_pairs[j]}.items():  # a repeated term: its last weight
+                s, e = x.indptr[tid], x.indptr[tid + 1]
+                col[x.indices[s:e]] += x.data[s:e] * float(np.float32(w))  # a column holds a row once
+            parts.append(col)
+        return np.concatenate(parts)
+
     got = arm.search_candidates_batch(queries, k)
     outright = 0
     for j, cands in enumerate(got):
-        col = exact[:, j]
+        col = exact_column(j)
         pos = np.flatnonzero(col > 0.0)
+        if len(pos) > k:  # every doc at or above the k-th score, in row order
+            kth_score = np.partition(col[pos], len(pos) - k)[len(pos) - k]
+            pos = pos[col[pos] >= kth_score]
         top = pos[np.argsort(-col[pos], kind="stable")][:k]
         want = {doc_ids[r] for r in top}
         have = {c.doc_id for c in cands}
@@ -2491,7 +2518,8 @@ def phase10_built_m2v(dev, tmp: str, lexical: dict, m2v_run: dict) -> tuple[dict
     and phase 7's traffic goes through the fused lane with bitwise phase 7's
     results. Then 10,000 writes (the vector tier's append, then the lexical
     delta) searchable before a seal, an incremental seal (a two-segment
-    stack held to an exact f64 BM25), 1,000 deletes and a reopen."""
+    stack held to an exact f64 BM25) and 1,000 deletes (no reopen: phase
+    12's second watch opens a two-segment stack)."""
     import numpy as np
     import torch
 
@@ -2615,11 +2643,10 @@ def phase10_built_m2v(dev, tmp: str, lexical: dict, m2v_run: dict) -> tuple[dict
         f"lexical top-{K} of the 256 queries vs exact f64 host BM25 over {stack.n_docs} docs: {outright} equal, "
         f"{256 - outright} differ only at ties within {ORACLE_REL_TOL:g} ({time.perf_counter() - t0:.1f} s)")
 
-    # deletes across every arm, then a reopen
+    # deletes across every arm
     victims = sorted(rng.choice(H1M_DOCS, DELETE_DOCS // 2, replace=False).tolist())
     gone = {f"doc-{i:07d}" for i in victims} | {new_ids[i] for i in rng.choice(APPEND_DOCS, DELETE_DOCS // 2,
                                                                                replace=False)}
-    lex_before = [[(c.doc_id, c.score) for c in r] for r in stack.search_candidates_batch(queries, K)]
     t0 = time.perf_counter()
     handle.delete(sorted(gone))
     delete_s = time.perf_counter() - t0
@@ -2627,37 +2654,12 @@ def phase10_built_m2v(dev, tmp: str, lexical: dict, m2v_run: dict) -> tuple[dict
     after = searcher.search_batch(probes, k=K)
     if any(r.doc_id in gone for o in after for r in o.results):
         raise AssertionError("phase10: a deleted doc was returned")
-    qvecs = m2v.embed_batch(queries)
-
-    def vector_top(index):  # (doc id, score) rows: a reopen may place the rows elsewhere in the slab
-        top = index.fast.search_batch(qvecs, K)
-        ids = index.fast.doc_ids
-        return [[(ids[r], s) for r, s in zip(rows, scores) if r >= 0]
-                for rows, scores in zip(top.indices.cpu().tolist(), top.scores.cpu().tolist())]
-
-    vec_before = vector_top(handle.index)
+    log(f"phase10 {len(gone)} deletes ({DELETE_DOCS // 2} new) in {delete_s:.1f} s: none returned (no reopen "
+        "here: phase 12's second watch opens a two-segment stack)")
     handle.close()
-    t0 = time.perf_counter()
-    again = open_hybrid(root, fast_embedder=m2v, config=config)
-    reopen_s = time.perf_counter() - t0
-    restack = again.delta.sealed
-    if not isinstance(restack, SegmentedBm25) or len(restack.segments) != 2:
-        raise AssertionError("phase10: the reopened root did not load the segment stack")
-    lex_after = [[(c.doc_id, c.score) for c in r] for r in restack.search_candidates_batch(queries, K)]
-    vec_after = vector_top(again.index)
-    if lex_after != lex_before:
-        raise AssertionError("phase10: the stack's lexical top-10 changed across the reopen")
-    if vec_after != vec_before:
-        raise AssertionError("phase10: the vector arm's top-10 changed across the reopen")
-    reopened = again.searcher.search_batch(probes, k=K)
-    if any(r.doc_id in gone for o in reopened for r in o.results):
-        raise AssertionError("phase10: a deleted doc was returned after the reopen")
-    log(f"phase10 {len(gone)} deletes ({DELETE_DOCS // 2} new) in {delete_s:.1f} s: none returned before or "
-        f"after a reopen ({reopen_s:.1f} s); the stack's lexical and the vector arm's top-{K} bitwise across it")
-    again.close()
-    del handle, again, stack, restack, sealed
+    del handle, stack, sealed
     torch.cuda.empty_cache()
-    return ({"build_s": build_s, "open_s": open_s, "seal_s": seal_s, "reopen_s": reopen_s, "write_s": write_s,
+    return ({"build_s": build_s, "open_s": open_s, "seal_s": seal_s, "write_s": write_s,
              "delete_s": delete_s, "sizes": sizes, "batch_ms": batch_ms, "single_ms": single_ms,
              "b256_host_median_ms": b256_ms, "b1_host_median_ms": b1_ms, "oracle_equal": outright},
             launches, kernels)
@@ -2666,6 +2668,9 @@ def phase10_built_m2v(dev, tmp: str, lexical: dict, m2v_run: dict) -> tuple[dict
 CLI_MAX_BATCH = 256  # serve --serve-max-batch: phase 4's whole batch in one search_batch
 CLI_COALESCE_MS = 200  # serve --coalesce-ms: time for the pipelined frames to arrive
 CLI_WAIT_S = 900  # longest wait for a reply (the serve loop opens a 1M-doc root first)
+#: added to every CLI subprocess's argv: empty on the card (the default
+#: device); a CPU rehearsal sets ["--device", "cpu"]
+CLI_DEVICE_ARGS: list = []
 
 
 class LineCollector:
@@ -2703,7 +2708,6 @@ class LineCollector:
 
 def run_cli(argv: list[str]) -> dict:
     """One in-process CLI call (``--format json``): its envelope."""
-    import contextlib
     import io
 
     from frankensearch_tpu_torch.cli import main as cli
@@ -2719,16 +2723,63 @@ def run_cli(argv: list[str]) -> dict:
 
 def cli_subprocess(argv: list[str]) -> tuple[dict, float]:
     """``python -m frankensearch_tpu_torch.cli --format json ARGV`` (no
-    ``--device``: the card) from the checkout: (envelope, wall s)."""
+    ``--device`` unless CLI_DEVICE_ARGS gives one: the card) from the
+    checkout: (envelope, wall s)."""
     repo = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "frankensearch_tpu_torch.cli", "--format", "json", *argv],
+    proc = subprocess.run([sys.executable, "-m", "frankensearch_tpu_torch.cli", "--format", "json", *argv,
+                           *CLI_DEVICE_ARGS],
                           cwd=repo, env=dict(os.environ, PYTHONPATH=repo), capture_output=True, text=True,
                           timeout=CLI_WAIT_S)
     wall_s = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"phase11: cli {argv[0]} exited {proc.returncode}: {proc.stderr[-2000:]}")
     return json.loads(proc.stdout), wall_s
+
+
+@contextlib.contextmanager
+def spied(*swaps):
+    """Each ``(owner, name, make)`` swaps ``owner.name`` for
+    ``make(original)`` inside the block; every original goes back on the
+    way out."""
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in swaps]
+    try:
+        for (owner, name, make), (_, _, real) in zip(swaps, saved):
+            setattr(owner, name, make(real))
+        yield
+    finally:
+        for owner, name, real in reversed(saved):
+            setattr(owner, name, real)
+
+
+def noting(into: list):
+    """A swap's ``make``: the original, each return value also appended to
+    ``into``."""
+    def make(real):
+        def noted(*args, **kwargs):
+            into.append(real(*args, **kwargs))
+            return into[-1]
+        return noted
+    return make
+
+
+def host_ms(into: list):
+    """A swap's ``make``: the original, each call's host ms (the card
+    synchronized first and after) appended to ``into``."""
+    import torch
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+
+    def make(real):
+        def timed_call(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            sync()
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed_call
+    return make
 
 
 def json_rows(results) -> list:
@@ -2744,24 +2795,14 @@ def serve_session(root: str, queries: list[str], singles: list[str]) -> dict:
     out ``--coalesce-ms``), a ``search_batch`` op, a ``stream`` search,
     ``status`` and ``shutdown``. Each step's frames are written once the
     replies to the last have arrived. Returns the replies and host times
-    (frame write to its step's last reply), and the pressure fractions the
-    server sensed."""
+    (frame write to its step's last reply), the pressure fractions the
+    server sensed, and the handle its ``_open`` returned."""
     import threading
 
     from frankensearch_tpu_torch.cli import main as cli
     from frankensearch_tpu_torch.ops import pressure
 
-    sensed = {"host": [], "device": []}
-    host_sense, device_sense = pressure.sense_host_memory, pressure.sense_device_hbm
-
-    def host_noted():
-        sensed["host"].append(host_sense())
-        return sensed["host"][-1]
-
-    def device_noted(device):
-        sensed["device"].append(device_sense(device))
-        return sensed["device"][-1]
-
+    sensed: dict = {"host": [], "device": []}
     collector = LineCollector()
     read_fd, write_fd = os.pipe()
     steps: dict = {}
@@ -2789,27 +2830,28 @@ def serve_session(root: str, queries: list[str], singles: list[str]) -> dict:
         except BaseException as e:  # noqa: BLE001 - re-raised on the main thread
             failed.append(e)
 
-    stdin, stdout = sys.stdin, sys.stdout
-    pressure.sense_host_memory, pressure.sense_device_hbm = host_noted, device_noted
-    sys.stdin, sys.stdout = os.fdopen(read_fd, "r"), collector
+    handles: list = []
+    reader = os.fdopen(read_fd, "r")
     feeder = threading.Thread(target=client, daemon=True)
     try:
-        t_start = time.perf_counter()
-        feeder.start()
-        rc = cli.main(["serve", "--root", root, "--serve-max-batch", str(CLI_MAX_BATCH),
-                       "--coalesce-ms", str(CLI_COALESCE_MS), "--warmup"])
-        feeder.join(timeout=CLI_WAIT_S)
+        with spied((pressure, "sense_host_memory", noting(sensed["host"])),
+                   (pressure, "sense_device_hbm", noting(sensed["device"])), (cli, "_open", noting(handles)),
+                   (sys, "stdin", lambda _: reader), (sys, "stdout", lambda _: collector)):
+            t_start = time.perf_counter()
+            feeder.start()
+            rc = cli.main(["serve", "--root", root, "--serve-max-batch", str(CLI_MAX_BATCH),
+                           "--coalesce-ms", str(CLI_COALESCE_MS), "--warmup"])
+            feeder.join(timeout=CLI_WAIT_S)
     finally:
-        sys.stdin.close()
-        sys.stdin, sys.stdout = stdin, stdout
-        pressure.sense_host_memory, pressure.sense_device_hbm = host_sense, device_sense
+        reader.close()
     if failed:
         raise failed[0]
-    if rc != 0 or feeder.is_alive():
-        raise AssertionError(f"phase11: serve exited {rc}, client alive {feeder.is_alive()}")
+    if rc != 0 or feeder.is_alive() or len(handles) != 1:
+        raise AssertionError(f"phase11: serve exited {rc}, client alive {feeder.is_alive()}, "
+                             f"{len(handles)} opens of the root")
     lines = [json.loads(x) for x in collector.lines]
     return {"replies": {name: lines[a:b] for name, (a, b, _) in steps.items()},
-            "ms": {name: ms for name, (_, _, ms) in steps.items()}, "sensed": sensed}
+            "ms": {name: ms for name, (_, _, ms) in steps.items()}, "sensed": sensed, "handle": handles[0]}
 
 
 def phase11_cli(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
@@ -2818,13 +2860,15 @@ def phase11_cli(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
     a bf16 slab and the FLXB arm) builds a root from a JSONL corpus; ``serve
     --warmup`` answers phase 4's 256 queries as one coalesced batch, eight
     singletons through ``search()``, a ``search_batch`` op, a stream search
-    and ``status``, every reply bitwise the library's over the same root
-    (``open_hybrid``); the lexical top-k against an exact f64 BM25; then
-    ``version``, ``doctor --verify`` and a one-shot ``search`` in
-    subprocesses, each on the card."""
+    and ``status``, every reply bitwise the library's over the handle serve
+    opened (a spy on the CLI's ``_open``); the lexical top-k against an
+    exact f64 BM25; then
+    ``version`` and ``doctor --verify`` in subprocesses, each on the card
+    (the one-shot ``search`` subprocess runs in phase 12, over its small
+    root)."""
     import torch
 
-    from frankensearch_tpu_torch import BulkDeviceBm25Index, open_hybrid
+    from frankensearch_tpu_torch import BulkDeviceBm25Index
     from frankensearch_tpu_torch.lexical.delta import DeltaLexicalIndex
     from frankensearch_tpu_torch.ops.pressure import PressureState
 
@@ -2848,12 +2892,14 @@ def phase11_cli(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
     if not warm["ok"] or warm["data"]["op"] != "warmup":
         raise AssertionError(f"phase11: serve --warmup reported {warm}")
 
-    t0 = time.perf_counter()
-    oracle = open_hybrid(root)
-    open_s = time.perf_counter() - t0
+    # the library over the handle serve opened (a spy on the CLI's _open),
+    # not a second 34-42 s open of the root
+    oracle = session.pop("handle")
+    oracle.searcher.governor = None
     sealed = oracle.delta.sealed if isinstance(oracle.delta, DeltaLexicalIndex) else None
     if type(sealed) is not BulkDeviceBm25Index or sealed.device != dev or sealed._blocked is None:
-        raise AssertionError("phase11: the opened root's lexical arm is not the FLXB arm on the card, split")
+        raise AssertionError(f"phase11: the opened root's lexical arm is not the FLXB arm on the card, split "
+                             f"({type(sealed).__name__} on {getattr(sealed, 'device', None)})")
     want = oracle.searcher.search_batch(queries, k=K)
     if not all(o.metrics.phase1_fused for o in want) or oracle.searcher.last_fusion_path != "device":
         raise AssertionError("phase11: the library's batch did not take the fused lane")
@@ -2887,7 +2933,7 @@ def phase11_cli(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
         + f" ms; search_batch op {ms['search_batch']:.2f} ms; status {status}; pressure fractions sensed "
         f"(host, device): last ({sensed['host'][-1]:.4f}, {sensed['device'][-1]:.6f}), max "
         f"({max(sensed['host']):.4f}, {max(sensed['device']):.6f}) over {len(sensed['host'])} observations")
-    log(f"phase11 the library over the same root (open_hybrid {open_s:.1f} s): the coalesced replies and the "
+    log(f"phase11 the library over the handle serve opened: the coalesced replies and the "
         f"search_batch op bitwise its search_batch, the singletons and the stream's phase bitwise its search()")
 
     t0 = time.perf_counter()
@@ -2909,16 +2955,501 @@ def phase11_cli(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
             or "CRC verified" not in checks["lexical_generation"]["detail"]
             or "slab CRC verified" not in checks["fast_artifact_integrity"]["detail"]):
         raise AssertionError(f"phase11: doctor {doctor['data']['findings']}")
-    one, search_s = cli_subprocess(["search", singles[0], "--root", root, "-k", str(K)])
-    if one["meta"]["device"] != dev.type or [{k: v for k, v in r.items() if k != "snippet"}
-                                           for r in one["data"]] != solo_rows[0]:
-        raise AssertionError(f"phase11: the one-shot search differs from search(): {one['data'][:2]}")
     log(f"phase11 subprocesses: version {version_s:.1f} s (devices {version['data']['devices']}), doctor --verify "
-        f"{doctor_s:.1f} s (healthy, slab and FLXB CRCs verified), one-shot search {search_s:.1f} s (rows "
-        "bitwise search()'s, on cuda)")
+        f"{doctor_s:.1f} s (healthy, slab and FLXB CRCs verified); the one-shot search runs in phase 12")
     return ({"index_s": index_s, "sizes": built["sizes"], "serve_ms": ms, "warmup": warm["data"],
-             "open_s": open_s, "oracle_equal": outright, "sensed_last": [sensed["host"][-1], sensed["device"][-1]],
-             "version_s": version_s, "doctor_s": doctor_s, "search_s": search_s}, launches, kernels)
+             "oracle_equal": outright, "sensed_last": [sensed["host"][-1], sensed["device"][-1]],
+             "version_s": version_s, "doctor_s": doctor_s}, launches, kernels)
+
+
+LIVE_FILES = 512  # phase 12: text files of the watched directory's first state
+LIVE_RECORDS = 256  # records of its one NDJSON file
+LIVE_CHURN = 16  # files modified, deleted, renamed and created between the two watch runs; records dropped
+LIVE_UNCHANGED = 64  # run-1 docs whose tokens are queried again after run 2
+FED_DOCS = 20_000  # the small root: the federation's second shard and the daemon's root
+DAEMON_CALLS, DAEMON_THREADS, DAEMON_TEXTS = 64, 8, 4
+DAEMON_MAX_REQUESTS = 256  # the daemon's --max-requests; pings fill what the phase did not use
+SHADOW_QUERIES = 64
+SHADOW_TIE_REL = 1e-5  # a shadow divergence must lie at a tie within this of the k-th score
+TUI_K = 8  # the search screen's k
+
+
+def live_corpus(live: str, texts: list[str]) -> dict:
+    """The watched directory's first state: LIVE_FILES text files
+    ``f%04d.txt`` and ``recs.jsonl`` of LIVE_RECORDS records ``wrec-%04d``,
+    doc i holding the unique token ``wtok%04d`` beside phase 4's words.
+    Returns {token: doc id}."""
+    os.makedirs(live, exist_ok=True)
+    tokens = {}
+    for i in range(LIVE_FILES):
+        with open(os.path.join(live, f"f{i:04d}.txt"), "w", encoding="utf-8") as f:
+            f.write(f"wtok{i:04d} {texts[i]}")
+        tokens[f"wtok{i:04d}"] = f"f{i:04d}.txt"
+    records = []
+    for j in range(LIVE_RECORDS):
+        i = LIVE_FILES + j
+        records.append({"id": f"wrec-{j:04d}", "content": f"wtok{i:04d} {texts[i]}"})
+        tokens[f"wtok{i:04d}"] = f"wrec-{j:04d}"
+    write_records(os.path.join(live, "recs.jsonl"), records)
+    return tokens
+
+
+def write_records(path: str, records: list[dict]) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        f.writelines(json.dumps(r) + "\n" for r in records)
+
+
+def churn(live: str, texts: list[str]) -> dict:
+    """Between the watch runs: modify, delete and rename LIVE_CHURN files
+    each, create LIVE_CHURN (``c%04d.txt``, token ``wnew%04d``), drop
+    LIVE_CHURN records. Returns the expectations: {"top": {token: id},
+    "absent": {token: id that must not appear}}."""
+    n = LIVE_CHURN
+    top, absent = {}, {}
+    for i in range(n):  # modified: a new token, the old one gone
+        with open(os.path.join(live, f"f{i:04d}.txt"), "w", encoding="utf-8") as f:
+            f.write(f"wmod{i:04d} changed {texts[i]}")
+        top[f"wmod{i:04d}"] = f"f{i:04d}.txt"
+        absent[f"wtok{i:04d}"] = f"f{i:04d}.txt"
+    for i in range(n, 2 * n):  # deleted
+        os.remove(os.path.join(live, f"f{i:04d}.txt"))
+        absent[f"wtok{i:04d}"] = f"f{i:04d}.txt"
+    for i in range(2 * n, 3 * n):  # renamed: the same content under a new path
+        os.rename(os.path.join(live, f"f{i:04d}.txt"), os.path.join(live, f"g{i:04d}.txt"))
+        top[f"wtok{i:04d}"] = f"g{i:04d}.txt"
+        absent[f"wtok{i:04d}#from"] = f"f{i:04d}.txt"
+    for i in range(n):  # created
+        with open(os.path.join(live, f"c{i:04d}.txt"), "w", encoding="utf-8") as f:
+            f.write(f"wnew{i:04d} {texts[LIVE_FILES + LIVE_RECORDS + i]}")
+        top[f"wnew{i:04d}"] = f"c{i:04d}.txt"
+    kept = []
+    for j in range(LIVE_RECORDS):  # the first LIVE_CHURN records dropped
+        i = LIVE_FILES + j
+        if j < n:
+            absent[f"wtok{i:04d}"] = f"wrec-{j:04d}"
+        else:
+            kept.append({"id": f"wrec-{j:04d}", "content": f"wtok{i:04d} {texts[i]}"})
+    write_records(os.path.join(live, "recs.jsonl"), kept)
+    return {"top": top, "absent": absent}
+
+
+def watch_run(live: str, root: str, *extra) -> tuple[dict, dict]:
+    """``cli watch`` in process, once; (its envelope's data, host ms of
+    its open, fast-tier appends, deletes and the seal at exit)."""
+    from frankensearch_tpu_torch import builder
+    from frankensearch_tpu_torch.index.two_tier import TwoTierIndex
+    from frankensearch_tpu_torch.lexical.delta import DeltaLexicalIndex
+
+    ms: dict = {"open": [], "append_fast": [], "delete": [], "seal": []}
+    t0 = time.perf_counter()
+    with spied((builder, "open_hybrid", host_ms(ms["open"])), (TwoTierIndex, "append_fast", host_ms(ms["append_fast"])),
+               (builder.HybridHandle, "delete", host_ms(ms["delete"])), (DeltaLexicalIndex, "seal", host_ms(ms["seal"]))):
+        env = run_cli(["watch", live, "--root", root, "--once", "--cycles", "1", "--debounce", "0", *extra])
+    return env["data"], {"wall": (time.perf_counter() - t0) * 1e3, **ms}
+
+
+def start_daemon(root: str, sock: str):
+    """``cli daemon`` over ``root`` as a subprocess (its own CUDA context
+    and stdout); returns the process once its socket exists."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "frankensearch_tpu_torch.cli", "--format", "json", "daemon", "--root", root,
+            "--socket", sock, "--concurrency", "4", "--max-requests", str(DAEMON_MAX_REQUESTS),
+            "--idle-timeout", str(CLI_WAIT_S), "--accept-timeout", "0.5", *CLI_DEVICE_ARGS]
+    proc = subprocess.Popen(argv, cwd=repo, env=dict(os.environ, PYTHONPATH=repo), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    deadline = time.perf_counter() + CLI_WAIT_S
+    while not os.path.exists(sock):
+        if proc.poll() is not None or time.perf_counter() > deadline:
+            proc.kill()
+            out, err = proc.communicate(timeout=60)
+            raise AssertionError(f"phase12: the daemon did not start (rc {proc.returncode}): {err[-2000:]}")
+        time.sleep(0.1)
+    return proc
+
+
+def daemon_burst(sock: str, texts: list[str]) -> float:
+    """DAEMON_CALLS embeds of DAEMON_TEXTS texts from DAEMON_THREADS
+    threads, each bitwise the local HashEmbedder(256)'s; host s."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from frankensearch_tpu_torch import HashEmbedder
+    from frankensearch_tpu_torch.core.daemon import DaemonClient
+
+    emb = HashEmbedder(dim=DIM)
+    batches = [[texts[(i * DAEMON_TEXTS + j) % len(texts)] for j in range(DAEMON_TEXTS)] for i in range(DAEMON_CALLS)]
+
+    def call(batch):
+        client = DaemonClient(sock, expect_embedder_id=emb.embedder_id, expect_revision=emb.revision,
+                              expect_dim=DIM, timeout_s=60.0)
+        return np.asarray(client.embed(batch), dtype=np.float32)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(DAEMON_THREADS) as pool:
+        got = list(pool.map(call, batches))
+    burst_s = time.perf_counter() - t0
+    for batch, vecs in zip(batches, got):
+        if vecs.tobytes() != emb.embed_batch(batch).tobytes():
+            raise AssertionError("phase12: a daemon embed differs from the local HashEmbedder's")
+    return burst_s
+
+
+def stop_daemon(proc, sock: str, sent: int) -> dict:
+    """Ping the daemon up to its --max-requests so it exits on its own;
+    its envelope."""
+    from frankensearch_tpu_torch.core.daemon import DaemonClient
+
+    client = DaemonClient(sock, timeout_s=60.0)
+    for _ in range(DAEMON_MAX_REQUESTS - sent):
+        if not client.ping():
+            raise AssertionError("phase12: the daemon stopped answering pings")
+    out, err = proc.communicate(timeout=CLI_WAIT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase12: the daemon exited {proc.returncode}: {err[-2000:]}")
+    return json.loads(out)
+
+
+def tui_session(root: str, script: list[str], evidence: str) -> tuple[str, dict]:
+    """``cli tui`` in process with ``script`` on stdin. Returns its frames
+    and what the spies saw: the handle its ``_open`` returned
+    (``handles``), each search line's query, results and host ms
+    (``lines``), and the ``IncrementalSearcher`` it made (``incs``)."""
+    import io
+
+    from frankensearch_tpu_torch.cli import main as cli
+    from frankensearch_tpu_torch.fusion import incremental
+    from frankensearch_tpu_torch.tui import screens
+
+    seen: dict = {"handles": [], "lines": [], "incs": []}
+
+    def screen(base):
+        class Screen(base):
+            def handle(self, event, shell):
+                t0 = time.perf_counter()
+                super().handle(event, shell)
+                if event.kind == "key" and event.value == "enter":
+                    seen["lines"].append((self.query, [r.to_dict() for r in self.results],
+                                          (time.perf_counter() - t0) * 1e3))
+        return Screen
+
+    def searcher(base):
+        class Inc(base):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                seen["incs"].append(self)
+        return Inc
+
+    out = io.StringIO()
+    with spied((cli, "_open", noting(seen["handles"])), (screens, "SearchScreen", screen),
+               (incremental, "IncrementalSearcher", searcher),
+               (sys, "stdin", lambda _: io.StringIO("".join(line + "\n" for line in script))),
+               (sys, "stdout", lambda _: out)):
+        rc = cli.main(["tui", "--root", root, "--evidence", evidence])
+    if rc != 0:
+        raise AssertionError(f"phase12: tui exited {rc}")
+    return out.getvalue(), seen
+
+
+def tui_replay(handle, lines, structured: set):
+    """Each recorded line's results bitwise the library's over the same
+    handle: ``SyncTwoTierSearcher`` + ``IncrementalSearcher`` for plain
+    lines, ``search()`` for structured ones. Returns the replay's
+    ``IncrementalSearcher``."""
+    from frankensearch_tpu_torch.fusion.incremental import IncrementalSearcher
+    from frankensearch_tpu_torch.fusion.sync_searcher import SyncTwoTierSearcher
+
+    s = handle.searcher
+    sync = SyncTwoTierSearcher(handle.index, lexical=s.lexical, config=s.config)
+    inc = IncrementalSearcher(search_fn=lambda q, k: sync.search(q, s.fast_embedder.embed(q), k=k).results,
+                              text_fn=lambda r: s.default_text_fn(r.doc_id))
+    for q, got, _ in lines:
+        want = s.search(q, k=TUI_K).results if q in structured else inc.search(q, k=TUI_K)
+        if got != [r.to_dict() for r in want]:
+            raise AssertionError(f"phase12: the tui's results for {q!r} differ from the library's")
+    return inc
+
+
+def freshness(handle, results: dict, expect: dict, unchanged: dict) -> dict:
+    """Each created, modified, renamed and untouched doc its token's top hit
+    (or, failing that, in the top TUI_K at lexical rank 1); no deleted,
+    renamed-from or dropped id, no modified doc under its old token."""
+    held = {"top": 0, "lexical_rank_1": 0}
+    for token, doc_id in {**expect["top"], **unchanged}.items():
+        ids = [r["doc_id"] for r in results[token]]
+        if ids[:1] == [doc_id]:
+            held["top"] += 1
+            continue
+        lex = handle.searcher.lexical.search(token, 1)
+        if doc_id not in ids or [r.doc_id for r in lex] != [doc_id]:
+            raise AssertionError(f"phase12: {doc_id} is not {token!r}'s top hit: {ids}")
+        held["lexical_rank_1"] += 1
+    for token, doc_id in expect["absent"].items():
+        if doc_id in [r["doc_id"] for r in results[token.split("#")[0]]]:
+            raise AssertionError(f"phase12: {doc_id} still answers {token.split('#')[0]!r}")
+    return held
+
+
+def metrics_ms(frames: str) -> dict:
+    """The TUI's own latency line (``:metrics``): count, mean, p50, p95, p99."""
+    line = [x for x in frames.splitlines() if x.startswith("search_ms")][-1].split()
+    return dict(zip(("count", "mean", "p50", "p95", "p99"), [int(line[1])] + [float(x) for x in line[2:]]))
+
+
+def same_fast_top(before: dict, after: dict) -> None:
+    """Fast top-10s equal: ids and score bits, rows of equal score in any order."""
+    for token, want in before.items():
+        got = after[token]
+        if sorted(got) != sorted(want) or [s for _, s in got] != [s for _, s in want]:
+            raise AssertionError(f"phase12: the fast top-10 of {token!r} moved across the fold")
+
+
+def shadow_ties(corpus: str, env: dict) -> int:
+    """Every shadow divergence at a tie in the oracle's scores: a moved
+    rank between two docs within SHADOW_TIE_REL of each other, a missing
+    or extra doc within it of the k-th score. Returns the divergences."""
+    from frankensearch_tpu_torch.cli.main import _iter_corpus
+    from frankensearch_tpu_torch.lexical.memory_index import MemoryLexicalIndex
+
+    samples = env["samples"]
+    if len(samples) < sum(env["divergences_by_kind"].values()):
+        raise AssertionError("phase12: shadow's samples do not hold every divergence")
+    if not samples:
+        return 0
+    oracle = MemoryLexicalIndex.bulk_build(list(_iter_corpus(corpus)))
+    full = {}
+    for d in samples:
+        q = d["query"]
+        if q not in full:
+            full[q] = oracle.search_candidates(q, 10 * K)
+        scores = [c.score for c in full[q]]
+        by_id = {c.doc_id: c.score for c in full[q]}
+        kth = scores[K - 1] if len(scores) >= K else 0.0
+        if d["kind"] == "rank_moved":
+            a, b = (int(x) for x in d["detail"].split(" -> "))
+            pair = (scores[a], scores[b]) if max(a, b) < len(scores) else (0.0, 1.0)
+        elif d["kind"] in ("missing_doc", "extra_doc"):
+            pair = (by_id.get(d["doc_id"], float("inf")), kth)
+        else:
+            raise AssertionError(f"phase12: shadow divergence {d}")
+        if abs(pair[0] - pair[1]) > SHADOW_TIE_REL * max(abs(pair[1]), 1.0):
+            raise AssertionError(f"phase12: shadow divergence {d} is not at a tie ({pair})")
+    return len(samples)
+
+
+def phase12_live(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
+    """cli-live-1M: ``watch`` into phase 11's 1M-doc root twice (768 docs,
+    then modifies, deletes, renames, creates and dropped records under
+    ``--durability-window``), ``tui`` on the sync searcher over the watched
+    root (every line bitwise the library's over the handle it opened,
+    freshness, pool reuse, ``:status``, K1/K2/K3 counted), the
+    ``daemon`` in its own process over a 20,000-doc root (a 64-call burst
+    bitwise the local embedder, then every embed of a federated ``search
+    --federate --daemon-socket``), ``daemon --wal-poll`` folding the WAL,
+    ``shadow --candidate device``; phase 11's one-shot ``search``
+    subprocess, over the small root."""
+    import numpy as np
+    import torch
+
+    from frankensearch_tpu_torch import HashEmbedder, open_hybrid
+    from frankensearch_tpu_torch.fusion import daemon_fallback
+    from frankensearch_tpu_torch.index.two_tier import TwoTierIndex
+
+    texts, queries = lexical["texts"], lexical["queries"]
+    root, rec = os.path.join(tmp, "cli_root"), {}
+    wall = {}
+
+    # the small root: phase 3's corpus, its first FED_DOCS docs
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 3)
+    docs, vocab3, probs3 = hybrid_corpus(rng)
+    queries3 = query_texts(rng, vocab3, probs3, 256)
+    small_corpus, small = os.path.join(tmp, "fed_corpus.jsonl"), os.path.join(tmp, "fed_root")
+    write_records(small_corpus, [{"id": f"fed-{i:06d}", "content": d.content, "title": d.title}
+                                 for i, d in enumerate(docs[:FED_DOCS])])
+    built = run_cli(["index", small_corpus, "--root", small])["data"]
+    if built["doc_count"] != FED_DOCS:
+        raise AssertionError(f"phase12: the small root built {built}")
+    wall["small_index_s"] = time.perf_counter() - t0
+
+    # phase 11's one-shot search subprocess, over the small root
+    lib = open_hybrid(small)
+    want = json_rows(lib.searcher.search(queries3[0], k=K).results)
+    lib.close()
+    one, wall["one_shot_search_s"] = cli_subprocess(["search", queries3[0], "--root", small, "-k", str(K)])
+    if one["meta"]["device"] != dev.type or [{k: v for k, v in r.items() if k != "snippet"}
+                                           for r in one["data"]] != want:
+        raise AssertionError(f"phase12: the one-shot search differs from search(): {one['data'][:2]}")
+
+    sock_dir = tempfile.mkdtemp(prefix="fsd-")
+    if len(sock_dir) > 90:  # a unix socket path holds at most 108 bytes
+        os.rmdir(sock_dir)
+        sock_dir = tempfile.mkdtemp(prefix="fsd-", dir="/tmp")
+    sock = os.path.join(sock_dir, "d.sock")
+    t0 = time.perf_counter()
+    proc = start_daemon(small, sock)
+    try:
+        wall["daemon_start_s"] = time.perf_counter() - t0
+        wall["daemon_burst_s"] = daemon_burst(sock, queries3)
+        sent = DAEMON_CALLS
+
+        # watch, twice
+        live = os.path.join(tmp, "live")
+        tokens = live_corpus(live, texts)
+        run1, ms1 = watch_run(live, root)
+        n_live = LIVE_FILES + LIVE_RECORDS
+        if run1["batches"] != [{"ingested": n_live, "deleted": 0, "renamed": 0}] or run1["doc_count"] != H1M_DOCS + n_live:
+            raise AssertionError(f"phase12: watch run 1 {run1}")
+        expect = churn(live, texts)
+        run2, ms2 = watch_run(live, root, "--durability-window", "0.5")
+        n = LIVE_CHURN
+        want2 = {"ingested": 2 * n + LIVE_RECORDS - n, "deleted": 2 * n, "renamed": n}
+        docs_after = H1M_DOCS + n_live + n - 2 * n
+        if run2["batches"] != [want2] or run2["doc_count"] != docs_after:
+            raise AssertionError(f"phase12: watch run 2 {run2}, expected {want2} and {docs_after} docs")
+        log(f"phase12 watch run 1: {n_live} docs in {ms1['wall'] / 1e3:.1f} s (open {ms1['open'][0] / 1e3:.1f} s; "
+            f"fast append {ms1['append_fast']} ms; seal at exit {ms1['seal']} ms); run 2 {want2} in "
+            f"{ms2['wall'] / 1e3:.1f} s (open {ms2['open'][0] / 1e3:.1f} s; fast appends {ms2['append_fast']} ms; "
+            f"deletes {ms2['delete']} ms; seal {ms2['seal']} ms)")
+
+        # tui on the sync searcher over the watched root
+        unchanged = {t: d for t, d in tokens.items()
+                     if t not in expect["absent"] and d not in expect["top"].values()
+                     and not d.startswith(("f000", "f001", "f002", "f003", "f004"))}
+        unchanged = dict(sorted(unchanged.items())[:: max(1, len(unchanged) // LIVE_UNCHANGED)][:LIVE_UNCHANGED])
+        fresh = sorted({t.split("#")[0] for t in (*expect["top"], *expect["absent"], *unchanged)})
+        w = [f"w{i:05d}" for i in range(40)]  # phase 4's commonest words
+        chains = [q for a, b, c in ((w[5], w[9], w[30]), (w[1], w[2], w[3]), (w[7], w[11], w[13]),
+                                    (w[20], w[4], w[6])) for q in (a, f"{a} {b}", f"{a} {b} {c}")]
+        structured = [f"{w[5]} AND {w[9]}", f"{w[1]} OR {w[12]}", f"{w[5]} -{w[9]}", f"{w[12]} -{w[1]}"]
+        script = [*queries, *fresh, *chains, *structured, ":status", ":metrics", ":q"]
+        shapes, flat_inputs = set(), {}
+        t0 = time.perf_counter()
+        (frames, spies), launches = drive(lambda: tui_session(root, script, os.path.join(tmp, "tui.jsonl")),
+                                          shapes, flat_inputs)
+        wall["tui_s"] = time.perf_counter() - t0
+        need_launches("phase12", launches, ("K1", "K2", "K3"))
+        (handle,), (tui_inc,) = spies["handles"], spies["incs"]
+        if [q for q, _, _ in spies["lines"]] != script[:-3]:
+            raise AssertionError("phase12: the tui did not answer every line")
+        if "reload_failed" in frames:
+            raise AssertionError("phase12: the tui failed a reload")
+        t0 = time.perf_counter()
+        replay = tui_replay(handle, spies["lines"], set(structured))
+        wall["tui_replay_s"] = time.perf_counter() - t0
+        results = {q: got for q, got, _ in spies["lines"]}
+        held = freshness(handle, results, expect, unchanged)
+        chain_reuses = tui_inc.state.pool_reuses
+        if chain_reuses < 8 or replay.state.pool_reuses != chain_reuses:
+            raise AssertionError(f"phase12: pool reuses {chain_reuses} (replay {replay.state.pool_reuses})")
+        status = dict(line.split(None, 1) for line in frames.split("[status]")[-1].split("[metrics]")[0]
+                      .splitlines()[1:] if line.strip())
+        if int(status["docs"]) != docs_after:
+            raise AssertionError(f"phase12: :status docs {status['docs']}, expected {docs_after}")
+        tui_ms = metrics_ms(frames)
+        line_ms = sorted(ms for _, _, ms in spies["lines"])
+        log(f"phase12 tui: {len(spies['lines'])} lines in {wall['tui_s']:.1f} s (open included); search_ms "
+            f"{tui_ms}; per-line host ms p50 {line_ms[len(line_ms) // 2]:.2f} p99 "
+            f"{line_ms[int(len(line_ms) * 0.99)]:.2f}; pool reuses {chain_reuses}; every line bitwise the "
+            f"library's over the handle it opened (replay {wall['tui_replay_s']:.1f} s); freshness of "
+            f"{len(expect['top']) + len(unchanged)} docs: {held}; {len(expect['absent'])} gone ids absent; "
+            f"status {status}; launches {launches}")
+        sealed = [seg for seg in getattr(handle.delta.sealed, "segments", [handle.delta.sealed])
+                  if getattr(seg, "_blocked", None) is not None]
+        if len(sealed) != 1:
+            raise AssertionError(f"phase12: {len(sealed)} segments in the split layout, expected 1")
+        kernels = check_kernels("cli-live-1M", handle.index.fast.slab, handle.index.fast._effective_mask(None, None),
+                                shapes)
+        kernels += check_flat_kernel("cli-live-1M", sealed[0]._blocked.classes, flat_inputs)
+        emb = HashEmbedder(dim=DIM)
+        fast_before = {t: [(h.doc_id, h.score) for h in handle.index.search_fast_classified(emb.embed(t), K).hits]
+                       for t in fresh}
+        handle.close()
+        del handle, sealed, replay, spies
+        torch.cuda.empty_cache()
+
+        # a federated one-shot search through the daemon
+        # a created doc: both shards' first rows tie under RRF, and (score desc, id asc) puts c0000.txt first
+        token = "wnew0000"
+        doc_id = expect["top"][token]
+        made: list = []
+
+        def noting_self(real):
+            def init(self, *args, **kwargs):
+                real(self, *args, **kwargs)
+                made.append(self)
+            return init
+
+        t0 = time.perf_counter()
+        with spied((daemon_fallback.DaemonFallbackEmbedder, "__init__", noting_self)):
+            fed = run_cli(["search", token, "--root", root, "--federate", small, "--daemon-socket", sock,
+                           "-k", str(K)])
+        wall["federated_s"] = time.perf_counter() - t0
+        cov = fed["meta"]["coverage"]
+        hits = sum(fb.stats.daemon_hits for fb in made)
+        if cov != {"total_shards": 2, "responded": 2, "complete": True, "failed": [], "timed_out": []}:
+            raise AssertionError(f"phase12: federated coverage {cov}")
+        if fed["data"][0]["doc_id"] != doc_id:
+            raise AssertionError(f"phase12: {doc_id} is not the federated top row: {fed['data'][:3]}")
+        if len(made) != 2 or any(fb.stats.local_fallbacks for fb in made) or hits < 2:
+            raise AssertionError(f"phase12: daemon hits {[vars(fb.stats) for fb in made]}")
+        sent += hits
+        daemon_env = stop_daemon(proc, sock, sent)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=60)
+        if os.path.exists(sock):
+            os.remove(sock)
+        os.rmdir(sock_dir)
+    served = daemon_env["data"]["requests_served"]
+    if served != DAEMON_MAX_REQUESTS:
+        raise AssertionError(f"phase12: the daemon served {served}, {DAEMON_MAX_REQUESTS} sent")
+    log(f"phase12 daemon (its own process, --concurrency 4): ready {wall['daemon_start_s']:.1f} s; "
+        f"{DAEMON_CALLS} embeds of {DAEMON_TEXTS} from {DAEMON_THREADS} threads in {wall['daemon_burst_s']:.2f} s, "
+        f"bitwise HashEmbedder({DIM}); federated search {wall['federated_s']:.1f} s, coverage 2/2, "
+        f"{doc_id} top, {hits} embeds through the daemon and no local fallback; requests_served {served} "
+        f"(= {DAEMON_CALLS} + {hits} + {DAEMON_MAX_REQUESTS - sent} pings)")
+
+    # the WAL fold
+    wal = os.path.join(root, "vector.fast.idx.wal")
+    wal_bytes = os.path.getsize(wal)
+    t0 = time.perf_counter()
+    folded = run_cli(["daemon", "--wal-poll", "--root", root, "--cycles", "1", "--wal-threshold-bytes", "1"])["data"]
+    wall["wal_poll_s"] = time.perf_counter() - t0
+    if folded["compactions"] != 1 or (os.path.exists(wal) and os.path.getsize(wal)):
+        raise AssertionError(f"phase12: wal-poll {folded}")
+    t0 = time.perf_counter()
+    reopened = TwoTierIndex.open(root, device=dev)
+    wall["reopen_s"] = time.perf_counter() - t0
+    same_fast_top(fast_before, {t: [(h.doc_id, h.score) for h in reopened.search_fast_classified(
+        emb.embed(t), K).hits] for t in fresh})
+    del reopened
+    log(f"phase12 daemon --wal-poll: {wal_bytes} WAL bytes folded in {wall['wal_poll_s']:.1f} s; the reopened "
+        f"index ({wall['reopen_s']:.1f} s) serves the same fast top-{K} for {len(fresh)} tokens")
+
+    # shadow, the device candidate on the card
+    qfile = os.path.join(tmp, "shadow_queries.txt")
+    with open(qfile, "w", encoding="utf-8") as f:
+        f.write("\n".join(queries3[:SHADOW_QUERIES]) + "\n")
+    t0 = time.perf_counter()
+    sh = run_cli(["shadow", small_corpus, "--candidate", "device", "--queries-file", qfile, "-k", str(K),
+                  "--max-samples", "100000"])["data"]
+    wall["shadow_s"] = time.perf_counter() - t0
+    if sh["shadow_errors"] or sh["queries"] != SHADOW_QUERIES or sh["docs"] != FED_DOCS:
+        raise AssertionError(f"phase12: shadow {sh}")
+    ties = shadow_ties(small_corpus, sh)
+    log(f"phase12 shadow --candidate device: {sh['queries']} queries over {sh['docs']} docs in "
+        f"{wall['shadow_s']:.1f} s, agreement {sh['agreement_rate']}, shadow_errors 0, "
+        f"{ties} divergences, each at a tie in the oracle's scores within {SHADOW_TIE_REL:g}; oracle "
+        f"{sh['primary_ms']} ms, device {sh['shadow_ms']} ms")
+    rec.update({"watch": [run1, run2], "watch_ms": [ms1, ms2], "tui_ms": tui_ms,
+                "line_ms_p50": line_ms[len(line_ms) // 2], "line_ms_p99": line_ms[int(len(line_ms) * 0.99)],
+                "freshness": held, "pool_reuses": chain_reuses, "daemon_served": served, "daemon_hits": hits,
+                "wal_bytes": wal_bytes, "shadow": {k: sh[k] for k in ("agreement_rate", "divergent_queries",
+                                                                      "primary_ms", "shadow_ms")},
+                "shadow_ties": ties, "wall": wall})
+    return rec, launches, kernels
 
 
 def main() -> int:
@@ -2983,10 +3514,13 @@ def main() -> int:
         t0 = time.perf_counter()
         cli_rec, l11, k11 = phase11_cli(dev, tmp, lexical)
         wall["phase11_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        live_rec, l12, k12 = phase12_live(dev, tmp, lexical)
+        wall["phase12_s"] = time.perf_counter() - t0
         del lexical
         log("phase wall times: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
 
-    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9 + k10 + k11
+    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9 + k10 + k11 + k12
     kernels = []
     for name, key, src, replaces, cell in KERNELS:
         recs = [r for r in records if r["kernel"] == name]
@@ -3001,7 +3535,7 @@ def main() -> int:
         bound_ms = sum(r["bound"][0] for r in head) / len(head)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9, l10, l11)),
+            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9, l10, l11, l12)),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": sum(r["ms"] for r in head) / len(head), "plain_ms": sum(r["plain_ms"] for r in head) / len(head),
             "bound_ms": bound_ms,
@@ -3011,7 +3545,7 @@ def main() -> int:
         })
     log(json.dumps({"semantic": sem, "hybrid": hyb, "hybrid_1m": h1m, "scan_modes": modes, "ab_scan": ab_rec,
                     "hybrid_1m_m2v": m2v_rec, "hybrid_1m_quality": quality_rec, "scan_lanes": lanes_rec,
-                    "built_1m_m2v": built_rec, "cli_1m": cli_rec, "wall_s": wall}))
+                    "built_1m_m2v": built_rec, "cli_1m": cli_rec, "cli_live_1m": live_rec, "wall_s": wall}))
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
     print(json.dumps({

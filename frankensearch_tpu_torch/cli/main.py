@@ -11,7 +11,8 @@ the CPU). Ported:
                   (--preflight, --resumable, --slab-dtype)
     search        two-tier progressive search (--fast-only/--explain/--expand
                   /--adaptive: learned fusion params from recorded feedback;
-                  --template, --format toon)
+                  --template, --format toon; --federate fans over more
+                  roots, --daemon-socket embeds through a warm daemon)
     feedback      record a click/skip outcome for the adaptive control plane
     status        index + storage status (doc counts, staleness, arms)
     doctor        environment/device diagnostics (--verify checks CRCs)
@@ -27,12 +28,21 @@ the CPU). Ported:
     serve         NDJSON server (search / search_batch / status / ping /
                   stream; --coalesce-ms, --serve-max-batch, --warmup, hot
                   reload)
+    watch         poll a corpus dir; debounce -> classify -> ingest through
+                  the fast tier's WAL and the lexical delta (--durability-
+                  window: group commit)
+    daemon        warm-embedding daemon on a unix socket (challenge/
+                  attestation; --concurrency N coalesces; --wal-poll runs
+                  the WAL-compaction daemon instead)
+    tui           text UI on stdin/stdout over the sync searcher (frames,
+                  --evidence JSONL)
+    shadow        lexical-backend migration confidence (fts5 or device
+                  candidate against the oracle)
     version       version + device report
 
 Not ported yet (a typed ``not_ported`` error envelope, exit code 1): the
-commands watch, daemon, fleet, tui, download, update, uninstall,
-footprint, repro and shadow, and the flags ``search --federate``,
-``search --daemon-socket``, ``serve --fleet-dir`` and ``--shards N`` > 0.
+commands fleet, download, update, uninstall, footprint and repro, and the
+flags ``serve --fleet-dir``, ``daemon --fleet-dir`` and ``--shards N`` > 0.
 
 Formats: table | json | jsonl | csv | toon (output_schema.rs envelope;
 toon = compact agent payloads with r1/r2/... handles, cli.rs toon mode).
@@ -351,13 +361,11 @@ def cmd_index(args) -> dict:
     )
 
 
-def _open(args):
+def _open(args, root: str | None = None):
     from frankensearch_tpu_torch.builder import open_hybrid
 
     if getattr(args, "shards", 0):
         _refuse("--shards (the mesh-sharded fast tier)")
-    if getattr(args, "daemon_socket", ""):
-        _refuse("search --daemon-socket (daemon-first embedding)")
 
     # 5-layer config resolution (runtime/config.py; parity fsfs
     # config.rs): defaults < env < ~/.config user file <
@@ -393,7 +401,34 @@ def _open(args):
         cfg.query_planning = True
         lc.sources["query_planning"] = "cli"
     cfg.validate()
-    return open_hybrid(args.root, config=cfg, device=args.device)
+    wrap = None
+    socket_path = getattr(args, "daemon_socket", "")
+    if socket_path:
+        # daemon-first embedding with local fallback (daemon_fallback.rs
+        # parity): the one-shot CLI reuses a warm daemon's embedder and
+        # degrades to in-process embedding when the daemon is absent —
+        # never fails the search over transport
+        from frankensearch_tpu_torch.core.daemon import DaemonClient
+        from frankensearch_tpu_torch.fusion.daemon_fallback import DaemonFallbackEmbedder
+
+        def wrap(local, _sock=socket_path):
+            # pin the daemon to the LOCAL embedder's identity: a daemon
+            # serving a different model attests differently, the client
+            # raises, and the fallback embedder degrades to local — the
+            # search never runs in a silently wrong vector space
+            return DaemonFallbackEmbedder(
+                DaemonClient(
+                    _sock,
+                    expect_embedder_id=local.embedder_id,
+                    expect_revision=local.revision,
+                    expect_dim=local.dim,
+                ),
+                local,
+            )
+
+    return open_hybrid(
+        root or args.root, config=cfg, embedder_wrap=wrap, device=args.device
+    )
 
 
 def cmd_feedback(args) -> dict:
@@ -438,6 +473,75 @@ def cmd_feedback(args) -> dict:
     return envelope(out)
 
 
+def _search_federated(args, extra_roots: list[str]) -> dict:
+    """Fan one query over the primary root + every ``--federate`` root and
+    fuse with RRF (fusion/federated.py; parity: federated.rs :26-259).
+    A shard that fails to OPEN degrades into the coverage receipt like a
+    shard that fails to SEARCH — the query only errors when no shard at
+    all is servable. A shard's device fault is not a coverage entry: it
+    propagates."""
+    from frankensearch_tpu_torch.fusion.federated import FederatedSearcher, ShardError
+
+    if getattr(args, "shards", 0):
+        # refused before the fan-out, or every shard's open would fold
+        # the refusal into its coverage entry
+        _refuse("--shards (the mesh-sharded fast tier)")
+    roots = [args.root, *extra_roots]
+    if len(set(roots)) != len(roots):
+        return error_envelope(
+            "invalid_request", "duplicate index roots in --federate fan-out"
+        )
+    fed = FederatedSearcher()
+    open_failures: list[ShardError] = []
+    primary_storage = None
+    for root in roots:
+        try:
+            h = _open(args, root=root)
+        except SearchError as e:
+            open_failures.append(ShardError(shard=root, error=str(e)))
+            continue
+        if root == args.root and h.storage is not None:
+            primary_storage = h.storage
+        fed.add_shard(root, h.searcher)
+    if not fed.shards:
+        return error_envelope(
+            "not_found",
+            "no servable shard among "
+            + ", ".join(roots)
+            + " ("
+            + "; ".join(f"{f.shard}: {f.error}" for f in open_failures)
+            + ")",
+        )
+    t0 = time.monotonic()
+    res = fed.search(args.query, k=args.k)
+    latency = (time.monotonic() - t0) * 1000.0
+    if primary_storage is not None:
+        primary_storage.record_search(
+            args.query, args.k, len(res.results),
+            res.results[0].doc_id if res.results else None, latency,
+        )
+    env = envelope(_result_rows(res.results))
+    cov = res.coverage
+    env["meta"] = {
+        "phases": ["federated"],
+        "total_ms": round(res.latency_ms, 2),
+        "coverage": {
+            "total_shards": cov.total_shards + len(open_failures),
+            "responded": cov.responded,
+            "complete": cov.complete and not open_failures,
+            "failed": [
+                {"shard": f.shard, "error": f.error}
+                for f in (*open_failures, *cov.failed)
+            ],
+            "timed_out": list(cov.timed_out),
+        },
+    }
+    if open_failures or cov.failed or cov.timed_out:
+        env["warnings"] = env.get("warnings", []) + [
+            f"partial federated coverage: {cov.responded}/"
+            f"{cov.total_shards + len(open_failures)} shards answered"
+        ]
+    return env
 
 
 def cmd_search(args) -> dict:
@@ -467,7 +571,7 @@ def cmd_search(args) -> dict:
             params[k] = v
         args.query = tpl.format(**params)
     if getattr(args, "federate", None):
-        _refuse("search --federate")
+        return _search_federated(args, list(args.federate))
     handle = _open(args)
     phases_seen: list[str] = []
     t0 = time.monotonic()
@@ -543,10 +647,78 @@ def cmd_search(args) -> dict:
     return env
 
 
+def cmd_shadow(args) -> dict:
+    """Lexical-backend migration confidence (core/shadow.py; parity
+    shadow.rs): build the serving oracle AND a candidate backend from
+    the same corpus, run a query set through both, and report rank/
+    score divergences — swap backends only when agreement holds.
+    ``--candidate device`` builds the device BM25 arm on ``--device``;
+    only a candidate's ``SearchError`` counts as a shadow error, a device
+    fault propagates."""
+    from frankensearch_tpu_torch.core.shadow import ShadowLexical
+    from frankensearch_tpu_torch.lexical.memory_index import MemoryLexicalIndex
 
+    if args.candidate == "fts5":
+        from frankensearch_tpu_torch.lexical.fts5_adapter import (
+            Fts5LexicalIndex,
+            fts5_available,
+        )
 
+        if not fts5_available():
+            return error_envelope("unavailable", "sqlite build lacks FTS5")
+        candidate = Fts5LexicalIndex()
+    else:  # "device": the packed scorer lane, built from the oracle below
+        candidate = None
+    primary = MemoryLexicalIndex()
+    n_docs = 0
+    skips: list[str] = []
+    for doc in _iter_corpus(args.corpus, skips):
+        primary.add_document(doc)
+        if candidate is not None:
+            candidate.add_document(doc)
+        n_docs += 1
+    primary.commit()
+    if candidate is not None:
+        candidate.commit()
+    else:
+        from frankensearch_tpu_torch.device import resolve_device
+        from frankensearch_tpu_torch.lexical.device_bm25 import DeviceBm25Index
 
-
+        candidate = DeviceBm25Index(primary, device=resolve_device(args.device))
+    if args.queries_file:
+        with open(args.queries_file, encoding="utf-8") as f:
+            queries = [q.strip() for q in f if q.strip()]
+    else:
+        queries = list(args.query)
+    if not queries:
+        return error_envelope("invalid_request", "no queries (--queries-file or -q)")
+    sh = ShadowLexical(
+        primary, candidate, score_rel_tolerance=args.score_tolerance
+    )
+    for q in queries:
+        sh.search_candidates(q, args.k)
+    rep = sh.report
+    by_kind: dict[str, int] = {}
+    for d in rep.divergences:
+        by_kind[d.kind] = by_kind.get(d.kind, 0) + 1
+    return envelope(
+        {
+            "candidate": args.candidate,
+            "docs": n_docs,
+            "queries": rep.queries,
+            "agreement_rate": round(rep.agreement_rate, 4),
+            "divergent_queries": rep.divergent_queries,
+            "shadow_errors": rep.shadow_errors,
+            "divergences_by_kind": by_kind,
+            "primary_ms": round(rep.primary_ms, 1),
+            "shadow_ms": round(rep.shadow_ms, 1),
+            "samples": [
+                {"query": d.query, "kind": d.kind, "doc_id": d.doc_id, "detail": d.detail}
+                for d in rep.divergences[: args.max_samples]
+            ],
+        },
+        warnings=skips[:10],
+    )
 
 
 def cmd_status(args) -> dict:
@@ -822,10 +994,266 @@ def cmd_compact(args) -> dict:
     )
 
 
+def cmd_watch(args) -> dict:
+    """Watch a corpus dir; ingest changed files incrementally
+    (fsfs watch: debounce -> classify -> batch -> append, watcher.rs)."""
+    from frankensearch_tpu_torch.builder import open_hybrid
+    from frankensearch_tpu_torch.runtime.mounts import MountTable
+    from frankensearch_tpu_torch.runtime.watcher import SnapshotWatcher, open_regular_text
+
+    handle = open_hybrid(args.root, device=args.device)
+    window = getattr(args, "durability_window", 0.0) or 0.0
+    if window > 0:
+        # group commit: appends ride the page cache; one fsync per window
+        handle.index.wal_sync = "deferred"
+    last_sync = time.monotonic()
+    snapshot = os.path.join(args.root, "watch_snapshot.json")
+    watcher = SnapshotWatcher(
+        [args.corpus], snapshot, debounce_s=args.debounce,
+        mount_table=MountTable.system(),
+    )
+    for warning in watcher.mount_warnings:
+        print(f"warning: {warning}", file=sys.stderr)
+    if not watcher.roots:
+        return error_envelope("mount_disabled", "all corpus roots are on disabled/unavailable mounts")
+    cycles = 0
+    batches: list[dict] = []
+    # per-file record membership: NDJSON corpus files explode into
+    # per-record docs, so file modify/delete must tombstone the records
+    # that vanished — tracked in a sidecar keyed by relpath
+    members_path = os.path.join(args.root, "watch_members.json")
+    try:
+        with open(members_path, encoding="utf-8") as f:
+            raw_members = json.load(f)
+    except (OSError, ValueError):
+        raw_members = {}
+    # shape-validate: a corrupt sidecar must degrade to re-learning
+    # memberships, never crash the watch (a {"f": 123} sidecar raised
+    # TypeError mid-cycle; a str value would have iterated CHARS into
+    # garbage tombstones)
+    members: dict[str, list[str]] = {}
+    if isinstance(raw_members, dict):
+        for k, v in raw_members.items():
+            if isinstance(v, (list, tuple)):
+                members[str(k)] = [str(i) for i in v]
+    while True:
+        batch = watcher.poll()
+        if batch:
+            created_or_modified = [
+                c for c in batch if c.kind in ("created", "modified")
+            ]
+            deleted = [c for c in batch if c.kind == "deleted"]
+            docs = []
+            gone_ids: list[str] = []
+            renamed = 0
+            rename_from_ids: set[str] = set()
+            # renames preserve identity (incremental_change.rs rename/
+            # move semantics): the content is hash-confirmed unchanged,
+            # so the doc re-keys WITHOUT re-embedding — the old fast/
+            # quality vectors are gathered by row and appended under
+            # the new id; only storage/lexical re-key textually
+            moved_docs: list[IndexableDocument] = []
+            for c in [c for c in batch if c.kind == "renamed"]:
+                rel_from = os.path.relpath(c.rename_from, args.corpus)
+                rel_to = os.path.relpath(c.path, args.corpus)
+                if os.path.splitext(c.path)[1].lower() in (".jsonl", ".ndjson"):
+                    # member records keep their own ids: pure re-key
+                    members[rel_to] = members.pop(rel_from, [])
+                    renamed += 1
+                    continue
+                row = handle.index.fast.row_for(rel_from)
+                if row is None:
+                    created_or_modified.append(c)  # unknown: plain create
+                    continue
+                try:
+                    with open_regular_text(c.path) as f:
+                        content = f.read()
+                except OSError:
+                    continue
+                handle.index.append_fast(
+                    [rel_to], handle.index.fast.vector_for_row(row)[None, :]
+                )
+                if handle.index.quality is not None:
+                    qrow = handle.index.quality.row_for(rel_from)
+                    if qrow is not None:
+                        handle.index.append_quality(
+                            [rel_to],
+                            handle.index.quality.vector_for_row(qrow)[None, :],
+                        )
+                moved_docs.append(
+                    IndexableDocument(doc_id=rel_to, content=content)
+                )
+                gone_ids.append(rel_from)
+                rename_from_ids.add(rel_from)
+                renamed += 1
+            for c in created_or_modified:
+                rel = os.path.relpath(c.path, args.corpus)
+                if os.path.splitext(c.path)[1].lower() in (".jsonl", ".ndjson"):
+                    rec_skips: list[str] = []
+                    try:
+                        recs = list(_iter_corpus(c.path, rec_skips))
+                    except OSError as e:
+                        print(f"warning: skipping {rel}: {e}", file=sys.stderr)
+                        continue
+                    for r in rec_skips[:20]:
+                        print(f"warning: skipped malformed record {r}",
+                              file=sys.stderr)
+                    new_ids = [d.doc_id for d in recs]
+                    gone_ids.extend(
+                        i for i in members.get(rel, []) if i not in set(new_ids)
+                    )
+                    members[rel] = new_ids
+                    docs.extend(recs)
+                    continue
+                try:
+                    with open_regular_text(c.path) as f:
+                        content = f.read()
+                except OSError:
+                    continue
+                docs.append(IndexableDocument(doc_id=rel, content=content))
+            if docs:
+                vecs = handle.searcher.fast_embedder.embed_batch([d.content for d in docs])
+                handle.index.append_fast([d.doc_id for d in docs], vecs)
+            docs = docs + moved_docs  # moved docs re-key text arms only
+            if docs:
+                if handle.delta is not None:
+                    # searchable before seal: the delta serves these
+                    # immediately; the lease auto-seals into a packed
+                    # generation when its budget trips (delta.rs role —
+                    # no per-batch full republish)
+                    for d in docs:
+                        handle.delta.add_document(d)
+                    handle.delta.commit()
+                if handle.storage is not None:
+                    # census parity with append-batch: watch-ingested docs
+                    # must be visible to staleness/bookmark/negation/
+                    # phrase filters and phase-3 text
+                    handle.storage.upsert_documents_bulk(
+                        ((d.doc_id, d.content, d.title, d.metadata) for d in docs),
+                        embedder_id=handle.searcher.fast_embedder.embedder_id,
+                    )
+            for c in deleted:
+                rel = os.path.relpath(c.path, args.corpus)
+                # NDJSON file: its member records die with it
+                gone_ids.extend(members.pop(rel, None) or [rel])
+            if gone_ids:
+                # a doc id provided by MULTIPLE files dies only with its
+                # last provider: members is already updated for this
+                # batch, so any id still claimed by a surviving file (or
+                # just re-ingested) must not be tombstoned (deleting
+                # a.jsonl must not kill a doc b.jsonl still provides)
+                still_provided = {d.doc_id for d in docs}
+                for ids in members.values():
+                    still_provided.update(ids)
+                seen: set[str] = set()
+                gone_ids = [
+                    i for i in gone_ids
+                    if i not in still_provided and not (i in seen or seen.add(i))
+                ]
+            if gone_ids:
+                # every arm (vector WAL tombstone + lexical delta +
+                # storage) — same contract as `fsfs delete`
+                handle.delete(gone_ids)
+            if docs or gone_ids:
+                atomic_write_text(members_path, json.dumps(members))
+            batches.append({
+                "ingested": len(docs) - len(moved_docs),
+                "deleted": len([i for i in gone_ids if i not in rename_from_ids]),
+                "renamed": renamed,
+            })
+        if window > 0 and time.monotonic() - last_sync >= window:
+            handle.index.sync_wal()
+            last_sync = time.monotonic()
+        cycles += 1
+        if args.once and cycles >= args.cycles:
+            break
+        if not args.once:
+            time.sleep(args.interval)
+    if window > 0:
+        handle.index.sync_wal()  # exit is a commit point
+    if handle.delta is not None:
+        handle.delta.seal()  # freeze boundary at watch exit
+    return envelope({"cycles": cycles, "batches": batches,
+                     "doc_count": handle.index.doc_count()})
 
 
+def _wal_poll_daemon(args) -> dict:
+    """WAL-polling compaction daemon (runtime.rs:8663): acquire a
+    PublicationLease (single compactor across processes), poll the WAL
+    sidecar size every --poll-ms, fold WAL + tombstones into the base
+    artifact when it crosses --wal-threshold-bytes. Sidecar durability
+    protection refreshes automatically (write_ftvi). The index opens on
+    ``--device``."""
+    from frankensearch_tpu_torch.device import resolve_device
+    from frankensearch_tpu_torch.index.two_tier import TwoTierIndex, TwoTierPaths
+    from frankensearch_tpu_torch.runtime.lifecycle import PublicationLease
+
+    wal_path = TwoTierPaths(args.root).fast + ".wal"
+    lease_path = os.path.join(args.root, ".publication.lease")
+    device = resolve_device(args.device)
+    cycles = 0
+    compactions = 0
+    folded_bytes = 0
+    with PublicationLease(lease_path):
+        while args.cycles <= 0 or cycles < args.cycles:
+            cycles += 1
+            size = os.path.getsize(wal_path) if os.path.exists(wal_path) else 0
+            if size >= args.wal_threshold_bytes and size > 0:
+                index = TwoTierIndex.open(args.root, device=device)
+                index.compact()
+                compactions += 1
+                folded_bytes += size
+            if args.cycles <= 0 or cycles < args.cycles:
+                time.sleep(args.poll_ms / 1000.0)
+    return envelope({
+        "mode": "wal-poll",
+        "cycles": cycles,
+        "compactions": compactions,
+        "wal_bytes_folded": folded_bytes,
+    })
 
 
+def cmd_daemon(args) -> dict:
+    """Warm-embedding daemon over a unix socket (core/daemon.rs protocol:
+    challenge/attestation + NDJSON embed requests); ``--wal-poll`` runs
+    the WAL-compaction daemon instead."""
+    from frankensearch_tpu_torch.builder import open_hybrid
+    from frankensearch_tpu_torch.core.daemon import DaemonServer, ThreadedDaemonServer
+
+    if getattr(args, "wal_poll", False):
+        return _wal_poll_daemon(args)
+    if getattr(args, "fleet_dir", ""):
+        _refuse("daemon --fleet-dir (live fleet registration)")
+    handle = open_hybrid(args.root, device=args.device)
+    embedder = handle.searcher.fast_embedder
+    concurrency = max(getattr(args, "concurrency", 1), 1)
+    served = 0
+    idle_s = 0.0
+    if concurrency > 1:
+        # multi-connection + coalesced device batches
+        # (batch_coalescer.rs role; embed/coalescer.py)
+        server_cm = ThreadedDaemonServer(
+            args.socket, embedder, concurrency=concurrency,
+        )
+    else:
+        server_cm = DaemonServer(args.socket, embedder)
+    with server_cm as server:
+        if not args.quiet:
+            print(f"# daemon serving {embedder.embedder_id} on {args.socket}", file=sys.stderr)
+        while args.max_requests <= 0 or served < args.max_requests:
+            if server.serve_one(timeout_s=args.accept_timeout):
+                served = server.requests_served
+                idle_s = 0.0
+            else:
+                # the threaded server counts a request when its worker
+                # finishes: re-read after an idle accept so the loop ends
+                # once the last accepted request is served
+                served = server.requests_served
+                idle_s += args.accept_timeout
+                if args.idle_timeout > 0 and idle_s >= args.idle_timeout:
+                    break
+    # the threaded server's workers have finished inside __exit__
+    return envelope({"requests_served": server.requests_served, "socket": args.socket})
 
 
 def cmd_history(args) -> dict:
@@ -939,8 +1367,145 @@ complete -F _frankensearch_tpu_torch frankensearch-tpu-torch
     return None
 
 
+def cmd_tui(args) -> dict | None:
+    """Text TUI over stdin: lines are queries; ':status'/':metrics'
+    switch screens, ':q' quits. Frames stream to stdout (tui/shell.py,
+    deterministic + replayable)."""
+    from frankensearch_tpu_torch.core.metrics import StreamingStats
+    from frankensearch_tpu_torch.fusion.index_cache import SentinelFileDetector
+    from frankensearch_tpu_torch.index.two_tier import TwoTierPaths
+    from frankensearch_tpu_torch.tui.screens import MetricsScreen, SearchScreen, StatusScreen
+    from frankensearch_tpu_torch.tui.shell import AppShell, InputEvent
 
+    handle = _open(args)
+    latency = StreamingStats()
+    out = sys.stdout
+    _paths = TwoTierPaths(args.root)
+    _sentinels = SentinelFileDetector([
+        _paths.fast, _paths.wal_for(_paths.fast),
+        os.path.join(args.root, "lexical", "CURRENT"),
+        os.path.join(args.root, "lexical", "fts5.db"),
+    ])
+    _state = [_sentinels.snapshot()]
 
+    def _fresh_handle():
+        # rebind on generation change, same contract as serve: a reopen
+        # that fails with a SearchError keeps the previous generation and
+        # says so on the frame stream; anything else (a device fault)
+        # propagates
+        nonlocal handle
+        cur = _sentinels.snapshot()
+        if cur != _state[0]:
+            try:
+                handle = _open(args)
+                _state[0] = cur
+            except SearchError as e:
+                print(json.dumps(error_envelope("reload_failed", str(e))),
+                      file=out, flush=True)
+        return handle
+
+    # The TUI's query lane is the SYNC searcher over the live in-memory
+    # index (reference sync_searcher.rs:1-5 — the low-latency TUI path:
+    # embed, then a deterministic embedder-free two-phase pass with no
+    # thread pool or timeout machinery), wrapped in the as-you-type
+    # incremental state machine (incremental.rs: prefix extensions
+    # re-rank the cached pool instead of re-running the pipeline).
+    # Structured queries (boolean/phrase/negation) and non-semantic
+    # stacks take the full searcher, which owns those lanes.
+    from frankensearch_tpu_torch.core.parsed_query import ParsedQuery
+    from frankensearch_tpu_torch.core.types import PhaseKind, SearchPhase
+    from frankensearch_tpu_torch.fusion.incremental import IncrementalSearcher
+    from frankensearch_tpu_torch.fusion.sync_searcher import (
+        SyncSearchOutcome,
+        SyncTwoTierSearcher,
+    )
+    from frankensearch_tpu_torch.lexical.query import is_boolean_syntax
+
+    def _sync_pool(q: str, pool_k: int):
+        h = _fresh_handle()
+        s = h.searcher
+        fv = s.fast_embedder.embed(q)
+        qv = None
+        if (
+            s.quality_embedder is not None
+            and h.index.has_quality_tier
+            and getattr(s, "_quality_admitted", False)
+        ):
+            qv = s.quality_embedder.embed(q)
+        sync = SyncTwoTierSearcher(h.index, lexical=s.lexical, config=s.config)
+        return sync.search(q, fv, qv, k=pool_k).results
+
+    def _doc_text(r):
+        # storage-backed text (title+preview) so prefix refinement judges
+        # CONTENT, not just titles — without it the filter dropped
+        # correct docs on title-only evidence
+        tf = handle.searcher.default_text_fn
+        return tf(r.doc_id) if tf is not None else None
+
+    inc = IncrementalSearcher(search_fn=_sync_pool, text_fn=_doc_text)
+
+    def search_fn(q, k):
+        s = _fresh_handle().searcher
+        if is_boolean_syntax(q) or ParsedQuery.parse(q).has_negations or not getattr(
+            s, "_semantic_admitted", True
+        ):
+            res = s.search(q, k=k)
+            latency.observe(res.metrics.total_ms)
+            return res
+        t0 = time.monotonic()
+        reuses_before = inc.state.pool_reuses
+        results = inc.search(q, k=k)
+        ms = (time.monotonic() - t0) * 1e3
+        latency.observe(ms)
+        reused = inc.state.pool_reuses > reuses_before
+        refined = not reused and handle.index.has_quality_tier
+        kind = PhaseKind.REFINED if refined else PhaseKind.INITIAL
+        return SyncSearchOutcome(
+            results=results, phases=[SearchPhase(kind, list(results), ms)]
+        )
+
+    def status_fn():
+        from frankensearch_tpu_torch.lexical.persist import list_generations
+
+        fast = handle.index.fast
+        lexical_kind = type(handle.searcher.lexical).__name__ if handle.searcher.lexical else None
+        return {
+            "root": args.root,
+            "docs": handle.index.doc_count(),
+            "live_rows": fast.live_count,
+            "slab": f"{fast.n_pad}x{fast.d_pad} {fast.slab_dtype}",
+            "scan_mode": handle.searcher.config.scan_mode,
+            "quality_tier": handle.index.has_quality_tier,
+            "quality_rescan": handle.searcher.config.quality_rescan,
+            "lexical_arm": lexical_kind,
+            "lexical_generations": len(list_generations(args.root)),
+            "int8_arm": fast._int8 is not None,
+            "ivf_arm": fast._ivf is not None,
+        }
+
+    shell = AppShell(width=args.width)
+    shell.register(SearchScreen(search_fn=search_fn))
+    shell.register(StatusScreen(status_fn=status_fn))
+    shell.register(MetricsScreen(stats_fn=lambda: {"search_ms": latency.to_dict()}))
+    print(shell.render(), file=out, flush=True)
+    for line in sys.stdin:
+        line = line.rstrip("\n")
+        if line == ":q":
+            break
+        if line.startswith(":"):
+            name = line[1:] or "search"
+            try:
+                frame = shell.feed(InputEvent("key", f"screen:{name}"))
+            except KeyError:
+                frame = f"unknown screen {name!r}"
+        else:
+            shell.feed(InputEvent("text", line))
+            frame = shell.feed(InputEvent("key", "enter"))
+        print(frame, file=out, flush=True)
+    if args.evidence:
+        with open(args.evidence, "w", encoding="utf-8") as f:
+            f.write(shell.evidence.to_jsonl())
+    return None
 
 
 def cmd_version(args) -> dict:
@@ -1390,7 +1955,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="dry-run footprint advisor: byte census + compaction/"
              "retention/feature recommendations (never deletes)")
 
-    sp = add("shadow", _not_ported_command,
+    sp = add("shadow", cmd_shadow,
              help="migration confidence: run queries through the oracle "
                   "and a candidate lexical backend, report divergences")
     sp.add_argument("corpus", help="corpus dir or JSONL file")
@@ -1435,7 +2000,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     add("compact", cmd_compact, help="fold WAL + tombstones into the base")
 
-    sp = add("watch", _not_ported_command, help="watch a corpus dir; ingest changes")
+    sp = add("watch", cmd_watch, help="watch a corpus dir; ingest changes")
     sp.add_argument("corpus")
     sp.add_argument("--debounce", type=float, default=0.5)
     sp.add_argument("--interval", type=float, default=1.0)
@@ -1448,7 +2013,7 @@ def build_parser() -> argparse.ArgumentParser:
              "up to one window of tail updates; process crash cannot.",
     )
 
-    sp = add("daemon", _not_ported_command, help="warm-embedding daemon on a unix socket")
+    sp = add("daemon", cmd_daemon, help="warm-embedding daemon on a unix socket")
     sp.add_argument("--socket", default="/tmp/frankensearch-tpu.sock")
     sp.add_argument("--max-requests", type=int, default=0, help="0 = serve forever")
     sp.add_argument("--accept-timeout", type=float, default=5.0)
@@ -1463,7 +2028,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--wal-poll", action="store_true",
                     help="run the WAL-polling compaction daemon instead")
     sp.add_argument("--fleet-dir", default="",
-                    help="register this daemon in a live fleet registry dir")
+                    help="register this daemon in a live fleet registry dir "
+                         "(not ported yet)")
     sp.add_argument("--node-id", default="",
                     help="registry node id (default daemon-<pid>)")
     sp.add_argument("--poll-ms", type=float, default=1000.0)
@@ -1529,7 +2095,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = add("completions", cmd_completions, help="emit bash completions")
 
-    sp = add("tui", _not_ported_command, help="interactive text UI on stdin/stdout")
+    sp = add("tui", cmd_tui, help="interactive text UI on stdin/stdout")
     sp.add_argument("--width", type=int, default=80)
     sp.add_argument("--fast-only", action="store_true")
     sp.add_argument("--explain", action="store_true")

@@ -59,7 +59,8 @@ class DefaultCanonicalizer:
     def canonicalize_document_with_stats(self, text: str) -> tuple[str, CanonicalizeStats]:
         original_chars = len(text)
         out = unicodedata.normalize("NFC", text)
-        out = _FENCE.sub(lambda m: _collapse_code_block(m.group(1)), out)
+        if "```" in out:
+            out = _FENCE.sub(lambda m: _collapse_code_block(m.group(1)), out)
         out = _strip_markdown(out)
         out = _collapse_whitespace(out)
         low_signal = _is_low_signal(out)
@@ -88,7 +89,14 @@ def _collapse_code_block(body: str) -> str:
     return "\n".join(head + ["…"] + tail) + "\n"
 
 
+#: a character every markdown pattern's match holds: a text holding none
+#: is left as it is
+_MD_MARK = re.compile(r"[!\[#>*_~`-]")
+
+
 def _strip_markdown(text: str) -> str:
+    if not _MD_MARK.search(text):
+        return text
     out = _MD_IMAGE.sub(r"\1", text)
     out = _MD_LINK.sub(r"\1", out)
     out = _MD_HEADING.sub("", out)
@@ -100,7 +108,10 @@ def _strip_markdown(text: str) -> str:
 
 
 def _collapse_whitespace(text: str) -> str:
-    out = _WS.sub(" ", text)
+    # a lone space is its own replacement: only runs and other blanks change
+    out = _WS.sub(" ", text) if ("  " in text or "\t" in text or "\f" in text or "\v" in text) else text
+    if "\n" not in out:
+        return out.strip()
     out = _MANY_NEWLINES.sub("\n\n", out)
     out = "\n".join(line.strip() for line in out.split("\n"))
     return out.strip()

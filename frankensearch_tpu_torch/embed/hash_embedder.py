@@ -17,6 +17,7 @@ Deterministic across platforms/runs (pure integer arithmetic).
 from __future__ import annotations
 
 import re
+from itertools import chain
 from typing import Sequence
 
 import numpy as np
@@ -53,6 +54,14 @@ def _xorshift64star(seed: int, n: int) -> np.ndarray:
 
 def tokenize(text: str) -> list[str]:
     return _TOKEN_RE.findall(text.lower())
+
+
+def _counts(tokens: list[str]) -> dict[str, int]:
+    """Each token's count, in the order of its first appearance."""
+    counts: dict[str, int] = {}
+    for t in tokens:
+        counts[t] = counts.get(t, 0) + 1
+    return counts
 
 
 class HashEmbedder(Embedder):
@@ -101,16 +110,33 @@ class HashEmbedder(Embedder):
         return row
 
     def embed_batch(self, texts: Sequence[str]) -> np.ndarray:
-        out = np.zeros((len(texts), self._dim), dtype=np.float32)
-        for i, text in enumerate(texts):
-            tokens = tokenize(text)
-            if not tokens:
-                continue
-            counts: dict[str, int] = {}
-            for t in tokens:
-                counts[t] = counts.get(t, 0) + 1
-            acc = np.zeros(self._dim, dtype=np.float32)
-            for tok, tf in counts.items():
-                acc += self._token_row(tok) * np.sqrt(float(tf))
-            out[i] = acc
+        """Each text's rows ``row(token) * sqrt(tf)`` summed in the order
+        of the tokens' first appearance, then L2-normalized. The sums run
+        as one vector add per token position across the batch's texts
+        (longest first), each add the same rounding as a per-text loop's
+        ``acc += row * sqrt(tf)``."""
+        n = len(texts)
+        counts = [_counts(tokenize(text)) for text in texts]
+        lens = np.fromiter(map(len, counts), dtype=np.int64, count=n)
+        flat_tok = list(chain.from_iterable(counts))
+        flat_tf = np.fromiter(chain.from_iterable(c.values() for c in counts), dtype=np.int64,
+                              count=len(flat_tok))
+        slot = {tok: j for j, tok in enumerate(dict.fromkeys(flat_tok))}  # token -> row of the table
+        flat_slot = np.fromiter(map(slot.__getitem__, flat_tok), dtype=np.int64, count=len(flat_tok))
+        table = np.stack([self._token_row(tok) for tok in slot]) if slot else np.zeros((0, self._dim))
+        # the dtype of ``row * np.sqrt(float(tf))``: the row's under numpy
+        # 1's value-based casting, f64 under numpy 2's
+        product = (table[:1] * np.sqrt(1.0)).dtype
+        table = table.astype(product, copy=False)
+        scale = np.sqrt(flat_tf.astype(np.float64)).astype(product)
+        starts = np.concatenate([[0], np.cumsum(lens)[:-1]]) if n else lens
+        order = np.argsort(-lens, kind="stable")
+        sorted_lens, sorted_starts = lens[order], starts[order]
+        acc = np.zeros((n, self._dim), dtype=np.float32)
+        for t in range(int(sorted_lens[0]) if n else 0):
+            m = int(np.searchsorted(-sorted_lens, -t, side="left"))  # texts with more than t tokens
+            at = sorted_starts[:m] + t
+            np.add(acc[:m], table[flat_slot[at]] * scale[at, None], out=acc[:m], casting="same_kind")
+        out = np.empty_like(acc)
+        out[order] = acc
         return l2_normalize_rows(out)

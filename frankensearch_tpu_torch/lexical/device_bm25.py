@@ -51,6 +51,7 @@ The host builders are copied from the reference (its module imports jax).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from itertools import chain
 from typing import NamedTuple
 
 import numpy as np
@@ -818,11 +819,7 @@ class DeviceBm25Index(LexicalRead):
         n = len(doc_ids)
 
         arms: dict[str, _FieldArm] = {}
-        terms_all: list[int] = []
-        docs_all: list[int] = []
-        tf_all: list[float] = []
-        raw_tf: list[int] = []
-        raw_fx: list[int] = []
+        terms_parts, docs_parts, tf_parts, raw_tf_parts, raw_fx_parts = [], [], [], [], []
         cache_flat = np.zeros(len(_FIELDS) * 256, dtype=np.float32)
         bk_arr = np.zeros(len(_FIELDS), dtype=np.float32)
         vocab_offset = 0
@@ -835,26 +832,24 @@ class DeviceBm25Index(LexicalRead):
             boost = _BOOSTS[fname]
             cache_flat[ford * 256 : (ford + 1) * 256] = cache
             bk_arr[ford] = np.float32(boost) * (BM25_K1 + np.float32(1.0))
-            idf_host = np.zeros(len(vocab), dtype=np.float32)
-            df_host = np.zeros(len(vocab), dtype=np.int64)
-            for i, term in enumerate(vocab):
-                plist = field_postings[term]
-                idf_host[i] = idf(n, len(plist))
-                df_host[i] = len(plist)
-                for doc_id, tf in plist.items():
-                    fid = docs[doc_id].fieldnorm_id.get(fname, 0)
-                    tf32 = np.float32(tf)
-                    tf_side = float(
-                        np.float32(boost)
-                        * (BM25_K1 + np.float32(1.0))
-                        * tf32
-                        / (tf32 + cache[fid])
-                    )
-                    terms_all.append(term_ids[term])
-                    docs_all.append(row_of[doc_id])
-                    tf_all.append(tf_side)
-                    raw_tf.append(int(tf))
-                    raw_fx.append(ford * 256 + int(fid))
+            plists = [field_postings[term] for term in vocab]
+            df_host = np.fromiter(map(len, plists), dtype=np.int64, count=len(vocab))
+            idf_host = np.array([idf(n, int(df)) for df in df_host], dtype=np.float32)
+            # the postings term by term, each term's in its insertion order
+            p = int(df_host.sum())
+            rows = np.fromiter(map(row_of.__getitem__, chain.from_iterable(plists)), dtype=np.int64, count=p)
+            tf = np.fromiter(chain.from_iterable(pl.values() for pl in plists), dtype=np.int64, count=p)
+            fid_of_row = np.fromiter((docs[d].fieldnorm_id.get(fname, 0) for d in doc_ids), dtype=np.int64,
+                                     count=n)
+            fid = fid_of_row[rows]
+            tf32 = tf.astype(np.float32)
+            # f32 throughout, in the order boost * (k1 + 1) * tf / (tf + norm)
+            tf_parts.append(np.float32(boost) * (BM25_K1 + np.float32(1.0)) * tf32 / (tf32 + cache[fid]))
+            terms_parts.append(np.repeat(np.arange(vocab_offset, vocab_offset + len(vocab), dtype=np.int64),
+                                         df_host))
+            docs_parts.append(rows)
+            raw_tf_parts.append(tf)
+            raw_fx_parts.append(ford * 256 + fid)
             arms[fname] = _FieldArm(
                 term_ids=term_ids, idf_host=idf_host, boost=boost, base=vocab_offset,
                 df_host=df_host,
@@ -862,12 +857,12 @@ class DeviceBm25Index(LexicalRead):
             vocab_offset += len(vocab)
         self._init_state(
             doc_ids, arms, vocab_offset,
-            np.asarray(terms_all, dtype=np.int64),
-            np.asarray(docs_all, dtype=np.int64),
-            np.asarray(tf_all, dtype=np.float32),
+            np.concatenate(terms_parts),
+            np.concatenate(docs_parts),
+            np.concatenate(tf_parts).astype(np.float32),
             raw=(
-                np.asarray(raw_tf, dtype=np.int64),
-                np.asarray(raw_fx, dtype=np.uint16),
+                np.concatenate(raw_tf_parts),
+                np.concatenate(raw_fx_parts).astype(np.uint16),
                 cache_flat,
                 bk_arr,
             ),

@@ -121,8 +121,9 @@ class MemoryLexicalIndex(LexicalRead, LexicalWrite):
             tfs: dict[str, int] = {}
             for t in tokens:
                 tfs[t] = tfs.get(t, 0) + 1
+            field_postings, doc_id = self._postings[fname], doc.doc_id
             for term, tf in tfs.items():
-                self._postings[fname][term][doc.doc_id] = tf
+                field_postings[term][doc_id] = tf
         self._docs[doc.doc_id] = entry
 
     def _remove_committed(self, doc_id: str) -> None:
@@ -134,13 +135,20 @@ class MemoryLexicalIndex(LexicalRead, LexicalWrite):
             stats.doc_count -= 1
             stats.total_tokens -= entry.token_counts.get(fname, 0)
             field_postings = self._postings[fname]
-            dead_terms = []
-            for term, plist in field_postings.items():
+            # the doc's own terms, from its text: exact when their tfs sum
+            # to its token count (an entry loaded without its full text
+            # falls through to the scan of every term)
+            text = entry.content_full if fname == "content" else (entry.title or "")
+            own = [t for t in dict.fromkeys(simple_tokenize(text)) if t in field_postings]
+            if sum(field_postings[t].get(doc_id, 0) for t in own) == entry.token_counts.get(fname, 0):
+                terms = own
+            else:
+                terms = list(field_postings)
+            for term in terms:
+                plist = field_postings[term]
                 plist.pop(doc_id, None)
                 if not plist:
-                    dead_terms.append(term)
-            for t in dead_terms:
-                del field_postings[t]
+                    del field_postings[term]
 
     # -- LexicalRead -----------------------------------------------------------
 

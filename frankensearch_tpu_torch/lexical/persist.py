@@ -162,8 +162,9 @@ def load_lexical(root: str) -> MemoryLexicalIndex | None:
             token_counts={k: int(v) for k, v in d.get("token_counts", {}).items()},
         )
     for fname, terms in payload["postings"].items():
+        field_postings = index._postings[fname]
         for term, plist in terms.items():
-            index._postings[fname][term] = {d: int(tf) for d, tf in plist.items()}
+            field_postings[term] = dict(zip(plist, map(int, plist.values())))
     index._generation = 1
     # incremental generations (publish_incremental) carry the window
     # snapshots alongside the base: fold them so the oracle holds the

@@ -18,6 +18,7 @@ the port does not run yet returns a typed ``not_ported`` envelope.
 import contextlib
 import io
 import json
+import logging
 import os
 import re
 import sys
@@ -31,8 +32,7 @@ from frankensearch_tpu_torch.cli import main as port_cli
 
 REL = 1e-6
 TIMING = {"duration_ms", "total_ms"}
-NOT_PORTED = ["watch", "daemon", "fleet", "tui", "download", "update", "uninstall", "footprint",
-              "repro", "shadow"]
+NOT_PORTED = ["fleet", "download", "update", "uninstall", "footprint", "repro"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -45,6 +45,20 @@ def no_pallas():
         del os.environ["FRANKENSEARCH_USE_PALLAS"]
     else:
         os.environ["FRANKENSEARCH_USE_PALLAS"] = old
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_logger_untouched():
+    """The reference CLI's ``main()`` configures the ``frankensearch_tpu``
+    logger, and its ``configure_tracing`` adds a handler only to a logger
+    that has none: put back what this module's calls changed, so a later
+    module in the same process can still configure it."""
+    logger = logging.getLogger("frankensearch_tpu")
+    handlers, level, propagate = list(logger.handlers), logger.level, logger.propagate
+    yield
+    logger.handlers[:] = handlers
+    logger.setLevel(level)
+    logger.propagate = propagate
 
 
 def port_argv(argv):
@@ -484,8 +498,7 @@ def test_device_defaults_to_the_card(built):
 
 @pytest.mark.parametrize("command", NOT_PORTED)
 def test_unported_command_is_refused(tmp_path, command):
-    argv = {"watch": ["watch", str(tmp_path)], "download": ["download", "m"],
-            "shadow": ["shadow", str(tmp_path)], "repro": ["repro", "q", "--out", str(tmp_path / "p")]}
+    argv = {"download": ["download", "m"], "repro": ["repro", "q", "--out", str(tmp_path / "p")]}
     rc, out = run("port", "--format", "json", *argv.get(command, [command]), "--root", str(tmp_path))
     env = json.loads(out)
     assert rc == 1 and not env["ok"] and env["error"]["code"] == "not_ported"
@@ -494,9 +507,8 @@ def test_unported_command_is_refused(tmp_path, command):
 
 
 @pytest.mark.parametrize("flag", [
-    ["search", "q", "--federate", "other"],
-    ["search", "q", "--daemon-socket", "/nonexistent.sock"],
     ["serve", "--fleet-dir", "fleet"],
+    ["daemon", "--fleet-dir", "fleet"],
     ["search", "q", "--shards", "2"],
     ["serve", "--shards", "4"],
     ["explain", "q", "--shards", "2"],

@@ -21,7 +21,9 @@ import pytest
 
 import frankensearch_tpu_torch as fst
 from frankensearch_tpu_torch.fusion.searcher import TwoTierSearcher
-from tests.test_torch_cli import env_of, no_pallas, run, same_rows, write_corpus  # noqa: F401
+from tests.test_torch_cli import (  # noqa: F401
+    env_of, no_pallas, reference_logger_untouched, run, same_rows, write_corpus,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESSURE_STATES = {"NORMAL", "ELEVATED", "DEGRADED", "EMERGENCY"}

@@ -9,7 +9,8 @@ every object from the port's own types and serves a tiny hybrid
 lane), then runs the A/B scan lane, and a phrase query through the
 Refined and Reranked phases (a BERT quality tier and a cross-encoder), then
 builds a root with ``IndexBuilder``, serves it through ``open_hybrid`` and
-seals a write, then runs the CLI's ``index`` and ``search``. A static
+seals a write, then runs the CLI's ``index`` and ``search``, and ``watch``
+of a corpus directory followed by the ``tui`` over the watched root. A static
 check reads every import statement of the port's files, ``chip_smoke.py``
 and ``profile_chip.py``: none may name ``frankensearch_tpu`` or ``jax``.
 """
@@ -151,6 +152,26 @@ with tempfile.TemporaryDirectory() as tmp:
             assert cli(["--format", "json", *argv, "--root", os.path.join(tmp, "ix"), "--device", "cpu"]) == 0
         env = json.loads(buf.getvalue())
     assert env["data"][0]["doc_id"] == "d4" and env["meta"]["device"] == "cpu", env
+    # watch a corpus directory into a root, then the tui on the sync searcher
+    ix, src = os.path.join(tmp, "ixw"), os.path.join(tmp, "src")
+    os.makedirs(src)
+    with open(os.path.join(src, "a.txt"), "w") as f:
+        f.write("alpha beta")
+    for argv, text in ((["index", src], None), (["watch", src, "--once", "--cycles", "1", "--debounce", "0"], "zeppelin"),
+                       (["tui"], None)):
+        if text:
+            with open(os.path.join(src, "z.txt"), "w") as f:
+                f.write(text + " fresh arrival")
+        buf, stdin = io.StringIO(), sys.stdin
+        sys.stdin = io.StringIO("zeppelin\nzeppelin fresh\n:status\n:metrics\n:q\n")
+        try:
+            with contextlib.redirect_stdout(buf):
+                fmt = [] if argv == ["tui"] else ["--format", "json"]
+                assert cli([*fmt, *argv, "--root", ix, "--device", "cpu"]) == 0
+        finally:
+            sys.stdin = stdin
+    frames = buf.getvalue()
+    assert "z.txt" in frames.split("[search]")[2] and "search_ms" in frames, frames
 assert sys.modules["jax"] is None and sys.modules["frankensearch_tpu"] is None
 assert not [m for m in sys.modules if m.startswith(("jax.", "frankensearch_tpu."))]
 print("OK")
