@@ -107,13 +107,15 @@ Phases:
      op, a stream search, ``status`` and ``shutdown``; every reply bitwise
      (through JSON) the library's ``search_batch`` / ``search()`` over the
      handle serve opened, the root's lexical top-k against an exact
-     f64 BM25; ``version`` and ``doctor --verify`` as subprocesses
-     (``python -m frankensearch_tpu_torch.cli``, on the card); K1, K2 and
+     f64 BM25; ``version`` and ``doctor --verify`` as two subprocesses
+     started together (``python -m frankensearch_tpu_torch.cli``, on the
+     card); K1, K2 and
      K3 against their twins at the phase's shapes;
  12. cli-live-1M, the CLI's live-ingest and interactive path over phase
-     11's root: a 20,000-doc second root (phase 3's corpus, ``cli
-     index``) and a one-shot ``search`` subprocess over it (rows bitwise
-     ``search()``'s, on the card); ``cli daemon --concurrency 4`` over it
+     11's root: two 20,000-doc roots (phase 3's corpus, its first and its
+     next 20,000 docs, each through ``cli index``) and a one-shot
+     ``search`` subprocess over the first (rows bitwise ``search()``'s, on
+     the card); ``cli daemon --concurrency 4`` over it
      as a subprocess, a burst of 64 embeds from 8 threads bitwise the
      local HashEmbedder(256); ``cli watch`` twice (768 new docs, then
      modified, deleted, renamed and created files and dropped NDJSON
@@ -124,12 +126,29 @@ Phases:
      results bitwise the library's over the handle it opened, each
      created, modified, renamed and untouched doc its token's top hit, no
      gone id returned, the pool reused, K1, K2 and K3 counted; ``search
-     --federate`` over both roots with ``--daemon-socket`` (coverage 2/2,
-     every embed served by the daemon, whose ``requests_served`` equals
-     the requests sent); ``daemon --wal-poll`` folding the WAL with the
-     fast top-10 unchanged across a reopen; ``shadow --candidate device``
-     on the card (no shadow error; a divergence only at a tie); K1, K2
-     and K3 against their twins at the phase's shapes.
+     --federate`` over the two small roots with ``--daemon-socket``
+     (coverage 2/2, the rows bitwise the library's federated search over
+     both, every embed served by the daemon, whose ``requests_served``
+     equals the requests sent); ``daemon --wal-poll`` folding the WAL with
+     the fast top-10 unchanged across a reopen; ``shadow --candidate
+     device`` on the card (no shadow error; a divergence only at a tie);
+     K1, K2 and K3 against their twins at the phase's shapes;
+ 13. cli-fleet-1M, the rest of the CLI over phase 12's root: ``serve
+     --fleet-dir --warmup`` in process (phase 4's 256 pipelined queries and
+     8 singletons, every reply bitwise the library's over the handle serve
+     opened, K1, K2 and K3 counted) while ``fleet --live`` and ``fleet
+     --live --slo`` read its node (healthy, this process's pid, the root's
+     doc count and generation, qps / p50 / p99 from the frames served,
+     errors 0, its card-memory share one the server sensed and at least the
+     slab's, the node file valid against its schema) beside a ``daemon
+     --fleet-dir`` subprocess over the small root, which is killed and
+     reported down and reaped; serve's node file gone after ``shutdown``;
+     ``repro`` over the small root (its phases and results bitwise
+     ``search()``'s over a library handle, the card in
+     ``environment.json``); ``footprint`` of the 1M root (its row counts
+     the FTVI's); ``download``, ``update`` (check, apply, rollback) and
+     ``uninstall --dry-run`` on local bundles; K1, K2 and K3 against their
+     twins at the shapes phases 11-12 did not give them.
 
 The kernels line gives each kernel's time, its twin's, and its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -2725,16 +2744,30 @@ def cli_subprocess(argv: list[str]) -> tuple[dict, float]:
     """``python -m frankensearch_tpu_torch.cli --format json ARGV`` (no
     ``--device`` unless CLI_DEVICE_ARGS gives one: the card) from the
     checkout: (envelope, wall s)."""
+    return cli_subprocesses(argv)[0]
+
+
+def cli_subprocesses(*argvs: list[str]) -> list[tuple[dict, float]]:
+    """:func:`cli_subprocess` of each ``argv``, all started together:
+    [(envelope, wall s from the common start to its exit)]."""
     repo = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "frankensearch_tpu_torch.cli", "--format", "json", *argv,
-                           *CLI_DEVICE_ARGS],
-                          cwd=repo, env=dict(os.environ, PYTHONPATH=repo), capture_output=True, text=True,
-                          timeout=CLI_WAIT_S)
-    wall_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"phase11: cli {argv[0]} exited {proc.returncode}: {proc.stderr[-2000:]}")
-    return json.loads(proc.stdout), wall_s
+    procs = [subprocess.Popen([sys.executable, "-m", "frankensearch_tpu_torch.cli", "--format", "json", *argv,
+                               *CLI_DEVICE_ARGS], cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for argv in argvs]
+    out = []
+    try:
+        for argv, proc in zip(argvs, procs):
+            stdout, stderr = proc.communicate(timeout=CLI_WAIT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"cli {argv[0]} exited {proc.returncode}: {stderr[-2000:]}")
+            out.append((json.loads(stdout), time.perf_counter() - t0))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=60)
+    return out
 
 
 @contextlib.contextmanager
@@ -2787,13 +2820,17 @@ def json_rows(results) -> list:
     return json.loads(json.dumps([r.to_dict() for r in results], default=str))
 
 
-def serve_session(root: str, queries: list[str], singles: list[str]) -> dict:
-    """``cli serve`` in-process on ``root`` with ``--warmup``: the batch's
-    ``search`` frames written at once (one coalesced ``search_batch``;
-    twice, the second time warm), each singleton followed by a ``ping`` (which ends the coalescing window
+def serve_session(root: str, queries: list[str], singles: list[str], *, argv: tuple = (), full: bool = True,
+                  during=None) -> dict:
+    """``cli serve`` in-process on ``root`` with ``--warmup`` (and
+    ``argv``): the batch's ``search`` frames written at once (one
+    coalesced ``search_batch``; with ``full``, twice, the second time
+    warm), each singleton followed by a ``ping`` (which ends the coalescing window
     at once, so the singleton goes through ``search()`` without waiting
-    out ``--coalesce-ms``), a ``search_batch`` op, a ``stream`` search,
-    ``status`` and ``shutdown``. Each step's frames are written once the
+    out ``--coalesce-ms``), with ``full`` a ``search_batch`` op, a
+    ``stream`` search and ``status``, then ``during()`` (on the client's
+    thread, while the server waits for its next frame) and ``shutdown``.
+    Each step's frames are written once the
     replies to the last have arrived. Returns the replies and host times
     (frame write to its step's last reply), the pressure fractions the
     server sensed, and the handle its ``_open`` returned."""
@@ -2819,14 +2856,20 @@ def serve_session(root: str, queries: list[str], singles: list[str]) -> dict:
                     steps[name] = (at, at + n_replies, (collector.wait(at + n_replies) - t0) * 1e3)
 
                 steps["ready"] = (0, 1, (collector.wait(1) - t_start) * 1e3)  # the warmup report
-                for name in ("batch", "batch_again"):  # the first real batch, then the same one warm
+                # the first real batch, then the same one warm
+                for name in ("batch", "batch_again") if full else ("batch",):
                     send(name, [{"op": "search", "query": q, "k": K} for q in queries], len(queries))
                 for i, q in enumerate(singles):
                     send(f"single{i}", [{"op": "search", "query": q, "k": K}, {"op": "ping"}], 2)
-                send("search_batch", [{"op": "search_batch", "queries": queries, "k": K}], 1)
-                send("stream", [{"op": "search", "query": singles[0], "k": K, "stream": True}], 3)
-                send("status", [{"op": "status"}], 1)
-                send("shutdown", [{"op": "shutdown"}], 1)
+                if full:
+                    send("search_batch", [{"op": "search_batch", "queries": queries, "k": K}], 1)
+                    send("stream", [{"op": "search", "query": singles[0], "k": K, "stream": True}], 3)
+                    send("status", [{"op": "status"}], 1)
+                try:
+                    if during is not None:
+                        during()
+                finally:
+                    send("shutdown", [{"op": "shutdown"}], 1)
         except BaseException as e:  # noqa: BLE001 - re-raised on the main thread
             failed.append(e)
 
@@ -2840,7 +2883,7 @@ def serve_session(root: str, queries: list[str], singles: list[str]) -> dict:
             t_start = time.perf_counter()
             feeder.start()
             rc = cli.main(["serve", "--root", root, "--serve-max-batch", str(CLI_MAX_BATCH),
-                           "--coalesce-ms", str(CLI_COALESCE_MS), "--warmup"])
+                           "--coalesce-ms", str(CLI_COALESCE_MS), "--warmup", *argv])
             feeder.join(timeout=CLI_WAIT_S)
     finally:
         reader.close()
@@ -2863,7 +2906,8 @@ def phase11_cli(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
     and ``status``, every reply bitwise the library's over the handle serve
     opened (a spy on the CLI's ``_open``); the lexical top-k against an
     exact f64 BM25; then
-    ``version`` and ``doctor --verify`` in subprocesses, each on the card
+    ``version`` and ``doctor --verify`` in two subprocesses started
+    together, each on the card
     (the one-shot ``search`` subprocess runs in phase 12, over its small
     root)."""
     import torch
@@ -2887,6 +2931,8 @@ def phase11_cli(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
     flat_inputs: dict = {}
     session, launches = drive(lambda: serve_session(root, queries, singles), shapes, flat_inputs)
     need_launches("phase11", launches, ("K1", "K2", "K3"))
+    # the shapes phases 11-12 hold to the twins on the CLI's root; phase 13 skips them
+    lexical["cli_shapes"], lexical["cli_flat"] = set(shapes), set(flat_inputs)
     replies, ms, sensed = session["replies"], session["ms"], session["sensed"]
     warm = replies["ready"][0]
     if not warm["ok"] or warm["data"]["op"] != "warmup":
@@ -2946,17 +2992,17 @@ def phase11_cli(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
     del oracle, sealed, want
     torch.cuda.empty_cache()
 
-    version, version_s = cli_subprocess(["version"])
+    (version, version_s), (doctor, doctor_s) = cli_subprocesses(["version"], ["doctor", "--root", root, "--verify"])
     if len(version["data"]["devices"]) != torch.cuda.device_count() or version["data"]["torch"] != torch.__version__:
         raise AssertionError(f"phase11: version {version['data']}")
-    doctor, doctor_s = cli_subprocess(["doctor", "--root", root, "--verify"])
     checks = {c["check"]: c for c in doctor["data"]["findings"]}
     if (not doctor["data"]["healthy"] or checks["cuda"]["ok"] != (dev.type == "cuda")
             or "CRC verified" not in checks["lexical_generation"]["detail"]
             or "slab CRC verified" not in checks["fast_artifact_integrity"]["detail"]):
         raise AssertionError(f"phase11: doctor {doctor['data']['findings']}")
-    log(f"phase11 subprocesses: version {version_s:.1f} s (devices {version['data']['devices']}), doctor --verify "
-        f"{doctor_s:.1f} s (healthy, slab and FLXB CRCs verified); the one-shot search runs in phase 12")
+    log(f"phase11 subprocesses, started together: version {version_s:.1f} s (devices "
+        f"{version['data']['devices']}), doctor --verify {doctor_s:.1f} s (healthy, slab and FLXB CRCs verified); "
+        f"the one-shot search runs in phase 12")
     return ({"index_s": index_s, "sizes": built["sizes"], "serve_ms": ms, "warmup": warm["data"],
              "oracle_equal": outright, "sensed_last": [sensed["host"][-1], sensed["device"][-1]],
              "version_s": version_s, "doctor_s": doctor_s}, launches, kernels)
@@ -3245,7 +3291,8 @@ def phase12_live(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
     freshness, pool reuse, ``:status``, K1/K2/K3 counted), the
     ``daemon`` in its own process over a 20,000-doc root (a 64-call burst
     bitwise the local embedder, then every embed of a federated ``search
-    --federate --daemon-socket``), ``daemon --wal-poll`` folding the WAL,
+    --federate --daemon-socket`` over it and a second 20,000-doc root),
+    ``daemon --wal-poll`` folding the WAL,
     ``shadow --candidate device``; phase 11's one-shot ``search``
     subprocess, over the small root."""
     import numpy as np
@@ -3265,11 +3312,13 @@ def phase12_live(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
     docs, vocab3, probs3 = hybrid_corpus(rng)
     queries3 = query_texts(rng, vocab3, probs3, 256)
     small_corpus, small = os.path.join(tmp, "fed_corpus.jsonl"), os.path.join(tmp, "fed_root")
-    write_records(small_corpus, [{"id": f"fed-{i:06d}", "content": d.content, "title": d.title}
-                                 for i, d in enumerate(docs[:FED_DOCS])])
-    built = run_cli(["index", small_corpus, "--root", small])["data"]
-    if built["doc_count"] != FED_DOCS:
-        raise AssertionError(f"phase12: the small root built {built}")
+    small2_corpus, small2 = os.path.join(tmp, "fed2_corpus.jsonl"), os.path.join(tmp, "fed2_root")
+    for corpus, root_i, lo in ((small_corpus, small, 0), (small2_corpus, small2, FED_DOCS)):
+        write_records(corpus, [{"id": f"fed-{i:06d}", "content": d.content, "title": d.title}
+                               for i, d in enumerate(docs[lo:lo + FED_DOCS], start=lo)])
+        built = run_cli(["index", corpus, "--root", root_i])["data"]
+        if built["doc_count"] != FED_DOCS:
+            raise AssertionError(f"phase12: the small root {root_i} built {built}")
     wall["small_index_s"] = time.perf_counter() - t0
 
     # phase 11's one-shot search subprocess, over the small root
@@ -3327,6 +3376,8 @@ def phase12_live(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
         t0 = time.perf_counter()
         (frames, spies), launches = drive(lambda: tui_session(root, script, os.path.join(tmp, "tui.jsonl")),
                                           shapes, flat_inputs)
+        lexical["cli_shapes"] |= shapes
+        lexical["cli_flat"] |= set(flat_inputs)
         wall["tui_s"] = time.perf_counter() - t0
         need_launches("phase12", launches, ("K1", "K2", "K3"))
         (handle,), (tui_inc,) = spies["handles"], spies["incs"]
@@ -3368,10 +3419,19 @@ def phase12_live(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
         del handle, sealed, replay, spies
         torch.cuda.empty_cache()
 
-        # a federated one-shot search through the daemon
-        # a created doc: both shards' first rows tie under RRF, and (score desc, id asc) puts c0000.txt first
-        token = "wnew0000"
-        doc_id = expect["top"][token]
+        # a federated one-shot search through the daemon, over the two small
+        # roots, against the library's federated search over both
+        from frankensearch_tpu_torch.fusion.federated import FederatedSearcher
+
+        fed_query = queries3[1]
+        lib_fed = FederatedSearcher()
+        libs = [open_hybrid(r) for r in (small, small2)]
+        for r, h in zip((small, small2), libs):
+            lib_fed.add_shard(r, h.searcher)
+        want_fed = [(r.doc_id, r.score) for r in lib_fed.search(fed_query, k=K).results]
+        for h in libs:
+            h.close()
+        del libs, lib_fed
         made: list = []
 
         def noting_self(real):
@@ -3382,15 +3442,15 @@ def phase12_live(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
 
         t0 = time.perf_counter()
         with spied((daemon_fallback.DaemonFallbackEmbedder, "__init__", noting_self)):
-            fed = run_cli(["search", token, "--root", root, "--federate", small, "--daemon-socket", sock,
+            fed = run_cli(["search", fed_query, "--root", small, "--federate", small2, "--daemon-socket", sock,
                            "-k", str(K)])
         wall["federated_s"] = time.perf_counter() - t0
         cov = fed["meta"]["coverage"]
         hits = sum(fb.stats.daemon_hits for fb in made)
         if cov != {"total_shards": 2, "responded": 2, "complete": True, "failed": [], "timed_out": []}:
             raise AssertionError(f"phase12: federated coverage {cov}")
-        if fed["data"][0]["doc_id"] != doc_id:
-            raise AssertionError(f"phase12: {doc_id} is not the federated top row: {fed['data'][:3]}")
+        if [(r["doc_id"], r["score"]) for r in fed["data"]] != want_fed or len(want_fed) != K:
+            raise AssertionError(f"phase12: the federated rows differ from the library's: {fed['data'][:3]}")
         if len(made) != 2 or any(fb.stats.local_fallbacks for fb in made) or hits < 2:
             raise AssertionError(f"phase12: daemon hits {[vars(fb.stats) for fb in made]}")
         sent += hits
@@ -3407,8 +3467,9 @@ def phase12_live(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
         raise AssertionError(f"phase12: the daemon served {served}, {DAEMON_MAX_REQUESTS} sent")
     log(f"phase12 daemon (its own process, --concurrency 4): ready {wall['daemon_start_s']:.1f} s; "
         f"{DAEMON_CALLS} embeds of {DAEMON_TEXTS} from {DAEMON_THREADS} threads in {wall['daemon_burst_s']:.2f} s, "
-        f"bitwise HashEmbedder({DIM}); federated search {wall['federated_s']:.1f} s, coverage 2/2, "
-        f"{doc_id} top, {hits} embeds through the daemon and no local fallback; requests_served {served} "
+        f"bitwise HashEmbedder({DIM}); federated search over the two {FED_DOCS}-doc roots "
+        f"{wall['federated_s']:.1f} s, coverage 2/2, its {K} rows bitwise the library's federated search, "
+        f"{hits} embeds through the daemon and no local fallback; requests_served {served} "
         f"(= {DAEMON_CALLS} + {hits} + {DAEMON_MAX_REQUESTS - sent} pings)")
 
     # the WAL fold
@@ -3452,6 +3513,400 @@ def phase12_live(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
     return rec, launches, kernels
 
 
+FLEET_SERVE = "serve-1m"  # phase 13: the serve node's --node-id
+FLEET_DAEMON = "daemon-20k"  # the daemon node's, over the small root
+FLEET_BEAT_WAIT_S = 30.0  # longest wait for a node's next heartbeat (the registrar beats every 2 s)
+FLEET_SETTLE_S = 0.5  # a beat this long after the last reply holds every query the server observed
+MODEL_FILES = {"weights.npz": 70_000, "vocab.txt": 4_096}  # the local model bundle phase 13 downloads
+SCHEMA_KEYWORDS = {"$schema", "$id", "title", "description", "type", "const", "enum", "required", "properties",
+                   "additionalProperties", "items", "minimum", "maximum", "minLength", "allOf", "contains"}
+
+
+def schema_errors(doc, schema: dict, at: str = "$") -> list[str]:
+    """Where ``doc`` breaks ``schema``, for the JSON Schema (draft-07)
+    keywords that the repository's ``schemas/`` use (SCHEMA_KEYWORDS; any
+    other keyword raises, so a schema that grows one is not half checked)."""
+    unknown = set(schema) - SCHEMA_KEYWORDS
+    if unknown:
+        raise ValueError(f"schema keywords {sorted(unknown)} at {at} are not checked here")
+    is_num = isinstance(doc, (int, float)) and not isinstance(doc, bool)
+    kinds = {"object": isinstance(doc, dict), "array": isinstance(doc, list), "string": isinstance(doc, str),
+             "boolean": isinstance(doc, bool), "number": is_num,
+             "integer": is_num and float(doc).is_integer()}
+    if "type" in schema and not kinds[schema["type"]]:
+        return [f"{at}: not of type {schema['type']}"]
+    errs = []
+    if "const" in schema and (doc != schema["const"] or isinstance(doc, bool) != isinstance(schema["const"], bool)):
+        errs.append(f"{at}: not {schema['const']!r}")
+    if "enum" in schema and doc not in schema["enum"]:
+        errs.append(f"{at}: not one of {schema['enum']}")
+    if is_num and "minimum" in schema and doc < schema["minimum"]:
+        errs.append(f"{at}: below {schema['minimum']}")
+    if is_num and "maximum" in schema and doc > schema["maximum"]:
+        errs.append(f"{at}: above {schema['maximum']}")
+    if isinstance(doc, str) and len(doc) < schema.get("minLength", 0):
+        errs.append(f"{at}: shorter than {schema['minLength']}")
+    if isinstance(doc, dict):
+        errs += [f"{at}.{k}: missing" for k in schema.get("required", []) if k not in doc]
+        extra = schema.get("additionalProperties", True)
+        for k, v in doc.items():
+            if k in schema.get("properties", {}):
+                errs += schema_errors(v, schema["properties"][k], f"{at}.{k}")
+            elif extra is False:
+                errs.append(f"{at}.{k}: not allowed")
+            elif isinstance(extra, dict):
+                errs += schema_errors(v, extra, f"{at}.{k}")
+    if isinstance(doc, list):
+        if "items" in schema:
+            for i, v in enumerate(doc):
+                errs += schema_errors(v, schema["items"], f"{at}[{i}]")
+        if "contains" in schema and not any(not schema_errors(v, schema["contains"], at) for v in doc):
+            errs.append(f"{at}: holds nothing matching {schema['contains']}")
+    for sub in schema.get("allOf", []):
+        errs += schema_errors(doc, sub, at)
+    return errs
+
+
+def need_schema(doc, name: str, what: str) -> None:
+    """Fail unless ``doc`` validates against ``schemas/<name>``."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "schemas", name), encoding="utf-8") as f:
+        errs = schema_errors(doc, json.load(f))
+    if errs:
+        raise AssertionError(f"phase13: {what} breaks schemas/{name}: {errs[:5]}")
+
+
+def cli_call(argv: list[str]) -> dict:
+    """One CLI command through its parser in process, writing nothing to
+    stdout (an in-process ``serve`` owns it): its ``--format json``
+    envelope, which must be ok."""
+    from frankensearch_tpu_torch.cli import main as cli
+
+    args = cli.build_parser().parse_args(["--format", "json", *argv])
+    env = args.fn(args)
+    if not env["ok"]:
+        raise AssertionError(f"phase13: {argv[0]} failed: {env.get('error')}")
+    return env
+
+
+def node_file(fleet: str, node_id: str) -> dict | None:
+    try:
+        with open(os.path.join(fleet, node_id + ".node.json"), encoding="utf-8") as f:
+            return json.load(f)
+    except FileNotFoundError:
+        return None
+
+
+def next_beat(fleet: str, node_id: str, after: float) -> dict:
+    """The node file of ``node_id``'s first heartbeat published after
+    ``after`` (unix s)."""
+    deadline = time.monotonic() + FLEET_BEAT_WAIT_S
+    while True:
+        rec = node_file(fleet, node_id)
+        if rec is not None and rec["at"] > after:
+            return rec
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase13: no heartbeat of {node_id} after {after} in {FLEET_BEAT_WAIT_S} s")
+        time.sleep(0.05)
+
+
+def recording(into: list):
+    """A swap's ``make`` for ``NodeRegistrar.observe_query``: the
+    original, each call's (latency ms, n) also appended to ``into``."""
+    def make(real):
+        def observe(self, latency_ms, n=1):
+            into.append((float(latency_ms), n))
+            return real(self, latency_ms, n)
+        return observe
+    return make
+
+
+def window_stats(observed: list) -> tuple[float, float, int]:
+    """(p50, p99, count) of the served queries as the registrar ranks its
+    window: each (latency, n) counts n times."""
+    lats = sorted(lat for lat, n in observed for _ in range(max(n, 1)))
+    return lats[len(lats) // 2], lats[min(int(len(lats) * 0.99), len(lats) - 1)], len(lats)
+
+
+def check_node(rec: dict, *, pid: int, docs: int, generation: str, observed: list, sensed: list,
+               min_hbm: float) -> None:
+    """A serve node file against what this process served and sensed."""
+    need_schema(rec, "fleet-node-v1.schema.json", f"{rec['node_id']}'s node file")
+    p50, p99, n = window_stats(observed)
+    span = min(30.0, max(rec["at"] - rec["started_at"], 1e-3))
+    want = {"pid": pid, "doc_count": docs, "generation_id": generation, "errors": 0, "p50_ms": round(p50, 3),
+            "p99_ms": round(p99, 3)}
+    got = {k: rec[k] for k in want}
+    if got != want or not rec["p50_ms"] <= rec["p99_ms"] or abs(rec["qps"] - n / span) > 0.01 + 1e-3 * n / span:
+        raise AssertionError(f"phase13: node {rec} against {want}, qps ~{n / span:.2f}")
+    if rec["hbm_used_frac"] not in sensed or rec["hbm_used_frac"] < min_hbm:
+        raise AssertionError(f"phase13: hbm_used_frac {rec['hbm_used_frac']} is not a sensed value >= {min_hbm}")
+
+
+def start_fleet_daemon(root: str, sock: str, fleet: str):
+    """``cli daemon --fleet-dir`` over ``root`` as a subprocess; returns the
+    process (its node file appears once it has opened the root)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "frankensearch_tpu_torch.cli", "--format", "json", "daemon", "--root", root,
+            "--socket", sock, "--fleet-dir", fleet, "--node-id", FLEET_DAEMON, "--idle-timeout", str(CLI_WAIT_S),
+            "--accept-timeout", "0.5", "--quiet", *CLI_DEVICE_ARGS]
+    return subprocess.Popen(argv, cwd=repo, env=dict(os.environ, PYTHONPATH=repo), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def fleet_checks(fleet: str, daemon, seen: dict, observed: list) -> None:
+    """While ``serve`` runs (the client's ``during``): a heartbeat after
+    the last reply, ``fleet --live`` and ``--slo`` with the daemon's node
+    beside it, then the daemon killed, reported down and reaped."""
+    deadline = time.monotonic() + CLI_WAIT_S
+    while node_file(fleet, FLEET_DAEMON) is None:
+        if daemon.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError(f"phase13: the fleet daemon did not register (rc {daemon.poll()})")
+        time.sleep(0.1)
+    seen["serve"] = next_beat(fleet, FLEET_SERVE, time.time() + FLEET_SETTLE_S)
+    seen["observed"] = list(observed)
+    seen["daemon"] = node_file(fleet, FLEET_DAEMON)
+    seen["live"] = cli_call(["fleet", "--live", fleet])["data"]
+    seen["p99s"] = sorted(r["p99_ms"] for r in (node_file(fleet, FLEET_SERVE), node_file(fleet, FLEET_DAEMON)))
+    seen["slo"] = cli_call(["fleet", "--live", fleet, "--slo"])["data"]
+    daemon.kill()
+    daemon.communicate(timeout=60)
+    seen["killed_file"] = node_file(fleet, FLEET_DAEMON) is not None
+    seen["after_kill"] = cli_call(["fleet", "--live", fleet])["data"]
+    seen["reaped_file"] = node_file(fleet, FLEET_DAEMON) is not None
+    seen["after_reap"] = cli_call(["fleet", "--live", fleet])["data"]
+
+
+def host_commands(tmp: str) -> dict:
+    """``download`` of a local bundle, ``update --check`` / apply /
+    ``--rollback`` of a local release, ``uninstall --dry-run``, each once
+    in process, their envelopes as tests/test_torch_install.py holds them."""
+    import hashlib
+
+    import numpy as np
+
+    from frankensearch_tpu_torch.embed.model_manifest import build_model_manifest, verify_model_dir
+
+    base = os.path.join(tmp, "host")
+    bundle, release, root = (os.path.join(base, d) for d in ("bundle", "release", "root"))
+    for d in (bundle, release, root):
+        os.makedirs(d)
+    rng = np.random.default_rng(SEED + 13)
+    for name, size in MODEL_FILES.items():
+        with open(os.path.join(bundle, name), "wb") as f:
+            f.write(rng.integers(0, 256, size, dtype=np.uint8).tobytes())
+    manifest = build_model_manifest(bundle, "m2v-chip", "rev-1", DIM, "model2vec")
+    with open(os.path.join(bundle, "model_manifest.json"), "w", encoding="utf-8") as f:
+        f.write(manifest.to_json())
+    got = run_cli(["download", "m2v-chip", "--root", root, "--from-dir", bundle, "--authorize", "chip_smoke"])["data"]
+    receipt = got["receipt"]
+    if (got["stages"] != ["staged_verified", "published"] or receipt["outcome"] != "published"
+            or receipt["source"] != "local_bundle" or receipt["bytes_verified"] != sum(MODEL_FILES.values())
+            or not verify_model_dir(got["promoted"]).ok):
+        raise AssertionError(f"phase13: download {got}")
+    asset = rng.integers(0, 256, 10_000, dtype=np.uint8).tobytes()
+    with open(os.path.join(release, "fs.tgz"), "wb") as f:
+        f.write(asset)
+    with open(os.path.join(release, "release.json"), "w", encoding="utf-8") as f:
+        json.dump({"version": "9.9.9", "asset": "fs.tgz"}, f)
+    with open(os.path.join(release, "SHA256SUMS"), "w", encoding="utf-8") as f:
+        f.write(f"{hashlib.sha256(asset).hexdigest()}  fs.tgz\n")
+    check = run_cli(["update", "--root", root, "--check", "--from-dir", release])["data"]
+    applied = run_cli(["update", "--root", root, "--from-dir", release])["data"]
+    back = run_cli(["update", "--root", root, "--rollback"])["data"]
+    staged = os.path.join(root, "updates", "9.9.9", "fs.tgz")
+    if (not check["update_available"] or check["applied"] or check["notes"] != [
+            "update available: v0.1.0 -> v9.9.9 (run `frankensearch-tpu-torch update` to apply)"]
+            or not applied["applied"] or open(staged, "rb").read() != asset
+            or back != {"rolled_back_from": "9.9.9", "active_version": "0.1.0",
+                        "notes": ["rolled back staged generation 9.9.9 -> 0.1.0"]}):
+        raise AssertionError(f"phase13: update {check} / {applied} / {back}")
+    gone = run_cli(["uninstall", "--root", root, "--dry-run"])["data"]
+    entries = {e["target"]: (e["status"], e["reason"]) for e in gone["entries"]}
+    if (gone["removed"] or gone["failed"] or not os.path.isdir(root)
+            or entries["package"] != ("skipped", "python package (pip-managed; not removed)")
+            or gone["entries"][0]["path"] != "frankensearch_tpu_torch" or entries["index_dir"] != ("skipped", "dry-run")):
+        raise AssertionError(f"phase13: uninstall --dry-run {gone}")
+    return {"download_bytes": receipt["bytes_verified"], "update": [check["latest_version"], back["active_version"]],
+            "uninstall_skipped": gone["skipped"]}
+
+
+def phase13_fleet(dev, tmp: str, lexical: dict, docs: int) -> tuple[dict, dict, list[dict]]:
+    """cli-fleet-1M: ``serve --fleet-dir F --node-id serve-1m --warmup`` in
+    process on phase 12's watched 1M-doc root (``docs`` docs): phase 4's
+    256 pipelined queries and 8 singletons, every reply bitwise the
+    library's over the handle serve opened, K1/K2/K3 counted; while it
+    serves, ``fleet --live F`` (the node healthy, this process's pid, the
+    root's doc count and CURRENT generation, qps / p50 / p99 from the
+    frames served, errors 0, its card-memory share a sensed value of at
+    least the slab's, the node file valid) and ``--slo`` (the live nodes,
+    no bad failure event, the latency events the nodes' p99s), with a
+    ``daemon --fleet-dir F`` subprocess over the 20,000-doc root as a second
+    node, killed, reported down and reaped; serve's node file gone after
+    ``shutdown``. Then ``repro`` over the small root (its phases and
+    results those of ``search()`` over a library handle, the card in
+    ``environment.json``, the pack valid), ``footprint`` of the 1M root
+    (its counts the FTVI's, the report valid), and the host commands."""
+    import torch
+
+    from frankensearch_tpu_torch import open_hybrid
+    from frankensearch_tpu_torch.fleet.registry import NodeRegistrar
+    from frankensearch_tpu_torch.index.fsvi import FLAG_TOMBSTONE, FtviFile
+    from frankensearch_tpu_torch.index.two_tier import TwoTierPaths
+    from frankensearch_tpu_torch.runtime import footprint
+
+    queries, singles = lexical["queries"], lexical["singles"]
+    root, small = os.path.join(tmp, "cli_root"), os.path.join(tmp, "fed_root")
+    fleet = os.path.join(tmp, "fleet")
+    wall: dict = {}
+    with open(os.path.join(root, "lexical", "CURRENT"), encoding="utf-8") as f:
+        generation = f.read().strip()
+    sock_dir = tempfile.mkdtemp(prefix="fsf-", dir="/tmp")
+    daemon = start_fleet_daemon(small, os.path.join(sock_dir, "d.sock"), fleet)
+    observed: list = []
+    seen: dict = {}
+    shapes: set = set()
+    flat_inputs: dict = {}
+    t0 = time.perf_counter()
+    try:
+        with spied((NodeRegistrar, "observe_query", recording(observed))):
+            session, launches = drive(lambda: serve_session(
+                root, queries, singles, argv=("--fleet-dir", fleet, "--node-id", FLEET_SERVE), full=False,
+                during=lambda: fleet_checks(fleet, daemon, seen, observed)), shapes, flat_inputs)
+    finally:
+        if daemon.poll() is None:
+            daemon.kill()
+            daemon.communicate(timeout=60)
+        for name in os.listdir(sock_dir):
+            os.remove(os.path.join(sock_dir, name))
+        os.rmdir(sock_dir)
+    wall["serve_s"] = time.perf_counter() - t0
+    need_launches("phase13", launches, ("K1", "K2", "K3"))
+    replies, ms, sensed = session["replies"], session["ms"], session["sensed"]
+    if not replies["ready"][0]["ok"] or replies["ready"][0]["data"]["op"] != "warmup":
+        raise AssertionError(f"phase13: serve --warmup reported {replies['ready'][0]}")
+    if node_file(fleet, FLEET_SERVE) is not None or os.listdir(fleet):
+        raise AssertionError(f"phase13: node files left after shutdown: {os.listdir(fleet)}")
+
+    handle = session.pop("handle")
+    handle.searcher.governor = None
+    if handle.index.doc_count() != docs:
+        raise AssertionError(f"phase13: the served root holds {handle.index.doc_count()} docs, {docs} expected")
+    slab = handle.index.fast.slab
+    min_hbm = slab.numel() * slab.element_size() / torch.cuda.get_device_properties(dev).total_memory
+    check_node(seen["serve"], pid=os.getpid(), docs=docs, generation=generation, observed=seen["observed"],
+               sensed=sensed["device"], min_hbm=min_hbm)
+    if len(seen["observed"]) != 1 + len(singles) or window_stats(seen["observed"])[2] != len(queries) + len(singles):
+        raise AssertionError(f"phase13: the registrar observed {seen['observed']}")
+    d = seen["daemon"]
+    need_schema(d, "fleet-node-v1.schema.json", "the daemon's node file")
+    if d["pid"] == os.getpid() or d["doc_count"] != FED_DOCS or d["generation_id"] != "" or d["qps"] != 0.0:
+        raise AssertionError(f"phase13: the daemon's node {d}")
+    live = {n["node"]: n for n in seen["live"]["nodes"]}
+    if (sorted(live) != sorted([FLEET_SERVE, FLEET_DAEMON]) or not all(n["healthy"] for n in live.values())
+            or live[FLEET_SERVE]["generation"] != generation):
+        raise AssertionError(f"phase13: fleet --live {seen['live']}")
+    slo = seen["slo"]
+    budgets = {(b["metric_id"], b["window"]): b for b in slo["budgets"]}
+    lat = budgets[("search_latency_p95", "1m")]
+    if (slo["nodes"] != 2 or any(b["bad_events"] for (m, _), b in budgets.items() if m == "query_failure_rate")
+            or (lat["total_events"], lat["bad_events"]) != (2, sum(p > 100.0 for p in seen["p99s"]))
+            or any(a["metric_id"] == "query_failure_rate" for a in slo["alerts"])):
+        raise AssertionError(f"phase13: fleet --live --slo {slo}")
+    after = {n["node"]: n["healthy"] for n in seen["after_kill"]["nodes"]}
+    if (not seen["killed_file"] or after != {FLEET_SERVE: True, FLEET_DAEMON: False} or seen["reaped_file"]
+            or [n["node"] for n in seen["after_reap"]["nodes"]] != [FLEET_SERVE]):
+        raise AssertionError(f"phase13: the killed daemon: {seen['after_kill']} then {seen['after_reap']}")
+    rec_node = seen["serve"]
+    log(f"phase13 serve --fleet-dir: ready {ms['ready'] / 1e3:.1f} s; {len(queries)} pipelined searches in one "
+        f"search_batch {ms['batch']:.2f} ms; singletons " + ", ".join(f"{ms[f'single{i}']:.2f}" for i in range(len(singles)))
+        + f" ms; node {FLEET_SERVE}: pid {rec_node['pid']} (this process), {rec_node['doc_count']} docs, generation "
+        f"{rec_node['generation_id']}, qps {rec_node['qps']}, p50 {rec_node['p50_ms']} ms, p99 {rec_node['p99_ms']} ms, "
+        f"errors 0, hbm_used_frac {rec_node['hbm_used_frac']:.6f} (slab share {min_hbm:.6f}), node file valid; "
+        f"fleet --live: both nodes healthy; --slo: {slo['nodes']} nodes, latency events {lat['total_events']} "
+        f"({lat['bad_events']} over 100 ms), no failure event; the daemon (pid {d['pid']}) killed: reported down, "
+        f"reaped; serve's node file gone after shutdown; launches {launches}")
+
+    want = handle.searcher.search_batch(queries, k=K)
+    if [r["data"] for r in replies["batch"]] != [json_rows(o.results) for o in want]:
+        raise AssertionError("phase13: the coalesced replies differ from the library's search_batch")
+    if [r.get("meta") for r in replies["batch"]] != [{"coalesced": len(queries)}] * len(queries):
+        raise AssertionError("phase13: the batch did not coalesce into one call")
+    for i, q in enumerate(singles):
+        reply, pong = replies[f"single{i}"]
+        if pong["data"] != {"op": "pong"} or reply["data"] != json_rows(handle.searcher.search(q, k=K).results):
+            raise AssertionError(f"phase13: singleton {q!r} differs from the library's search()")
+    done = lexical["cli_shapes"]
+    kernels = check_kernels("cli-fleet-1M", slab, handle.index.fast._effective_mask(None, None), shapes, done=done)
+    new_flat = {key: v for key, v in flat_inputs.items() if key not in lexical["cli_flat"]}
+    if new_flat:
+        sealed = [seg for seg in getattr(handle.delta.sealed, "segments", [handle.delta.sealed])
+                  if getattr(seg, "_blocked", None) is not None]
+        kernels += check_flat_kernel("cli-fleet-1M", sealed[0]._blocked.classes, new_flat)
+    log(f"phase13 every reply bitwise the library's over the handle serve opened; kernel shapes {sorted(shapes)}, "
+        f"K3 tiles {sorted(flat_inputs)}; held to their twins here where phases 11-12 had not: {len(kernels)} records")
+    handle.close()
+    del handle, slab, want
+    torch.cuda.empty_cache()
+
+    # repro over the small root, against search() over a library handle
+    pack = os.path.join(tmp, "repro_pack")
+    with open(os.path.join(tmp, "fed_corpus.jsonl"), encoding="utf-8") as f:
+        query = " ".join(json.loads(f.readline())["content"].split()[:3])  # the small root's first doc's words
+    t0 = time.perf_counter()
+    env = run_cli(["repro", query, "--out", pack, "--root", small, "-k", str(K)])["data"]
+    wall["repro_s"] = time.perf_counter() - t0
+    with open(os.path.join(pack, "evidence.jsonl"), encoding="utf-8") as f:
+        events = [json.loads(line) for line in f]
+    with open(os.path.join(pack, "environment.json"), encoding="utf-8") as f:
+        environment = json.load(f)
+    with open(os.path.join(pack, "INDEX.json"), encoding="utf-8") as f:
+        index_json = json.load(f)
+    lib = open_hybrid(small)
+    phases: list = []
+    out = lib.searcher.search(query, k=K, on_phase=phases.append)
+    lib.close()
+    got_phases = [(e["payload"]["kind"], e["payload"]["doc_ids"]) for e in events if e["kind"] == "phase"]
+    rows = [e["payload"]["rows"] for e in events if e["kind"] == "results"][0]
+    if (got_phases != [(p.kind.value, [r.doc_id for r in p.results]) for p in phases]
+            or [(r["doc_id"], r["score"]) for r in rows] != [(r.doc_id, r.score) for r in out.results]
+            or env["events"] != len(events) or [e["kind"] for e in events][:1] != ["query"]):
+        raise AssertionError(f"phase13: repro's phases {got_phases} differ from search()'s")
+    if (environment["devices"] != [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+            or environment["torch"] != torch.__version__ or environment["cuda"] != torch.version.cuda):
+        raise AssertionError(f"phase13: repro's environment {environment}")
+    need_schema(index_json, "repro-bundle-v1.schema.json", "repro's INDEX.json")
+    log(f"phase13 repro over the {FED_DOCS}-doc root: {env['events']} events in {wall['repro_s']:.1f} s, phases "
+        f"{[k for k, _ in got_phases]} and results bitwise search()'s over a library handle; environment names "
+        f"{environment['devices']}; INDEX.json valid")
+
+    # footprint of the 1M root, against its FTVI
+    t0 = time.perf_counter()
+    fp = run_cli(["footprint", "--root", root])["data"]
+    wall["footprint_s"] = time.perf_counter() - t0
+    need_schema(fp, "footprint-advisor-v1.schema.json", "footprint's report")
+    ftvi = FtviFile(TwoTierPaths(root).fast, verify_slab=False)
+    dead = int(((ftvi.flags & FLAG_TOMBSTONE) != 0).sum())
+    counts = footprint._tombstone_counts(root)
+    fragmented = any(r["reason"].endswith("of rows are tombstoned (fragmented index)") for r in fp["recommendations"])
+    if (counts != (dead, ftvi.record_count - dead) or fp["detail"]["fast_artifact_bytes"] != os.path.getsize(
+            TwoTierPaths(root).fast) or fragmented != (dead >= footprint.TOMBSTONE_COMPACT_FRACTION * ftvi.record_count)
+            or fp["automatic_deletion_allowed"] is not False):
+        raise AssertionError(f"phase13: footprint {fp} against the FTVI's {dead} of {ftvi.record_count} tombstoned")
+    log(f"phase13 footprint of the 1M root in {wall['footprint_s']:.1f} s: {fp['total_bytes']} bytes {fp['domains']}, "
+        f"rows tombstoned / live {counts} as the FTVI's flags; {len(fp['recommendations'])} recommendations; "
+        f"report valid")
+    del ftvi
+
+    t0 = time.perf_counter()
+    host = host_commands(tmp)
+    wall["host_s"] = time.perf_counter() - t0
+    log(f"phase13 download, update --check / apply / --rollback, uninstall --dry-run in process "
+        f"({wall['host_s']:.1f} s): {host}")
+    return ({"serve_ms": ms, "node": seen["serve"], "slo_nodes": slo["nodes"], "repro_events": env["events"],
+             "footprint": {"total_bytes": fp["total_bytes"], "tombstoned_live": list(counts)}, "host": host,
+             "wall": wall}, launches, kernels)
+
+
 def main() -> int:
     # the port must reach neither jax nor the JAX package, even indirectly
     sys.modules["jax"] = None
@@ -3472,6 +3927,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 2
 
+    t_main = time.perf_counter()
     card = gpu_line()
     log(f"phase0 card: {card}")
     log(f"phase0 torch {torch.__version__} cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -3517,10 +3973,15 @@ def main() -> int:
         t0 = time.perf_counter()
         live_rec, l12, k12 = phase12_live(dev, tmp, lexical)
         wall["phase12_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fleet_rec, l13, k13 = phase13_fleet(dev, tmp, lexical, live_rec["watch"][1]["doc_count"])
+        wall["phase13_s"] = time.perf_counter() - t0
         del lexical
         log("phase wall times: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
+    wall["total_s"] = time.perf_counter() - t_main
+    log(f"chip_smoke wall time: {wall['total_s']:.1f} s (the kernel build, every phase and the cleanup)")
 
-    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9 + k10 + k11 + k12
+    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9 + k10 + k11 + k12 + k13
     kernels = []
     for name, key, src, replaces, cell in KERNELS:
         recs = [r for r in records if r["kernel"] == name]
@@ -3535,7 +3996,7 @@ def main() -> int:
         bound_ms = sum(r["bound"][0] for r in head) / len(head)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9, l10, l11, l12)),
+            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9, l10, l11, l12, l13)),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": sum(r["ms"] for r in head) / len(head), "plain_ms": sum(r["plain_ms"] for r in head) / len(head),
             "bound_ms": bound_ms,
@@ -3545,7 +4006,8 @@ def main() -> int:
         })
     log(json.dumps({"semantic": sem, "hybrid": hyb, "hybrid_1m": h1m, "scan_modes": modes, "ab_scan": ab_rec,
                     "hybrid_1m_m2v": m2v_rec, "hybrid_1m_quality": quality_rec, "scan_lanes": lanes_rec,
-                    "built_1m_m2v": built_rec, "cli_1m": cli_rec, "cli_live_1m": live_rec, "wall_s": wall}))
+                    "built_1m_m2v": built_rec, "cli_1m": cli_rec, "cli_live_1m": live_rec,
+                    "cli_fleet_1m": fleet_rec, "wall_s": wall}))
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
     print(json.dumps({

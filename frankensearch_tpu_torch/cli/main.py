@@ -39,10 +39,20 @@ the CPU). Ported:
     shadow        lexical-backend migration confidence (fts5 or device
                   candidate against the oracle)
     version       version + device report
+    fleet         fleet console: ``--live DIR`` over the node files that
+                  ``serve --fleet-dir`` / ``daemon --fleet-dir`` publish
+                  (``--slo``: error budgets), or the seeded simulator
+    repro         replay pack of one ``search()`` (every phase, the
+                  generation manifest, torch and the cards)
+    footprint     dry-run byte census + recommendations (never deletes)
+    download      model acquisition (--from-dir / --url, --authorize,
+                  --diagnose)
+    update        staged verified release generations (--check, --from-dir,
+                  --url, --rollback)
+    uninstall     remove index/config state (--dry-run, --yes, --purge)
 
 Not ported yet (a typed ``not_ported`` error envelope, exit code 1): the
-commands fleet, download, update, uninstall, footprint and repro, and the
-flags ``serve --fleet-dir``, ``daemon --fleet-dir`` and ``--shards N`` > 0.
+flag ``--shards N`` > 0 (the mesh-sharded fast tier).
 
 Formats: table | json | jsonl | csv | toon (output_schema.rs envelope;
 toon = compact agent payloads with r1/r2/... handles, cli.rs toon mode).
@@ -75,10 +85,6 @@ def _refuse(what: str) -> NoReturn:
         f"{what} is not ported to frankensearch_tpu_torch yet; "
         "the frankensearch_tpu CLI runs it"
     )
-
-
-def _not_ported_command(args) -> NoReturn:
-    _refuse(f"the {args.command!r} command")
 
 
 def _iter_corpus(
@@ -645,6 +651,19 @@ def cmd_search(args) -> dict:
         "device": out.metrics.device_kind,
     }
     return env
+
+
+def cmd_footprint(args) -> dict:
+    """Dry-run index footprint advisor (runtime/footprint.py; parity
+    docs/fsfs-index-footprint-advisor-contract.md): byte census over the
+    five domains + deterministic compact/rebuild/retention/feature
+    recommendations with projected savings, risk labels, and replay
+    commands. Never deletes or rewrites anything."""
+    from frankensearch_tpu_torch.runtime.footprint import measure
+
+    if not os.path.isdir(args.root):
+        return error_envelope("not_found", f"index root {args.root} not found")
+    return envelope(measure(args.root).to_dict())
 
 
 def cmd_shadow(args) -> dict:
@@ -1222,13 +1241,21 @@ def cmd_daemon(args) -> dict:
 
     if getattr(args, "wal_poll", False):
         return _wal_poll_daemon(args)
-    if getattr(args, "fleet_dir", ""):
-        _refuse("daemon --fleet-dir (live fleet registration)")
     handle = open_hybrid(args.root, device=args.device)
     embedder = handle.searcher.fast_embedder
     concurrency = max(getattr(args, "concurrency", 1), 1)
     served = 0
     idle_s = 0.0
+    registrar = None
+    if getattr(args, "fleet_dir", ""):
+        from frankensearch_tpu_torch.fleet.registry import NodeRegistrar
+
+        registrar = NodeRegistrar(
+            args.fleet_dir,
+            getattr(args, "node_id", "") or f"daemon-{os.getpid()}",
+            root=args.root,
+            status_fn=lambda: {"doc_count": handle.index.doc_count()},
+        ).start()
     if concurrency > 1:
         # multi-connection + coalesced device batches
         # (batch_coalescer.rs role; embed/coalescer.py)
@@ -1241,9 +1268,14 @@ def cmd_daemon(args) -> dict:
         if not args.quiet:
             print(f"# daemon serving {embedder.embedder_id} on {args.socket}", file=sys.stderr)
         while args.max_requests <= 0 or served < args.max_requests:
+            if registrar is not None:
+                registrar.check()
+            t_q = time.monotonic()
             if server.serve_one(timeout_s=args.accept_timeout):
                 served = server.requests_served
                 idle_s = 0.0
+                if registrar is not None:
+                    registrar.observe_query((time.monotonic() - t_q) * 1000.0)
             else:
                 # the threaded server counts a request when its worker
                 # finishes: re-read after an idle accept so the loop ends
@@ -1252,6 +1284,8 @@ def cmd_daemon(args) -> dict:
                 idle_s += args.accept_timeout
                 if args.idle_timeout > 0 and idle_s >= args.idle_timeout:
                     break
+    if registrar is not None:
+        registrar.close()  # deregisters; raises the beat thread's fault
     # the threaded server's workers have finished inside __exit__
     return envelope({"requests_served": server.requests_served, "socket": args.socket})
 
@@ -1342,6 +1376,127 @@ def cmd_flush(args) -> dict:
 
 
 
+
+
+def cmd_download(args) -> dict:
+    """Model acquisition front-door (fsfs download / model_download.rs
+    acquire_frozen_model). Network (--url, loopback/artifact-store) or
+    local bundle (--from-dir); both run the full transaction: advisory
+    lock -> warm-cache reuse -> stage -> manifest verify -> atomic
+    promote with backup -> durable receipt. Never implicit: requires
+    --authorize <who> and a frozen manifest authorizing every byte."""
+    from frankensearch_tpu_torch.core.errors import EmbeddingFailed
+    from frankensearch_tpu_torch.embed.model_download import (
+        DownloadConfig,
+        LocalBundleSource,
+        ModelDownloader,
+        NetworkSource,
+        diagnose_acquisition,
+    )
+    from frankensearch_tpu_torch.embed.model_manifest import ModelManifest
+
+    dest = os.path.join(args.root, "models", args.name)
+    if args.diagnose:
+        return envelope(diagnose_acquisition(dest))
+    if not args.authorize:
+        return error_envelope(
+            "acquisition_not_authorized",
+            "model acquisition requires --authorize <who> (downloads are never implicit)",
+        )
+    manifest_path = args.manifest or (
+        os.path.join(args.from_dir, "model_manifest.json") if args.from_dir else ""
+    )
+    if not manifest_path or not os.path.exists(manifest_path):
+        return error_envelope(
+            "manifest_required",
+            "acquisition needs a frozen manifest: --manifest <path> "
+            "(or --from-dir containing model_manifest.json)",
+        )
+    with open(manifest_path, encoding="utf-8") as f:
+        manifest = ModelManifest.from_json(f.read())
+    if args.url:
+        source = NetworkSource(base_url=args.url)
+    elif args.from_dir:
+        source = LocalBundleSource(args.from_dir)
+    else:
+        return error_envelope(
+            "source_required", "provide --url <base> or --from-dir <bundle>"
+        )
+    progress: list[dict] = []
+    try:
+        receipt = ModelDownloader(
+            DownloadConfig(max_retries=args.max_retries)
+        ).acquire(
+            manifest, source, dest,
+            authorized_by=args.authorize,
+            on_progress=progress.append,
+        )
+    except EmbeddingFailed as exc:
+        return error_envelope("acquisition_failed", str(exc))
+    return envelope({
+        "promoted": dest,
+        "receipt": receipt.to_dict(),
+        "stages": [p["stage"] for p in progress
+                   if p["stage"] != "streaming"],
+    })
+
+
+def cmd_update(args) -> dict:
+    """Self-update transaction (fsfs update, runtime.rs:4257): semver
+    gate, --check mode, refuse-unverified-bytes checksum ladder, staged
+    generations with --rollback. The Python package itself stays
+    pip-managed; the staged bundle under <root>/updates is the mutable
+    generation."""
+    from frankensearch_tpu_torch import __version__
+    from frankensearch_tpu_torch.runtime.install import (
+        LocalReleaseDir,
+        NetworkReleaseSource,
+        UpdateError,
+        collect_update_payload,
+        rollback_update,
+    )
+
+    updates_dir = os.path.join(args.root, "updates")
+    try:
+        if args.rollback:
+            return envelope(rollback_update(updates_dir))
+        if args.url:
+            source = NetworkReleaseSource(args.url)
+        elif args.from_dir:
+            source = LocalReleaseDir(args.from_dir)
+        else:
+            return error_envelope(
+                "source_required",
+                "provide --url <base> or --from-dir <release bundle> "
+                "(zero-egress installs use a staged local bundle)",
+            )
+        return envelope(
+            collect_update_payload(
+                __version__, source, updates_dir=updates_dir,
+                check_only=args.check,
+            )
+        )
+    except UpdateError as e:
+        return error_envelope(e.code, str(e))
+
+
+def cmd_uninstall(args) -> dict:
+    """Uninstall transaction (fsfs uninstall, runtime.rs:4640): typed
+    targets, --yes/--dry-run gate, purge-only config/model surfaces,
+    per-entry removed/skipped/error statuses."""
+    from frankensearch_tpu_torch.runtime.install import UpdateError, run_uninstall
+
+    try:
+        return envelope(
+            run_uninstall(
+                args.root,
+                dry_run=args.dry_run,
+                confirmed=args.yes,
+                purge=args.purge,
+            )
+        )
+    except UpdateError as e:
+        return error_envelope(e.code, str(e))
 
 
 def cmd_completions(args) -> dict | None:
@@ -1508,6 +1663,131 @@ def cmd_tui(args) -> dict | None:
     return None
 
 
+def cmd_fleet(args) -> dict | None:
+    """Fleet console (frankensearch-ops): ``--live DIR`` reconciles a
+    registry of REAL serve/daemon processes (pid liveness + heartbeat
+    staleness decide health — discovery.rs role); otherwise runs the
+    deterministic simulator for N ticks."""
+    from frankensearch_tpu_torch.fleet.datasource import FleetSimulator
+    from frankensearch_tpu_torch.fleet.storage import FleetStore
+    from frankensearch_tpu_torch.tui.screens import FleetScreen
+
+    if getattr(args, "live", None):
+        from frankensearch_tpu_torch.fleet.registry import LiveDataSource
+
+        src = LiveDataSource(args.live, stale_after_s=args.stale_after)
+        store = FleetStore()
+        samples = list(src.samples())
+        store.ingest(samples)
+        nodes = src.nodes()
+        if getattr(args, "slo", False):
+            # SLO error budgets + anomaly payloads over the registry's
+            # sample horizon (fleet/slo.py; parity slo-anomaly-contract)
+            import time as _time
+
+            from frankensearch_tpu_torch.fleet.slo import from_fleet_samples
+
+            report = from_fleet_samples(samples).report(_time.time())
+            report["nodes"] = len(nodes)
+            # drop no-data windows from the wire payload (noise)
+            report["budgets"] = [
+                b for b in report["budgets"] if b["total_events"] > 0
+            ]
+            return envelope(report)
+        screen = FleetScreen(nodes_fn=lambda: nodes, rollups_fn=store.rollups)
+        if args.format == "table":
+            print(screen.render(100))
+            return None
+        return envelope(
+            {
+                "mode": "live",
+                "nodes": [
+                    {
+                        "node": n.node_id, "host": n.host,
+                        "generation": n.generation_id, "healthy": n.healthy,
+                        "last_heartbeat_s": round(n.last_heartbeat_s, 3),
+                    }
+                    for n in nodes
+                ],
+                "rollups": [
+                    {"node": r.node_id, "samples": r.samples,
+                     "mean_qps": round(r.mean_qps, 1),
+                     "max_p99_ms": round(r.max_p99_ms, 1),
+                     "errors": r.total_errors}
+                    for r in store.rollups()
+                ],
+                "fleet_qps": round(store.fleet_qps(), 1),
+            }
+        )
+
+    incidents = {}
+    if args.incident:
+        incidents[args.incident] = (args.ticks // 3, 2 * args.ticks // 3)
+    sim = FleetSimulator(n_nodes=args.nodes, seed=args.seed, incidents=incidents)
+    store = FleetStore()
+    for _ in range(args.ticks):
+        store.ingest(sim.step())
+    screen = FleetScreen(nodes_fn=sim.nodes, rollups_fn=store.rollups)
+    if args.format == "table":
+        print(screen.render(100))
+        return None
+    return envelope(
+        {
+            "nodes": [n.node_id for n in sim.nodes()],
+            "rollups": [
+                {"node": r.node_id, "samples": r.samples,
+                 "mean_qps": round(r.mean_qps, 1), "max_p99_ms": round(r.max_p99_ms, 1),
+                 "errors": r.total_errors}
+                for r in store.rollups()
+            ],
+            "fleet_qps": round(store.fleet_qps(), 1),
+        }
+    )
+
+
+def cmd_repro(args) -> dict:
+    """Self-contained replay pack for a query (runtime/repro.py; parity
+    fsfs repro.rs): evidence JSONL of every phase + results + metrics,
+    the effective layered config, the generation manifest, and the
+    environment fingerprint — a bug report that replays elsewhere."""
+    from frankensearch_tpu_torch.runtime.repro import ReproPack
+
+    handle = _open(args)
+    lc = getattr(args, "_layered_config", None)
+    pack = ReproPack(args.out, config=lc.config.to_dict() if lc else None)
+    pack.record_event("query", {"query": args.query, "k": args.k})
+    phases: list = []
+    out = handle.searcher.search(args.query, k=args.k, on_phase=phases.append)
+    for p in phases:
+        pack.record_event(
+            "phase",
+            {
+                "kind": p.kind.value,
+                "latency_ms": round(p.latency_ms, 3),
+                "reason": p.reason,
+                "doc_ids": [r.doc_id for r in p.results],
+            },
+        )
+    pack.record_event("metrics", out.metrics.to_dict())
+    pack.record_event("results", {"rows": _result_rows(out.results)})
+    # generation manifest of the CURRENT lexical generation, when present
+    current = os.path.join(args.root, "lexical", "CURRENT")
+    try:
+        with open(current, encoding="utf-8") as f:
+            gen = f.read().strip()
+        with open(
+            os.path.join(args.root, "lexical", gen, "MANIFEST.json"),
+            encoding="utf-8",
+        ) as f:
+            pack.attach_manifest("generation", f.read())
+    except OSError:
+        pass
+    path = pack.write()
+    return envelope(
+        {"pack": path, "events": len(pack.events), "manifests": sorted(pack.manifests)}
+    )
+
+
 def cmd_version(args) -> dict:
     import torch
 
@@ -1592,8 +1872,6 @@ def cmd_serve(args) -> dict | None:
         sense_host_memory,
     )
 
-    if getattr(args, "fleet_dir", ""):
-        _refuse("serve --fleet-dir (live fleet registration)")
     handle = _open(args)
     # pressure-governed serving (fsfs pressure.rs ladder): host memory +
     # device memory occupancy gate the quality tier / rerank / priors
@@ -1661,6 +1939,35 @@ def cmd_serve(args) -> dict | None:
     max_batch = getattr(args, "serve_max_batch", 64)
     coalesce_s = max(getattr(args, "coalesce_ms", 0.0), 0.0) / 1e3
 
+    # live fleet registration (fleet/registry.py; ops discovery.rs role):
+    # publish heartbeats + served-query telemetry so `fleet --live DIR`
+    # shows this process's true state. A failed read of the card raises
+    # (from start(), or from check() at the next frame), never publishes 0.
+    registrar = None
+    if getattr(args, "fleet_dir", ""):
+        from frankensearch_tpu_torch.fleet.registry import NodeRegistrar
+
+        def _fleet_status() -> dict:
+            current = ""
+            try:
+                with open(os.path.join(args.root, "lexical", "CURRENT"),
+                          encoding="utf-8") as f:
+                    current = f.read().strip()
+            except OSError:
+                pass
+            return {
+                "doc_count": handle.index.doc_count(),
+                "generation_id": current,
+                "hbm_used_frac": sense_device_hbm(handle.index.fast.device),
+                "queue_pressure": min(inbox.qsize() / max(max_batch, 1), 1.0),
+            }
+
+        registrar = NodeRegistrar(
+            args.fleet_dir,
+            getattr(args, "node_id", "") or f"serve-{os.getpid()}",
+            root=args.root, status_fn=_fleet_status,
+        ).start()
+
     def _parse(raw: str) -> dict | None:
         raw = raw.strip()
         if not raw:
@@ -1693,6 +2000,8 @@ def cmd_serve(args) -> dict | None:
             req = _parse(raw)
             if req is None:
                 continue
+        if registrar is not None:
+            registrar.check()
         _observe_pressure()
         current_state = _sentinels.snapshot()
         if current_state != _sentinel_state:
@@ -1728,7 +2037,13 @@ def cmd_serve(args) -> dict | None:
                 else:
                     carry = nxt  # flush first: replies stay in order
                     break
+            t_q = time.monotonic()
             _serve_flush_searches(handle, batch, out)
+            if registrar is not None:
+                registrar.observe_query(
+                    (time.monotonic() - t_q) * 1000.0 / max(len(batch), 1),
+                    n=len(batch),
+                )
             continue
         op = req.get("op")
         if op == "shutdown":
@@ -1757,6 +2072,7 @@ def cmd_serve(args) -> dict | None:
             continue
         if op == "search":
             try:
+                t_q = time.monotonic()
                 stream = bool(req.get("stream", args.stream))
                 if stream:
                     # versioned stream frames per phase
@@ -1794,7 +2110,11 @@ def cmd_serve(args) -> dict | None:
                         json.dumps(envelope(_result_rows(res.results)), default=str),
                         file=out, flush=True,
                     )
+                if registrar is not None:
+                    registrar.observe_query((time.monotonic() - t_q) * 1000.0)
             except Exception as e:
+                if registrar is not None:
+                    registrar.observe_error()
                 print(
                     json.dumps(error_envelope(getattr(e, "code", type(e).__name__), str(e))), file=out, flush=True
                 )
@@ -1804,8 +2124,14 @@ def cmd_serve(args) -> dict | None:
             # queries embed in one device call and scan in one batched
             # program (agent/offline workloads; parity with search())
             try:
+                t_q = time.monotonic()
                 queries = [str(q) for q in req.get("queries", [])]
                 outs = handle.searcher.search_batch(queries, k=int(req.get("k", 10)))
+                if registrar is not None and queries:
+                    registrar.observe_query(
+                        (time.monotonic() - t_q) * 1000.0 / len(queries),
+                        n=len(queries),
+                    )
                 print(
                     json.dumps(
                         envelope(
@@ -1824,6 +2150,10 @@ def cmd_serve(args) -> dict | None:
                 )
             continue
         print(json.dumps(error_envelope("unknown_op", str(op))), file=out, flush=True)
+    if registrar is not None:
+        registrar.close()  # a clean exit deregisters (a crash leaves the
+        # node file for the reader's pid-liveness reaper); raises the
+        # beat thread's fault, if it had one
     return None
 
 
@@ -1951,7 +2281,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--dwell", type=float, default=0.0,
                     help="seconds the user dwelled on the doc")
 
-    add("footprint", _not_ported_command,
+    add("footprint", cmd_footprint,
         help="dry-run footprint advisor: byte census + compaction/"
              "retention/feature recommendations (never deletes)")
 
@@ -1972,7 +2302,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "only)")
     sp.add_argument("--max-samples", type=int, default=20)
 
-    sp = add("repro", _not_ported_command,
+    sp = add("repro", cmd_repro,
              help="write a self-contained replay pack for a query")
     sp.add_argument("query")
     sp.add_argument("--out", required=True, metavar="DIR",
@@ -2029,7 +2359,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run the WAL-polling compaction daemon instead")
     sp.add_argument("--fleet-dir", default="",
                     help="register this daemon in a live fleet registry dir "
-                         "(not ported yet)")
+                         "(heartbeats for `fleet --live`)")
     sp.add_argument("--node-id", default="",
                     help="registry node id (default daemon-<pid>)")
     sp.add_argument("--poll-ms", type=float, default=1000.0)
@@ -2046,7 +2376,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("config", cmd_config, help="effective configuration")
     add("version", cmd_version, help="version + devices")
 
-    sp = add("fleet", _not_ported_command, help="fleet console (live registry or simulator)")
+    sp = add("fleet", cmd_fleet, help="fleet console (live registry or simulator)")
     sp.add_argument("--live", default="", metavar="DIR",
                     help="reconcile a live node-registry directory (real "
                          "serve/daemon processes) instead of the simulator")
@@ -2063,7 +2393,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     add("flush", cmd_flush, help="drain pending embedding jobs")
 
-    sp = add("download", _not_ported_command, help="acquire a model (network or local bundle)")
+    sp = add("download", cmd_download, help="acquire a model (network or local bundle)")
     sp.add_argument("name")
     sp.add_argument("--from-dir", default="", help="local bundle source")
     sp.add_argument("--url", default="", help="artifact base URL (network source)")
@@ -2075,7 +2405,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--diagnose", action="store_true",
                     help="report acquisition recovery state instead of acquiring")
 
-    sp = add("update", _not_ported_command,
+    sp = add("update", cmd_update,
              help="self-update: staged verified release generations")
     sp.add_argument("--check", action="store_true",
                     help="report availability only; apply nothing")
@@ -2085,7 +2415,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--rollback", action="store_true",
                     help="restore the previously staged version")
 
-    sp = add("uninstall", _not_ported_command,
+    sp = add("uninstall", cmd_uninstall,
              help="remove index/config state (requires --yes or --dry-run)")
     sp.add_argument("--yes", action="store_true", help="confirm removal")
     sp.add_argument("--dry-run", action="store_true",

@@ -130,7 +130,7 @@ def split_postings(
 
 def finalize_hot_arm(split: HotSplit, blocked, n_docs: int, device) -> HotArm:
     """Reorder the head columns into the blocked layout's group-aligned
-    physical slot order (host-side: no device gathers at query time) and
+    physical slot order (once, at build: no gathers at query time) and
     extract the zero-tail-posting docs' columns.
 
     ``blocked`` is the tail ``_BlockedPostings``; its ``phys_doc`` maps
@@ -158,23 +158,30 @@ def finalize_hot_arm(split: HotSplit, blocked, n_docs: int, device) -> HotArm:
     phys_padded = np.concatenate(doc_parts) if doc_parts else np.full(128, -1, np.int64)
     n_phys = len(phys_padded)
     np_pad = max(_round_up(max(n_phys, 1), 128), 128)
-    cols_phys = np.zeros((split.h_pad, np_pad), dtype=np.float32)
     real = phys_padded >= 0
-    cols_phys[:, np.flatnonzero(real)] = split.cols_np[:, phys_padded[real]]
 
     in_blocks = np.zeros(n_docs, dtype=bool)
     in_blocks[phys_padded[real]] = True
     cold = np.flatnonzero(~in_blocks).astype(np.int64)  # ascending rows
     c_pad = max(_round_up(max(len(cold), 1), 128), 128)
-    cold_cols = np.zeros((split.h_pad, c_pad), dtype=np.float32)
-    if len(cold):
-        cold_cols[:, : len(cold)] = split.cols_np[:, cold]
     cold_rows = np.full(c_pad, -1, dtype=np.int32)
     cold_rows[: len(cold)] = cold
 
+    # the two column gathers run where the arm goes, after one upload of
+    # the head columns: on the host, a gather of every doc's column of an
+    # (H, N) array reads it strided (seconds at a million docs)
+    cols = torch.from_numpy(split.cols_np).to(device)
+    cols_phys = torch.zeros((split.h_pad, np_pad), dtype=torch.float32, device=device)
+    cols_phys.index_copy_(1, torch.from_numpy(np.flatnonzero(real)).to(device),
+                          cols.index_select(1, torch.from_numpy(phys_padded[real]).to(device)))
+    cold_cols = torch.zeros((split.h_pad, c_pad), dtype=torch.float32, device=device)
+    if len(cold):
+        cold_cols[:, : len(cold)] = cols.index_select(1, torch.from_numpy(cold).to(device))
+    del cols
+
     return HotArm(
-        cols_phys=torch.from_numpy(cols_phys).to(device),
-        cold_cols=torch.from_numpy(cold_cols).to(device),
+        cols_phys=cols_phys,
+        cold_cols=cold_cols,
         cold_rows=torch.from_numpy(cold_rows).to(device),
         dmap_groups=torch.from_numpy(dmap_groups).to(device),
         hot_row_of=split.hot_row_of,

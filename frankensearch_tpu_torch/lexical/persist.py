@@ -21,6 +21,7 @@ from __future__ import annotations
 import json
 import os
 import time
+from collections import defaultdict
 
 import torch
 
@@ -126,7 +127,25 @@ def _save_lexical_locked(index: MemoryLexicalIndex, root: str) -> str:
 def load_lexical(root: str) -> MemoryLexicalIndex | None:
     """Resolve CURRENT and load that generation; None when absent.
     Corruption raises TYPED ``IndexCorrupted`` (never a raw decode
-    error), so callers can take the degradation ladder."""
+    error), so callers can take the degradation ladder.
+
+    The loaded oracle equals the reference's field for field. The
+    snapshot's counts are JSON ints already, so its per-doc dicts and
+    posting lists become the index's own (no per-entry copy), and the
+    cyclic collector is paused over the millions of containers the parse
+    makes: it would otherwise rescan the growing heap many times over."""
+    import gc
+
+    paused = gc.isenabled()
+    gc.disable()
+    try:
+        return _load_lexical(root)
+    finally:
+        if paused:
+            gc.enable()
+
+
+def _load_lexical(root: str) -> MemoryLexicalIndex | None:
     from frankensearch_tpu_torch.core.errors import IndexCorrupted
 
     current = os.path.join(root, "lexical", "CURRENT")
@@ -149,22 +168,17 @@ def load_lexical(root: str) -> MemoryLexicalIndex | None:
         index._field_stats[fname] = _FieldStats(
             total_tokens=s["total_tokens"], doc_count=s["doc_count"]
         )
-    for doc_id, d in payload["docs"].items():
-        index._docs[doc_id] = _DocEntry(
-            doc_id=doc_id,
-            title=d["title"],
-            metadata=d["metadata"],
-            content_preview=d["preview"],
-            # pre-r3 snapshots lack "content": content_full stays empty
-            # and phrase checks fall back to the preview bound
-            content_full=d.get("content", ""),
-            fieldnorm_id={k: int(v) for k, v in d["fieldnorm_id"].items()},
-            token_counts={k: int(v) for k, v in d.get("token_counts", {}).items()},
+    index._docs = {
+        # pre-r3 snapshots lack "content": content_full stays empty and
+        # phrase checks fall back to the preview bound
+        doc_id: _DocEntry(
+            doc_id, d["title"], d["metadata"], d["preview"], d.get("content", ""),
+            d["fieldnorm_id"], d.get("token_counts", {}),
         )
+        for doc_id, d in payload["docs"].items()
+    }
     for fname, terms in payload["postings"].items():
-        field_postings = index._postings[fname]
-        for term, plist in terms.items():
-            field_postings[term] = dict(zip(plist, map(int, plist.values())))
+        index._postings[fname] = defaultdict(dict, terms)
     index._generation = 1
     # incremental generations (publish_incremental) carry the window
     # snapshots alongside the base: fold them so the oracle holds the

@@ -78,6 +78,18 @@ is and two scratch builds of it made under ``build/k5split/`` (one without
 the selection, one whose scan is replaced by hashed scores; see
 ``K5_SPLIT_PATCHES``), each in a process of its own, and prints the ptxas
 report of the list entry's instances and K5 (bf16) at B = 256 beside it.
+
+``python3 profile_chip.py --open OUT_DIR TREE [TREE ...]`` times a 1M-doc
+open: it builds chip_smoke's cli-1M root (phase 4's 1M docs through ``cli
+index`` of this checkout) and runs ``cli watch`` into it once (phase 12's
+first run: 768 docs and an incremental seal, so that the open folds a
+delta snapshot), then, for each TREE in turn, in a process of its own
+importing the port package under TREE, times ``open_hybrid(root)`` twice on
+the host clock (the card synchronized after) and ``load_lexical(root)``
+alone; one more open under cProfile goes to
+``OUT_DIR/open_<i>_<tree>.txt`` (by total and by own time). Give a tree
+twice, interleaved with another (parent, this, this, parent), to compare
+them on one host. The last line is a JSON summary.
 """
 
 from __future__ import annotations
@@ -534,6 +546,84 @@ def under_load(fn, seconds: float = 2.0) -> dict:
             "samples": len(samples)}
 
 
+def time_opens(out_dir: str, trees: list[str]) -> int:
+    """``--open OUT_DIR TREE ...``: the watched cli-1M root, then each
+    tree's open of it (see the module docstring)."""
+    import subprocess
+
+    import numpy as np
+
+    import chip_smoke as cs
+
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="fs_open_") as tmp:
+        docs, _ = cs.hybrid1m_docs(np.random.default_rng(cs.SEED + 4))
+        texts = [d.content for d in docs]
+        del docs
+        corpus, root = os.path.join(tmp, "cli_corpus.jsonl"), os.path.join(tmp, "cli_root")
+        with open(corpus, "w", encoding="utf-8") as f:
+            f.writelines(json.dumps({"id": f"doc-{i:07d}", "content": t}) + "\n" for i, t in enumerate(texts))
+        t0 = time.perf_counter()
+        cs.run_cli(["index", corpus, "--root", root])
+        index_s = time.perf_counter() - t0
+        live = os.path.join(tmp, "live")
+        cs.live_corpus(live, texts)
+        run1, ms1 = cs.watch_run(live, root)
+        cs.log(f"open: cli index {index_s:.1f} s; watch run 1 {run1['batches']} in {ms1['wall'] / 1e3:.1f} s "
+               f"(its open {ms1['open'][0] / 1e3:.1f} s, seal {ms1['seal']} ms); lexical/ "
+               + str(sorted(os.listdir(os.path.join(root, "lexical", open(os.path.join(root, "lexical", "CURRENT"))
+                                                    .read().strip())))))
+        del texts
+        rows = []
+        for i, tree in enumerate(trees):
+            run = subprocess.run([sys.executable, os.path.abspath(__file__), "--open-time", tree, root,
+                                  os.path.join(out_dir, f"open_{i}_{os.path.basename(tree.rstrip('/')) or 'tree'}.txt")],
+                                 stdout=subprocess.PIPE, text=True, check=True)
+            rows.append(json.loads(run.stdout.strip().splitlines()[-1]))
+            cs.log(f"open {i} {tree}: " + json.dumps(rows[-1]))
+    cs.log(cs.gpu_line())
+    print(json.dumps({"opens": rows, "index_s": index_s}), flush=True)
+    return 0
+
+
+def open_time(tree: str, root: str, report: str) -> int:
+    """``--open-time TREE ROOT REPORT``: the worker of ``--open``; the last
+    line is a JSON record (seconds)."""
+    import torch
+
+    sys.path.insert(0, tree)
+    from frankensearch_tpu_torch import builder
+    from frankensearch_tpu_torch.lexical import persist
+
+    def timed_open() -> float:
+        t0 = time.perf_counter()
+        handle = builder.open_hybrid(root)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        handle.close()
+        del handle
+        torch.cuda.empty_cache()
+        return dt
+
+    rec = {"tree": tree, "open_s": [timed_open(), timed_open()]}
+    t0 = time.perf_counter()
+    oracle = persist.load_lexical(root)
+    rec["load_lexical_s"] = time.perf_counter() - t0
+    rec["docs"] = oracle.doc_count()
+    del oracle
+    prof = cProfile.Profile()
+    prof.enable()
+    rec["open_under_cprofile_s"] = timed_open()
+    prof.disable()
+    with open(report, "w") as f:
+        for key in ("cumulative", "tottime"):
+            listing = io.StringIO()
+            pstats.Stats(prof, stream=listing).sort_stats(key).print_stats(40)
+            f.write(f"by {key}:\n{listing.getvalue()}\n")
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
 def main() -> int:
     # the port must reach neither jax nor the JAX package, even indirectly
     sys.modules["jax"] = None
@@ -548,6 +638,10 @@ def main() -> int:
         return time_kernels(os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else HERE)
     if len(sys.argv) > 1 and sys.argv[1] == "--k5-split":
         return k5_split(os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else HERE)
+    if len(sys.argv) > 3 and sys.argv[1] == "--open":
+        return time_opens(sys.argv[2], [os.path.abspath(t) for t in sys.argv[3:]])
+    if len(sys.argv) > 4 and sys.argv[1] == "--open-time":
+        return open_time(sys.argv[2], sys.argv[3], sys.argv[4])
     if len(sys.argv) > 2 and sys.argv[1] == "--k5-time":
         return k5_time(os.path.abspath(sys.argv[2]), sys.argv[3:] == ["build"])
     import chip_smoke as cs

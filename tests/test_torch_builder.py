@@ -465,6 +465,24 @@ def test_corrupt_oracle_snapshot_degrades_to_the_packed_arm(pkg, tmp_path):
     assert h.searcher.search("buried treasure map", k=3).results[0].doc_id == "ch02-island"
 
 
+@PKGS
+def test_truncated_oracle_snapshot_takes_the_ladder_at_open(pkg, tmp_path):
+    """A snapshot cut short (a full disk, a copy stopped midway) is found
+    at open, as in the reference, and the open degrades to the packed
+    arm."""
+    root = str(tmp_path / "ix")
+    build(pkg, root, make_book(pkg))
+    path = os.path.join(lexical_dir(root), "index.flex.json")
+    with open(path, "rb") as f:
+        data = f.read()
+    with open(path, "wb") as f:
+        f.write(data[: len(data) * 2 // 3])
+    h = open_root(pkg, root)
+    assert h.lexical is None and h.delta is None
+    assert type(h.searcher.lexical).__name__ == "BulkDeviceBm25Index"
+    assert h.searcher.search("buried treasure map", k=3).results[0].doc_id == "ch02-island"
+
+
 # -- open_hybrid: the quality kernels from the config -------------------------------------------
 
 

@@ -293,13 +293,6 @@ def test_daemon_command_equals_reference(roots, tmp_path, concurrency):
         assert envs["ref"]["data"]["requests_served"] <= 3
 
 
-def test_daemon_fleet_dir_is_refused(roots, tmp_path):
-    rc, out = run("port", "--format", "json", "daemon", "--root", roots["port"], "--socket",
-                  str(tmp_path / "s.sock"), "--fleet-dir", str(tmp_path / "fleet"))
-    env = json.loads(out)
-    assert rc == 1 and env["error"]["code"] == "not_ported" and not os.path.exists(tmp_path / "fleet")
-
-
 def test_wal_poll_daemon_compacts_equals_reference(tmp_path):
     corpus = write_jsonl(tmp_path / "c.jsonl", [(f"d{i}", f"alpha doc {i}") for i in range(10)])
     more = write_jsonl(tmp_path / "more.jsonl", [("extra-1", "zeppelin extra doc")])

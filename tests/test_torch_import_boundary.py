@@ -10,7 +10,9 @@ lane), then runs the A/B scan lane, and a phrase query through the
 Refined and Reranked phases (a BERT quality tier and a cross-encoder), then
 builds a root with ``IndexBuilder``, serves it through ``open_hybrid`` and
 seals a write, then runs the CLI's ``index`` and ``search``, and ``watch``
-of a corpus directory followed by the ``tui`` over the watched root. A static
+of a corpus directory followed by the ``tui`` over the watched root, then
+``repro``, ``footprint``, ``fleet`` (a registered node; the simulator),
+``download --diagnose`` and ``uninstall --dry-run``. A static
 check reads every import statement of the port's files, ``chip_smoke.py``
 and ``profile_chip.py``: none may name ``frankensearch_tpu`` or ``jax``.
 """
@@ -172,6 +174,20 @@ with tempfile.TemporaryDirectory() as tmp:
             sys.stdin = stdin
     frames = buf.getvalue()
     assert "z.txt" in frames.split("[search]")[2] and "search_ms" in frames, frames
+    # the rest of the CLI: repro and footprint of the watched root, the
+    # fleet console (a registered node, the simulator), the host transactions
+    from frankensearch_tpu_torch.fleet.registry import NodeRegistrar
+    with NodeRegistrar(os.path.join(tmp, "fleet"), "n1", status_fn=lambda: {"doc_count": 3}):
+        for argv in (["repro", "zeppelin", "--out", os.path.join(tmp, "pack"), "--root", ix, "--device", "cpu"],
+                     ["footprint", "--root", ix], ["fleet", "--live", os.path.join(tmp, "fleet"), "--slo"],
+                     ["fleet", "--ticks", "3"], ["download", "m", "--root", ix, "--diagnose"],
+                     ["uninstall", "--root", ix, "--dry-run"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert cli(["--format", "json", *argv]) == 0, argv
+            env = json.loads(buf.getvalue())
+            assert env["ok"], (argv, env)
+    assert env["data"]["entries"][0]["path"] == "frankensearch_tpu_torch"
 assert sys.modules["jax"] is None and sys.modules["frankensearch_tpu"] is None
 assert not [m for m in sys.modules if m.startswith(("jax.", "frankensearch_tpu."))]
 print("OK")

@@ -504,6 +504,59 @@ def test_incremental_generation_bytes_equal_and_loads_as_a_stack(tmp_path):
         assert hits(oracle) == hits(j_persist.load_lexical(roots["ref"]))
 
 
+def oracle_fields(index) -> dict:
+    """Every field a loaded oracle holds, as plain values (the posting
+    lists' counts with their types)."""
+    return {
+        "field_stats": {f: vars(st) for f, st in index._field_stats.items()},
+        "docs": {d: vars(e) for d, e in index._docs.items()},
+        "postings": {f: {t: [(d, tf, type(tf)) for d, tf in pl.items()] for t, pl in terms.items()}
+                     for f, terms in index._postings.items()},
+        "postings_types": {f: (type(terms), terms.default_factory) for f, terms in index._postings.items()},
+        "generation": index._generation,
+        "staged": list(index._staged),
+    }
+
+
+@pytest.mark.parametrize("incremental", [False, True], ids=["base", "folded"])
+def test_load_lexical_equals_reference_field_for_field(tmp_path, incremental):
+    """The port's load (the snapshot's dicts taken as they parse, the
+    collector paused) gives the reference's oracle field for field, on a
+    root with an incremental generation's window folded in; either
+    package's root loads the same."""
+    roots = {}
+    for pkg in (REF, PORT):
+        roots[pkg.name] = root = str(tmp_path / pkg.name)
+        docs = corpus(pkg, 60) + [pkg.Doc(doc_id="uni", content="Ünïcode wörds ß ß", title="Tïtle ß",
+                                          metadata={"k": [1, "x"]})]
+        pkg.persist.republish_lexical(mem_of(pkg, docs), root)
+        if incremental:
+            fresh = word_docs(pkg, 9, seed=4, start=1000) + [pkg.Doc(doc_id="doc-003", content="term01 replaced")]
+            assert pkg.persist.publish_incremental(mem_of(pkg, fresh), root)
+    for root in roots.values():
+        got, want = t_persist.load_lexical(root), j_persist.load_lexical(root)
+        assert oracle_fields(got) == oracle_fields(want)
+        assert got.doc_count() == 61 + 9 * incremental
+        assert hits(got, QUERIES + ["term01 replaced", "ß"]) == hits(want, QUERIES + ["term01 replaced", "ß"])
+    assert oracle_fields(t_persist.load_lexical(roots["port"])) == oracle_fields(j_persist.load_lexical(roots["ref"]))
+
+
+@PKGS
+@pytest.mark.parametrize("damage", ["truncated", "version"])
+def test_damaged_snapshot_raises_typed(pkg, tmp_path, damage):
+    import gc
+
+    root = str(tmp_path)
+    pkg.persist.save_lexical(mem_of(pkg, corpus(pkg, 10)), root)
+    path = os.path.join(root, "lexical", current_gen(root), "index.flex.json")
+    text = read(path).decode()
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(text[: len(text) // 2] if damage == "truncated" else text.replace('"version":1', '"version":9'))
+    with pytest.raises(pkg.errors.IndexCorrupted):
+        pkg.persist.load_lexical(root)
+    assert gc.isenabled()
+
+
 @PKGS
 def test_stack_compacts_after_max_segments(pkg, tmp_path):
     root = str(tmp_path)
