@@ -148,7 +148,31 @@ Phases:
      ``environment.json``); ``footprint`` of the 1M root (its row counts
      the FTVI's); ``download``, ``update`` (check, apply, rollback) and
      ``uninstall --dry-run`` on local bundles; K1, K2 and K3 against their
-     twins at the shapes phases 11-12 did not give them.
+     twins at the shapes phases 11-12 did not give them;
+ 14. refresh-1M-quality, the background refresh path, run right after
+     phase 8 on its two-tier index (so no second 1M index is built or
+     held, and phase 9's index is untouched), with a WAL root of its own:
+     an ``EmbeddingQueue(1024)`` gets the edited seed docs that
+     ``ReembedPolicy`` passes (priority 1), 512 new docs with a unique
+     token each and 32 duplicates (refused); a ``RefreshWorker``
+     (max_batch 64, HashEmbedder(256) fast, the
+     trained encoder on the card for quality) drains it from its thread
+     while four readers run phase 4's batch (Refined, with the quality
+     rescan) and the singletons through ``search()``, after the same
+     readers ran alone: no reader raises, every returned id seeded or
+     appended, K1 and K2 counted during the race, ``docs_embedded`` the
+     ENQUEUED pushes with no error, the fast WAL holding every append,
+     every appended doc its own top fast-tier hit, both tiers' appended
+     rows on the card against the CPU (the HashEmbedder's bitwise, the
+     encoder's within ENC_F32_TOL); ms per cycle split into embed, WAL
+     append, ``with_appended`` and ``_realign``, reader p50 / p99 alone
+     and under the writer; K1 and K2 against their twins at shapes no
+     earlier phase checked; then, on a 20,000-doc two-tier index on the
+     card (a depth cut), a queue of the same capacity pushed until it
+     answers FULL, its 1,024 docs drained by a worker against direct
+     appends of the same batches (doc ids and scores bitwise), and a
+     worker whose quality embed raises on its third batch (``stop()``
+     raises it, one error, that batch in the fast tier only).
 
 The kernels line gives each kernel's time, its twin's, and its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -1958,12 +1982,14 @@ def check_refined_singleton(what: str, one, want, strict: bool, q_err: float) ->
             raise AssertionError(f"{what}: doc {r[0]} lane scores {r[2:]} vs its batch row's {w[2:]}")
 
 
-def phase8_quality(dev, tmp: str, semantic: dict, lexical: dict) -> tuple[dict, dict, list[dict]]:
+def phase8_quality(dev, tmp: str, semantic: dict, lexical: dict) -> tuple[dict, dict, list[dict], dict]:
     """hybrid-1M-quality: phase 4's corpus and lexical arm over phase 2's
     fast tier, with a 1M x 384 quality tier and the trained 384 encoder
     (8a), a seeded cross-encoder at ms-marco-MiniLM-L-6-v2's configuration
     (8b), and the held-out lift world on the card against the CPU (8c).
-    Returns its record, launches and kernel records."""
+    Returns its record, launches, kernel records, and the two-tier index
+    with the encoder on the card and on the CPU (phase 14 refreshes that
+    index)."""
     import numpy as np
     import torch
 
@@ -2144,9 +2170,9 @@ def phase8_quality(dev, tmp: str, semantic: dict, lexical: dict) -> tuple[dict, 
     rec["lift"] = lift
     for s in searchers.values():
         s.close()
-    del searchers, index
+    del searchers
     torch.cuda.empty_cache()
-    return rec, launches, kernels
+    return rec, launches, kernels, {"index": index, "q32": q32, "c32": c32}
 
 
 def serve_sizes(searcher, queries: list[str], texts: list[str] | None = None) -> dict:
@@ -3907,6 +3933,451 @@ def phase13_fleet(dev, tmp: str, lexical: dict, docs: int) -> tuple[dict, dict, 
              "wall": wall}, launches, kernels)
 
 
+REFRESH_CAPACITY = 1024  # phase 14: the EmbeddingQueue's capacity
+REFRESH_NEW = 512  # new docs, each carrying one unique token
+REFRESH_DUPS = 32  # pushes of queued content under other ids (DUPLICATE)
+REFRESH_EDITS = 64  # seed docs edited; ReembedPolicy decides which are pushed again
+REFRESH_BATCH = 64  # the worker's max_batch
+REFRESH_READERS = 4  # reader threads racing the worker
+REFRESH_BASELINE_ROUNDS = 1  # each reader's batch + singleton rounds with no writer
+REFRESH_CUT_DOCS = 20_000  # the depth-cut two-tier index of the worker-vs-direct, FULL and fault checks
+REFRESH_FAULT_BATCH = 3  # the fault worker's quality embed raises on this batch
+REFRESH_CPU_SAMPLE = 128  # appended docs whose quality rows are held to the CPU encoder's
+
+
+class TimedEmbedder:
+    """An embedder whose ``embed_batch`` host ms (the card synchronized
+    after) is added to ``cycle[key]``; the worker's copy of a reader's
+    embedder, so that only the worker's calls are timed."""
+
+    def __init__(self, inner, cycle: dict, key: str):
+        self.inner, self.cycle, self.key = inner, cycle, key
+
+    def embed_batch(self, texts):
+        import torch
+
+        t0 = time.perf_counter()
+        out = self.inner.embed_batch(texts)
+        torch.cuda.synchronize()
+        self.cycle[self.key] = self.cycle.get(self.key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+
+class FailingOn:
+    """An embedder whose ``embed_batch`` raises ``exc`` on call ``n`` only."""
+
+    def __init__(self, inner, n: int, exc: Exception):
+        self.inner, self.n, self.exc, self.calls = inner, n, exc, 0
+
+    def embed_batch(self, texts):
+        self.calls += 1
+        if self.calls == self.n:
+            raise self.exc
+        return self.inner.embed_batch(texts)
+
+
+def refresh_traffic(queue, texts: list[str]) -> tuple[dict, dict]:
+    """Phase 14's pushes into ``queue``, before the worker starts: 64
+    edited seed docs, those ReembedPolicy passes pushed at priority 1 (so
+    they drain first, as one batch); REFRESH_NEW new docs, each with a
+    unique token; REFRESH_DUPS of their contents again under other ids.
+    Returns ({doc id: text} of every ENQUEUED push, {result: count})."""
+    import numpy as np
+
+    from frankensearch_tpu_torch.core.fingerprint import DocumentFingerprint, ReembedPolicy
+    from frankensearch_tpu_torch.fusion.queue import EnqueueResult
+
+    rng = np.random.default_rng(SEED + 14)
+    policy, enqueued, counts = ReembedPolicy(), {}, {r.value: 0 for r in EnqueueResult}
+
+    def push(doc_id, text, priority=0):
+        r = queue.push(doc_id, text, priority=priority)
+        counts[r.value] += 1
+        if r is EnqueueResult.ENQUEUED:
+            enqueued[doc_id] = text
+        return r
+
+    reembed = 0
+    for j, i in enumerate(rng.choice(len(texts), size=REFRESH_EDITS, replace=False)):
+        old = texts[int(i)]
+        new = old if j % 4 == 0 else f"{old} edited{j:03d}"
+        if policy.should_reembed(DocumentFingerprint.of(old), DocumentFingerprint.of(new)):
+            reembed += 1
+            push(f"doc-{int(i):07d}", new, priority=1)
+    if reembed != REFRESH_EDITS - REFRESH_EDITS // 4:
+        raise AssertionError(f"phase14: ReembedPolicy passed {reembed} of {REFRESH_EDITS} edits")
+    fresh = fresh_texts(texts, REFRESH_NEW, "fresh", rng)
+    for n in range(REFRESH_NEW):
+        if push(f"new-{n:04d}", fresh[n]) is not EnqueueResult.ENQUEUED:
+            raise AssertionError(f"phase14: new doc {n} not enqueued")
+    for n in range(REFRESH_DUPS):
+        if push(f"dup-{n:04d}", fresh[n]) is not EnqueueResult.DUPLICATE:
+            raise AssertionError(f"phase14: duplicate {n} not refused as DUPLICATE")
+    return enqueued, counts
+
+
+def fresh_texts(texts: list[str], n: int, token: str, rng) -> list[str]:
+    """``n`` seed texts, each with a unique token appended."""
+    return [f"{texts[int(i)]} {token}{j:04d}" for j, i in enumerate(rng.integers(0, len(texts), size=n))]
+
+
+def reader_loop(searcher, queries: list[str], singles: list[str], known, stop, out: list, errors: list,
+                rounds: int | None = None) -> None:
+    """A reader: ``search_batch`` of the batch (Refined), then each
+    singleton through ``search()``, until ``stop`` is set (or for
+    ``rounds`` rounds); (kind, host ms) per call into ``out``. Every
+    returned id must be in ``known``."""
+    try:
+        r = 0
+        while (rounds is None and not stop.is_set()) or (rounds is not None and r < rounds):
+            t0 = time.perf_counter()
+            batch = searcher.search_batch(queries, k=K)
+            out.append(("batch", (time.perf_counter() - t0) * 1e3))
+            got = {x.doc_id for o in batch for x in o.results}
+            for q in singles:
+                if stop is not None and stop.is_set():
+                    break
+                t0 = time.perf_counter()
+                one = searcher.search(q, k=K)
+                out.append(("single", (time.perf_counter() - t0) * 1e3))
+                got |= {x.doc_id for x in one.results}
+            if any(o.metrics.quality_candidates < 1 for o in batch):
+                raise AssertionError("phase14: a batch row carries no quality scores")
+            stray = [d for d in got if not known(d)]
+            if stray:
+                raise AssertionError(f"phase14: a reader got ids neither seeded nor appended: {stray[:4]}")
+            r += 1
+    except Exception as e:  # handed to the phase, which raises it
+        errors.append(e)
+
+
+def pct(values: list[float], q: float) -> float:
+    ranked = sorted(values)
+    return ranked[min(len(ranked) - 1, int(len(ranked) * q))]
+
+
+def latency_stats(calls: list) -> dict:
+    out = {}
+    for kind in ("batch", "single"):
+        ms = [t for k, t in calls if k == kind]
+        out[kind] = {"n": len(ms), "p50": pct(ms, 0.5), "p99": pct(ms, 0.99)} if ms else {"n": 0}
+    return out
+
+
+def appended_rows_check(index, emb, c32, docs: dict) -> dict:
+    """Every appended doc the top fast-tier hit of its own text; both
+    tiers' appended rows on the card against the same texts embedded on
+    the CPU: the HashEmbedder's rows bitwise in the slab's dtype (every
+    doc), the encoder's within ENC_F32_TOL (phase 8's card-vs-CPU class;
+    REFRESH_CPU_SAMPLE docs spread over the appends, as phase 8 holds a
+    32-query sample: the CPU forward of every doc costs half a minute);
+    the quality slab's rows bitwise its host rows (every doc)."""
+    import numpy as np
+    import torch
+
+    from frankensearch_tpu_torch import HashEmbedder
+
+    ids, texts = list(docs), list(docs.values())
+    fast, quality = index.fast, index.quality
+    f_rows = [fast.row_for(d) for d in ids]
+    q_rows = [quality.row_for(d) for d in ids]
+    if None in f_rows or None in q_rows:
+        raise AssertionError("phase14: an appended doc has no row in a tier")
+    host = HashEmbedder(dim=emb.dim)  # the CPU's own instance
+    sampled = set(range(0, len(ids), max(1, len(ids) // REFRESH_CPU_SAMPLE)))
+    misses, q_err = 0, 0.0
+    for s in range(0, len(ids), 256):
+        chunk = slice(s, s + 256)
+        want = host.embed_batch(texts[chunk])
+        want /= np.linalg.norm(want, axis=1, keepdims=True)
+        got = fast.slab[f_rows[chunk], : fast.dim].cpu()
+        if not torch.equal(got, torch.from_numpy(want).to(fast.slab.dtype)):
+            raise AssertionError("phase14: appended fast rows on the card differ from the CPU's HashEmbedder rows")
+        res = fast.search_batch(want, 1)
+        top = [h[0].doc_id if h else None for h in fast.hydrate(res)]
+        misses += sum(t != d for t, d in zip(top, ids[chunk]))
+        picks = [j for j in range(s, min(s + 256, len(ids))) if j in sampled]
+        want_q = c32.embed_batch([texts[j] for j in picks])
+        want_q /= np.linalg.norm(want_q, axis=1, keepdims=True)
+        q_err = max(q_err, float(np.abs(quality.vectors_f32()[[q_rows[j] for j in picks]] - want_q).max()))
+        got_q = quality.slab[q_rows[chunk], : quality.dim].cpu()
+        if not torch.equal(got_q, torch.from_numpy(quality.vectors_f32()[q_rows[chunk]]).to(quality.slab.dtype)):
+            raise AssertionError("phase14: the quality slab's appended rows are not its host rows")
+    if misses:
+        raise AssertionError(f"phase14: {misses} appended docs are not their own top fast-tier hit")
+    if not q_err <= ENC_F32_TOL:
+        raise AssertionError(f"phase14: appended quality rows differ from the CPU encoder's by {q_err:.3e}")
+    return {"docs": len(ids), "own_top_hit": len(ids), "quality_cpu_sample": len(sampled),
+            "quality_card_vs_cpu": q_err}
+
+
+def kernel_shapes(records: list[dict], cells: tuple) -> set:
+    """The (kernel, B, kk) shapes at which K1 and K2 were held to their
+    twins in ``records`` of ``cells`` (check_kernels' records)."""
+    return {(r["kernel"], r["b"], r["kk"] or 0) for r in records
+            if r["cell"] in cells and r["kernel"] in ("group_max", "gather_rescore")}
+
+
+def phase14_refresh(dev, tmp: str, semantic: dict, lexical: dict, quality: dict,
+                    done: dict) -> tuple[dict, dict, list[dict]]:
+    """refresh-1M-quality: the background refresh path on phase 8's
+    hybrid-1M-quality index (1,000,000 x 256 bf16 fast tier padded to
+    1,007,616 rows, 1M x 384 quality tier, the trained encoder on the
+    card), with a WAL root of its own. An EmbeddingQueue(1024) gets 48
+    edited seed docs (ReembedPolicy's picks of 64), REFRESH_NEW new docs
+    and REFRESH_DUPS duplicates; a RefreshWorker
+    (HashEmbedder(256) fast, the encoder for quality, max_batch 64) drains
+    it from its thread while four readers run phase 4's batch (Refined,
+    quality rescan) and singletons through ``search()``; the same readers
+    ran first with no writer. Then: no reader raised, every id seeded or
+    appended, K1 and K2 counted, the stats, every appended doc its own top
+    hit and both tiers' rows against the CPU, K1 and K2 against their
+    twins on the grown slabs. At a depth cut (a 20,000-doc two-tier index
+    on the card): a queue of the same capacity pushed until it answers
+    FULL (the 1M race would need twice its cycles to fill one), its 1,024
+    docs drained by a worker against direct appends of the same batches
+    (doc ids and scores bitwise), and a worker whose quality embed raises
+    on its third batch. K1 and K2 are held to their twins on the
+    grown slabs at the race's shapes that ``done`` ({"fast", "quality"}:
+    shapes earlier phases checked on slabs of the same shape) lacks.
+    Returns its record, launches and kernel records."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from frankensearch_tpu_torch import DeviceVectorIndex, TwoTierConfig, TwoTierIndex, TwoTierSearcher
+    from frankensearch_tpu_torch.fusion.queue import EmbeddingQueue
+    from frankensearch_tpu_torch.fusion.refresh import RefreshWorker
+    from frankensearch_tpu_torch.index.wal import WriteAheadLog
+
+    t_phase = time.perf_counter()
+    emb, q32, c32 = semantic["emb"], quality["q32"], quality["c32"]
+    bm25, queries, texts = lexical["bm25"], lexical["queries"], lexical["texts"]
+    singles = four_word_singletons(queries)
+    root = os.path.join(tmp, "refresh_wal")
+    os.makedirs(root)
+    index = TwoTierIndex(quality["index"].fast, quality["index"].quality, root=root)
+    n_seed, spare = index.fast.n_rows, index.fast.n_pad - index.fast.n_rows
+    searcher = TwoTierSearcher(index, emb, lexical=bm25, quality_embedder=q32,
+                               config=TwoTierConfig(quality_rescan=True), cache_query_embeddings=False)
+    rec: dict = {"seed_rows": n_seed, "spare_rows": spare, "slab": list(index.fast.slab.shape),
+                 "quality_slab": list(index.quality.slab.shape)}
+
+    # --- the traffic, queued before the worker starts ---
+    queue = EmbeddingQueue(capacity=REFRESH_CAPACITY)
+    pushed, counts = refresh_traffic(queue, texts)
+    rec["pushes"] = counts
+    seed_ids = set(index.fast.doc_ids)
+
+    def known(doc_id):
+        return doc_id in seed_ids or doc_id in pushed
+
+    # --- the readers alone (no writer) ---
+    base_calls, errors = [], []
+    threads = [threading.Thread(target=reader_loop, args=(searcher, queries, singles, known, None, base_calls,
+                                                          errors, REFRESH_BASELINE_ROUNDS))
+               for _ in range(REFRESH_READERS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("phase14: a reader did not finish its rounds")
+    rec["readers_alone_s"] = time.perf_counter() - t0
+
+    # --- the race: the worker drains while the readers run ---
+    t_race = time.perf_counter()
+    cycles: list[dict] = []
+    cycle: dict = {}
+    worker = RefreshWorker(queue, index, TimedEmbedder(emb, cycle, "embed_fast_ms"),
+                           TimedEmbedder(q32, cycle, "embed_quality_ms"), max_batch=REFRESH_BATCH,
+                           poll_interval_s=0.01)
+    drained = threading.Event()
+
+    def timed_process_once(real=worker.process_once):
+        cycle.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = real()
+        torch.cuda.synchronize()
+        if n:
+            cycles.append({"docs": n, "total_ms": (time.perf_counter() - t0) * 1e3, **cycle})
+        if not len(queue):
+            drained.set()
+        return n
+
+    worker.process_once = timed_process_once
+
+    def adding(key):
+        def make(real):
+            def timed_call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(*args, **kwargs)
+                torch.cuda.synchronize()
+                cycle[key] = cycle.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+                return out
+            return timed_call
+        return make
+
+    realign = TwoTierIndex.__dict__["_realign"]
+    race_calls: list = []
+
+    def race():
+        stop = threading.Event()
+        readers = [threading.Thread(target=reader_loop, args=(searcher, queries, singles, known, stop, race_calls,
+                                                              errors)) for _ in range(REFRESH_READERS)]
+        t0 = time.perf_counter()
+        worker.start()
+        for t in readers:
+            t.start()
+        drained.wait(timeout=600)
+        worker.stop()
+        stop.set()
+        for t in readers:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in readers):
+            raise AssertionError("phase14: a reader did not stop")
+        return time.perf_counter() - t0
+
+    shapes: set = set()
+    with spied((WriteAheadLog, "append", adding("wal_append_ms")),
+               (DeviceVectorIndex, "with_appended", adding("with_appended_ms"))):
+        TwoTierIndex._realign = staticmethod(adding("realign_ms")(realign.__func__))
+        try:
+            race_s, launches = drive(race, shapes)
+        finally:
+            TwoTierIndex._realign = realign
+    if errors:
+        raise errors[0]
+    need_launches("phase14", launches, ("K1", "K2"))
+    if not any(sh[0] == "group_max" for sh in shapes):
+        raise AssertionError("phase14: no hierarchical scan ran during the race")
+    enqueued = counts["enqueued"]
+    st = worker.stats
+    if (st.docs_embedded, st.errors) != (enqueued, 0) or len(queue):
+        raise AssertionError(f"phase14: stats {st} after {enqueued} enqueued pushes, {len(queue)} left")
+    if index.fast.doc_ids != index.quality.doc_ids:
+        raise AssertionError("phase14: the tiers hold different docs after the drain")
+    new_ids = [d for d in pushed if d not in seed_ids]
+    if index.fast.n_rows != n_seed + len(new_ids):
+        raise AssertionError(f"phase14: {index.fast.n_rows} fast rows, {n_seed} + {len(new_ids)} expected")
+    wal = WriteAheadLog(os.path.join(root, "vector.fast.idx.wal")).replay()
+    if set(wal.live) != set(pushed):
+        raise AssertionError("phase14: the fast WAL does not hold every appended doc")
+    rec["race_s"] = race_s
+    rec["before_race_s"] = t_race - t_phase
+    rec["launches"] = launches
+    rec["stats"] = {"batches": st.batches, "docs_embedded": st.docs_embedded, "errors": st.errors}
+    rec["cycles"] = cycles
+    split = {k: statistics.mean(c.get(k, 0.0) for c in cycles)
+             for k in ("total_ms", "embed_fast_ms", "embed_quality_ms", "wal_append_ms", "with_appended_ms",
+                       "realign_ms")}
+    rec["cycle_mean_ms"] = split
+    rec["readers"] = {"alone": latency_stats(base_calls), "under_writer": latency_stats(race_calls)}
+    log(f"phase14 pushes {counts}: {len(pushed)} enqueued ({len(new_ids)} new, {len(pushed) - len(new_ids)} "
+        f"re-embedded seeds); {st.batches} cycles, {st.docs_embedded} docs, {st.errors} errors in {race_s:.1f} s; "
+        f"launches during the race {launches}")
+    log("phase14 mean cycle ms (host clock, card synchronized): " + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+    log("phase14 cycles ms: " + "; ".join(
+        f"{c['docs']} docs {c['total_ms']:.0f} (wal {c.get('wal_append_ms', 0):.0f}, with_appended "
+        f"{c.get('with_appended_ms', 0):.0f}, realign {c.get('realign_ms', 0):.0f})" for c in cycles))
+    log(f"phase14 readers (host ms): alone {json.dumps(rec['readers']['alone'])}; under the writer "
+        f"{json.dumps(rec['readers']['under_writer'])}")
+
+    t0 = time.perf_counter()
+    rec["appended"] = appended_rows_check(index, emb, c32, pushed)
+    rec["rows_check_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fast_shapes = {sh for sh in shapes if sh[0] in ("group_max", "gather_rescore")}
+    kernels = check_kernels("refresh-1M", index.fast.slab, index.fast._effective_mask(None, None), fast_shapes,
+                            done=done["fast"])
+    q_shapes: set = set()
+    drive(lambda: searcher.search_batch(queries, k=K), q_shapes, dim=Q_DIM)
+    kernels += check_kernels("refresh-1M-quality", index.quality.slab, index.quality._effective_mask(None, None),
+                             q_shapes, done=done["quality"])
+    rec["kernel_checks_s"] = time.perf_counter() - t0
+    searcher.close()
+    del searcher, index, worker
+
+    # --- the depth cut: FULL, worker against direct appends, the fault ---
+    t0 = time.perf_counter()
+    cut_ids = [f"doc-{i:07d}" for i in range(REFRESH_CUT_DOCS)]
+    f0 = DeviceVectorIndex(semantic["vecs"][:REFRESH_CUT_DOCS], cut_ids, emb.identity(), device=dev)
+    q0 = DeviceVectorIndex(quality["index"].quality.vectors_f32()[:REFRESH_CUT_DOCS], cut_ids, q32.identity(),
+                           device=dev)
+    cut_texts = fresh_texts(texts, REFRESH_CAPACITY + 1, "cut", np.random.default_rng(SEED + 15))
+    cut_queue = EmbeddingQueue(capacity=REFRESH_CAPACITY)
+    results = [cut_queue.push(f"cut-{n:04d}", text) for n, text in enumerate(cut_texts)]
+    if {r.value for r in results[:-1]} != {"enqueued"} or results[-1].value != "full":
+        raise AssertionError("phase14 cut: the queue did not answer FULL at its capacity")
+    new_docs = {f"cut-{n:04d}": text for n, text in enumerate(cut_texts[:-1])}
+    via_worker, direct = TwoTierIndex(f0, q0), TwoTierIndex(f0, q0)
+    w = RefreshWorker(cut_queue, via_worker, emb, q32, max_batch=REFRESH_BATCH, poll_interval_s=0.01)
+    w.start()
+    deadline = time.time() + 120
+    while w.stats.docs_embedded < len(new_docs) and time.time() < deadline:
+        time.sleep(0.01)
+    w.stop()
+    if (w.stats.docs_embedded, w.stats.errors) != (len(new_docs), 0):
+        raise AssertionError(f"phase14 cut: stats {w.stats} after {len(new_docs)} enqueued pushes")
+    ids, docs_texts = list(new_docs), list(new_docs.values())
+    for b0 in range(0, len(ids), REFRESH_BATCH):
+        batch = slice(b0, b0 + REFRESH_BATCH)
+        direct.append_fast(ids[batch], emb.embed_batch(docs_texts[batch]))
+        direct.append_quality(ids[batch], q32.embed_batch(docs_texts[batch]))
+    cut_queries = queries + docs_texts[:64]
+    rows = []
+    for idx in (via_worker, direct):
+        s = TwoTierSearcher(idx, emb, quality_embedder=q32, config=TwoTierConfig(quality_rescan=True),
+                            cache_query_embeddings=False)
+        rows.append([[(r.doc_id, r.score, r.fast_score, r.quality_score) for r in o.results]
+                     for o in s.search_batch(cut_queries, k=K)])
+        s.close()
+    if rows[0] != rows[1]:
+        raise AssertionError("phase14 cut: the worker's index serves differently from the direct appends'")
+    if not all(ids[j] in {r[0] for r in rows[0][len(queries) + j]} for j in range(64)):
+        raise AssertionError("phase14 cut: an appended doc is missing from the results of its own text")
+    fault = RuntimeError("injected: the quality embed failed on the card")
+    faulty = TwoTierIndex(f0, q0)
+    fault_queue = EmbeddingQueue(capacity=REFRESH_CAPACITY)
+    for d in ids[: (REFRESH_FAULT_BATCH + 1) * REFRESH_BATCH]:
+        fault_queue.push(d, new_docs[d])
+    w = RefreshWorker(fault_queue, faulty, emb, FailingOn(q32, REFRESH_FAULT_BATCH, fault),
+                      max_batch=REFRESH_BATCH, poll_interval_s=0.01)
+    w.start()
+    deadline = time.time() + 120
+    while w._thread.is_alive() and time.time() < deadline:
+        time.sleep(0.01)
+    try:
+        w.stop()
+        raise AssertionError("phase14 fault: stop() did not raise the quality embed's fault")
+    except RuntimeError as e:
+        if e is not fault:
+            raise
+    lost = [d for d in faulty.fast.doc_ids if faulty.quality.row_for(d) is None]
+    want_lost = ids[(REFRESH_FAULT_BATCH - 1) * REFRESH_BATCH: REFRESH_FAULT_BATCH * REFRESH_BATCH]
+    if (w.stats.errors, w.stats.batches) != (1, REFRESH_FAULT_BATCH - 1) or lost != want_lost:
+        raise AssertionError(f"phase14 fault: stats {w.stats}, {len(lost)} fast rows without quality rows")
+    rec["cut"] = {"docs": REFRESH_CUT_DOCS, "full_at": REFRESH_CAPACITY,
+                  "appended": len(ids), "queries": len(cut_queries), "bitwise": True,
+                  "fault": {"raised": True, "errors": w.stats.errors, "fast_only_rows": len(lost)},
+                  "s": time.perf_counter() - t0}
+    log(f"phase14 cut ({REFRESH_CUT_DOCS} docs, two tiers on the card): the queue answered FULL at "
+        f"{REFRESH_CAPACITY}; the worker's {len(ids)} appends serve "
+        f"{len(cut_queries)} queries bitwise as direct appends; the fault on batch {REFRESH_FAULT_BATCH} was raised "
+        f"by stop(), errors 1, {len(lost)} fast rows without quality rows ({rec['cut']['s']:.1f} s)")
+    del via_worker, direct, faulty, f0, q0
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase14 total {rec['phase_s']:.1f} s")
+    return rec, launches, kernels
+
+
 def main() -> int:
     # the port must reach neither jax nor the JAX package, even indirectly
     sys.modules["jax"] = None
@@ -3957,8 +4428,19 @@ def main() -> int:
         m2v_rec, l7, k7, m2v_run = phase7_hybrid_m2v(dev, tmp, lexical)
         wall["phase7_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        quality_rec, l8, k8 = phase8_quality(dev, tmp, semantic, lexical)
+        quality_rec, l8, k8, quality = phase8_quality(dev, tmp, semantic, lexical)
         wall["phase8_s"] = time.perf_counter() - t0
+        # phase 14 runs here, on phase 8's index: its appends make new tier
+        # objects in its own TwoTierIndex, so phase 9's index (phase 2's)
+        # is untouched, and no second 1M two-tier index is held
+        t0 = time.perf_counter()
+        refresh_rec, l14, k14 = phase14_refresh(
+            dev, tmp, semantic, lexical, quality,
+            {"fast": kernel_shapes(k2 + k4, ("semantic-1M", "hybrid-1M")),
+             "quality": kernel_shapes(k8, ("hybrid-1M-quality",))})
+        wall["phase14_s"] = time.perf_counter() - t0
+        del quality
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         lanes_rec, l9, k9 = phase9_scan_lanes(dev, tmp, semantic)
         wall["phase9_s"] = time.perf_counter() - t0
@@ -3981,7 +4463,7 @@ def main() -> int:
     wall["total_s"] = time.perf_counter() - t_main
     log(f"chip_smoke wall time: {wall['total_s']:.1f} s (the kernel build, every phase and the cleanup)")
 
-    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9 + k10 + k11 + k12 + k13
+    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9 + k10 + k11 + k12 + k13 + k14
     kernels = []
     for name, key, src, replaces, cell in KERNELS:
         recs = [r for r in records if r["kernel"] == name]
@@ -3996,7 +4478,7 @@ def main() -> int:
         bound_ms = sum(r["bound"][0] for r in head) / len(head)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9, l10, l11, l12, l13)),
+            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9, l10, l11, l12, l13, l14)),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": sum(r["ms"] for r in head) / len(head), "plain_ms": sum(r["plain_ms"] for r in head) / len(head),
             "bound_ms": bound_ms,
@@ -4007,7 +4489,7 @@ def main() -> int:
     log(json.dumps({"semantic": sem, "hybrid": hyb, "hybrid_1m": h1m, "scan_modes": modes, "ab_scan": ab_rec,
                     "hybrid_1m_m2v": m2v_rec, "hybrid_1m_quality": quality_rec, "scan_lanes": lanes_rec,
                     "built_1m_m2v": built_rec, "cli_1m": cli_rec, "cli_live_1m": live_rec,
-                    "cli_fleet_1m": fleet_rec, "wall_s": wall}))
+                    "cli_fleet_1m": fleet_rec, "refresh_1m_quality": refresh_rec, "wall_s": wall}))
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
     print(json.dumps({

@@ -29,11 +29,25 @@ behind the lease-bounded delta (writes searchable before a seal,
 incremental seals as a segment stack). The product CLI
 (``python -m frankensearch_tpu_torch.cli``) runs ``index``, ``search``,
 ``serve`` and the commands around them on the card (``--device cpu`` for
-the CPU).
+the CPU). ``fusion/refresh.RefreshWorker`` drains a
+``fusion/queue.EmbeddingQueue`` from its thread, embeds and appends into a
+``TwoTierIndex`` whose tiers live on the card while readers search it
+(the index publishes both tiers and their row map as one snapshot); the
+API embedder, the model registry and the catalog, and the generation
+lifecycle (``core/{activation,time_travel,commit_replay,repair,
+recovery_plan,fingerprint}``) are host copies of the reference's.
 """
 
 from frankensearch_tpu_torch.core.config import TwoTierConfig, TwoTierMetrics
-from frankensearch_tpu_torch.core.types import FusedHit, IndexableDocument, ScoredResult, VectorHit
+from frankensearch_tpu_torch.core.errors import SearchError
+from frankensearch_tpu_torch.core.types import (
+    FusedHit,
+    IndexableDocument,
+    PhaseKind,
+    ScoredResult,
+    SearchPhase,
+    VectorHit,
+)
 
 __version__ = "0.1.0"
 
@@ -41,8 +55,11 @@ __all__ = [
     "__version__",
     "TwoTierConfig",
     "TwoTierMetrics",
+    "SearchError",
     "ScoredResult",
     "VectorHit",
+    "SearchPhase",
+    "PhaseKind",
     "FusedHit",
     "IndexableDocument",
     "IndexBuilder",

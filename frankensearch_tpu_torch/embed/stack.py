@@ -6,6 +6,13 @@ optional quality embedder; ``auto_detect_with`` probes model directories
 and degrades to the hash embedder with a typed availability report
 (hash-built generations are permanently non-semantic,
 frankensearch/src/index_builder.rs:311-323).
+
+A model directory is skipped with a warning when loading it raises what a
+malformed directory or a missing loader library raises on the host
+(``OSError``, ``ValueError``, ``KeyError``, ``ImportError``, a typed
+``SearchError``); any other fault (a CUDA out-of-memory while the table
+goes onto the card) propagates, so a root is never built on another
+embedder than the one found.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass, field
 
+from frankensearch_tpu_torch.core.errors import SearchError
 from frankensearch_tpu_torch.embed.base import Embedder
 from frankensearch_tpu_torch.embed.hash_embedder import HashEmbedder
 from frankensearch_tpu_torch.embed.model2vec import Model2VecEmbedder
@@ -93,7 +101,9 @@ class EmbedderStack:
 
                         quality = load_encoder_embedder(d, device=device)
                         quality_source = "minilm"
-                except Exception as e:
+                except (OSError, ValueError, KeyError, ImportError, SearchError) as e:
+                    # a malformed model directory or a missing loader,
+                    # found on the host; a device fault propagates
                     warnings.append(f"model dir {name}: {type(e).__name__}: {e}")
 
         if fast is None:

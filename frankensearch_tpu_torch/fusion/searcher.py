@@ -26,7 +26,8 @@ exception is never turned into a silent fallback (phase 1's lanes,
 ``search_batch``'s quality rescore). Phase 2 under ``search()`` keeps the
 reference's protocol: a timeout or an error there is the visible
 RefinementFailed outcome, counted by the circuit breaker; phase 3 keeps
-the rerank pipeline's typed skip reasons.
+the rerank pipeline's typed skip reasons for a ``SearchError``, and any
+other fault of the cross-encoder propagates.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from frankensearch_tpu_torch.core.config import (
     TwoTierConfig,
     TwoTierMetrics,
 )
-from frankensearch_tpu_torch.core.errors import InvalidConfig, UncertifiedScanMode
+from frankensearch_tpu_torch.core.errors import InvalidConfig, SearchError, UncertifiedScanMode
 from frankensearch_tpu_torch.core.parsed_query import ParsedQuery
 from frankensearch_tpu_torch.core.query_class import QueryClass
 from frankensearch_tpu_torch.core.types import (
@@ -1540,8 +1541,9 @@ class TwoTierSearcher:
     ) -> list[ScoredResult] | None:
         """Cross-encoder rerank of the top results (then MMR). A skip is
         typed in ``metrics.phase3_skip_reason`` (the pipeline's rerank_error
-        / no_text / no_input, or rerank_failed), never an error
-        (rerank/pipeline.rs contract)."""
+        / no_text / no_input, or rerank_failed for a ``SearchError`` of the
+        step; rerank/pipeline.rs contract). Any other exception (a device
+        fault in the cross-encoder or MMR) propagates."""
         from frankensearch_tpu_torch.rerank.pipeline import rerank_step
 
         try:
@@ -1557,7 +1559,7 @@ class TwoTierSearcher:
             if self.mmr is not None:
                 out = self.mmr.apply(out, self.index)
             return out
-        except Exception:
+        except SearchError:
             metrics.phase3_skip_reason = "rerank_failed"
             return None
 

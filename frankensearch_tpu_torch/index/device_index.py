@@ -16,6 +16,7 @@ lanes.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -67,6 +68,13 @@ def _sanitize_rows(x: np.ndarray) -> np.ndarray:
             extra={"fs_extra": {"non_finite_rows": n_bad}},
         )
     return x
+
+
+@dataclass(frozen=True)
+class ScanStats:
+    total_rows: int
+    live_rows: int
+    padded_rows: int
 
 
 class DeviceVectorIndex:
@@ -334,6 +342,9 @@ class DeviceVectorIndex:
 
     def row_for(self, doc_id: str) -> int | None:
         return self._row_of.get(doc_id)
+
+    def stats(self) -> ScanStats:
+        return ScanStats(self.n_rows, self.live_count, self.n_pad - self.n_rows)
 
     def vector_for_row(self, row: int) -> np.ndarray:
         return self._vectors_f32[row]

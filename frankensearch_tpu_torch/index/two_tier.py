@@ -103,6 +103,21 @@ class TwoTierPaths:
         return idx_path + ".wal"
 
 
+@dataclass(frozen=True)
+class _Tiers:
+    """What a reader sees: both tiers and the fast-tier row -> quality-tier
+    row map built for exactly these tiers, published as one object. A
+    writer builds the next one whole and swaps it in with one assignment,
+    so a reader that takes it once per call never pairs a tier with a map
+    built for another (the reference's writer assigns a tier and then
+    rebuilds the map, so a reader in between pairs the new fast tier with
+    the old, shorter map)."""
+
+    fast: DeviceVectorIndex
+    quality: DeviceVectorIndex | None
+    fast_to_quality: np.ndarray | None
+
+
 class TwoTierIndex:
     """Fast + optional quality device indexes over one on-disk root."""
 
@@ -113,8 +128,6 @@ class TwoTierIndex:
         *,
         root: str | None = None,
     ) -> None:
-        self.fast = fast
-        self.quality = quality
         self.root = root
         #: WAL durability policy for appends and tombstones: "always" fsyncs
         #: each batch; "deferred" group-commits, the caller fsyncs once per
@@ -128,23 +141,45 @@ class TwoTierIndex:
         # before this open, a doc only another arm holds): tombstoned all
         # the same, so the searcher's supersession hides them everywhere
         self._rowless_tombstones: frozenset[str] = frozenset()
-        self._realign()
+        self._publish(fast, quality)
 
-    def _realign(self) -> None:
+    @staticmethod
+    def _realign(fast: DeviceVectorIndex, quality: DeviceVectorIndex | None) -> np.ndarray | None:
         """Fast-tier row -> quality-tier row of the same doc (-1 where the
         quality tier lacks it); the identity when both tiers hold the same
         doc ids in the same order."""
-        self._fast_to_quality = None
-        if self.quality is None:
-            return
-        fast_ids, quality = self.fast.doc_ids, self.quality
+        if quality is None:
+            return None
+        fast_ids = fast.doc_ids
         if fast_ids == quality.doc_ids:
-            self._fast_to_quality = np.arange(len(fast_ids), dtype=np.int64)
-            return
+            return np.arange(len(fast_ids), dtype=np.int64)
         row_of = quality._row_of
-        self._fast_to_quality = np.fromiter(
-            (row_of.get(d, -1) for d in fast_ids), dtype=np.int64, count=len(fast_ids)
-        )
+        return np.fromiter((row_of.get(d, -1) for d in fast_ids), dtype=np.int64, count=len(fast_ids))
+
+    def _publish(self, fast: DeviceVectorIndex, quality: DeviceVectorIndex | None) -> None:
+        """Build the row map for ``fast`` and ``quality``, then swap all
+        three in at once."""
+        self._tiers = _Tiers(fast, quality, self._realign(fast, quality))
+
+    @property
+    def fast(self) -> DeviceVectorIndex:
+        return self._tiers.fast
+
+    @fast.setter
+    def fast(self, tier: DeviceVectorIndex) -> None:
+        self._publish(tier, self._tiers.quality)
+
+    @property
+    def quality(self) -> DeviceVectorIndex | None:
+        return self._tiers.quality
+
+    @quality.setter
+    def quality(self, tier: DeviceVectorIndex | None) -> None:
+        self._publish(self._tiers.fast, tier)
+
+    @property
+    def _fast_to_quality(self) -> np.ndarray | None:
+        return self._tiers.fast_to_quality
 
     @classmethod
     def open(
@@ -300,7 +335,6 @@ class TwoTierIndex:
             self._wal(FAST_FILE, sync=self.wal_sync).append(doc_ids, vectors)
         self.fast = self.fast.with_appended(doc_ids, vectors)
         self._rowless_tombstones -= set(doc_ids)
-        self._realign()
 
     def append_quality(self, doc_ids: Sequence[str], vectors: np.ndarray) -> None:
         if self.quality is None:
@@ -308,7 +342,6 @@ class TwoTierIndex:
         if self.root is not None:
             self._wal(QUALITY_FILE, sync=self.wal_sync).append(doc_ids, vectors)
         self.quality = self.quality.with_appended(doc_ids, vectors)
-        self._realign()
 
     def delete(self, doc_ids: Sequence[str]) -> None:
         """Tombstone docs in both tiers, durably through their WALs."""
@@ -316,11 +349,10 @@ class TwoTierIndex:
             self._wal(FAST_FILE, sync=self.wal_sync).tombstone(doc_ids)
             if self.quality is not None:
                 self._wal(QUALITY_FILE, sync=self.wal_sync).tombstone(doc_ids)
-        self.fast = self.fast.with_tombstones(doc_ids)
-        self._rowless_tombstones |= {d for d in doc_ids if self.fast.row_for(d) is None}
-        if self.quality is not None:
-            self.quality = self.quality.with_tombstones(doc_ids)
-        self._realign()
+        fast = self.fast.with_tombstones(doc_ids)
+        quality = None if self.quality is None else self.quality.with_tombstones(doc_ids)
+        self._rowless_tombstones |= {d for d in doc_ids if fast.row_for(d) is None}
+        self._publish(fast, quality)
 
     def sync_wal(self) -> None:
         """Group-commit point under ``wal_sync="deferred"``: fsync both
@@ -355,18 +387,19 @@ class TwoTierIndex:
         """Aligned quality rescoring of the phase-1 pool (two_tier.rs:1566):
         each hit's quality row dotted with the quality query in f32 on the
         host copy, no second scan."""
-        if self.quality is None:
+        tiers = self._tiers
+        if tiers.quality is None:
             return {}
         rows = []
         keep: list[str] = []
         for h in hits:
-            q_row = self._fast_to_quality[h.row] if h.row >= 0 else -1
+            q_row = tiers.fast_to_quality[h.row] if h.row >= 0 else -1
             if q_row >= 0:
                 rows.append(int(q_row))
                 keep.append(h.doc_id)
         if not rows:
             return {}
-        scores = self.quality.scores_for_rows(quality_query, rows)
+        scores = tiers.quality.scores_for_rows(quality_query, rows)
         return {doc_id: float(s) for doc_id, s in zip(keep, scores)}
 
     def search_quality(self, quality_query: np.ndarray, k: int, **kwargs) -> ClassifiedHits:

@@ -87,6 +87,14 @@ class TermMajorPostings:
     cache512: torch.Tensor | None = None  # (F*256 pad 512,) f32
     bk: torch.Tensor | None = None  # (F pad 8,) f32
 
+    @property
+    def hbm_bytes(self) -> int:
+        """Device bytes of the postings: 5 a posting slot packed (three u8
+        doc planes and the i16 word), else 8 (i32 doc and f32 score)."""
+        if self.packed:
+            return int(self.tm_w.numel()) * 5
+        return int(self.tm_doc.numel()) * 8
+
     def device_arrays(self) -> tuple:
         """The tensors the device lane consumes (layout-dependent)."""
         if self.packed:

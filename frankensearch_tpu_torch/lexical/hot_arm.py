@@ -83,6 +83,16 @@ class HotArm:
     def h_pad(self) -> int:
         return int(self.cols_phys.shape[0])
 
+    @property
+    def hbm_bytes(self) -> int:
+        """Device bytes of the arm's four 4-byte tensors."""
+        return (
+            int(self.cols_phys.numel())
+            + int(self.cold_cols.numel())
+            + int(self.cold_rows.numel())
+            + int(self.dmap_groups.numel())
+        ) * 4
+
 
 def split_postings(
     terms_all: np.ndarray,

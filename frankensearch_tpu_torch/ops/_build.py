@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -34,6 +35,10 @@ NVCC_FLAGS = (
 )
 
 _lib: ctypes.CDLL | None = None
+#: one build and load per process: threads whose first kernel launches
+#: come together wait for it (the build's temporary files are named by
+#: the pid, so two builds in one process would write the same files)
+_lib_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -105,30 +110,37 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(library_path()))
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fs_group_max.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, i32, ptr]
-        lib.fs_group_max.restype = i32
-        lib.fs_gather_rescore.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i64, i32, ptr]
-        lib.fs_gather_rescore.restype = i32
-        lib.fs_gather_rescore_sorted.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, i32, ptr]
-        lib.fs_gather_rescore_sorted.restype = i32
-        lib.fs_gather_plan.argtypes = [ptr, ptr, i32, i32, ptr]
-        lib.fs_gather_plan.restype = i32
-        lib.fs_flat_fused.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, ptr, ptr, ptr, ptr,
-                                      i32, i32, i32, i32, i32, ptr]
-        lib.fs_flat_fused.restype = i32
-        lib.fs_group_max_int8.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, ptr]
-        lib.fs_group_max_int8.restype = i32
-        lib.fs_gather_rescore_i8.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
-        lib.fs_gather_rescore_i8.restype = i32
-        lib.fs_gather_rescore_i8_sorted.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
-        lib.fs_gather_rescore_i8_sorted.restype = i32
-        lib.fs_tile_topk.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr]
-        lib.fs_tile_topk.restype = i32
-        lib.fs_tile_topk_wide.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr]
-        lib.fs_tile_topk_wide.restype = i32
-        lib.fs_tile_select.argtypes = [ptr, ptr, ptr, i32, i64, i32, i32, ptr]
-        lib.fs_tile_select.restype = i32
-        _lib = lib
+        with _lib_lock:
+            if _lib is None:
+                _lib = _load()
     return _lib
+
+
+def _load() -> ctypes.CDLL:
+    """Build (if needed) and load the library, its entry points typed."""
+    lib = ctypes.CDLL(str(library_path()))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fs_group_max.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, i32, ptr]
+    lib.fs_group_max.restype = i32
+    lib.fs_gather_rescore.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i64, i32, ptr]
+    lib.fs_gather_rescore.restype = i32
+    lib.fs_gather_rescore_sorted.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, i32, ptr]
+    lib.fs_gather_rescore_sorted.restype = i32
+    lib.fs_gather_plan.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.fs_gather_plan.restype = i32
+    lib.fs_flat_fused.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, ptr, ptr, ptr, ptr,
+                                  i32, i32, i32, i32, i32, ptr]
+    lib.fs_flat_fused.restype = i32
+    lib.fs_group_max_int8.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, ptr]
+    lib.fs_group_max_int8.restype = i32
+    lib.fs_gather_rescore_i8.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
+    lib.fs_gather_rescore_i8.restype = i32
+    lib.fs_gather_rescore_i8_sorted.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
+    lib.fs_gather_rescore_i8_sorted.restype = i32
+    lib.fs_tile_topk.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr]
+    lib.fs_tile_topk.restype = i32
+    lib.fs_tile_topk_wide.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr]
+    lib.fs_tile_topk_wide.restype = i32
+    lib.fs_tile_select.argtypes = [ptr, ptr, ptr, i32, i64, i32, i32, ptr]
+    lib.fs_tile_select.restype = i32
+    return lib

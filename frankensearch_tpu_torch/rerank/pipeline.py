@@ -3,6 +3,10 @@
 Parity target: reference crates/frankensearch-rerank/src/pipeline.rs —
 ``rerank_step[_with_combine]``: text lookup via closure, rerank the top-N
 of the fused results, combine strategies, graceful skip on failure.
+
+The skip catches a typed ``SearchError`` only: the cross-encoder runs on
+the card, and a device fault there propagates instead of reading as a
+skipped phase (the reference skips on any exception).
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
+from frankensearch_tpu_torch.core.errors import SearchError
 from frankensearch_tpu_torch.core.types import ScoredResult, SearchSource
 
 
@@ -45,7 +50,8 @@ def rerank_step(
     weight: float = 0.7,
 ) -> RerankOutcome:
     """Rerank the top-N results; the tail keeps its order below them.
-    Failure or missing text degrades gracefully (skip, never an error)."""
+    A typed reranker failure or missing text degrades gracefully (a skip);
+    any other exception propagates."""
     results = list(results)
     if not results or reranker is None:
         return RerankOutcome(results=results, skipped=True, skip_reason="no_input")
@@ -65,7 +71,7 @@ def rerank_step(
     t0 = time.monotonic()
     try:
         scored = reranker.score_pairs(query, pairs)
-    except Exception:
+    except SearchError:
         return RerankOutcome(results=results, skipped=True, skip_reason="rerank_error")
     rerank_ms = (time.monotonic() - t0) * 1000.0
     # non-finite scores are garbage, not signal: a NaN-scoring reranker

@@ -12,9 +12,16 @@ builds a root with ``IndexBuilder``, serves it through ``open_hybrid`` and
 seals a write, then runs the CLI's ``index`` and ``search``, and ``watch``
 of a corpus directory followed by the ``tui`` over the watched root, then
 ``repro``, ``footprint``, ``fleet`` (a registered node; the simulator),
-``download --diagnose`` and ``uninstall --dry-run``. A static
+``download --diagnose`` and ``uninstall --dry-run``. A second
+subprocess, with the same two blocked, drives the background refresh path
+and the lifecycle modules ported beside it (``REFRESH_MODULES``): a
+``RefreshWorker`` appending into a two-tier index while ``search_batch``
+runs, an ``ApiEmbedder`` on a fake transport, the model registry, the
+catalog, the lock order, redaction, the host adapter, and a generation
+activated, travelled, replayed, repaired and planned. A static
 check reads every import statement of the port's files, ``chip_smoke.py``
-and ``profile_chip.py``: none may name ``frankensearch_tpu`` or ``jax``.
+and ``profile_chip.py``: none may name ``frankensearch_tpu`` or ``jax``;
+it also reads each of ``REFRESH_MODULES`` on its own.
 """
 
 import ast
@@ -23,7 +30,113 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
+
+#: the background refresh path and the lifecycle modules (the port's
+#: copies, at the reference's relative paths)
+REFRESH_MODULES = (
+    "fusion/queue.py", "fusion/refresh.py", "core/fingerprint.py", "embed/api_embedder.py",
+    "embed/model_registry.py", "runtime/catalog.py", "runtime/concurrency.py", "runtime/redaction.py",
+    "core/host_adapter.py", "core/activation.py", "core/time_travel.py", "core/commit_replay.py",
+    "core/repair.py", "core/recovery_plan.py",
+)
+
+REFRESH_SCRIPT = r"""
+import os, sys, tempfile, threading, time
+sys.modules["jax"] = None
+sys.modules["frankensearch_tpu"] = None
+import numpy as np
+import frankensearch_tpu_torch as fst
+from frankensearch_tpu_torch import PhaseKind, SearchError, SearchPhase
+from frankensearch_tpu_torch.core import activation, commit_replay, fingerprint, generation, host_adapter
+from frankensearch_tpu_torch.core import recovery_plan, repair, time_travel
+from frankensearch_tpu_torch.core.collectors import TelemetryEnvelope, TelemetryEvent
+from frankensearch_tpu_torch.embed import api_embedder, model_manifest, model_registry
+from frankensearch_tpu_torch.fusion.queue import EmbeddingQueue, EnqueueResult
+from frankensearch_tpu_torch.fusion.refresh import RefreshWorker
+from frankensearch_tpu_torch.rerank.encoder import random_transformer_embedder
+from frankensearch_tpu_torch.runtime import catalog, concurrency, redaction
+
+dev = fst.resolve_device("cpu")
+words = [f"w{i}" for i in range(40)]
+texts = [" ".join(words[(i * 7 + j) % 40] for j in range(5)) for i in range(60)]
+fe = fst.HashEmbedder(dim=32)
+qe = random_transformer_embedder(words, device=dev, hidden=32, layers=2, heads=2)
+with tempfile.TemporaryDirectory() as root:
+    index = fst.TwoTierIndex.create(root, fe.embed_batch(texts), [f"s{i}" for i in range(60)], fe.identity(),
+        device=dev, quality_vectors=qe.embed_batch(texts), quality_identity=qe.identity())
+    searcher = fst.TwoTierSearcher(index, fe, quality_embedder=qe, config=fst.TwoTierConfig(quality_timeout_ms=0))
+    queue = EmbeddingQueue(capacity=64)
+    worker = RefreshWorker(queue, index, fe, qe, max_batch=8, poll_interval_s=0.001)
+    worker.start()
+    errors, stop = [], threading.Event()
+    def reader():
+        try:
+            while not stop.is_set():
+                searcher.search_batch(texts[:8], k=5)
+        except Exception as e:
+            errors.append(e)
+    t = threading.Thread(target=reader)
+    t.start()
+    for i in range(24):
+        assert queue.push(f"n{i}", f"zeppelin{i} fresh") is EnqueueResult.ENQUEUED
+    assert queue.push("dup", "zeppelin0 fresh") is EnqueueResult.DUPLICATE
+    deadline = time.time() + 60
+    while worker.stats.docs_embedded < 24 and time.time() < deadline:
+        time.sleep(0.01)
+    stop.set(); t.join(); worker.stop()
+    assert not errors and worker.stats.docs_embedded == 24 and index.quality.n_rows == 84, (errors, worker.stats)
+    out = searcher.search_batch(["zeppelin5 fresh"], k=3)[0]
+    assert out.results[0].doc_id == "n5" and out.results[0].quality_score is not None, out.results
+    assert index.fast.stats().live_rows == 84
+old = fingerprint.DocumentFingerprint.of("a b c")
+assert fingerprint.ReembedPolicy().should_reembed(old, fingerprint.DocumentFingerprint.of("z a b c d e"))
+emb = api_embedder.ApiEmbedder(api_embedder.ApiEmbedderConfig(dim=4),
+    lambda p: {"embeddings": [[1.0, 2.0, 2.0, 0.0]] * len(p["input"])})
+assert emb.embed_batch(["a"]).shape == (1, 4)
+try:
+    api_embedder.ApiEmbedder(api_embedder.ApiEmbedderConfig(dim=4)).embed_batch(["x"])
+    raise AssertionError("no transport must fail closed")
+except SearchError:
+    pass
+with tempfile.TemporaryDirectory() as tmp:
+    d = os.path.join(tmp, "models", "potion-x")
+    os.makedirs(d)
+    with open(os.path.join(d, "model.safetensors"), "wb") as f:
+        f.write(b"w")
+    model_manifest.write_model_manifest(d, model_manifest.build_model_manifest(d, "potion-x", "r1", 8, "model2vec"))
+    assert model_registry.ModelRegistry(os.path.join(tmp, "models")).verify("potion-x").verified
+    cat = catalog.IndexCatalog(os.path.join(tmp, "catalog.db"))
+    cat.log_dirty(os.path.join(d, "model.safetensors"), 1.0, 1)
+    assert cat.replay()[0].decision is catalog.ReplayDecision.REINDEX
+    with concurrency.OrderedLock(concurrency.LockLevel.CATALOG), concurrency.OrderedLock(concurrency.LockLevel.PUBLICATION):
+        concurrency.check_access("refresh_worker", "vector_write")
+    assert redaction.STRICT_POLICY.redact({"query": "q"})["query"].startswith("redacted:")
+    assert host_adapter.run_adapter_conformance(host_adapter.HostAdapter(name="t", sink=lambda d: None)).passed
+    ctl = activation.GenerationController(tmp)
+    gdir = ctl.generation_dir("gen-1")
+    os.makedirs(gdir)
+    with open(os.path.join(gdir, "vector.fast.idx"), "wb") as f:
+        f.write(b"data")
+    generation.write_manifest(gdir, generation.build_manifest(gdir, "gen-1", 7, embedders={"fast": {"embedder_id": "h"}}))
+    assert ctl.activate("gen-1").activated and ctl.commit_floor() == 7
+    assert time_travel.GenerationHistory(ctl).at_commit_seq(9).generation_id == "gen-1"
+    log = commit_replay.CommitLog(os.path.join(tmp, "commits.jsonl"))
+    log.append(commit_replay.OpKind.UPSERT, "a", "x")
+    assert commit_replay.replay(log.read()).applied_seq == 1
+orch = repair.RepairOrchestrator(repair_actions={"x": lambda: True})
+orch.report_corruption("x")
+assert orch.attempt_repair("x") and orch.state is repair.ServiceState.HEALTHY
+plan = recovery_plan.plan_recovery(recovery_plan.SearchMode.FULL,
+    fast_model=recovery_plan.ModelState.PRESENT_VERIFIED, quality_model=recovery_plan.ModelState.MISSING,
+    index=recovery_plan.IndexState.READY_SEMANTIC)
+assert plan.action is recovery_plan.NextAction.SERVE_DEGRADED
+assert sys.modules["jax"] is None and sys.modules["frankensearch_tpu"] is None
+assert not [m for m in sys.modules if m.startswith(("jax.", "frankensearch_tpu."))]
+print("OK")
+"""
 
 SCRIPT = r"""
 import os, sys, tempfile
@@ -204,6 +317,16 @@ def test_port_serves_without_jax_or_the_reference():
     assert proc.stdout.strip().endswith("OK")
 
 
+def test_refresh_path_runs_without_jax_or_the_reference():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", REFRESH_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
 def _imported_roots(path: Path) -> set[str]:
     """The top-level package of every import statement in a file,
     including imports inside functions."""
@@ -226,3 +349,15 @@ def test_no_port_file_imports_the_reference_or_jax():
         if (bad := _imported_roots(f) & {"frankensearch_tpu", "jax", "jaxlib"})
     }
     assert offenders == {}
+
+
+@pytest.mark.parametrize("module", REFRESH_MODULES)
+def test_refresh_module_is_the_ports_own_copy(module):
+    port, ref = REPO / "frankensearch_tpu_torch" / module, REPO / "frankensearch_tpu" / module
+    assert port.is_file() and ref.is_file()
+    assert not _imported_roots(port) & {"frankensearch_tpu", "jax", "jaxlib"}
+    named = {
+        node.module for node in ast.walk(ast.parse(port.read_text()))
+        if isinstance(node, ast.ImportFrom) and node.module and node.module.startswith("frankensearch")
+    }
+    assert all(m.startswith("frankensearch_tpu_torch.") for m in named), named

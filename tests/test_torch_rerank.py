@@ -37,7 +37,7 @@ from frankensearch_tpu.rerank import bert as rbert
 from frankensearch_tpu.rerank import tokenizer as rtok
 from frankensearch_tpu.rerank.encoder import load_artifact as ref_load_artifact
 from frankensearch_tpu_torch.convert import bert_params_from_arrays
-from frankensearch_tpu_torch.core.errors import IndexCorrupted
+from frankensearch_tpu_torch.core.errors import IndexCorrupted, SubsystemError
 from frankensearch_tpu_torch.core.types import ScoredResult
 from frankensearch_tpu_torch.rerank import tokenizer as ptok
 from frankensearch_tpu_torch.rerank.bert import Bert, BertConfig, int8_matmul, quantize_linear_weights
@@ -309,8 +309,17 @@ class _Fixed:
 
 
 class _Raising:
+    """A reranker whose typed failure the pipeline skips."""
+
     def score_pairs(self, query, docs):
-        raise RuntimeError("boom")
+        raise SubsystemError("boom")
+
+
+class _Faulting:
+    """A reranker whose untyped failure (a device fault) must propagate."""
+
+    def score_pairs(self, query, docs):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
 
 
 class TestRerankStep:
@@ -331,6 +340,10 @@ class TestRerankStep:
         out = rerank_step(_Raising(), "q", _results(), lambda d: "t")
         assert out.skipped and out.skip_reason == "rerank_error"
         assert [r.doc_id for r in out.results] == ["a", "b", "c"]
+
+    def test_reranker_device_fault_propagates(self):
+        with pytest.raises(RuntimeError, match="illegal memory access"):
+            rerank_step(_Faulting(), "q", _results(), lambda d: "t")
 
     def test_no_input(self):
         out = rerank_step(None, "q", _results(), lambda d: "t")
