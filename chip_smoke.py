@@ -66,7 +66,8 @@ Phases:
   8. hybrid-1M with a 1M x 384 quality tier (hybrid-1M-quality): the trained
      encoder, the Refined phase of ``search_batch`` and ``search()`` (aligned
      rescore and rescan, K1/K2 at d = 384), a seeded cross-encoder, and the
-     held-out lift against the CPU;
+     held-out lift against the CPU, its per-query nDCG@10 from the port's
+     quality harness (15c);
   9. the scan lanes and the write path: semantic-1M-f32 (phase 2's vectors
      as an f32 slab; ``auto`` on K1 and K2's f32 forms and ``pallas`` on
      K5's, B = 256, 8, 1, doc sets against the plain f32 scan up to ties
@@ -172,7 +173,33 @@ Phases:
      answers FULL, its 1,024 docs drained by a worker against direct
      appends of the same batches (doc ids and scores bitwise), and a
      worker whose quality embed raises on its third batch (``stop()``
-     raises it, one error, that batch in the fast tier only).
+     raises it, one error, that batch in the fast tier only);
+ 15. gauntlet-1M, the port's evaluation modules judging the card's 1M paths,
+     run right after phase 14 on what phases 2, 4 and 8 left on the card
+     (no new 1M index): 15a ``run_differential_campaign`` over phase 4's
+     corpus (50 generated queries, 5 of them guaranteed misses), the 1M
+     lexical arm's ``search_candidates`` against an exact f64 host BM25
+     (``ExactBm25``) as the arm serves (each query's lane logged) and with
+     every query on the flat lane (K3 counted), every case agreeing; 15b
+     ``run_interaction_matrix`` over all eight lanes of ``LANE_CATALOG``
+     (``mrl`` and ``plan`` included) x 10 queries (phase 4's 8 singletons
+     and two four-word queries) x 5 oracles on a ``TwoTierSearcher`` over
+     phase 8's two-tier index (the encoder on the card) with phase 4's
+     arm, with each lane's config and again with the quality rescan: 400
+     checks each, none violated, K1 and K2 counted at d = 256 and 384 and
+     K3, each lane's phases and wall time; 15c phase 8c's lift gate through
+     ``utils/quality_harness`` (two reports per run, ``compare_systems``);
+     15d the boolean laws (oracle, ``DeviceBm25Index`` and
+     ``BulkDeviceBm25Index`` on the card, FTS5) over 2,000 generated docs
+     with budgets that hold whole match sets (the bulk arm beside the
+     oracle breaks arm parity where the reference's does, recorded), the
+     reload law and the append-delete-compact law on a ``TwoTierIndex`` on
+     the card over 20,000 docs, all ``[]``; 15e both campaigns' and sweeps'
+     outcomes as ``core/e2e_artifact`` records, read back, validated and
+     linted, the schema lockstep, and phase 4's B=256 ``search_batch``
+     timed twice by ``perf_ratchet.measure`` and judged by ``run_ratchet``
+     (reported, not gated); K1, K2 and K3 against their twins at the
+     phase's new shapes.
 
 The kernels line gives each kernel's time, its twin's, and its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -865,34 +892,42 @@ def check_flat_kernel(cell: str, classes, flat_inputs: dict, *, timed: bool = Tr
     return recs
 
 
-def lexical_oracle_check(arm, queries: list[str], k: int, *, phase: str = "phase4") -> int:
-    """The device lanes' top-k against an exact f64 host BM25 (each query's
-    column summed in f64 over its terms' postings, hot and tail; for a
-    segment stack, each segment's postings with the stack's global idf
-    weights): equal doc sets up to ties within ORACLE_REL_TOL at the k-th
-    score, scores within it too. Returns how many queries' sets were equal
-    outright."""
-    import numpy as np
-    from scipy import sparse
+class ExactBm25:
+    """An exact f64 host BM25 over an arm's postings: each query's column
+    summed in f64 over its terms' postings, hot and tail; for a segment
+    stack, each segment's postings with the stack's global idf weights.
+    ``search`` ranks a query's docs by that column (ties in row order),
+    the oracle of the gauntlet's differential campaign."""
 
-    from frankensearch_tpu_torch.lexical.segments import SegmentedBm25
+    def __init__(self, arm) -> None:
+        import numpy as np
+        from scipy import sparse
 
-    if isinstance(arm, SegmentedBm25):
-        segments, pairs = arm.segments, arm.query_pairs(queries)
-    else:
-        segments, pairs = [arm], [[arm._query_terms(text) for text in queries]]
-    postings, doc_ids = [], []
-    for seg in segments:
-        terms, docs, tfs = seg._post_host
-        postings.append(sparse.csc_matrix(  # a term's postings are its column (duplicates summed)
-            (tfs.astype(np.float64), (docs.astype(np.int64), terms.astype(np.int64))),
-            shape=(seg.n_docs, seg.vocab_size)))
-        doc_ids += seg.doc_ids
-    row_of = {d: r for r, d in enumerate(doc_ids)}
+        from frankensearch_tpu_torch.lexical.segments import SegmentedBm25
 
-    def exact_column(j: int):
+        self.arm = arm
+        self.stacked = isinstance(arm, SegmentedBm25)
+        self.postings, self.doc_ids = [], []
+        for seg in arm.segments if self.stacked else [arm]:
+            terms, docs, tfs = seg._post_host
+            self.postings.append(sparse.csc_matrix(  # a term's postings are its column (duplicates summed)
+                (tfs.astype(np.float64), (docs.astype(np.int64), terms.astype(np.int64))),
+                shape=(seg.n_docs, seg.vocab_size)))
+            self.doc_ids += seg.doc_ids
+        self.row_of = {d: r for r, d in enumerate(self.doc_ids)}
+
+    def pairs(self, queries: list[str]) -> list:
+        """Each segment's (term id, weight) pairs of each query."""
+        if self.stacked:
+            return self.arm.query_pairs(queries)
+        return [[self.arm._query_terms(text) for text in queries]]
+
+    def column(self, pairs, j: int):
+        """Query ``j``'s exact scores over every doc, in row order."""
+        import numpy as np
+
         parts = []
-        for x, seg_pairs in zip(postings, pairs):
+        for x, seg_pairs in zip(self.postings, pairs):
             col = np.zeros(x.shape[0], np.float64)
             for tid, w in {tid: w for tid, w in seg_pairs[j]}.items():  # a repeated term: its last weight
                 s, e = x.indptr[tid], x.indptr[tid + 1]
@@ -900,15 +935,37 @@ def lexical_oracle_check(arm, queries: list[str], k: int, *, phase: str = "phase
             parts.append(col)
         return np.concatenate(parts)
 
-    got = arm.search_candidates_batch(queries, k)
-    outright = 0
-    for j, cands in enumerate(got):
-        col = exact_column(j)
+    @staticmethod
+    def top_rows(col, k: int):
+        """The top-k rows of a column: score descending, ties in row order."""
+        import numpy as np
+
         pos = np.flatnonzero(col > 0.0)
         if len(pos) > k:  # every doc at or above the k-th score, in row order
             kth_score = np.partition(col[pos], len(pos) - k)[len(pos) - k]
             pos = pos[col[pos] >= kth_score]
-        top = pos[np.argsort(-col[pos], kind="stable")][:k]
+        return pos[np.argsort(-col[pos], kind="stable")][:k]
+
+    def search(self, query: str, k: int) -> list:
+        """The exact top-k of one query as ranked hits."""
+        from frankensearch_tpu_torch.lexical.base import LexicalCandidate
+
+        col = self.column(self.pairs([query]), 0)
+        return [LexicalCandidate(doc_id=self.doc_ids[r], score=float(col[r])) for r in self.top_rows(col, k)]
+
+
+def lexical_oracle_check(arm, queries: list[str], k: int, *, phase: str = "phase4") -> int:
+    """The device lanes' top-k against :class:`ExactBm25`: equal doc sets
+    up to ties within ORACLE_REL_TOL at the k-th score, scores within it
+    too. Returns how many queries' sets were equal outright."""
+    exact = ExactBm25(arm)
+    pairs = exact.pairs(queries)
+    doc_ids, row_of = exact.doc_ids, exact.row_of
+    got = arm.search_candidates_batch(queries, k)
+    outright = 0
+    for j, cands in enumerate(got):
+        col = exact.column(pairs, j)
+        top = exact.top_rows(col, k)
         want = {doc_ids[r] for r in top}
         have = {c.doc_id for c in cands}
         for c in cands:
@@ -1884,31 +1941,21 @@ def lift_world(seed: int = LIFT_SEED):
     return docs, queries, qrels, canon_words + syn_words + filler
 
 
-def ndcg_at_k(ranked: list[str], qrels: dict, k: int) -> float:
-    """nDCG@k with the log2(rank + 1) discount."""
-    import math
-
-    def dcg(rels):
-        total = 0.0  # added in rank order (sum() would compensate)
-        for i, rel in enumerate(rels[:k]):
-            total += rel / math.log2(i + 2)
-        return total
-
-    ideal = dcg(sorted(qrels.values(), reverse=True))
-    return dcg([qrels.get(d, 0.0) for d in ranked]) / ideal if ideal else 0.0
-
-
 def lift_eval(dev, world, quality, root: str, *, rescan: bool, timeout_ms: float | None = None):
     """The lift world served on ``dev``: the term-identity Model2Vec fast
     tier (128 dims, seed 3), ``quality`` as the quality tier, a
-    ``MemoryLexicalIndex``, and ``search()``'s phase stream per query.
-    Returns (Initial nDCG@10 per query, Refined nDCG@10 per query, phase-2
-    skip reasons)."""
+    ``MemoryLexicalIndex``, and ``search()``'s phase stream per query,
+    judged by the port's quality harness (``utils/quality_harness``): one
+    report of the Initial phase's results (its ``search_fn`` runs
+    ``search()``) and one of the Refined phase's (the same outcome's,
+    Initial's where no Refined phase came). Returns (Initial report,
+    Refined report, phase-2 skip reasons)."""
     import numpy as np
 
     from frankensearch_tpu_torch import (IndexableDocument, MemoryLexicalIndex, Model2VecEmbedder,
                                          SimpleWordTokenizer, TwoTierConfig, TwoTierIndex, TwoTierSearcher)
     from frankensearch_tpu_torch.core.types import PhaseKind
+    from frankensearch_tpu_torch.utils.quality_harness import EvalQuery, evaluate
 
     docs, queries, qrels, words = world
     rng = np.random.default_rng(3)
@@ -1928,14 +1975,24 @@ def lift_eval(dev, world, quality, root: str, *, rescan: bool, timeout_ms: float
         cfg = TwoTierConfig(quality_rescan=rescan, quality_timeout_ms=timeout_ms)
     searcher = TwoTierSearcher(index, fast, lexical=lex, quality_embedder=quality, config=cfg,
                                cache_query_embeddings=False)
-    initial, refined, skips = [], [], []
-    for q, rel in zip(queries, qrels):
-        out = searcher.search(q, k=10)
-        by_kind = {p.kind: p for p in out.phases}
-        init = by_kind[PhaseKind.INITIAL]
-        initial.append(ndcg_at_k([r.doc_id for r in init.results], rel, 10))
-        refined.append(ndcg_at_k([r.doc_id for r in by_kind.get(PhaseKind.REFINED, init).results], rel, 10))
+    evals = [EvalQuery(query_id=f"q{t:02d}", text=q, qrels=rel) for t, (q, rel) in enumerate(zip(queries, qrels))]
+    outcomes, skips = [], []
+
+    def initial_fn(text: str, k: int):
+        out = searcher.search(text, k=k)
+        outcomes.append(out)
         skips.append(out.metrics.phase2_skip_reason)
+        return {p.kind: p for p in out.phases}[PhaseKind.INITIAL].results
+
+    system = f"lift-{dev.type}-{'rescan' if rescan else 'aligned'}"
+    initial = evaluate(initial_fn, evals, k=10, system=system + "-initial")
+    pending = iter(outcomes)
+
+    def refined_fn(text: str, k: int):
+        by_kind = {p.kind: p for p in next(pending).phases}
+        return by_kind.get(PhaseKind.REFINED, by_kind[PhaseKind.INITIAL]).results
+
+    refined = evaluate(refined_fn, evals, k=10, system=system + "-refined")
     searcher.close()
     return initial, refined, skips
 
@@ -2150,21 +2207,31 @@ def phase8_quality(dev, tmp: str, semantic: dict, lexical: dict) -> tuple[dict, 
         s.close()
     rec["rerank"] = rerank
 
-    # --- 8c: the held-out lift, card against CPU ---
+    # --- 8c: the held-out lift, card against CPU, through the quality harness ---
+    from frankensearch_tpu_torch.utils.quality_harness import compare_systems
+
     world = lift_world()
     lift = {}
     for rescan in (False, True):
         tag = "rescan" if rescan else "default"
-        i_c, r_c, skips = lift_eval(dev, world, q32, os.path.join(tmp, f"lift-card-{tag}"), rescan=rescan)
-        i_h, r_h, _ = lift_eval(cpu, world, c32, os.path.join(tmp, f"lift-cpu-{tag}"), rescan=rescan, timeout_ms=0)
+        init_c, ref_c, skips = lift_eval(dev, world, q32, os.path.join(tmp, f"lift-card-{tag}"), rescan=rescan)
+        init_h, ref_h, _ = lift_eval(cpu, world, c32, os.path.join(tmp, f"lift-cpu-{tag}"), rescan=rescan,
+                                     timeout_ms=0)
         if any(skips):
             raise AssertionError(f"phase8 lift {tag}: phase-2 skips on the card {sorted(set(skips) - {None})}")
+        i_c, r_c, i_h, r_h = ([rep.per_query[q]["ndcg"] for q in sorted(rep.per_query)]
+                              for rep in (init_c, ref_c, init_h, ref_h))
         card = float(np.mean(r_c) - np.mean(i_c))
         host_lift = float(np.mean(r_h) - np.mean(i_h))
+        cmp = compare_systems(init_c, ref_c)
         lift[tag] = {"initial": float(np.mean(i_c)), "refined": float(np.mean(r_c)), "lift": card,
-                     "cpu_lift": host_lift, "per_query_equal": i_c == i_h and r_c == r_h}
-        log(f"phase8 lift {tag}: card Initial {np.mean(i_c):.4f} Refined {np.mean(r_c):.4f} lift {card:+.4f}; "
-            f"CPU lift {host_lift:+.4f}")
+                     "cpu_lift": host_lift, "per_query_equal": i_c == i_h and r_c == r_h,
+                     "per_query": {"initial": i_c, "refined": r_c},
+                     "reports": {"initial": init_c.to_dict(), "refined": ref_c.to_dict()},
+                     "compare_systems": {"metric": cmp.metric, "mean_delta": cmp.mean_delta, "lo": cmp.lo,
+                                         "hi": cmp.hi, "significant": cmp.significant, "better": cmp.better}}
+        log(f"phase8 lift {tag} (quality harness): card Initial {np.mean(i_c):.4f} Refined {np.mean(r_c):.4f} "
+            f"lift {card:+.4f}; CPU lift {host_lift:+.4f}; compare_systems {json.dumps(lift[tag]['compare_systems'])}")
         if abs(card - host_lift) > LIFT_TOL or card < LIFT_FLOOR:
             raise AssertionError(f"phase8 lift {tag}: {card:+.4f} (CPU {host_lift:+.4f}, floor {LIFT_FLOOR})")
     rec["lift"] = lift
@@ -4378,6 +4445,288 @@ def phase14_refresh(dev, tmp: str, semantic: dict, lexical: dict, quality: dict,
     return rec, launches, kernels
 
 
+GAUNTLET_QUERIES = 50  # phase 15a: the campaign's generated queries over phase 4's corpus (5 guaranteed misses)
+GAUNTLET_SEED = SEED + 16  # their QuerySpec seed
+MATRIX_QUERIES = 10  # 15b: phase 4's 8 singletons and the batch's first four-word queries not among them
+LAW_DOCS = 20_000  # 15d: the reload and maintenance laws' generated corpus (a depth cut)
+BOOLEAN_LAW_DOCS = 2_000  # the boolean laws' corpus: their budgets (4 k, k = 500) hold every set whole
+LAW_SEED = SEED + 17
+RATCHET_SAMPLES = 7  # 15e: perf_ratchet.measure's samples of phase 4's B=256 search_batch (2 warm-up calls)
+
+
+def phase15_gauntlet(dev, tmp: str, semantic: dict, lexical: dict, quality: dict,
+                     done: dict) -> tuple[dict, dict, list[dict]]:
+    """gauntlet-1M: the port's evaluation modules judging the card's 1M
+    paths, run right after phase 14 on what phases 2, 4 and 8 left on the
+    card (no new 1M index). 15a: ``run_differential_campaign`` over phase
+    4's corpus, 50 generated queries, the 1M lexical arm's
+    ``search_candidates`` against :class:`ExactBm25`, twice: the arm as it
+    serves (``daat_mode="auto"``, each query's lane logged) and with every
+    query on the flat lane (``"blocked"``, K3). 15b: ``run_interaction_matrix``
+    over all eight lanes of ``LANE_CATALOG`` x 10 queries x 5 oracles on a
+    ``TwoTierSearcher`` over phase 8's two-tier index (phase 2's fast tier,
+    the 1M x 384 quality tier, the trained encoder on the card) with phase
+    4's lexical arm, twice: each lane's config as it is (the aligned
+    rescore) and with ``quality_rescan`` (K1 and K2 at d = 384 in the
+    Refined phase). 15d: the boolean laws on the oracle, a
+    ``DeviceBm25Index`` and a ``BulkDeviceBm25Index`` on the card (and FTS5)
+    over a generated corpus, the reload law and the append-delete-compact
+    law on a ``TwoTierIndex`` on the card at LAW_DOCS. 15e: the campaigns'
+    and sweeps' outcomes as ``core/e2e_artifact`` records, read back,
+    validated and linted; the schema lockstep; phase 4's B=256
+    ``search_batch`` timed by ``perf_ratchet.measure`` twice and judged by
+    ``run_ratchet`` (reported, not gated). K1, K2 and K3 are held to their
+    twins at the shapes this phase gave them that ``done`` ({"fast",
+    "quality", "flat"}) lacks. (15c, the lift gate through the quality
+    harness, runs inside phase 8.) Returns its record, launches and kernel
+    records."""
+    import dataclasses
+
+    import torch
+
+    from frankensearch_tpu_torch import (BulkDeviceBm25Index, DeviceBm25Index, HashEmbedder, IndexableDocument,
+                                         MemoryLexicalIndex, TwoTierConfig, TwoTierIndex, TwoTierSearcher)
+    from frankensearch_tpu_torch.core import contract_sanity, e2e_artifact
+    from frankensearch_tpu_torch.core.metrics_eval import stability_verdict
+    from frankensearch_tpu_torch.fusion.interaction_oracles import LANE_CATALOG, run_interaction_matrix
+    from frankensearch_tpu_torch.gauntlet import perf_ratchet
+    from frankensearch_tpu_torch.gauntlet.generator import CorpusSpec, QuerySpec, generate_corpus
+    from frankensearch_tpu_torch.gauntlet.runner import (check_boolean_laws, check_maintenance_laws,
+                                                         check_reload_law, run_differential_campaign)
+    from frankensearch_tpu_torch.lexical.fts5_adapter import Fts5LexicalIndex, fts5_available
+
+    t_phase = time.perf_counter()
+    bm25, texts, queries, singles = lexical["bm25"], lexical["texts"], lexical["queries"], lexical["singles"]
+    rec: dict = {}
+    launches = {name: 0 for name in launch_counters()}
+    flat_inputs: dict = {}
+
+    def add(more: dict) -> None:
+        for name, n in more.items():
+            launches[name] += n
+
+    # --- 15a: the differential campaign on the 1M arm ---
+    t0 = time.perf_counter()
+    docs = [IndexableDocument(doc_id=f"doc-{i:07d}", content=t) for i, t in enumerate(texts)]
+    exact = ExactBm25(bm25)
+    rec["oracle_build_s"] = time.perf_counter() - t0
+    campaigns = {}
+    for mode in ("auto", "blocked"):
+        seen: list = []
+
+        def candidate(query: str, k: int):
+            hits = bm25.search_candidates(query, k)
+            seen.append((query, bm25.last_lane, len(hits)))
+            return hits
+
+        bm25.daat_mode = mode
+        t0 = time.perf_counter()
+        try:
+            report, l15a = drive(lambda: run_differential_campaign(
+                exact.search, candidate, corpus=docs, query_spec=QuerySpec(n_queries=GAUNTLET_QUERIES,
+                                                                           seed=GAUNTLET_SEED), k=K),
+                set(), flat_inputs)
+        finally:
+            del bm25.daat_mode  # the class's "auto" again
+        add(l15a)
+        if not report.ok or report.cases != GAUNTLET_QUERIES:
+            raise AssertionError(f"phase15a {mode}: {report.cases} cases, divergences {report.divergences[:3]}")
+        misses = [(q, n) for q, _, n in seen if q.startswith("zzz-miss-")]
+        if len(misses) != GAUNTLET_QUERIES // 10 or any(n for _, n in misses):
+            raise AssertionError(f"phase15a {mode}: guaranteed misses {misses}")
+        lanes: dict = {}
+        for _, lane, _ in seen:
+            lanes[lane] = lanes.get(lane, 0) + 1
+        campaigns[mode] = report
+        rec[f"campaign_{mode}"] = {
+            "cases": report.cases, "exact_agreements": report.exact_agreements,
+            "rank_swaps_within_tolerance": report.rank_swaps_within_tolerance,
+            "agreement_rate": report.agreement_rate, "misses": [q for q, _ in misses], "lanes": lanes,
+            "query_lanes": [(q, lane) for q, lane, _ in seen], "launches": l15a, "s": time.perf_counter() - t0}
+        log(f"phase15a campaign ({mode}): {report.cases} cases, {report.exact_agreements} exact, "
+            f"{report.rank_swaps_within_tolerance} rank swaps within tolerance, no divergence (agreement rate "
+            f"{report.agreement_rate:.3f}); misses {[q for q, _ in misses]} empty on both; lanes {lanes}; "
+            f"launches {l15a} ({rec[f'campaign_{mode}']['s']:.1f} s)")
+    need_launches("phase15a", launches, ("K3",))
+    del docs, exact
+
+    # --- 15b: the interaction matrix on the 1M two-tier searcher ---
+    index, q32, emb = quality["index"], quality["q32"], semantic["emb"]
+    extra = [q for q in four_word_singletons(queries, 2 * MATRIX_QUERIES) if q not in singles]
+    matrix_queries = list(singles) + extra[: MATRIX_QUERIES - len(singles)]
+    by_dim: dict = {DIM: set(), Q_DIM: set()}  # the aligned sweep's fast-tier shapes, the rescan's quality-tier
+    sweeps = {}
+    l15b = {name: 0 for name in launches}
+    for rescan in (False, True):
+        tag = "rescan" if rescan else "aligned"
+        lane_recs: list[dict] = []
+        searchers: list = []
+
+        def make_searcher(cfg):
+            if rescan:
+                cfg = dataclasses.replace(cfg, quality_rescan=True)
+            s = TwoTierSearcher(index, emb, lexical=bm25, quality_embedder=q32, config=cfg,
+                                cache_query_embeddings=False)
+            searchers.append(s)
+            lane = {"phases": {}, "s": 0.0}
+            lane_recs.append(lane)
+            search = s.search
+
+            def noted(query, k=K, **kw):
+                t0 = time.perf_counter()
+                out = search(query, k=k, **kw)
+                lane["s"] += time.perf_counter() - t0
+                for kind in phase_kinds(out.phases):
+                    lane["phases"][kind] = lane["phases"].get(kind, 0) + 1
+                return out
+
+            s.search = noted
+            return s
+
+        t0 = time.perf_counter()
+        width = Q_DIM if rescan else DIM
+        report, l = drive(lambda: run_interaction_matrix(make_searcher, matrix_queries, lanes=LANE_CATALOG),
+                          by_dim[width], flat_inputs, dim=width)
+        for s in searchers:
+            s.close()
+        add(l)
+        l15b = {name: l15b[name] + l[name] for name in l15b}
+        want = len(LANE_CATALOG) * len(matrix_queries) * 5
+        if report.checked != want or not report.ok:
+            raise AssertionError(f"phase15b {tag}: {report.checked} of {want} checks, violations "
+                                 f"{report.violations[:3]}")
+        sweeps[tag] = report
+        rec[f"matrix_{tag}"] = {"checked": report.checked, "s": time.perf_counter() - t0, "launches": l,
+                                "lanes": {lane.name: r for lane, r in zip(LANE_CATALOG, lane_recs)}}
+        log(f"phase15b interaction matrix ({tag}): {report.checked} checks over {len(LANE_CATALOG)} lanes x "
+            f"{len(matrix_queries)} queries x 5 oracles, no violation ({rec[f'matrix_{tag}']['s']:.1f} s); "
+            f"per lane phases and s: " + json.dumps({n: (r["phases"], round(r["s"], 3))
+                                                     for n, r in rec[f"matrix_{tag}"]["lanes"].items()}))
+    need_launches("phase15b", l15b, ("K1", "K2", "K3"))
+    for width in (DIM, Q_DIM):
+        if not any(sh[0] == "group_max" for sh in by_dim[width]):
+            raise AssertionError(f"phase15b: no hierarchical scan at d = {width} during the matrix")
+    rec["matrix_queries"] = matrix_queries
+
+    t0 = time.perf_counter()
+    kernels = check_kernels("gauntlet-1M", index.fast.slab, index.fast._effective_mask(None, None),
+                            by_dim[DIM], done=done["fast"])
+    kernels += check_kernels("gauntlet-1M-quality", index.quality.slab, index.quality._effective_mask(None, None),
+                             by_dim[Q_DIM], done=done["quality"])
+    new_flat = {key: v for key, v in flat_inputs.items() if key not in done["flat"]}
+    if new_flat:
+        kernels += check_flat_kernel("gauntlet-1M", bm25._blocked.classes, new_flat)
+    rec["kernel_checks_s"] = time.perf_counter() - t0
+    log(f"phase15 K1/K2 shapes d={DIM} {sorted(by_dim[DIM])}, d={Q_DIM} {sorted(by_dim[Q_DIM])}, K3 tiles "
+        f"{sorted(flat_inputs)}; held to their twins here where earlier phases had not: {len(kernels)} records")
+
+    # --- 15d: the laws at a depth cut ---
+    t0 = time.perf_counter()
+    bspec = CorpusSpec(n_docs=BOOLEAN_LAW_DOCS, seed=LAW_SEED)
+    corpus = generate_corpus(bspec)
+    mem = MemoryLexicalIndex(preview_chars=10_000)
+    for d in corpus:
+        mem.add_document(d)
+    mem.commit()
+    arms = {"oracle": mem, "device": DeviceBm25Index(mem, device=dev)}
+    if fts5_available():
+        fts = Fts5LexicalIndex()
+        for d in corpus:
+            fts.add_document(d)
+        fts.commit()
+        arms["fts5"] = fts
+    bulk = BulkDeviceBm25Index(corpus, device=dev, preview_chars=10_000)
+    law_k = BOOLEAN_LAW_DOCS // 4
+    laws = {"boolean": check_boolean_laws(arms, corpus_spec=bspec, k=law_k),
+            "boolean_bulk": check_boolean_laws({"bulk": bulk}, corpus_spec=bspec, k=law_k)}
+    bulk_parity = check_boolean_laws({"oracle": mem, "bulk": bulk}, corpus_spec=bspec, k=law_k)
+    if any(v.law != "boolean-arm-parity" for v in bulk_parity):
+        raise AssertionError(f"phase15d: the bulk arm beside the oracle broke a law of its own: {bulk_parity[:3]}")
+    rec["boolean_laws_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec = CorpusSpec(n_docs=LAW_DOCS, seed=LAW_SEED)
+    laws["reload"] = check_reload_law(corpus_spec=spec)
+    rec["reload_law_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fe = HashEmbedder(dim=DIM)
+
+    def build(c):
+        return TwoTierIndex.create(os.path.join(tmp, "gauntlet_laws"), fe.embed_batch([d.content for d in c]),
+                                   [d.doc_id for d in c], fe.identity(), device=dev)
+
+    def search(ix, q, k):
+        return list(ix.search_fast_classified(fe.embed(q), k).hits)
+
+    def maintain(ix):  # append + delete the same doc, then compact: net no-op
+        ix.append_fast(["transient-doc"], fe.embed_batch(["transient maintenance doc"]))
+        ix.delete(["transient-doc"])
+        return ix.compact()
+
+    laws["maintenance"] = check_maintenance_laws(build, search, maintain, law="append-delete-compact-invariance",
+                                                 corpus_spec=spec)
+    rec["maintenance_law_s"] = time.perf_counter() - t0
+    bad = {name: v[:3] for name, v in laws.items() if v}
+    if bad:
+        raise AssertionError(f"phase15d: laws violated: {bad}")
+    rec["laws"] = {"arms": sorted(arms), "boolean_docs": BOOLEAN_LAW_DOCS, "boolean_k": law_k,
+                   "law_docs": LAW_DOCS, "bulk_vs_oracle_parity": [(v.law, v.query) for v in bulk_parity]}
+    log(f"phase15d laws: boolean on {sorted(arms)} over {BOOLEAN_LAW_DOCS} docs (k = {law_k}: whole match sets) "
+        f"[] ({rec['boolean_laws_s']:.1f} s, the bulk arm's own laws included); the bulk arm beside the oracle: "
+        f"{len(bulk_parity)} arm-parity violations (it hydrates previews: the reference's rule); reload over "
+        f"{LAW_DOCS} docs [] ({rec['reload_law_s']:.1f} s); append-delete-compact on a TwoTierIndex on the card over "
+        f"{LAW_DOCS} docs [] ({rec['maintenance_law_s']:.1f} s)")
+    del mem, arms, bulk, corpus
+
+    # --- 15e: the evidence stream, the lockstep, the ratchet ---
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "gauntlet_evidence", "gauntlet-1m.jsonl")
+    os.makedirs(os.path.dirname(path))
+    writer = e2e_artifact.E2eArtifactWriter(path)
+    run_id = f"chip-smoke-gauntlet-1m-{SEED}"
+    writer.write(e2e_artifact.E2eManifest(
+        run_id=run_id, lane="gauntlet", corpus_fingerprint=campaigns["auto"].corpus_fingerprint,
+        config={"docs": len(texts), "queries": GAUNTLET_QUERIES, "query_seed": GAUNTLET_SEED, "k": K,
+                "matrix_queries": len(matrix_queries), "lanes": [lane.name for lane in LANE_CATALOG]}))
+    for mode, report in campaigns.items():
+        writer.write(e2e_artifact.OracleReport(
+            run_id=run_id, oracle=f"exact-f64-bm25 vs the 1M card arm (daat_mode={mode})", cases=report.cases,
+            agreements=report.exact_agreements, divergences=[dataclasses.asdict(d) for d in report.divergences]))
+    for tag, report in sweeps.items():
+        writer.write(e2e_artifact.OracleReport(
+            run_id=run_id, oracle=f"interaction matrix on the 1M two-tier searcher ({tag})", cases=report.checked,
+            agreements=report.checked - len(report.violations),
+            divergences=[dataclasses.asdict(v) for v in report.violations]))
+    records = writer.read_all()
+    invalid = [e2e_artifact.validate_artifact(r) for r in records]
+    lint = contract_sanity.lint_evidence_stream(records)
+    if len(records) != 1 + len(campaigns) + len(sweeps) or any(invalid) or lint:
+        raise AssertionError(f"phase15e: {len(records)} records, invalid {invalid}, lint {lint}")
+    lockstep = contract_sanity.check_schema_lockstep()
+    if not lockstep.ok:
+        raise AssertionError(f"phase15e: schema lockstep {lockstep.violations}")
+    searcher = TwoTierSearcher(semantic["index"], emb, lexical=bm25, config=TwoTierConfig(fast_only=True))
+    incumbent = perf_ratchet.measure(lambda: searcher.search_batch(queries, k=K), samples=RATCHET_SAMPLES)
+    null = perf_ratchet.measure(lambda: searcher.search_batch(queries, k=K), samples=RATCHET_SAMPLES)
+    searcher.close()
+    outcome = perf_ratchet.run_ratchet(perf_ratchet.RatchetGate("phase4-search_batch-B256"), incumbent, null, null)
+    keys = {"gate", "passed", "reason", "incumbent_mean", "candidate_mean", "ratio", "aa_null_ok", "stable"}
+    means = (sum(incumbent) / len(incumbent), sum(null) / len(null))
+    if set(outcome.to_dict()) != keys or (outcome.stable and (outcome.incumbent_mean, outcome.candidate_mean) != means) \
+            or (not outcome.stable and not outcome.reason.startswith("unstable")):
+        raise AssertionError(f"phase15e: ratchet outcome {outcome.to_dict()} for means {means}")
+    cvs = [stability_verdict(x).cv for x in (incumbent, null)]
+    rec["evidence"] = {"records": len(records), "kinds": [r["kind"] for r in records], "lockstep_checked": lockstep.checked,
+                       "ratchet": outcome.to_dict(), "samples_s": {"incumbent": incumbent, "null": null}, "cv": cvs,
+                       "s": time.perf_counter() - t0}
+    log(f"phase15e {len(records)} evidence records valid and linted clean; lockstep {lockstep.checked} constants ok; "
+        f"ratchet (reported, not gated) {json.dumps(outcome.to_dict())}; B=256 means {means[0] * 1e3:.2f} / "
+        f"{means[1] * 1e3:.2f} ms, cv {cvs[0]:.3f} / {cvs[1]:.3f}")
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase15 total {rec['phase_s']:.1f} s; launches {launches}")
+    return rec, launches, kernels
+
+
 def main() -> int:
     # the port must reach neither jax nor the JAX package, even indirectly
     sys.modules["jax"] = None
@@ -4439,6 +4788,14 @@ def main() -> int:
             {"fast": kernel_shapes(k2 + k4, ("semantic-1M", "hybrid-1M")),
              "quality": kernel_shapes(k8, ("hybrid-1M-quality",))})
         wall["phase14_s"] = time.perf_counter() - t0
+        # phase 15 judges what phases 2, 4 and 8 left on the card
+        t0 = time.perf_counter()
+        gauntlet_rec, l15, k15 = phase15_gauntlet(
+            dev, tmp, semantic, lexical, quality,
+            {"fast": kernel_shapes(k2 + k4, ("semantic-1M", "hybrid-1M")),
+             "quality": kernel_shapes(k8, ("hybrid-1M-quality",)),
+             "flat": {(r["b"], r["t"]) for r in k4 if r["kernel"] == "flat_fused"}})
+        wall["phase15_s"] = time.perf_counter() - t0
         del quality
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -4463,7 +4820,7 @@ def main() -> int:
     wall["total_s"] = time.perf_counter() - t_main
     log(f"chip_smoke wall time: {wall['total_s']:.1f} s (the kernel build, every phase and the cleanup)")
 
-    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9 + k10 + k11 + k12 + k13 + k14
+    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9 + k10 + k11 + k12 + k13 + k14 + k15
     kernels = []
     for name, key, src, replaces, cell in KERNELS:
         recs = [r for r in records if r["kernel"] == name]
@@ -4478,7 +4835,7 @@ def main() -> int:
         bound_ms = sum(r["bound"][0] for r in head) / len(head)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9, l10, l11, l12, l13, l14)),
+            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9, l10, l11, l12, l13, l14, l15)),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": sum(r["ms"] for r in head) / len(head), "plain_ms": sum(r["plain_ms"] for r in head) / len(head),
             "bound_ms": bound_ms,
@@ -4489,7 +4846,8 @@ def main() -> int:
     log(json.dumps({"semantic": sem, "hybrid": hyb, "hybrid_1m": h1m, "scan_modes": modes, "ab_scan": ab_rec,
                     "hybrid_1m_m2v": m2v_rec, "hybrid_1m_quality": quality_rec, "scan_lanes": lanes_rec,
                     "built_1m_m2v": built_rec, "cli_1m": cli_rec, "cli_live_1m": live_rec,
-                    "cli_fleet_1m": fleet_rec, "refresh_1m_quality": refresh_rec, "wall_s": wall}))
+                    "cli_fleet_1m": fleet_rec, "refresh_1m_quality": refresh_rec, "gauntlet_1m": gauntlet_rec,
+                    "wall_s": wall}))
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
     print(json.dumps({

@@ -579,6 +579,13 @@ def cmd_search(args) -> dict:
     if getattr(args, "federate", None):
         return _search_federated(args, list(args.federate))
     handle = _open(args)
+    try:
+        return _search_one(args, handle)
+    finally:
+        handle.close()  # its metadata store: no sqlite -wal/-shm file outlives the command in the root
+
+
+def _search_one(args, handle) -> dict:
     phases_seen: list[str] = []
     t0 = time.monotonic()
     if getattr(args, "expand", False):
@@ -1750,9 +1757,16 @@ def cmd_repro(args) -> dict:
     fsfs repro.rs): evidence JSONL of every phase + results + metrics,
     the effective layered config, the generation manifest, and the
     environment fingerprint — a bug report that replays elsewhere."""
+    handle = _open(args)
+    try:
+        return _repro_pack(args, handle)
+    finally:
+        handle.close()  # its metadata store: no sqlite -wal/-shm file outlives the command in the root
+
+
+def _repro_pack(args, handle) -> dict:
     from frankensearch_tpu_torch.runtime.repro import ReproPack
 
-    handle = _open(args)
     lc = getattr(args, "_layered_config", None)
     pack = ReproPack(args.out, config=lc.config.to_dict() if lc else None)
     pack.record_event("query", {"query": args.query, "k": args.k})

@@ -30,13 +30,13 @@ from frankensearch_tpu_torch.index.durability import (
     artifact_mutation_lock,
     ensure_artifact,
 )
-from frankensearch_tpu_torch.index.fsvi import EmbeddingIdentity, FtviFile, write_ftvi
+from frankensearch_tpu_torch.index.fsvi import EmbeddingIdentity, FtviFile, bf16_bits_to_f32, write_ftvi
 from frankensearch_tpu_torch.index.recall_certificate import (
     load_persisted_certificates,
     persist_certificate,
 )
 from frankensearch_tpu_torch.index.wal import WriteAheadLog
-from frankensearch_tpu_torch.index.device_index import DeviceVectorIndex
+from frankensearch_tpu_torch.index.device_index import DeviceVectorIndex, _l2_normalize_rows
 from frankensearch_tpu_torch.ops.quantize import calibrate_int8
 
 FAST_FILE = "vector.fast.idx"
@@ -63,6 +63,39 @@ def _open_ftvi_repairing(path: str, verify: bool) -> FtviFile:
         if not report.repaired_stripes:
             raise
         return FtviFile(path, verify_slab=verify)
+
+
+def _compacted_rows(tier: DeviceVectorIndex, path: str) -> np.ndarray:
+    """The rows ``compact`` writes as bf16: each row's vector, as the
+    reference writes it, except where reopening would renormalize that
+    row's bf16 rounding to other bits than the slab holds now (a few
+    HashEmbedder rows move by one bf16 ulp so). Such a row takes the bits
+    the artifact at ``path`` stores for its doc when reopening those gives
+    the slab's row back, as it does for every base row no WAL record
+    replaced: compaction then moves no base row's score. The reference
+    rewrites them all, so its compaction moves those rows."""
+    vecs = tier._vectors_f32[: tier.n_rows]
+    if tier.slab_dtype != "bf16" or not os.path.exists(path):
+        return vecs
+    held = tier.slab[: tier.n_rows, : tier.dim].float().cpu().numpy()
+
+    def reopened(rows: np.ndarray) -> np.ndarray:  # what a reopen's slab holds for these bf16 rows
+        return torch.from_numpy(_l2_normalize_rows(rows)).to(torch.bfloat16).float().numpy()
+
+    moved = np.flatnonzero((reopened(held) != held).any(axis=1))
+    base = FtviFile(path, verify_slab=False) if moved.size else None
+    if base is None or base.header.dtype != "bf16":
+        return vecs
+    file_row = {d: r for r, d in enumerate(base.doc_ids)}
+    out = vecs.copy()
+    for r in moved:
+        fr = file_row.get(tier.doc_ids[r])
+        if fr is None:
+            continue
+        stored = bf16_bits_to_f32(np.asarray(base.slab[fr : fr + 1]))
+        if np.array_equal(reopened(stored), held[r : r + 1]):
+            out[r] = stored[0]
+    return out
 
 
 @dataclass(frozen=True)
@@ -301,7 +334,7 @@ class TwoTierIndex:
             bytes_before = os.path.getsize(path) if os.path.exists(path) else 0
             wal_path = path + ".wal"
             wal_bytes = os.path.getsize(wal_path) if os.path.exists(wal_path) else 0
-            write_ftvi(path, tier._vectors_f32[: tier.n_rows][live], ids, tier.identity, dtype="bf16")
+            write_ftvi(path, _compacted_rows(tier, path)[live], ids, tier.identity, dtype="bf16")
             # truncate only the prefix this open materialized: batches another
             # writer appended after it survive (replay re-applies our own as
             # idempotent upserts); an unknown boundary (0) keeps everything

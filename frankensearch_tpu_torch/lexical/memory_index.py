@@ -7,6 +7,11 @@ at the `LexicalRead`/`LexicalWrite` contract level: multi-field schema
 schema), Tantivy-pinned BM25 arithmetic, deterministic (score desc,
 doc_id asc) ordering, snapshot commit semantics.
 
+A commit and the reads take one lock (``_lock``), so a reader never sees
+half a commit: postings that name a doc whose entry is not written yet,
+or a score state cached from such a half state. The reference takes no
+lock there; readers that race no writer get the same bits.
+
 This is the rank-parity oracle the device-side scorer
 (:mod:`frankensearch_tpu_torch.lexical.device_bm25`) is differentially tested
 against — the reference's quill-gauntlet idea (SURVEY.md §4.8).
@@ -14,6 +19,7 @@ against — the reference's quill-gauntlet idea (SURVEY.md §4.8).
 
 from __future__ import annotations
 
+import threading
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Mapping, Sequence
@@ -82,6 +88,7 @@ class MemoryLexicalIndex(LexicalRead, LexicalWrite):
         self._fid: dict[str, np.ndarray] = {}
         self._norm_cache: dict[str, np.ndarray] = {}
         self._term_arrays: dict[tuple[str, str], tuple] = {}
+        self._lock = threading.RLock()
 
     # -- LexicalWrite --------------------------------------------------------
 
@@ -92,13 +99,14 @@ class MemoryLexicalIndex(LexicalRead, LexicalWrite):
         self._staged.append((doc_id, None))
 
     def commit(self) -> None:
-        for doc_id, doc in self._staged:
-            if doc_id in self._docs:
-                self._remove_committed(doc_id)
-            if doc is not None:
-                self._insert_committed(doc)
-        self._staged.clear()
-        self._generation += 1
+        with self._lock:
+            for doc_id, doc in self._staged:
+                if doc_id in self._docs:
+                    self._remove_committed(doc_id)
+                if doc is not None:
+                    self._insert_committed(doc)
+            self._staged.clear()
+            self._generation += 1
 
     def _insert_committed(self, doc: IndexableDocument) -> None:
         entry = _DocEntry(
@@ -153,7 +161,8 @@ class MemoryLexicalIndex(LexicalRead, LexicalWrite):
     # -- LexicalRead -----------------------------------------------------------
 
     def doc_count(self) -> int:
-        return len(self._docs)
+        with self._lock:
+            return len(self._docs)
 
     def _ensure_score_state(self) -> None:
         """(Re)build the vectorized scoring state for this generation:
@@ -226,15 +235,16 @@ class MemoryLexicalIndex(LexicalRead, LexicalWrite):
         # SAME f32 add sequence per doc as the scalar accumulation the
         # device scorer is differentially pinned against.
         terms = simple_tokenize(query)
-        if not terms or not self._docs or budget <= 0:
-            return []
-        self._ensure_score_state()
-        scores = self._bag_scores(terms)
-        touched = np.nonzero(scores)[0]
-        order = np.lexsort((self._doc_rank[touched], -scores[touched]))
-        top = touched[order[: max(budget, 0)]]
-        ids = self._ids
-        return [LexicalCandidate(doc_id=ids[i], score=float(scores[i])) for i in top]
+        with self._lock:
+            if not terms or not self._docs or budget <= 0:
+                return []
+            self._ensure_score_state()
+            scores = self._bag_scores(terms)
+            touched = np.nonzero(scores)[0]
+            order = np.lexsort((self._doc_rank[touched], -scores[touched]))
+            top = touched[order[: max(budget, 0)]]
+            ids = self._ids
+            return [LexicalCandidate(doc_id=ids[i], score=float(scores[i])) for i in top]
 
     # -- boolean/phrase (exact oracle lane) ------------------------------------
 
@@ -294,6 +304,10 @@ class MemoryLexicalIndex(LexicalRead, LexicalWrite):
         adjacency verified on full content), BM25 positive-bag ordering.
         Docs matching only negative branches score 0 and are dropped —
         the must-match-something-positive contract."""
+        with self._lock:
+            return self._search_boolean(query, limit)
+
+    def _search_boolean(self, query, limit: int):
         from frankensearch_tpu_torch.core.types import ScoredResult
 
         if query.root is None or limit <= 0 or not self._docs:
@@ -331,23 +345,24 @@ class MemoryLexicalIndex(LexicalRead, LexicalWrite):
         return out
 
     def hydrate_candidates(self, doc_ids: Sequence[str]) -> dict[str, Mapping]:
-        out: dict[str, Mapping] = {}
-        for d in doc_ids:
-            e = self._docs.get(d)
-            if e is not None:
-                out[d] = {
-                    "title": e.title,
-                    "metadata": e.metadata,
-                    "preview": e.content_preview,
-                }
-                # zero-copy reference: lets consumers (device-arm boolean
-                # post-filter) verify phrase adjacency on the FULL text.
-                # Emitted only when actually known — a pre-r3 snapshot
-                # reload has content_full="" and advertising that as full
-                # text would turn "unknown" into "provably absent"
-                if e.content_full:
-                    out[d]["content"] = e.content_full
-        return out
+        with self._lock:
+            out: dict[str, Mapping] = {}
+            for d in doc_ids:
+                e = self._docs.get(d)
+                if e is not None:
+                    out[d] = {
+                        "title": e.title,
+                        "metadata": e.metadata,
+                        "preview": e.content_preview,
+                    }
+                    # zero-copy reference: lets consumers (device-arm boolean
+                    # post-filter) verify phrase adjacency on the FULL text.
+                    # Emitted only when actually known — a pre-r3 snapshot
+                    # reload has content_full="" and advertising that as full
+                    # text would turn "unknown" into "provably absent"
+                    if e.content_full:
+                        out[d]["content"] = e.content_full
+            return out
 
     # -- bulk ingest (native fast path) -----------------------------------------
 

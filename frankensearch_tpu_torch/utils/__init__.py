@@ -1,1 +1,2 @@
-"""Shared utilities of the PyTorch port: structured logging."""
+"""Shared utilities of the PyTorch port: structured logging, the quality
+harness, benchmark statistics."""

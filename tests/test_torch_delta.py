@@ -285,6 +285,59 @@ def test_reads_never_error_across_seals():
     assert not errors and any(c.doc_id.startswith("new-") for c in arm.search_candidates("alpha", 300))
 
 
+class _PausingDocs(dict):
+    """The oracle's ``_docs`` map, with a hook run just before a doc's
+    entry is written: the moment ``commit`` has written the doc's postings
+    and not yet its entry."""
+
+    hook = None
+
+    def __setitem__(self, key, value):
+        if self.hook is not None:
+            self.hook(key)
+        super().__setitem__(key, value)
+
+
+@pytest.mark.parametrize("read", ["bag", "boolean"])
+def test_a_read_inside_a_commit_sees_it_whole(read):
+    """A reader released between a committed doc's postings and its
+    ``_docs`` entry (the interleaving that raised ``KeyError('new-01030')``
+    under load) neither raises nor sees half the commit: it waits for the
+    commit and then finds the new doc. The oracle's score state was built
+    before the commit, so the new term's postings are not cached."""
+    from frankensearch_tpu_torch.lexical.query import parse_query
+
+    base = word_docs(PORT, 40, seed=3, length=10)
+    arm = t_delta.DeltaLexicalIndex(mem_of(PORT, base), sealed=device_index(PORT, base))
+    oracle = arm.oracle
+    oracle.search_candidates("alpha", 5)  # the score state at the old generation
+    oracle._docs = _PausingDocs(oracle._docs)
+    out: list = []
+
+    def reader():
+        try:
+            if read == "bag":
+                out.append([c.doc_id for c in arm.search_candidates("zeppelin", 10)])
+            else:
+                out.append([r.doc_id for r in arm.search_boolean(parse_query("zeppelin AND alpha"), 10)])
+        except Exception as e:  # noqa: BLE001 - the reader's fault is the finding
+            out.append(e)
+
+    threads: list[threading.Thread] = []
+
+    def release_reader(doc_id):
+        if doc_id == "new-01030" and not threads:
+            threads.append(threading.Thread(target=reader))
+            threads[0].start()
+            threads[0].join(timeout=0.5)  # a reader that waits for the commit is still blocked here
+
+    oracle._docs.hook = release_reader
+    arm.add_document(PORT.Doc(doc_id="new-01030", content="zeppelin alpha beta"))
+    arm.commit()
+    threads[0].join(timeout=30)
+    assert not threads[0].is_alive() and out == [["new-01030"]]
+
+
 def test_writers_racing_auto_seal_and_explicit_seal(tmp_path):
     """Two writers under a tiny auto-seal lease and an explicit sealer on
     a built root (tests/test_delta.py's race): no error, every append

@@ -21,7 +21,10 @@ catalog, the lock order, redaction, the host adapter, and a generation
 activated, travelled, replayed, repaired and planned. A static
 check reads every import statement of the port's files, ``chip_smoke.py``
 and ``profile_chip.py``: none may name ``frankensearch_tpu`` or ``jax``;
-it also reads each of ``REFRESH_MODULES`` on its own.
+it also reads each of ``REFRESH_MODULES`` and ``EVALUATION_MODULES`` on
+its own. A third subprocess imports each of ``EVALUATION_MODULES`` with
+the two blocked and runs a campaign, the reload law, the lockstep, the
+quality harness and the evidence lint.
 """
 
 import ast
@@ -41,6 +44,15 @@ REFRESH_MODULES = (
     "embed/model_registry.py", "runtime/catalog.py", "runtime/concurrency.py", "runtime/redaction.py",
     "core/host_adapter.py", "core/activation.py", "core/time_travel.py", "core/commit_replay.py",
     "core/repair.py", "core/recovery_plan.py",
+)
+
+#: the evaluation, gauntlet and contract modules (the port's copies, at
+#: the reference's relative paths)
+EVALUATION_MODULES = (
+    "core/metrics_eval.py", "utils/bench_regression.py", "utils/quality_harness.py", "gauntlet/__init__.py",
+    "gauntlet/generator.py", "gauntlet/perf_ratchet.py", "gauntlet/runner.py", "core/e2e_artifact.py",
+    "core/distributed_observability.py", "core/contract_sanity.py", "fusion/priors.py", "fusion/ope.py",
+    "fusion/interaction_oracles.py",
 )
 
 REFRESH_SCRIPT = r"""
@@ -327,6 +339,50 @@ def test_refresh_path_runs_without_jax_or_the_reference():
     assert proc.stdout.strip().endswith("OK")
 
 
+EVALUATION_SCRIPT = r"""
+import importlib, sys
+sys.modules["jax"] = None
+sys.modules["frankensearch_tpu"] = None
+import torch
+for m in MODULES:
+    importlib.import_module("frankensearch_tpu_torch." + m[:-3].replace("/", ".").removesuffix(".__init__"))
+from frankensearch_tpu_torch.core.contract_sanity import check_schema_lockstep, lint_evidence_stream
+from frankensearch_tpu_torch.core.e2e_artifact import E2eManifest, OracleReport, validate_artifact
+from frankensearch_tpu_torch.gauntlet.generator import CorpusSpec, generate_corpus
+from frankensearch_tpu_torch.gauntlet.runner import check_reload_law, run_differential_campaign
+from frankensearch_tpu_torch.lexical.device_bm25 import DeviceBm25Index
+from frankensearch_tpu_torch.lexical.memory_index import MemoryLexicalIndex
+from frankensearch_tpu_torch.utils.quality_harness import EvalQuery, evaluate
+spec = CorpusSpec(n_docs=60, seed=4)
+corpus = generate_corpus(spec)
+mem = MemoryLexicalIndex()
+for d in corpus:
+    mem.add_document(d)
+mem.commit()
+dev = DeviceBm25Index(mem, device=torch.device("cpu"))
+report = run_differential_campaign(mem.search_candidates, dev.search_candidates, corpus_spec=spec, corpus=corpus)
+assert report.ok and report.cases == 50, report.divergences[:3]
+assert check_reload_law() == [] and check_schema_lockstep().ok
+q = EvalQuery("q0", corpus[0].content.split()[0], {corpus[0].doc_id: 1.0})
+assert evaluate(dev.search_candidates, [q], n_resamples=50).n_queries == 1
+records = [E2eManifest("r", "gauntlet").to_dict(), OracleReport("r", "oracle", cases=50).to_dict()]
+assert [validate_artifact(r) for r in records] == [[], []] and lint_evidence_stream(records) == []
+assert not [m for m in sys.modules if m.startswith(("jax.", "frankensearch_tpu."))]
+print("OK")
+"""
+
+
+def test_evaluation_modules_run_without_jax_or_the_reference():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    script = f"MODULES = {EVALUATION_MODULES!r}\n" + EVALUATION_SCRIPT
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
 def _imported_roots(path: Path) -> set[str]:
     """The top-level package of every import statement in a file,
     including imports inside functions."""
@@ -351,7 +407,7 @@ def test_no_port_file_imports_the_reference_or_jax():
     assert offenders == {}
 
 
-@pytest.mark.parametrize("module", REFRESH_MODULES)
+@pytest.mark.parametrize("module", REFRESH_MODULES + EVALUATION_MODULES)
 def test_refresh_module_is_the_ports_own_copy(module):
     port, ref = REPO / "frankensearch_tpu_torch" / module, REPO / "frankensearch_tpu" / module
     assert port.is_file() and ref.is_file()

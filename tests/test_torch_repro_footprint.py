@@ -188,7 +188,34 @@ def grown_root(pkg_roots, tmp_path, corpus) -> str:
     return root
 
 
-def test_footprint_equals_reference(roots, tmp_path, corpus):
+@pytest.mark.parametrize("argv", [("search", "write ahead log"), ("repro", "rust", "--out", "{out}")])
+def test_one_shot_commands_leave_no_sqlite_sidecars(roots, tmp_path, argv):
+    """``search`` and ``repro`` close the handle they open: its metadata
+    store's sqlite ``-wal`` / ``-shm`` files do not outlive the command in
+    the root until a garbage collection (they did, and a collection
+    between the two packages' ``footprint`` of one root changed its
+    ``artifacts`` bytes)."""
+    import gc
+
+    root = str(tmp_path / "root")
+    shutil.copytree(roots["port"], root)
+    gc.disable()
+    try:
+        env_of("port", *[a.replace("{out}", str(tmp_path / "pack")) for a in argv], "--root", root)
+        assert [f for f in sorted(os.listdir(root)) if f.endswith(("-wal", "-shm"))] == []
+    finally:
+        gc.enable()
+
+
+def test_footprint_equals_reference(tmp_path, corpus):
+    # roots of its own: no command of another test has run on them, so no
+    # sqlite handle another test left open (the reference's ``repro``
+    # leaves one until a garbage collection) can close between the two
+    # packages' census of one root
+    roots = {}
+    for pkg in ("port", "ref"):
+        roots[pkg] = str(tmp_path / f"own_{pkg}")
+        env_of(pkg, "index", corpus, "--root", roots[pkg])
     for root in (roots["port"], roots["ref"], grown_root(roots, tmp_path, corpus)):
         got, want = footprint_pair(root)
         assert got == want

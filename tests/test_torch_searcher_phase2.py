@@ -250,9 +250,11 @@ def test_lift_world_ndcg_equals_reference(rescan, tmp_path):
         ref_docs, ref_queries, ref_qrels, tql.term_identity_fast(ref_words), ref_load(art),
         cfg=RefConfig(quality_rescan=rescan, quality_timeout_ms=0),
     )
-    got_i, got_r, skips = chip_smoke.lift_eval(
+    initial, refined, skips = chip_smoke.lift_eval(
         CPU, world, load_artifact(art, device=CPU), str(tmp_path), rescan=rescan, timeout_ms=0
     )
+    # the quality harness's per-query nDCG@10, in query order
+    got_i, got_r = ([rep.per_query[q]["ndcg"] for q in sorted(rep.per_query)] for rep in (initial, refined))
     assert skips == [None] * len(queries)
     assert got_i == want_i and got_r == want_r
     assert np.mean(got_r) - np.mean(got_i) >= chip_smoke.LIFT_FLOOR
