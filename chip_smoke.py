@@ -27,7 +27,8 @@ Phases:
      2,097,152 postings): the fused phase-1 lane with the on-device RRF tail,
      held bitwise to the host RRF oracle on the same arm outputs; then the
      same corpus with the blocked threshold lowered and the hot arm off, the
-     pruned lane, held to the dense lane's candidates;
+     pruned lane, held to the dense lane's candidates, and the retired
+     selectivity-grouped dispatch bitwise the pruned lane per query;
   4. hybrid serving at 1M docs (the reference's tools/bench_hybrid_1m.py
      corpus: 14 zipf(1.35) words over 50,000, ~10M postings) over phase 2's
      vectors: the split lexical layout (hot arm, flat lane on K3, packed
@@ -98,7 +99,8 @@ Phases:
      stack on the card whose top-10 equals an exact f64 host BM25 over
      1,010,000 docs; 1,000 deletes (half new) never returned; K1, K2 and K3
      against their twins at the phase's shapes;
- 11. cli-1M, the product CLI: phase 4's 1M docs as a JSONL corpus through
+ 11. cli-500k, the product CLI: phase 4's first 500,000 docs (``CLI_DOCS``,
+     a depth cut for the script's time limit) as a JSONL corpus through
      ``cli index`` (in process, no ``--device``: the card; the default
      stack, HashEmbedder(256), a bf16 slab and the FLXB arm), then ``cli
      serve --warmup --serve-max-batch 256 --coalesce-ms 200`` in process on
@@ -112,7 +114,7 @@ Phases:
      started together (``python -m frankensearch_tpu_torch.cli``, on the
      card); K1, K2 and
      K3 against their twins at the phase's shapes;
- 12. cli-live-1M, the CLI's live-ingest and interactive path over phase
+ 12. cli-live-500k, the CLI's live-ingest and interactive path over phase
      11's root: two 20,000-doc roots (phase 3's corpus, its first and its
      next 20,000 docs, each through ``cli index``) and a one-shot
      ``search`` subprocess over the first (rows bitwise ``search()``'s, on
@@ -134,7 +136,7 @@ Phases:
      the fast top-10 unchanged across a reopen; ``shadow --candidate
      device`` on the card (no shadow error; a divergence only at a tie);
      K1, K2 and K3 against their twins at the phase's shapes;
- 13. cli-fleet-1M, the rest of the CLI over phase 12's root: ``serve
+ 13. cli-fleet-500k, the rest of the CLI over phase 12's root: ``serve
      --fleet-dir --warmup`` in process (phase 4's 256 pipelined queries and
      8 singletons, every reply bitwise the library's over the handle serve
      opened, K1, K2 and K3 counted) while ``fleet --live`` and ``fleet
@@ -146,7 +148,7 @@ Phases:
      reported down and reaped; serve's node file gone after ``shutdown``;
      ``repro`` over the small root (its phases and results bitwise
      ``search()``'s over a library handle, the card in
-     ``environment.json``); ``footprint`` of the 1M root (its row counts
+     ``environment.json``); ``footprint`` of the CLI's root (its row counts
      the FTVI's); ``download``, ``update`` (check, apply, rollback) and
      ``uninstall --dry-run`` on local bundles; K1, K2 and K3 against their
      twins at the shapes phases 11-12 did not give them;
@@ -199,7 +201,34 @@ Phases:
      linted, the schema lockstep, and phase 4's B=256 ``search_batch``
      timed twice by ``perf_ratchet.measure`` and judged by ``run_ratchet``
      (reported, not gated); K1, K2 and K3 against their twins at the
-     phase's new shapes.
+     phase's new shapes;
+ 16. sharded-1M, the multi-device serving path, run after phase 15 on
+     phase 2's vectors and phase 4's arm with a mesh of 4 shards on the
+     one card (no new 1M root): 16a a ``ShardedDeviceVectorIndex`` (4 x
+     253,952 rows, each shard a view of the card's slab at an 8192-row
+     boundary) behind a fast-only searcher, phase 2's batch and 8
+     singletons (auto: K1 + K2 per shard, 4 launches each a scan) bitwise
+     phase 2's single-device rows, recall@10 >= 0.99, and the int8 lane
+     (K4 + K2-i8 per shard) at recall@10 >= 0.97; 16b phase 4's arm
+     block-sharded (``ShardedBulkDeviceBm25Index``: the unsplit graded
+     layout rebuilt from its ~9.4M host postings, each shard on the pruned
+     lane) with phase 4's 256 queries in one batch against the exact f64
+     BM25, the blocks skipped; 16c a hybrid searcher over both through the
+     sharded fused lane (``last_phase1_lex_lane == "sharded"``), the device
+     RRF bitwise the host oracle, singletons bitwise their batch rows, doc
+     ids equal to phase 4's except where lexical scores within 1e-6
+     reorder (counted); 16d the retired hot combine
+     (``hot_daat_topk_ab``) at B=8 on a 20,000-doc split layout, rank-equal
+     to the flat lane (K3) within 1e-5; K1, K2, K4 and K2-i8 against their
+     twins at the per-shard shapes. Phase 3 runs the retired grouped
+     dispatch (``grouped_blocked_dispatch``) on its pruned index, bitwise
+     the pruned lane per query. 16e runs after phase 13 on phase 12's
+     20,000-doc corpus (a depth cut; ``make_mesh`` gives one shard a card):
+     ``IndexBuilder`` and ``open_hybrid`` with ``mesh_shards=4`` (the
+     batch through the sharded fused lane against the unsharded open), an
+     append, a delete, a seal, ``compact()`` and a reopen on the mesh, then
+     ``search --shards 2`` and ``serve --shards 2`` over ``fed_root``
+     against the same commands unsharded.
 
 The kernels line gives each kernel's time, its twin's, and its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -762,6 +791,8 @@ def phase3_pruned(dev, bm25, queries) -> dict:
     """The hybrid-60k corpus once more with the blocked threshold lowered and
     the hot arm off: the pruned lane (block-max skipping, exact 8-term FMA
     chunks) against the dense lane's candidates on the same queries."""
+    import numpy as np
+
     from frankensearch_tpu_torch.lexical import device_bm25 as bm
     from frankensearch_tpu_torch.lexical import hot_arm
 
@@ -792,12 +823,27 @@ def phase3_pruned(dev, bm25, queries) -> dict:
         same_ranking([(c.doc_id, c.score) for c in g[0]],
                      [(c.doc_id, c.score) for c in bm25.search_candidates_batch([q], 30)[0]],
                      LEX_REL_TOL, f"phase3 pruned singleton {q!r}")
+    # the retired selectivity-grouped dispatch (phase 16's item): bitwise
+    # the single-batch lane per query
+    from frankensearch_tpu_torch.ops.ab_primitives import grouped_blocked_dispatch
+
+    ids, w = pruned._query_sparse_rows(list(queries))
+    bounds = pruned._blocked.query_bounds(ids, w)
+    (gs, gi), grouped_ms = timed(lambda: grouped_blocked_dispatch(pruned, ids, w, bounds, 30))
+    for j, cands in enumerate(got):
+        grouped = [(pruned.doc_ids[int(gi[j, c])], gs[j, c].view("u4")) for c in range(gs.shape[1]) if gs[j, c] > 0.0]
+        if grouped != [(c.doc_id, np.float32(c.score).view("u4")) for c in cands]:
+            raise AssertionError(f"phase3: the grouped dispatch differs from the pruned lane on query {j}")
+    selective = int(((bounds <= 0.0).mean(axis=0) >= 0.5).sum())
+    log(f"phase3 grouped_blocked_dispatch ({selective} selective queries in sub-batches of 8): {grouped_ms:.2f} ms, "
+        f"bitwise the pruned lane per query, {pruned.last_blocks_skipped} blocks skipped")
     n_blk = pruned._blocked.n_blk
     log(f"phase3 pruned lane ({n_blk} blocks, build {build_s:.1f} s): "
         f"{len(queries)} queries' candidates equal to the dense lane's within {LEX_REL_TOL:g}; "
         f"B={len(queries)} {ms:.2f} ms, {skipped} blocks skipped; singletons skipped {solo_skips}")
     return {"n_blocks": n_blk, "batch_ms": ms, "blocks_skipped": skipped,
-            "single_ms": single_ms, "single_blocks_skipped": solo_skips}
+            "single_ms": single_ms, "single_blocks_skipped": solo_skips,
+            "grouped_ms": grouped_ms, "grouped_selective": selective}
 
 
 def hybrid1m_docs(rng):
@@ -954,11 +1000,12 @@ class ExactBm25:
         return [LexicalCandidate(doc_id=self.doc_ids[r], score=float(col[r])) for r in self.top_rows(col, k)]
 
 
-def lexical_oracle_check(arm, queries: list[str], k: int, *, phase: str = "phase4") -> int:
-    """The device lanes' top-k against :class:`ExactBm25`: equal doc sets
-    up to ties within ORACLE_REL_TOL at the k-th score, scores within it
-    too. Returns how many queries' sets were equal outright."""
-    exact = ExactBm25(arm)
+def lexical_oracle_check(arm, queries: list[str], k: int, *, phase: str = "phase4", exact=None) -> int:
+    """The device lanes' top-k against :class:`ExactBm25` (``exact``, or one
+    built over ``arm``): equal doc sets up to ties within ORACLE_REL_TOL at
+    the k-th score, scores within it too. Returns how many queries' sets
+    were equal outright."""
+    exact = ExactBm25(arm) if exact is None else exact
     pairs = exact.pairs(queries)
     doc_ids, row_of = exact.doc_ids, exact.row_of
     got = arm.search_candidates_batch(queries, k)
@@ -1105,7 +1152,8 @@ def phase4_hybrid1m(dev, semantic) -> tuple[dict, dict, list[dict], dict]:
     del searcher._device_rrf_tail
     return ({"batch_ms": batch_ms, "single_ms": single_ms, "lanes": lanes, "layout": layout,
              "oracle_equal": outright}, launches, kernels,
-            {"bm25": bm25, "queries": queries, "singles": singles, "pools": pools, "texts": texts})
+            {"bm25": bm25, "queries": queries, "singles": singles, "pools": pools, "texts": texts,
+             "rows": [rows_of(out) for out in batch]})
 
 
 def recall_at_k(batch, exact_ids) -> float:
@@ -2777,9 +2825,10 @@ def phase10_built_m2v(dev, tmp: str, lexical: dict, m2v_run: dict) -> tuple[dict
             launches, kernels)
 
 
+CLI_DOCS = 500_000  # phases 11-13: the CLI's root holds phase 4's first CLI_DOCS docs (a depth cut for the script's time)
 CLI_MAX_BATCH = 256  # serve --serve-max-batch: phase 4's whole batch in one search_batch
 CLI_COALESCE_MS = 200  # serve --coalesce-ms: time for the pipelined frames to arrive
-CLI_WAIT_S = 900  # longest wait for a reply (the serve loop opens a 1M-doc root first)
+CLI_WAIT_S = 900  # longest wait for a reply (the serve loop opens the CLI's root first)
 #: added to every CLI subprocess's argv: empty on the card (the default
 #: device); a CPU rehearsal sets ["--device", "cpu"]
 CLI_DEVICE_ARGS: list = []
@@ -2991,7 +3040,7 @@ def serve_session(root: str, queries: list[str], singles: list[str], *, argv: tu
 
 
 def phase11_cli(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
-    """cli-1M: the product CLI over phase 4's 1M docs. ``index`` (in
+    """cli-500k: the product CLI over phase 4's first CLI_DOCS docs. ``index`` (in
     process, no ``--device``: the card; the default stack, HashEmbedder(256),
     a bf16 slab and the FLXB arm) builds a root from a JSONL corpus; ``serve
     --warmup`` answers phase 4's 256 queries as one coalesced batch, eight
@@ -3009,7 +3058,7 @@ def phase11_cli(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
     from frankensearch_tpu_torch.lexical.delta import DeltaLexicalIndex
     from frankensearch_tpu_torch.ops.pressure import PressureState
 
-    texts, queries, singles = lexical["texts"], lexical["queries"], lexical["singles"]
+    texts, queries, singles = lexical["texts"][:CLI_DOCS], lexical["queries"], lexical["singles"]
     corpus, root = os.path.join(tmp, "cli_corpus.jsonl"), os.path.join(tmp, "cli_root")
     with open(corpus, "w", encoding="utf-8") as f:
         f.writelines(json.dumps({"id": f"doc-{i:07d}", "content": t}) + "\n" for i, t in enumerate(texts))
@@ -3026,6 +3075,7 @@ def phase11_cli(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
     need_launches("phase11", launches, ("K1", "K2", "K3"))
     # the shapes phases 11-12 hold to the twins on the CLI's root; phase 13 skips them
     lexical["cli_shapes"], lexical["cli_flat"] = set(shapes), set(flat_inputs)
+    lexical["cli_docs"] = len(texts)  # the root phase 12 watches
     replies, ms, sensed = session["replies"], session["ms"], session["sensed"]
     warm = replies["ready"][0]
     if not warm["ok"] or warm["data"]["op"] != "warmup":
@@ -3079,8 +3129,8 @@ def phase11_cli(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
     outright = lexical_oracle_check(sealed, queries, K, phase="phase11")
     log(f"phase11 the root's lexical top-{K} of {len(queries)} queries vs exact f64 host BM25: {outright} equal, "
         f"{len(queries) - outright} differ only at ties within {ORACLE_REL_TOL:g} ({time.perf_counter() - t0:.1f} s)")
-    kernels = check_kernels("cli-1M", oracle.index.fast.slab, oracle.index.fast._effective_mask(None, None), shapes)
-    kernels += check_flat_kernel("cli-1M", sealed._blocked.classes, flat_inputs)
+    kernels = check_kernels("cli-500k", oracle.index.fast.slab, oracle.index.fast._effective_mask(None, None), shapes)
+    kernels += check_flat_kernel("cli-500k", sealed._blocked.classes, flat_inputs)
     oracle.close()
     del oracle, sealed, want
     torch.cuda.empty_cache()
@@ -3377,7 +3427,7 @@ def shadow_ties(corpus: str, env: dict) -> int:
 
 
 def phase12_live(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
-    """cli-live-1M: ``watch`` into phase 11's 1M-doc root twice (768 docs,
+    """cli-live-500k: ``watch`` into phase 11's root twice (768 docs,
     then modifies, deletes, renames, creates and dropped records under
     ``--durability-window``), ``tui`` on the sync searcher over the watched
     root (every line bitwise the library's over the handle it opened,
@@ -3440,13 +3490,14 @@ def phase12_live(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
         tokens = live_corpus(live, texts)
         run1, ms1 = watch_run(live, root)
         n_live = LIVE_FILES + LIVE_RECORDS
-        if run1["batches"] != [{"ingested": n_live, "deleted": 0, "renamed": 0}] or run1["doc_count"] != H1M_DOCS + n_live:
+        if (run1["batches"] != [{"ingested": n_live, "deleted": 0, "renamed": 0}]
+                or run1["doc_count"] != lexical["cli_docs"] + n_live):
             raise AssertionError(f"phase12: watch run 1 {run1}")
         expect = churn(live, texts)
         run2, ms2 = watch_run(live, root, "--durability-window", "0.5")
         n = LIVE_CHURN
         want2 = {"ingested": 2 * n + LIVE_RECORDS - n, "deleted": 2 * n, "renamed": n}
-        docs_after = H1M_DOCS + n_live + n - 2 * n
+        docs_after = lexical["cli_docs"] + n_live + n - 2 * n
         if run2["batches"] != [want2] or run2["doc_count"] != docs_after:
             raise AssertionError(f"phase12: watch run 2 {run2}, expected {want2} and {docs_after} docs")
         log(f"phase12 watch run 1: {n_live} docs in {ms1['wall'] / 1e3:.1f} s (open {ms1['open'][0] / 1e3:.1f} s; "
@@ -3502,9 +3553,9 @@ def phase12_live(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
                   if getattr(seg, "_blocked", None) is not None]
         if len(sealed) != 1:
             raise AssertionError(f"phase12: {len(sealed)} segments in the split layout, expected 1")
-        kernels = check_kernels("cli-live-1M", handle.index.fast.slab, handle.index.fast._effective_mask(None, None),
+        kernels = check_kernels("cli-live-500k", handle.index.fast.slab, handle.index.fast._effective_mask(None, None),
                                 shapes)
-        kernels += check_flat_kernel("cli-live-1M", sealed[0]._blocked.classes, flat_inputs)
+        kernels += check_flat_kernel("cli-live-500k", sealed[0]._blocked.classes, flat_inputs)
         emb = HashEmbedder(dim=DIM)
         fast_before = {t: [(h.doc_id, h.score) for h in handle.index.search_fast_classified(emb.embed(t), K).hits]
                        for t in fresh}
@@ -3606,7 +3657,7 @@ def phase12_live(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
     return rec, launches, kernels
 
 
-FLEET_SERVE = "serve-1m"  # phase 13: the serve node's --node-id
+FLEET_SERVE = "serve-cli"  # phase 13: the serve node's --node-id
 FLEET_DAEMON = "daemon-20k"  # the daemon node's, over the small root
 FLEET_BEAT_WAIT_S = 30.0  # longest wait for a node's next heartbeat (the registrar beats every 2 s)
 FLEET_SETTLE_S = 0.5  # a beat this long after the last reply holds every query the server observed
@@ -3824,8 +3875,8 @@ def host_commands(tmp: str) -> dict:
 
 
 def phase13_fleet(dev, tmp: str, lexical: dict, docs: int) -> tuple[dict, dict, list[dict]]:
-    """cli-fleet-1M: ``serve --fleet-dir F --node-id serve-1m --warmup`` in
-    process on phase 12's watched 1M-doc root (``docs`` docs): phase 4's
+    """cli-fleet-500k: ``serve --fleet-dir F --node-id serve-cli --warmup`` in
+    process on phase 12's watched root (``docs`` docs): phase 4's
     256 pipelined queries and 8 singletons, every reply bitwise the
     library's over the handle serve opened, K1/K2/K3 counted; while it
     serves, ``fleet --live F`` (the node healthy, this process's pid, the
@@ -3837,7 +3888,7 @@ def phase13_fleet(dev, tmp: str, lexical: dict, docs: int) -> tuple[dict, dict, 
     node, killed, reported down and reaped; serve's node file gone after
     ``shutdown``. Then ``repro`` over the small root (its phases and
     results those of ``search()`` over a library handle, the card in
-    ``environment.json``, the pack valid), ``footprint`` of the 1M root
+    ``environment.json``, the pack valid), ``footprint`` of the CLI's root
     (its counts the FTVI's, the report valid), and the host commands."""
     import torch
 
@@ -3929,12 +3980,12 @@ def phase13_fleet(dev, tmp: str, lexical: dict, docs: int) -> tuple[dict, dict, 
         if pong["data"] != {"op": "pong"} or reply["data"] != json_rows(handle.searcher.search(q, k=K).results):
             raise AssertionError(f"phase13: singleton {q!r} differs from the library's search()")
     done = lexical["cli_shapes"]
-    kernels = check_kernels("cli-fleet-1M", slab, handle.index.fast._effective_mask(None, None), shapes, done=done)
+    kernels = check_kernels("cli-fleet-500k", slab, handle.index.fast._effective_mask(None, None), shapes, done=done)
     new_flat = {key: v for key, v in flat_inputs.items() if key not in lexical["cli_flat"]}
     if new_flat:
         sealed = [seg for seg in getattr(handle.delta.sealed, "segments", [handle.delta.sealed])
                   if getattr(seg, "_blocked", None) is not None]
-        kernels += check_flat_kernel("cli-fleet-1M", sealed[0]._blocked.classes, new_flat)
+        kernels += check_flat_kernel("cli-fleet-500k", sealed[0]._blocked.classes, new_flat)
     log(f"phase13 every reply bitwise the library's over the handle serve opened; kernel shapes {sorted(shapes)}, "
         f"K3 tiles {sorted(flat_inputs)}; held to their twins here where phases 11-12 had not: {len(kernels)} records")
     handle.close()
@@ -3972,7 +4023,7 @@ def phase13_fleet(dev, tmp: str, lexical: dict, docs: int) -> tuple[dict, dict, 
         f"{[k for k, _ in got_phases]} and results bitwise search()'s over a library handle; environment names "
         f"{environment['devices']}; INDEX.json valid")
 
-    # footprint of the 1M root, against its FTVI
+    # footprint of the CLI's root, against its FTVI
     t0 = time.perf_counter()
     fp = run_cli(["footprint", "--root", root])["data"]
     wall["footprint_s"] = time.perf_counter() - t0
@@ -3985,7 +4036,7 @@ def phase13_fleet(dev, tmp: str, lexical: dict, docs: int) -> tuple[dict, dict, 
             TwoTierPaths(root).fast) or fragmented != (dead >= footprint.TOMBSTONE_COMPACT_FRACTION * ftvi.record_count)
             or fp["automatic_deletion_allowed"] is not False):
         raise AssertionError(f"phase13: footprint {fp} against the FTVI's {dead} of {ftvi.record_count} tombstoned")
-    log(f"phase13 footprint of the 1M root in {wall['footprint_s']:.1f} s: {fp['total_bytes']} bytes {fp['domains']}, "
+    log(f"phase13 footprint of the CLI's root in {wall['footprint_s']:.1f} s: {fp['total_bytes']} bytes {fp['domains']}, "
         f"rows tombstoned / live {counts} as the FTVI's flags; {len(fp['recommendations'])} recommendations; "
         f"report valid")
     del ftvi
@@ -4508,7 +4559,7 @@ def phase15_gauntlet(dev, tmp: str, semantic: dict, lexical: dict, quality: dict
     # --- 15a: the differential campaign on the 1M arm ---
     t0 = time.perf_counter()
     docs = [IndexableDocument(doc_id=f"doc-{i:07d}", content=t) for i, t in enumerate(texts)]
-    exact = ExactBm25(bm25)
+    exact = lexical["exact"] = ExactBm25(bm25)  # phase 16 reuses it
     rec["oracle_build_s"] = time.perf_counter() - t0
     campaigns = {}
     for mode in ("auto", "blocked"):
@@ -4726,6 +4777,398 @@ def phase15_gauntlet(dev, tmp: str, semantic: dict, lexical: dict, quality: dict
     log(f"phase15 total {rec['phase_s']:.1f} s; launches {launches}")
     return rec, launches, kernels
 
+SHARDS = 4  # phase 16: shards of the sharded-1M mesh, all on the one card
+SHARD_OPEN = 4  # 16e: IndexBuilder / open_hybrid mesh_shards (make_mesh: one shard a card)
+SHARD_CLI = 2  # 16e: the CLI's --shards
+SHARD_ROOT_QUERIES = 64  # 16e: queries over the 20,000-doc roots (three words of a seeded doc each)
+HOT_AB_DOCS = 20_000  # 16d: the retired hot combine's split layout (its dense hot columns are (H_pad, N_pad) f32)
+HOT_AB_B = 8
+HOT_AB_TOL = 1e-5  # hot combine vs the flat lane: tests/test_hot_arm.py's tolerance
+
+
+def reorders(what: str, got_rows, want_rows, got_pools, want_pools) -> int:
+    """Fused results of one batch against another arm's over the same
+    queries: each query's lexical pools the same ranking within
+    LEX_REL_TOL (``same_ranking``), and its doc ids equal unless the pools
+    differ in order. Returns how many queries' doc ids differ (each a
+    lexical reorder within LEX_REL_TOL)."""
+    n = 0
+    for j, (g, w) in enumerate(zip(got_rows, want_rows)):
+        gp, wp = got_pools[j], want_pools[j]
+        same_ranking(gp, wp, LEX_REL_TOL, f"{what} query {j} lexical pool")
+        if [r[0] for r in g] != [r[0] for r in w]:
+            if [d for d, _ in gp] == [d for d, _ in wp]:
+                raise AssertionError(f"{what}: query {j} doc ids differ with the same lexical order")
+            n += 1
+        elif any(abs(a[1] - b[1]) > LEX_REL_TOL * abs(b[1]) for a, b in zip(g, w)):
+            raise AssertionError(f"{what}: query {j} fused scores differ")
+    return n
+
+
+def pools_of(searcher, into: dict):
+    """A ``_fill_fused`` that notes the first batch's lexical pools (doc
+    id, score) per query into ``into`` while it is empty."""
+    fill = searcher._fill_fused
+
+    def fill_noted(fused, live, *rest):
+        if not into:
+            into.update({i: [(c.doc_id, c.score) for c in fused[1][j]] for j, i in enumerate(live)})
+        return fill(fused, live, *rest)
+
+    return fill_noted
+
+
+def phase16_sharded(dev, tmp: str, semantic: dict, lexical: dict) -> tuple[dict, dict, list[dict]]:
+    """sharded-1M: phase 2's 1M vectors and phase 4's 1M lexical arm on a
+    mesh of SHARDS shards of the one card, no new 1M root. 16a the fast
+    tier (``ShardedDeviceVectorIndex``, 4 x 253,952 rows) through a
+    fast-only searcher, auto (K1 + K2 per shard) and int8 (K4 + K2-i8 per
+    shard); 16b the lexical arm block-sharded (``ShardedBulkDeviceBm25Index``:
+    the unsplit layout rebuilt from its host postings) against the exact
+    f64 BM25; 16c the hybrid searcher over both through the sharded fused
+    lane and the device RRF; 16d the retired hot combine on a 20,000-doc
+    split layout; then K1, K2, K4 and K2-i8 against their twins at the
+    per-shard shapes."""
+    import torch
+
+    from frankensearch_tpu_torch import TwoTierConfig, TwoTierIndex, TwoTierSearcher
+    from frankensearch_tpu_torch.parallel.mesh import Mesh
+    from frankensearch_tpu_torch.parallel.sharded_bm25 import ShardedBulkDeviceBm25Index
+    from frankensearch_tpu_torch.parallel.sharded_index import ShardedDeviceVectorIndex
+
+    t_phase = time.perf_counter()
+    fast, emb = semantic["index"].fast, semantic["emb"]
+    mesh = Mesh([dev] * SHARDS, ("d",))
+    rec: dict = {}
+    launches = {name: 0 for name in launch_counters()}
+
+    def add(more: dict, want: dict) -> None:
+        for name, n in more.items():
+            launches[name] += n
+        for name, n in want.items():
+            if more[name] != n:
+                raise AssertionError(f"phase16: {name} launched {more[name]} times, want {n} ({more})")
+
+    # --- 16a: the fast tier ---
+    t0 = time.perf_counter()
+    sharded = ShardedDeviceVectorIndex(fast.vectors_f32(), fast.doc_ids, fast.identity, mesh=mesh, normalize=False,
+                                       hier_align=True)  # the card's default, said for CPU rehearsals
+    rec["fast_build_s"] = time.perf_counter() - t0
+    local = sharded.local_rows
+    if local % 8192 or sharded.n_pad != SHARDS * local or sharded.n_pad - fast.n_rows >= SHARDS * 8192:
+        raise AssertionError(f"phase16: {sharded.n_pad} padded rows, {local} a shard")
+    if any(s.data_ptr() != sharded.slab[i * local:].data_ptr() for i, s in enumerate(sharded._slab_shards)):
+        raise AssertionError("phase16: a shard is not a view of the slab on its own card")
+    index = TwoTierIndex(sharded)
+    searcher = TwoTierSearcher(index, emb, config=TwoTierConfig(fast_only=True))
+    queries, singles = semantic["queries"], semantic["queries"][:8]
+    shapes: set = set()
+    drive(lambda: searcher.search_batch(queries[:8], k=K), shapes)  # warm-up
+    (batch, batch_ms, solo, single_ms), l = drive(lambda: serve(searcher, queries, singles), shapes)
+    add(l, {"K1": SHARDS * (1 + len(singles)), "K2": SHARDS * (1 + len(singles))})
+    for j, out in enumerate(batch):
+        if rows_of(out) != semantic["rows"][j]:
+            raise AssertionError(f"phase16: query {j} differs from phase 2's single-device rows")
+    for j, one in enumerate(solo):
+        if rows_of(one) != semantic["rows"][j]:
+            raise AssertionError(f"phase16: singleton {j} differs from phase 2's batch row")
+    recall = recall_at_k(batch, semantic["exact_ids"])
+    if recall < 0.99:
+        raise AssertionError(f"phase16: recall@10 {recall} < 0.99")
+    qv = emb.embed_batch(queries)
+    got, want = sharded.search_batch(qv, K), fast.search_batch(qv, K)  # comparison runs
+    if not (torch.equal(got.indices, want.indices) and torch.equal(got.scores.view(torch.int32),
+                                                                    want.scores.view(torch.int32))):
+        raise AssertionError("phase16: the sharded index's rows or score bits differ from the single-device index's")
+    rec["fast"] = {"padded_rows": sharded.n_pad, "shard_rows": local, "batch_ms": batch_ms, "single_ms": single_ms,
+                   "recall_at_10": recall}
+    log(f"phase16a sharded-1M fast tier ({SHARDS} x {local} rows, build {rec['fast_build_s']:.1f} s): B=256 "
+        f"{batch_ms:.2f} ms, singletons " + ", ".join(f"{t:.2f}" for t in single_ms) + f" ms; rows and score bits "
+        f"equal to phase 2's single-device index; recall@10 {recall:.4f}; K1 / K2 {l['K1']} / {l['K2']} launches")
+
+    searcher8 = TwoTierSearcher(index, emb, config=TwoTierConfig(fast_only=True, scan_mode="int8"))
+    t0 = time.perf_counter()
+    i8_shards, scale_shards = sharded._int8_arm_sharded()
+    rec["int8_calibrate_s"] = time.perf_counter() - t0
+    shapes8: set = set()
+    (b8, b8_ms), l = drive(lambda: timed(lambda: searcher8.search_batch(queries, k=K)), shapes8)
+    add(l, {"K4": SHARDS, "K2-i8": SHARDS})
+    recall8 = recall_at_k(b8, semantic["exact_ids"])
+    if recall8 < INT8_RECALL_FLOOR:
+        raise AssertionError(f"phase16: int8 recall@10 {recall8} < {INT8_RECALL_FLOOR}")
+    rec["int8"] = {"batch_ms": b8_ms, "recall_at_10": recall8}
+    log(f"phase16a sharded-1M-int8 (calibrated in {rec['int8_calibrate_s']:.1f} s): B=256 {b8_ms:.2f} ms, "
+        f"recall@10 {recall8:.4f}")
+    searcher.close()
+    searcher8.close()
+
+    # --- 16b: the lexical arm ---
+    bm25, lq, lsingles = lexical["bm25"], lexical["queries"], lexical["singles"]
+    t0 = time.perf_counter()
+    arm = ShardedBulkDeviceBm25Index(bm25, mesh)
+    rec["lex_build_s"] = time.perf_counter() - t0
+    blocked = arm._blocked_host
+    t0 = time.perf_counter()
+    exact = lexical.get("exact") or ExactBm25(bm25)  # phase 15's, over the same postings
+    outright = lexical_oracle_check(arm, lq, K, phase="phase16", exact=exact)
+    rec["lexical"] = {"blocks": blocked.n_blk, "classes": len(blocked.classes),
+                      "blocks_a_shard": [n // SHARDS for n in arm._sharded.n_pad],
+                      "blocks_skipped": arm.last_blocks_skipped, "oracle_equal": outright,
+                      "oracle_s": time.perf_counter() - t0, "build_s": rec["lex_build_s"]}
+    log(f"phase16b sharded lexical arm ({blocked.n_blk} blocks in {len(blocked.classes)} classes, the unsplit "
+        f"layout of {bm25.posting_count} postings rebuilt in {rec['lex_build_s']:.1f} s): top-{K} of {len(lq)} "
+        f"queries vs exact f64 host BM25: {outright} equal, {len(lq) - outright} differ only at ties within "
+        f"{ORACLE_REL_TOL:g}; {arm.last_blocks_skipped} blocks skipped at B={len(lq)}")
+
+    # --- 16c: the hybrid searcher over both sharded arms ---
+    hybrid = TwoTierSearcher(index, emb, lexical=arm, config=TwoTierConfig(fast_only=True))
+    drive(lambda: hybrid.search_batch(lq[:8], k=K), shapes)  # warm-up
+    pools: dict = {}
+    lanes: list = []
+
+    def hybrid_path():
+        hybrid._fill_fused = pools_of(hybrid, pools)
+        try:
+            out = serve(hybrid, lq, lsingles)
+        finally:
+            del hybrid._fill_fused
+        lanes.append(hybrid.last_phase1_lex_lane)
+        return out
+
+    (hbatch, hms, hsolo, hsingle_ms), l = drive(hybrid_path, shapes)
+    add(l, {"K1": SHARDS * (1 + len(lsingles)), "K2": SHARDS * (1 + len(lsingles)), "K3": 0})
+    if lanes != ["sharded"] or not all(o.metrics.phase1_fused for o in hbatch) or hybrid.last_fusion_path != "device":
+        raise AssertionError(f"phase16: the sharded fused lane did not run ({lanes}, {hybrid.last_fusion_path})")
+    hpools = dict(pools)
+    check_singletons("phase16", lq, hbatch, lsingles, hsolo)
+    n_reordered = reorders("phase16", [rows_of(o) for o in hbatch], lexical["rows"],
+                           [hpools[j] for j in range(len(lq))], [lexical["pools"][j] for j in range(len(lq))])
+    hybrid._device_rrf_tail = lambda *args: (None, None)
+    oracle = hybrid.search_batch(lq, k=K)
+    if hybrid.last_fusion_path != "host_vectorized":
+        raise AssertionError(f"phase16: oracle fusion path {hybrid.last_fusion_path!r}")
+    for j, (out, want) in enumerate(zip(hbatch, oracle)):
+        if [(r.doc_id, r.score) for r in out.results] != [(r.doc_id, r.score) for r in want.results]:
+            raise AssertionError(f"phase16: query {j} differs from the host RRF oracle")
+    del hybrid._device_rrf_tail
+    hybrid.close()
+    rec["hybrid"] = {"batch_ms": hms, "single_ms": hsingle_ms, "reordered": n_reordered}
+    log(f"phase16c hybrid over both sharded arms: B=256 {hms:.2f} ms through the sharded fused lane, singletons "
+        + ", ".join(f"{t:.2f}" for t in hsingle_ms) + " ms; device RRF bitwise the host RRF oracle; singletons "
+        f"bitwise their batch rows; doc ids equal to phase 4's single-device results but {n_reordered} queries "
+        f"(lexical reorders within {LEX_REL_TOL:g})")
+
+    # --- 16d: the retired hot combine ---
+    rec["hot_ab"] = phase16_hot_ab(dev, lexical)
+
+    kernels = check_kernels("sharded-1M", sharded._slab_shards[0], sharded._mask_shards[0], shapes)
+    kernels += check_int8_kernels("sharded-1M-int8", i8_shards[0], scale_shards[0], sharded._mask_shards[0], shapes8)
+    del sharded, index, arm, i8_shards, scale_shards
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase16 (sharded-1M) {rec['phase_s']:.1f} s; launches {launches}")
+    return rec, launches, kernels
+
+
+def phase16_hot_ab(dev, lexical: dict) -> dict:
+    """The term-driven lane's retired hot combine (``ab_primitives.
+    hot_daat_topk_ab``) on the card at B = HOT_AB_B, on a split layout of
+    phase 4's first HOT_AB_DOCS docs with the thresholds lowered, over
+    queries with both hot and tail terms: rank-equal to the split layout's
+    flat lane (K3) up to ties within HOT_AB_TOL, scores within it."""
+    import numpy as np
+    import torch
+
+    from frankensearch_tpu_torch import BulkDeviceBm25Index, IndexableDocument
+    from frankensearch_tpu_torch.lexical import daat, hot_arm
+    from frankensearch_tpu_torch.lexical import device_bm25 as bm
+    from frankensearch_tpu_torch.ops.ab_primitives import hot_daat_topk_ab
+
+    t0 = time.perf_counter()
+    docs = [IndexableDocument(doc_id=f"doc-{i:07d}", content=t) for i, t in enumerate(lexical["texts"][:HOT_AB_DOCS])]
+    saved = bm.BLOCKED_THRESHOLD_POSTINGS, hot_arm.HOT_MIN_POSTINGS
+    bm.BLOCKED_THRESHOLD_POSTINGS, hot_arm.HOT_MIN_POSTINGS = 1, 1
+    try:
+        idx = BulkDeviceBm25Index(docs, device=dev)
+    finally:
+        bm.BLOCKED_THRESHOLD_POSTINGS, hot_arm.HOT_MIN_POSTINGS = saved
+    hot = idx._hot
+    if hot is None:
+        raise AssertionError("phase16d: the split layout was not built")
+    terms, dids, tfs = idx._post_host
+    cols = np.zeros((hot.h_pad, max((idx.n_docs + 127) // 128 * 128, 128)), dtype=np.float32)
+    rows = hot.hot_row_of[terms.astype(np.int64)]
+    sel = rows >= 0
+    np.add.at(cols, (rows[sel], dids[sel].astype(np.int64)), tfs[sel])
+    tm = daat.build_term_major(*idx._cold_host, vocab_size=idx.vocab_size, device=dev)
+    ids, w = idx._query_sparse_rows(lexical["queries"])
+    q_hot = hot_arm.split_hot_rows(hot.hot_row_of, ids, w, hot.h_pad)
+    _, tail_w = hot_arm.compact_tail_rows(hot.hot_row_of, ids, w)
+    both = np.flatnonzero((q_hot > 0).any(axis=1) & (tail_w > 0).any(axis=1))[:HOT_AB_B]
+    if len(both) < HOT_AB_B:
+        raise AssertionError(f"phase16d: {len(both)} queries with hot and tail terms")
+    queries = [lexical["queries"][j] for j in both]
+    plan = daat.build_gather_plan(tm.ptr, ids[both], w[both])
+    args = (torch.from_numpy(cols).to(dev), torch.from_numpy(q_hot[both]).to(dev), tm.tm_doc, tm.tm_tf,
+            *(torch.from_numpy(x).to(dev) for x in plan))
+    (s, i), ms = timed(lambda: hot_daat_topk_ab(*args, k=K, t_run=ids.shape[1]))
+    s, i = s.cpu().numpy(), i.cpu().numpy()
+    idx.daat_mode = "blocked"
+    flat = idx.search_candidates_batch(queries, K)
+    if idx.last_lane != "blocked":
+        raise AssertionError(f"phase16d: the flat lane did not run ({idx.last_lane})")
+    for b, cands in enumerate(flat):
+        same_ranking([(idx.doc_ids[int(i[b, j])], float(s[b, j])) for j in range(K) if s[b, j] > 0.0],
+                     [(c.doc_id, c.score) for c in cands], HOT_AB_TOL, f"phase16d query {queries[b]!r}")
+    out = {"docs": HOT_AB_DOCS, "hot_terms": hot.n_hot, "h_pad": hot.h_pad, "cols_shape": list(cols.shape),
+           "ms": ms, "s": time.perf_counter() - t0}
+    log(f"phase16d hot_daat_topk_ab at B={HOT_AB_B} over a {HOT_AB_DOCS}-doc split layout ({hot.n_hot} hot terms, "
+        f"columns {cols.shape}): {ms:.2f} ms, rank-equal to the flat lane (K3) within {HOT_AB_TOL:g} "
+        f"({out['s']:.1f} s)")
+    return out
+
+
+def phase16_roots(dev, tmp: str) -> tuple[dict, dict, list[dict]]:
+    """16e, the library and the CLI on the mesh at a depth cut, over the
+    20,000-doc corpus phase 12 indexed (``fed_corpus.jsonl``, the
+    ``fed_root`` phase 13's ``repro`` reads): ``IndexBuilder`` with
+    ``mesh_shards=SHARD_OPEN`` into a root of its own and ``open_hybrid``
+    with the same (``make_mesh``: one shard on a one-card machine), its
+    batch through the sharded fused lane against the unsharded open of the
+    root, an append, a delete, a seal and ``compact()``, then a reopen; then
+    ``search --shards`` and ``serve --shards`` over ``fed_root`` against the
+    same commands unsharded. Doc ids equal (a lexical reorder within
+    LEX_REL_TOL counted), fused scores within LEX_REL_TOL."""
+    import numpy as np
+
+    from frankensearch_tpu_torch import IndexableDocument, IndexBuilder, TwoTierConfig, open_hybrid
+    from frankensearch_tpu_torch.parallel.sharded_bm25 import ShardedBulkDeviceBm25Index
+    from frankensearch_tpu_torch.parallel.sharded_index import ShardedDeviceVectorIndex
+
+    t_phase = time.perf_counter()
+    small, corpus = os.path.join(tmp, "fed_root"), os.path.join(tmp, "fed_corpus.jsonl")
+    with open(corpus) as f:
+        records = [json.loads(line) for line in f]
+    docs = [IndexableDocument(doc_id=r["id"], content=r["content"], title=r.get("title")) for r in records]
+    rng = np.random.default_rng(SEED + 18)
+    queries = [" ".join(docs[j].content.split()[:3]) for j in rng.choice(len(docs), SHARD_ROOT_QUERIES, replace=False)]
+    rec: dict = {}
+    launches = {name: 0 for name in launch_counters()}
+    shapes: set = set()
+
+    def add(more: dict) -> None:
+        for name, n in more.items():
+            launches[name] += n
+
+    root = os.path.join(tmp, "shard_root")
+    cfg = TwoTierConfig(mesh_shards=SHARD_OPEN)
+    t0 = time.perf_counter()
+    stats = IndexBuilder(root).with_documents(docs).with_config(cfg).build()
+    rec["build_s"] = time.perf_counter() - t0
+    if stats.doc_count != FED_DOCS:
+        raise AssertionError(f"phase16e: the build kept {stats.doc_count} docs")
+    h, plain = open_hybrid(root, config=cfg), open_hybrid(root)
+    if not (isinstance(h.index.fast, ShardedDeviceVectorIndex) and isinstance(h.delta.sealed, ShardedBulkDeviceBm25Index)):
+        raise AssertionError("phase16e: open_hybrid(mesh_shards) did not shard both arms")
+    n_shards = len(h.index.fast.shard_devices)
+    h.searcher.search_batch(queries[:8], k=K)  # warm-up
+    pools: dict = {}
+    h.searcher._fill_fused = pools_of(h.searcher, pools)
+    try:
+        (batch, ms), l = drive(lambda: timed(lambda: h.searcher.search_batch(queries, k=K)), shapes)
+    finally:
+        del h.searcher._fill_fused
+    add(l)
+    need_launches("phase16e", l)
+    if h.searcher.last_phase1_lex_lane != "sharded":
+        raise AssertionError(f"phase16e: lane {h.searcher.last_phase1_lex_lane!r}")
+    got_pools = [pools[j] for j in range(len(queries))]
+    pools.clear()
+    plain.searcher._fill_fused = pools_of(plain.searcher, pools)
+    try:
+        want = plain.searcher.search_batch(queries, k=K)
+    finally:
+        del plain.searcher._fill_fused
+    rec["library_reordered"] = reorders("phase16e library", [rows_of(o) for o in batch], [rows_of(o) for o in want],
+                                        got_pools, [pools[j] for j in range(len(queries))])
+    plain.close()
+
+    new = IndexableDocument(doc_id="shard-new", content="zeppelinshard quartzite")
+    gone = docs[5].doc_id
+    h.index.append_fast([new.doc_id], h.searcher.fast_embedder.embed_batch([new.content]))
+    h.delta.add_document(new)
+    h.delta.commit()
+    h.delete([gone])
+    if not isinstance(h.index.fast, ShardedDeviceVectorIndex):
+        raise AssertionError("phase16e: a write left the sharded fast tier")
+    if h.searcher.search(new.content, k=K).results[0].doc_id != new.doc_id:
+        raise AssertionError("phase16e: the appended doc is not its own top hit")
+    h.delta.seal()
+    t0 = time.perf_counter()
+    compacted = h.index.compact()
+    rec["compact_s"] = time.perf_counter() - t0
+    if not isinstance(compacted.fast, ShardedDeviceVectorIndex) or compacted.mesh_shards != SHARD_OPEN \
+            or compacted.fast.row_for(gone) is not None or compacted.fast.row_for(new.doc_id) is None:
+        raise AssertionError("phase16e: compact() lost the mesh or the writes")
+    h.close()
+    t0 = time.perf_counter()
+    h = open_hybrid(root, config=cfg)
+    rec["reopen_s"] = time.perf_counter() - t0
+    top = h.searcher.search(new.content, k=K).results
+    hits = {r.doc_id for r in h.searcher.search(docs[5].content, k=K).results}
+    if not isinstance(h.index.fast, ShardedDeviceVectorIndex) or top[0].doc_id != new.doc_id or gone in hits:
+        raise AssertionError("phase16e: the reopened root lost the mesh or the writes")
+    h.close()
+    log(f"phase16e IndexBuilder(mesh_shards={SHARD_OPEN}) {rec['build_s']:.1f} s, open_hybrid on {n_shards} "
+        f"shard(s): B={len(queries)} {ms:.2f} ms through the sharded fused lane, doc ids equal to the unsharded "
+        f"open but {rec['library_reordered']} queries (lexical reorders within {LEX_REL_TOL:g}); append, delete, "
+        f"seal, compact() {rec['compact_s']:.1f} s and reopen {rec['reopen_s']:.1f} s on the mesh")
+
+    # the CLI over phase 12's root; where a reply's doc ids differ from the
+    # unsharded reply's, the two lexical arms' candidates for its query must
+    # be one ranking within LEX_REL_TOL
+    arms = [open_hybrid(small, config=TwoTierConfig(mesh_shards=SHARD_CLI)), open_hybrid(small)]
+
+    def reordered(q: str, got: list, want: list, what: str) -> int:
+        got, want = [(r["doc_id"], r["score"]) for r in got], [(r["doc_id"], r["score"]) for r in want]
+        if [d for d, _ in got] != [d for d, _ in want]:
+            same_ranking(*[[(c.doc_id, c.score) for c in a.delta.sealed.search_candidates(q, 100)] for a in arms],
+                         LEX_REL_TOL, f"phase16e {what} {q!r}")
+            return 1
+        if any(abs(x - y) > LEX_REL_TOL * abs(y) for (_, x), (_, y) in zip(got, want)):
+            raise AssertionError(f"phase16e: {what} {q!r} scores differ")
+        return 0
+
+    sharded_cli, l = drive(lambda: [run_cli(["search", q, "--root", small, "-k", str(K), "--shards", str(SHARD_CLI)])
+                                    for q in queries[:8]], shapes)
+    add(l)
+    plain_cli = [run_cli(["search", q, "--root", small, "-k", str(K)]) for q in queries[:8]]
+    cli_reordered = sum(reordered(q, a["data"], b["data"], "search --shards")
+                        for q, a, b in zip(queries[:8], sharded_cli, plain_cli))
+    served, l = drive(lambda: serve_session(small, queries, queries[:4], argv=("--shards", str(SHARD_CLI)),
+                                            full=False), shapes)
+    add(l)
+    need_launches("phase16e", launches)
+    base = serve_session(small, queries, queries[:4], full=False)
+    if not isinstance(served["handle"].index.fast, ShardedDeviceVectorIndex):
+        raise AssertionError("phase16e: serve --shards did not open the sharded fast tier")
+    asked = {"batch": queries, **{f"single{i}": [q] for i, q in enumerate(queries[:4])}}
+    serve_reordered = 0
+    for step, qs in asked.items():
+        for q, a, b in zip(qs, served["replies"][step], base["replies"][step]):
+            if not (a["ok"] and b["ok"]):
+                raise AssertionError(f"phase16e: serve {step} failed: {a.get('error')} / {b.get('error')}")
+            serve_reordered += reordered(q, a["data"], b["data"], f"serve --shards {step}")
+    for a in arms:
+        a.close()
+    rec.update({"cli_reordered": cli_reordered, "serve_reordered": serve_reordered, "serve_ms": served["ms"],
+                "phase_s": time.perf_counter() - t_phase})
+    log(f"phase16e search --shards {SHARD_CLI} (8 queries) and serve --shards {SHARD_CLI} ({len(queries)} "
+        f"pipelined, 4 singletons) over the {FED_DOCS}-doc root: doc ids equal to the unsharded replies but "
+        f"{cli_reordered} / {serve_reordered} (lexical reorders within {LEX_REL_TOL:g}); {rec['phase_s']:.1f} s; "
+        f"launches {launches}")
+    return rec, launches, []
+
 
 def main() -> int:
     # the port must reach neither jax nor the JAX package, even indirectly
@@ -4798,6 +5241,11 @@ def main() -> int:
         wall["phase15_s"] = time.perf_counter() - t0
         del quality
         torch.cuda.empty_cache()
+        # phase 16 shards phases 2 and 4's arms over the card before phase 9
+        # writes into phase 2's index
+        t0 = time.perf_counter()
+        shard_rec, l16, k16 = phase16_sharded(dev, tmp, semantic, lexical)
+        wall["phase16_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         lanes_rec, l9, k9 = phase9_scan_lanes(dev, tmp, semantic)
         wall["phase9_s"] = time.perf_counter() - t0
@@ -4815,12 +5263,15 @@ def main() -> int:
         t0 = time.perf_counter()
         fleet_rec, l13, k13 = phase13_fleet(dev, tmp, lexical, live_rec["watch"][1]["doc_count"])
         wall["phase13_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        roots_rec, l16e, k16e = phase16_roots(dev, tmp)
+        wall["phase16e_s"] = time.perf_counter() - t0
         del lexical
         log("phase wall times: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
     wall["total_s"] = time.perf_counter() - t_main
     log(f"chip_smoke wall time: {wall['total_s']:.1f} s (the kernel build, every phase and the cleanup)")
 
-    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9 + k10 + k11 + k12 + k13 + k14 + k15
+    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9 + k10 + k11 + k12 + k13 + k14 + k15 + k16 + k16e
     kernels = []
     for name, key, src, replaces, cell in KERNELS:
         recs = [r for r in records if r["kernel"] == name]
@@ -4835,7 +5286,8 @@ def main() -> int:
         bound_ms = sum(r["bound"][0] for r in head) / len(head)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9, l10, l11, l12, l13, l14, l15)),
+            "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9, l10, l11, l12, l13, l14, l15,
+                                                    l16, l16e)),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": sum(r["ms"] for r in head) / len(head), "plain_ms": sum(r["plain_ms"] for r in head) / len(head),
             "bound_ms": bound_ms,
@@ -4847,7 +5299,7 @@ def main() -> int:
                     "hybrid_1m_m2v": m2v_rec, "hybrid_1m_quality": quality_rec, "scan_lanes": lanes_rec,
                     "built_1m_m2v": built_rec, "cli_1m": cli_rec, "cli_live_1m": live_rec,
                     "cli_fleet_1m": fleet_rec, "refresh_1m_quality": refresh_rec, "gauntlet_1m": gauntlet_rec,
-                    "wall_s": wall}))
+                    "sharded_1m": shard_rec, "sharded_roots": roots_rec, "wall_s": wall}))
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
     print(json.dumps({

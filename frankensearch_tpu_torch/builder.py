@@ -14,8 +14,9 @@ reference's fallbacks that would hide a device failure is carried over:
 a failure of the Model2Vec bag lane raises (the per-batch loop with
 per-doc errors is only for an embedder's own ``embed_batch`` failures),
 the packed lexical arm is skipped only when the native postings builder
-does not apply (``NativePostingsUnavailable``), and ``mesh_shards > 0``
-(the mesh-sharded arms) raises ``NotImplementedError``.
+does not apply (``NativePostingsUnavailable``), and with ``mesh_shards >
+0`` the packed arm is wrapped in the block-sharded arm on the fast tier's
+mesh (a failure there raises).
 """
 
 from __future__ import annotations
@@ -74,14 +75,6 @@ class IndexBuildStats:
     semantic: bool = True
 
 
-def _refuse_mesh(config: TwoTierConfig) -> None:
-    if config.mesh_shards > 0:
-        raise NotImplementedError(
-            "mesh_shards > 0: the mesh-sharded vector and lexical arms are not "
-            "ported yet (ROADMAP queue 1, item 4: multi-GPU)"
-        )
-
-
 class IndexBuilder:
     """Fluent corpus -> hybrid index builder on one device."""
 
@@ -130,7 +123,6 @@ class IndexBuilder:
 
     def build(self) -> IndexBuildStats:
         t0 = time.monotonic()
-        _refuse_mesh(self._config)
         stats = IndexBuildStats()
         stack = self._stack or EmbedderStack.auto_detect(self.root, device=self.device)
         stats.warnings.extend(stack.availability.warnings)
@@ -244,6 +236,7 @@ class IndexBuilder:
             quality_vectors=q_arr,
             quality_identity=stack.quality.identity() if (q_arr is not None and stack.quality) else None,
             slab_dtype=self._config.slab_dtype,  # create() quantizes int8 itself
+            mesh_shards=self._config.mesh_shards,
         )
 
         # lexical arm (embed-independent: all kept docs, index_builder.rs:474)
@@ -539,13 +532,13 @@ def open_hybrid(
     ``"cpu"``).
     """
     cfg = (config or TwoTierConfig.from_env()).validate()
-    _refuse_mesh(cfg)
     dev = resolve_device(device)
 
     def _open_index() -> TwoTierIndex:
         idx = TwoTierIndex.open(
             root, device=dev,
             slab_dtype=cfg.slab_dtype if cfg.slab_dtype != "int8" else "bf16",
+            mesh_shards=cfg.mesh_shards,
         )
         idx.wal_sync = cfg.wal_sync
         return idx
@@ -644,9 +637,17 @@ def open_hybrid(
     # so writes through handle.delta are searchable BEFORE the next
     # packed seal; the oracle arm remains the snapshot of record
     from frankensearch_tpu_torch.lexical.delta import DeltaLexicalIndex
+    from frankensearch_tpu_torch.lexical.device_bm25 import DeviceBm25Index
     from frankensearch_tpu_torch.lexical.persist import load_packed_lexical
 
     packed = load_packed_lexical(root, device=dev)
+    if cfg.mesh_shards > 0 and isinstance(packed, DeviceBm25Index):
+        # the lexical arm's postings blocks shard over the fast tier's mesh;
+        # a segment stack (an incremental seal's) serves from one device
+        # until the next full republish, as in the reference
+        from frankensearch_tpu_torch.parallel.sharded_bm25 import ShardedBulkDeviceBm25Index
+
+        packed = ShardedBulkDeviceBm25Index(packed, index.fast.mesh)
     delta = None
     if lexical is not None:
         delta = DeltaLexicalIndex(lexical, sealed=packed, root=root, device=dev)

@@ -51,8 +51,10 @@ the CPU). Ported:
                   --url, --rollback)
     uninstall     remove index/config state (--dry-run, --yes, --purge)
 
-Not ported yet (a typed ``not_ported`` error envelope, exit code 1): the
-flag ``--shards N`` > 0 (the mesh-sharded fast tier).
+``--shards N`` (N > 0) opens the fast tier row-sharded over a mesh of N
+devices and the packed lexical arm block-sharded over the same shards
+(``TwoTierConfig.mesh_shards``; at most the visible cards, N shards of the
+CPU with ``--device cpu``).
 
 Formats: table | json | jsonl | csv | toon (output_schema.rs envelope;
 toon = compact agent payloads with r1/r2/... handles, cli.rs toon mode).
@@ -65,26 +67,12 @@ import json
 import os
 import sys
 import time
-from typing import Iterable, NoReturn
+from typing import Iterable
 
 from frankensearch_tpu_torch.cli.output import ENVELOPE_VERSION, envelope, error_envelope, render
 from frankensearch_tpu_torch.core.errors import SearchError
 from frankensearch_tpu_torch.core.types import IndexableDocument
 from frankensearch_tpu_torch.core.atomic_io import atomic_write_text
-
-
-class NotPorted(SearchError):
-    """A command or flag of the JAX package's CLI that this package does
-    not run yet (ROADMAP.md, queue 1)."""
-
-    code = "not_ported"
-
-
-def _refuse(what: str) -> NoReturn:
-    raise NotPorted(
-        f"{what} is not ported to frankensearch_tpu_torch yet; "
-        "the frankensearch_tpu CLI runs it"
-    )
 
 
 def _iter_corpus(
@@ -370,9 +358,6 @@ def cmd_index(args) -> dict:
 def _open(args, root: str | None = None):
     from frankensearch_tpu_torch.builder import open_hybrid
 
-    if getattr(args, "shards", 0):
-        _refuse("--shards (the mesh-sharded fast tier)")
-
     # 5-layer config resolution (runtime/config.py; parity fsfs
     # config.rs): defaults < env < ~/.config user file <
     # ./.frankensearch.json project file < CLI flags. File-layer
@@ -391,6 +376,9 @@ def _open(args, root: str | None = None):
     if getattr(args, "explain", False):
         cfg.explain = True
         lc.sources["explain"] = "cli"
+    if getattr(args, "shards", 0):
+        cfg.mesh_shards = args.shards
+        lc.sources["mesh_shards"] = "cli"
     if getattr(args, "adaptive", False):
         cfg.adaptive_fusion = True
         lc.sources["adaptive_fusion"] = "cli"
@@ -488,10 +476,6 @@ def _search_federated(args, extra_roots: list[str]) -> dict:
     propagates."""
     from frankensearch_tpu_torch.fusion.federated import FederatedSearcher, ShardError
 
-    if getattr(args, "shards", 0):
-        # refused before the fan-out, or every shard's open would fold
-        # the refusal into its coverage entry
-        _refuse("--shards (the mesh-sharded fast tier)")
     roots = [args.root, *extra_roots]
     if len(set(roots)) != len(roots):
         return error_envelope(
@@ -2187,8 +2171,8 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--root", default=os.environ.get("FRANKENSEARCH_ROOT", ".fsindex"))
         sp.add_argument(
             "--shards", type=int, default=0, metavar="N",
-            help="shard the fast-tier slab over an N-device mesh "
-            "(0 = single device; N > 0 is not ported yet)",
+            help="shard the fast-tier slab and the lexical arm's blocks over an "
+            "N-device mesh (0 = single device)",
         )
         sp.add_argument(
             "--device", default="cuda",

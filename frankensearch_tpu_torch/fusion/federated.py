@@ -5,8 +5,8 @@ Parity target: reference crates/frankensearch-fusion/src/federated.rs
 TwoTierSearcher), merges via RRF or score merge, reports per-shard errors
 and a ``FederatedCoverage`` receipt instead of failing the whole query.
 
-The within-device analog is a sharded device scan (not ported yet);
-this host-level federation covers
+The within-process analog is the mesh-sharded device scan
+(parallel/sharded_scan.py); this host-level federation covers
 multi-index / multi-corpus composition where indexes are separate
 artifacts (and, later, separate hosts).
 

@@ -286,14 +286,20 @@ class TwoTierSearcher:
         ``fast_vecs=None`` the fast embedder must be a Model2Vec one of the
         index's width (``CachedEmbedder`` unwrapped): the queries go in as
         token ids and the gather + mean-pool embed runs in the pass.
-        Returns (hydrated vector hits per query, lexical candidate lists per
-        query, raw) or None when a lane does not apply (non-device arms,
-        filters, non-auto scan modes, an empty lexical arm, no query vectors
-        and no Model2Vec embedder)."""
+        A mesh-sharded fast tier with a block-sharded lexical arm takes the
+        sharded lane (``fused_phase1_sharded``: both arms over the shards,
+        merged on the lead device, then the same RRF tail); it needs query
+        vectors. Returns (hydrated vector hits per query, lexical candidate
+        lists per query, raw) or None when a lane does not apply (non-device
+        arms, one arm sharded and not the other, filters, non-auto scan
+        modes, an empty lexical arm, no query vectors and no Model2Vec
+        embedder)."""
         from frankensearch_tpu_torch.index.device_index import DeviceVectorIndex
         from frankensearch_tpu_torch.lexical.delta import DeltaLexicalIndex
         from frankensearch_tpu_torch.lexical.device_bm25 import DeviceBm25Index
         from frankensearch_tpu_torch.ops import hybrid_phase1 as hp
+        from frankensearch_tpu_torch.parallel.sharded_bm25 import ShardedBulkDeviceBm25Index
+        from frankensearch_tpu_torch.parallel.sharded_index import ShardedDeviceVectorIndex
 
         if self.config.mrl_search_dims or self.config.scan_mode != "auto":
             return None
@@ -302,7 +308,8 @@ class TwoTierSearcher:
         if isinstance(arm, DeltaLexicalIndex):
             # the sealed device arm, or the host oracle while writes are unsealed
             arm = arm._read_arm()
-        if type(fast) is not DeviceVectorIndex or not isinstance(arm, DeviceBm25Index):
+        sharded = isinstance(fast, ShardedDeviceVectorIndex) and isinstance(arm, ShardedBulkDeviceBm25Index)
+        if not sharded and (type(fast) is not DeviceVectorIndex or not isinstance(arm, DeviceBm25Index)):
             return None
         if arm.n_docs == 0:
             return None
@@ -311,6 +318,8 @@ class TwoTierSearcher:
 
         inner = None
         if fast_vecs is None:
+            if sharded:
+                return None  # the sharded lane takes query vectors
             from frankensearch_tpu_torch.embed.model2vec import Model2VecEmbedder
 
             inner = getattr(self.fast_embedder, "inner", self.fast_embedder)  # unwrap CachedEmbedder
@@ -342,7 +351,8 @@ class TwoTierSearcher:
                 return None
             if q.shape[0] != b_padded:
                 q = np.concatenate([q, np.repeat(q[:1], b_padded - q.shape[0], axis=0)])
-            lead = (fast.slab, mask, hp._pad_q(dev(q), fast.d_pad))
+            q_dev = hp._pad_q(dev(q), fast.d_pad)
+            lead = (fast.slab, mask, q_dev)
             extra = {}
         embed_fused = inner is not None
 
@@ -354,7 +364,15 @@ class TwoTierSearcher:
         k_lex = min(lex_budget, arm.n_docs)
         common = {"k_vec": k_vec, "k_lex": k_lex, "scan_mode": scan_mode, **extra}
 
-        if arm._blocked is not None:
+        if sharded:
+            self.last_phase1_lex_lane = "sharded"
+            ids, w = arm.inner._query_sparse_rows(list(queries))
+            vec_s, vec_i, lex_s, lex_i = hp.fused_phase1_sharded(
+                fast._slab_shards, fast._mask_shards, q_dev,
+                arm._sharded, arm.place_bounds(arm._blocked_host.query_bounds(ids, w)), dev(ids), dev(w),
+                k_vec=k_vec, k_lex=k_lex, scan_mode="hier" if scan_mode == "hierarchical" else "xla",
+            )
+        elif arm._blocked is not None:
             vec_s, vec_i, lex_s, lex_i = self._fused_blocked_lanes(arm, queries, lead, lane, dev, common)
         else:
             self.last_phase1_lex_lane = "dense"

@@ -70,6 +70,15 @@ def _sanitize_rows(x: np.ndarray) -> np.ndarray:
     return x
 
 
+def _last_wins(new_ids: list[str], vecs: np.ndarray) -> tuple[list[str], np.ndarray]:
+    """An append batch with in-batch duplicates as upserts: the last
+    occurrence of each doc id wins."""
+    if len(set(new_ids)) == len(new_ids):
+        return new_ids, vecs
+    keep = sorted({d: i for i, d in enumerate(new_ids)}.values())
+    return [new_ids[i] for i in keep], vecs[keep]
+
+
 @dataclass(frozen=True)
 class ScanStats:
     total_rows: int
@@ -105,7 +114,8 @@ class DeviceVectorIndex:
             raise ValueError(f"{n} vectors for {len(doc_ids)} doc ids")
         if normalize and n:
             vectors = _l2_normalize_rows(vectors)
-        n_pad = max(_round_up(max(n, 1), ROW_PAD), ROW_PAD)
+        unit = self._row_pad_unit()
+        n_pad = max(_round_up(max(n, 1), unit), unit)
         d_pad = _round_up(max(d, 1), DIM_PAD)
         padded = np.zeros((n_pad, d_pad), dtype=np.float32)
         if n:
@@ -142,6 +152,10 @@ class DeviceVectorIndex:
         # IVF arm (enable_ivf) and the row count it was built over
         self._ivf = None
         self._ivf_built_rows = -1
+
+    def _row_pad_unit(self) -> int:
+        """The slab's rows pad to a multiple of this."""
+        return ROW_PAD
 
     @property
     def record_count(self) -> int:
@@ -236,13 +250,7 @@ class DeviceVectorIndex:
         vecs = _sanitize_rows(np.asarray(vectors, dtype=np.float32))
         if vecs.size and vecs.shape[1] != self.dim:
             raise DimensionMismatch(self.dim, vecs.shape[1])
-        new_ids = list(doc_ids)
-        if len(set(new_ids)) != len(new_ids):
-            # in-batch duplicates are upserts (last occurrence wins)
-            last = {d: i for i, d in enumerate(new_ids)}
-            keep = sorted(last.values())
-            new_ids = [new_ids[i] for i in keep]
-            vecs = vecs[keep]
+        new_ids, vecs = _last_wins(list(doc_ids), vecs)
         fresh = all(d not in self._row_of for d in new_ids)
         m = len(new_ids)
         if fresh and m and self.n_rows + m <= self.n_pad:

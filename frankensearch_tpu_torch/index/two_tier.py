@@ -1,16 +1,16 @@
 """Two-tier index: fast tier + optional quality tier (PyTorch port).
 
-Port of frankensearch_tpu/index/two_tier.py (all but its mesh-sharded
-open), over the port's copies of the FTVI/WAL modules, which write and
-read the reference's bytes: both packages open the same on-disk artifact,
-int8 artifacts included. Recall certificates persist in the generation
-manifest and rebind on open. The quality tier serves phase 2: the aligned
+Port of frankensearch_tpu/index/two_tier.py, over the port's copies of
+the FTVI/WAL modules, which write and read the reference's bytes: both
+packages open the same on-disk artifact, int8 artifacts included.
+Recall certificates persist in the generation manifest and rebind on open. The quality tier serves phase 2: the aligned
 rescore of phase 1's hits (``quality_scores_for_hits``) and a full
 quality-tier scan (``search_quality``). The write path appends and
 tombstones through each tier's WAL sidecar (``append_fast``,
 ``append_quality``, ``delete``, group-committed by ``sync_wal`` under
 ``wal_sync="deferred"``) and folds them back into the artifacts with
-``compact``.
+``compact``. ``mesh_shards > 0`` opens the fast tier row-sharded over a
+mesh (parallel/sharded_index.py); the quality tier stays on one device.
 """
 
 from __future__ import annotations
@@ -174,6 +174,9 @@ class TwoTierIndex:
         # before this open, a doc only another arm holds): tombstoned all
         # the same, so the searcher's supersession hides them everywhere
         self._rowless_tombstones: frozenset[str] = frozenset()
+        #: shards of the fast tier's mesh (0: one device); a compaction
+        #: reopens with the same
+        self.mesh_shards = 0
         self._publish(fast, quality)
 
     @staticmethod
@@ -222,16 +225,29 @@ class TwoTierIndex:
         device: torch.device,
         slab_dtype: str = "bf16",
         verify: bool = False,
+        mesh_shards: int = 0,
     ) -> "TwoTierIndex":
-        """Open the on-disk tiers (artifact + replayed WAL) onto ``device``."""
+        """Open the on-disk tiers (artifact + replayed WAL) onto ``device``.
+        ``mesh_shards > 0`` shards the fast tier's rows over a mesh of that
+        many devices from ``device`` on (``make_mesh``: at most the visible
+        cards; on the CPU that many shards of it), with results equal to
+        the single-device tier's; the quality tier stays on ``device``."""
         fast_path = TwoTierPaths(root).fast
         if not os.path.exists(fast_path):
             raise IndexNotFound(f"no fast-tier artifact under {root}")
         fast_wal = WriteAheadLog(fast_path + ".wal").replay()
         wal_consumed = {FAST_FILE: fast_wal.bytes_consumed}
-        fast = DeviceVectorIndex.from_ftvi(
-            _open_ftvi_repairing(fast_path, verify), fast_wal, device=device, slab_dtype=slab_dtype,
-        )
+        fast_file = _open_ftvi_repairing(fast_path, verify)
+        if mesh_shards > 0:
+            from frankensearch_tpu_torch.parallel.mesh import make_mesh
+            from frankensearch_tpu_torch.parallel.sharded_index import ShardedDeviceVectorIndex
+
+            fast = ShardedDeviceVectorIndex.from_ftvi(
+                fast_file, fast_wal, mesh=make_mesh(mesh_shards, axes=("d",), device=device),
+                slab_dtype=slab_dtype,
+            )
+        else:
+            fast = DeviceVectorIndex.from_ftvi(fast_file, fast_wal, device=device, slab_dtype=slab_dtype)
         quality = None
         quality_path = os.path.join(root, QUALITY_FILE)
         if os.path.exists(quality_path):
@@ -249,6 +265,7 @@ class TwoTierIndex:
         if certs:
             fast._recall_certs = dict(certs)
         index = cls(fast, quality, root=root)
+        index.mesh_shards = mesh_shards
         index._wal_consumed = wal_consumed
         index._rowless_tombstones = frozenset(d for d in fast_wal.tombstones if fast.row_for(d) is None)
         return index
@@ -265,6 +282,7 @@ class TwoTierIndex:
         quality_vectors: np.ndarray | None = None,
         quality_identity: EmbeddingIdentity | None = None,
         slab_dtype: str = "bf16",
+        mesh_shards: int = 0,
     ) -> "TwoTierIndex":
         """Write the tiers as FTVI artifacts under ``root``, then open them.
         ``slab_dtype="int8"`` writes int8 artifacts (the normalized rows
@@ -290,7 +308,8 @@ class TwoTierIndex:
                 raise ValueError("quality_vectors requires quality_identity")
             write_tier(os.path.join(root, QUALITY_FILE), quality_vectors, quality_identity)
         return cls.open(
-            root, device=device, slab_dtype="bf16" if slab_dtype == "int8" else slab_dtype
+            root, device=device, slab_dtype="bf16" if slab_dtype == "int8" else slab_dtype,
+            mesh_shards=mesh_shards,
         )
 
     def certify_fast_scan_mode(
@@ -320,7 +339,7 @@ class TwoTierIndex:
         """Fold the WALs and tombstones back into the base artifacts (written
         as bf16 FTVI, as the reference does), truncate each WAL by the prefix
         this open materialized, refresh the generation manifest and reopen
-        (bf16, on the same device). Per-tier stats land in the reopened
+        (bf16, on the same device and mesh). Per-tier stats land in the reopened
         index's ``last_vacuum_stats``."""
         if self.root is None:
             raise ValueError("compact requires a rooted index")
@@ -351,7 +370,7 @@ class TwoTierIndex:
             )
         # the artifacts changed: the manifest's hashes follow (commit_seq bumps)
         refresh_manifest(self.root)
-        compacted = TwoTierIndex.open(self.root, device=self.fast.device)
+        compacted = TwoTierIndex.open(self.root, device=self.fast.device, mesh_shards=self.mesh_shards)
         compacted.last_vacuum_stats = stats
         return compacted
 

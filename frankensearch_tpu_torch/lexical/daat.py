@@ -275,6 +275,12 @@ def gathered_runs_tm(
     return sd, torch.where(is_start, score, NEG_INF)
 
 
+def gathered_runs(tm_doc, tm_tf, row_idx, row_w, span_lo, span_hi, t_run: int):
+    """The f32 layout's :func:`gathered_runs_tm` (doc and tf-side tiles
+    given apart)."""
+    return gathered_runs_tm((tm_doc, tm_tf), row_idx, row_w, span_lo, span_hi, t_run, packed=False)
+
+
 def daat_topk_tm(
     tm_arrays,
     row_idx: torch.Tensor,
@@ -299,6 +305,12 @@ def daat_topk_tm(
     top_d = torch.where(torch.isfinite(top_s), top_d, -1)
     top_s, top_d = _pad_topk(top_s, top_d, k)
     return top_s, top_d.to(torch.int32)
+
+
+def daat_topk(tm_doc, tm_tf, row_idx, row_w, span_lo, span_hi, *, k: int, t_run: int):
+    """The f32 layout's :func:`daat_topk_tm` (doc and tf-side tiles given
+    apart)."""
+    return daat_topk_tm((tm_doc, tm_tf), row_idx, row_w, span_lo, span_hi, k=k, t_run=t_run, packed=False)
 
 
 def query_plan_elements(ptr: np.ndarray, ids: np.ndarray, w: np.ndarray) -> np.ndarray:

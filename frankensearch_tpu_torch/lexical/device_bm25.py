@@ -588,6 +588,7 @@ def _build_blocked(
     vocab_size: int,
     device,
     transpose_for_flat: bool = False,
+    block_postings: int | None = None,
 ) -> _BlockedPostings:
     """Length-graded block build (host-side, vectorized per block).
 
@@ -598,7 +599,8 @@ def _build_blocked(
     postings are left out (they never score > 0). Blocks sharing L form a
     class; classes run longest-L first. ``transpose_for_flat`` stores the
     (n_c, L, d_pad) form of the flat lane, with granule 4 and class widths
-    sized by the blocks' actual occupancy."""
+    sized by the blocks' actual occupancy. ``block_postings`` (default
+    ``DEFAULT_BLOCK_POSTINGS``) is the smallest block width in slots."""
     gran = 4 if transpose_for_flat else 8
     order = np.argsort(docs_all, kind="stable")
     terms = np.ascontiguousarray(terms_all[order]).astype(np.int32)
@@ -608,8 +610,9 @@ def _build_blocked(
     counts = np.bincount(docs, minlength=max(n_docs, 1)).astype(np.int64)
     csum = np.concatenate([[0], np.cumsum(counts)])  # (n_docs+1,)
     max_count = int(counts.max()) if n_docs else 0
-    # DEFAULT_BLOCK_POSTINGS is read at call time, so tests can lower it
-    p_blk = int(max(DEFAULT_BLOCK_POSTINGS, _round_up(max(max_count, 1), gran)))
+    if block_postings is None:
+        block_postings = DEFAULT_BLOCK_POSTINGS  # read at call time, so tests can lower it
+    p_blk = int(max(block_postings, _round_up(max(max_count, 1), gran)))
 
     # grade: count desc, doc id asc among equals; drop empty docs
     doc_order = np.lexsort((np.arange(len(counts)), -counts))

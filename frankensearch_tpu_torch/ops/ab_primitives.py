@@ -17,20 +17,28 @@ top groups are found.
   candidates) and
   ``group_select="iter"`` axes.
 
+Two retired lexical lanes stay beside them, each exact:
+
+- :func:`grouped_blocked_dispatch` — the pruned BM25 lane run in
+  selectivity-homogeneous sub-batches (the block skip is batch-AND);
+- :func:`hot_daat_topk_ab` — the term-driven lane's hot combine over
+  global-order dense hot columns.
+
 The TPU measurements that retired them do not carry over to the H100; the
 H100 times of K6 and of its K1 control are in PERF.md (``chip_smoke.py``
-phase 6). ``grouped_blocked_dispatch`` and ``hot_daat_topk_ab`` are not
-ported yet (ROADMAP).
+phase 6).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from frankensearch_tpu_torch.ops.topk_scan import (
     GROUP,
     NEG_INF,
     TopKResult,
+    _pad_topk,
     _rescore_groups,
     argmax_passes,
     group_candidates,
@@ -134,3 +142,97 @@ def scan_topk_hierarchical_ab(
         else:
             _, top_groups = topk_desc_rowasc(gmax, kk_groups)
     return _rescore_groups(slab, queries, mask, top_groups.to(torch.int32), k=k, rescore=rescore)
+
+
+#: selective sub-batch size of :func:`grouped_blocked_dispatch`
+SELECTIVE_GROUP = 8
+
+
+def grouped_blocked_dispatch(index, ids: np.ndarray, w: np.ndarray, bounds: np.ndarray, k: int):
+    """Selectivity-grouped pruned BM25 over a ``DeviceBm25Index``'s unsplit
+    blocked layout. The block-max skip is batch-AND, so one broad query
+    pins every selective query's blocks: queries with at least half their
+    block bounds zero run in sub-batches of ``SELECTIVE_GROUP``, the rest in
+    one batch, each through the pruned lane (``_graded_scan_pruned``, the
+    reference's ``_device_bm25_blocked`` at MERGE_GROUP = 1, SEQ_T_ACCUM).
+    A query's scores do not depend on its batchmates and pruning is exact,
+    so every row equals the single-batch call's bit for bit. Retired in the
+    reference as a measured throughput loss on its TPU. Returns ((B, k)
+    f32 scores, (B, k) i32 rows) as numpy arrays and sets
+    ``index.last_blocks_skipped``."""
+    from frankensearch_tpu_torch.lexical.device_bm25 import _graded_scan_pruned
+
+    b = ids.shape[0]
+    k = min(k, index.n_docs)
+    zfrac = (bounds <= 0.0).mean(axis=0)  # (B,) zero-bound fraction
+    selective = np.flatnonzero(zfrac >= 0.5)
+    broad = np.flatnonzero(zfrac < 0.5)
+    out_s = np.empty((b, k), dtype=np.float32)
+    out_i = np.empty((b, k), dtype=np.int32)
+    skipped = 0
+    dev = index.device
+    for sel in [selective[g : g + SELECTIVE_GROUP] for g in range(0, len(selective), SELECTIVE_GROUP)] + [broad]:
+        if not len(sel):
+            continue
+        s, i, n_skip = _graded_scan_pruned(
+            index._blocked.classes, index._blocked.split_bounds(bounds[:, sel], dev),
+            torch.from_numpy(ids[sel]).to(dev), torch.from_numpy(w[sel]).to(dev), k=k,
+        )
+        out_s[sel] = s.cpu().numpy()
+        out_i[sel] = i.cpu().numpy()
+        skipped += n_skip
+    index.last_blocks_skipped = skipped
+    return out_s, out_i
+
+
+def hot_daat_topk_ab(
+    cols: torch.Tensor,  # (H_pad, N_pad) f32 hot columns, global doc order
+    q_hot: torch.Tensor,  # (B, H_pad) f32
+    tm_doc: torch.Tensor,  # (P_pad/128, 128) i32 tail term-major tiles
+    tm_tf: torch.Tensor,  # (P_pad/128, 128) f32
+    row_idx: torch.Tensor,  # (B, R) i32 tail gather plan
+    row_w: torch.Tensor,  # (B, R) f32
+    span_lo: torch.Tensor,  # (B, R) i32
+    span_hi: torch.Tensor,  # (B, R) i32
+    *,
+    k: int,
+    t_run: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The term-driven lane's retired hot combine: the dense hot partial
+    gathered at the tail runs' doc keys, a dense top-k of the hot partial
+    for docs with no tail run, the dense entries whose doc has a run
+    dropped, and an exact merge. Retired in the reference (a row-wise
+    gather from the (B, N) hot matrix and a dense top-k cost more than the
+    split layout's in-scan add on its TPU); the product routes hot-term
+    queries to the flat lane.
+
+    Exact: a doc with a tail contribution appears in the runs with its
+    full total (run sum, then the hot partial added). A doc with none
+    reaches the top-k only through the dense top-k over the hot partial:
+    if it is not there, k docs dominate it by (hot score, doc asc) and so
+    by (total, doc asc). Dropping dense entries whose doc has a run un-
+    dominates nothing. Returns ((B, k) f32 scores, (B, k) i32 doc rows,
+    -1 on tail padding)."""
+    from frankensearch_tpu_torch.lexical.daat import gathered_runs
+    from frankensearch_tpu_torch.lexical.device_bm25 import _merge_topk_exact
+    from frankensearch_tpu_torch.lexical.hot_arm import hot_partial
+
+    n_pad = cols.shape[1]
+    s_hot = hot_partial(cols, q_hot)  # (B, N_pad)
+    sd, run_score = gathered_runs(tm_doc, tm_tf, row_idx, row_w, span_lo, span_hi, t_run)
+    # run starts only: -inf elsewhere (padding keys read a clamped column)
+    totals = run_score + torch.gather(s_hot, 1, torch.clamp(sd, max=n_pad - 1).to(torch.int64))
+    tail_s, tail_pos = topk_desc_rowasc(totals, min(k, sd.shape[1]))
+    fin = torch.isfinite(tail_s)
+    tail_d = torch.where(fin, torch.gather(sd, 1, tail_pos), -1)
+    tail_s, tail_d = _pad_topk(torch.where(fin, tail_s, NEG_INF), tail_d, k)
+
+    dense_s, dense_d = topk_desc_rowasc(torch.where(s_hot > 0.0, s_hot, NEG_INF), min(k, n_pad))
+    dense_d = dense_d.to(torch.int32)
+    # drop dense entries whose doc holds a tail run (sd ascends per row)
+    pos = torch.searchsorted(sd.contiguous(), dense_d.contiguous())
+    member = torch.gather(sd, 1, torch.clamp(pos, max=sd.shape[1] - 1)) == dense_d
+    dense_s, dense_d = _pad_topk(
+        torch.where(member, NEG_INF, dense_s), torch.where(member, -1, dense_d), k
+    )
+    return _merge_topk_exact(tail_s, tail_d.to(torch.int32), dense_s, dense_d, k)

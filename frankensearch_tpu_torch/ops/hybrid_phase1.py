@@ -10,7 +10,9 @@ stream and the caller fetches all results with one host sync. The
 ``fused_phase1_embed_*`` variants put the Model2Vec gather + mean-pool
 embed (``embed/model2vec.gather_pool_normalize``) in front of the same
 bodies, so phase 1 starts from token ids: embed, scan, BM25 (and the
-caller's device RRF) in one pass.
+caller's device RRF) in one pass. ``fused_phase1_sharded`` is the mesh's
+phase 1: the row-sharded vector scan and the block-sharded BM25 arm
+(parallel/) over the same shards, their merged heaps on the lead device.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from frankensearch_tpu_torch.lexical.device_bm25 import (
 )
 from frankensearch_tpu_torch.lexical.daat import daat_topk_tm
 from frankensearch_tpu_torch.ops import topk_scan
+from frankensearch_tpu_torch.parallel.sharded_bm25 import sharded_bm25_topk
+from frankensearch_tpu_torch.parallel.sharded_scan import sharded_scan_topk, sharded_scan_topk_hier
 
 
 def _vector_arm(slab, mask, q, *, k: int, scan_mode: str) -> topk_scan.TopKResult:
@@ -33,7 +37,7 @@ def _vector_arm(slab, mask, q, *, k: int, scan_mode: str) -> topk_scan.TopKResul
         return topk_scan.scan_topk_hierarchical(slab, q, k, mask)
     if scan_mode == "xla":
         return topk_scan.scan_topk_xla(slab, q, k, mask)
-    raise NotImplementedError(f"scan mode {scan_mode!r} is not ported yet")
+    raise ValueError(f"unknown scan mode {scan_mode!r}")
 
 
 def _lex_dense(post_term, post_tf, steps: DocSteps, q_idf, *, k_lex: int, n_docs_lex: int):
@@ -179,3 +183,25 @@ def fused_phase1_embed_daat_mixed(
         tm, row_idx, row_w, span_lo, span_hi, elig, classes, bounds_list, q_ids, q_w, hot,
         k_vec=k_vec, k_lex=k_lex, scan_mode=scan_mode, t_run=t_run, tm_packed=tm_packed,
     )
+
+
+def fused_phase1_sharded(
+    slab, mask, q_vecs,
+    sharded_blocks, bounds, q_ids, q_w,
+    *, k_vec: int, k_lex: int, scan_mode: str = "xla",
+):
+    """Phase 1 on a mesh: the document-sharded vector scan over ``slab`` /
+    ``mask`` (per-shard tensors, ``ShardedDeviceVectorIndex``'s) and the
+    block-sharded pruned BM25 arm over ``sharded_blocks`` with its per-shard
+    ``bounds`` (``ShardedBulkDeviceBm25Index``'s ``_sharded`` and
+    ``place_bounds``). ``scan_mode="hier"`` runs K1 + K2 per shard (the
+    shards 8192-row aligned), ``"xla"`` the plain exact body. The results
+    are the separate sharded calls', merged on the lead device."""
+    if scan_mode == "hier":
+        vec = sharded_scan_topk_hier(slab, mask, q_vecs, k_vec)
+    elif scan_mode == "xla":
+        vec = sharded_scan_topk(slab, mask, q_vecs, k_vec)
+    else:
+        raise ValueError(f"unknown sharded scan mode {scan_mode!r}")
+    lex_s, lex_i, _ = sharded_bm25_topk(sharded_blocks, bounds, q_ids, q_w, k=k_lex)
+    return vec.scores, vec.indices, lex_s, lex_i

@@ -8,11 +8,11 @@ and tests/test_fusion_extras.py (hubness, smoothing, graph rank). The same
 documents go through both packages' ``IndexBuilder``: the FTVI tiers, the
 packed FLXB arm and the JSON oracle snapshot are byte-equal, the SQLite
 store equal by rows, and each package's ``open_hybrid`` serves the other's
-root with the same doc ids. The port's divergences are pinned here: it runs
-on the device it is given (``"cuda"`` by default, so without a card the
-default raises), a failure of the Model2Vec bag lane or of the packed arm's
-build raises where the reference warns and falls back, and
-``mesh_shards > 0`` raises ``NotImplementedError``.
+root with the same doc ids, on one device or with ``mesh_shards > 0``. The
+port's divergences are pinned here: it runs on the device it is given
+(``"cuda"`` by default, so without a card the default raises), and a
+failure of the Model2Vec bag lane or of the packed arm's build raises where
+the reference warns and falls back.
 """
 
 import os
@@ -312,17 +312,31 @@ def test_packed_arm_skipped_only_where_native_postings_do_not_apply(tmp_path, mo
 
 
 @pytest.mark.parametrize("entry", ["build", "open"])
-def test_mesh_shards_raise_not_implemented(tmp_path, entry):
-    cfg = fst.TwoTierConfig(mesh_shards=2)
-    root = str(tmp_path / "ix")
-    if entry == "build":
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            build(PORT, root, make_book(PORT), config=cfg)
-        assert not os.path.exists(root)
-    else:
-        build(PORT, root, make_book(PORT))
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            open_root(PORT, root, config=cfg)
+def test_mesh_shards_equal_reference(tmp_path, entry):
+    """``mesh_shards=2`` at the build (``IndexBuilder`` creates the tiers on
+    a 2-shard mesh) and at the open, or only at the open: ``open_hybrid``
+    shards the fast tier and the packed lexical arm, and each package's
+    searcher over its own root returns the same doc ids, fused scores
+    within 1e-6 (the reference on two of its virtual CPU devices, the port
+    on two CPU shards)."""
+    from frankensearch_tpu_torch.parallel.sharded_bm25 import ShardedBulkDeviceBm25Index
+    from frankensearch_tpu_torch.parallel.sharded_index import ShardedDeviceVectorIndex
+
+    got = {}
+    for pkg in (REF, PORT):
+        root = str(tmp_path / pkg.name)
+        cfg = pkg.api.TwoTierConfig(mesh_shards=2)
+        assert build(pkg, root, corpus(pkg), config=cfg if entry == "build" else None).doc_count == 300
+        with open_root(pkg, root, config=cfg) as h:
+            if pkg is PORT:
+                assert isinstance(h.index.fast, ShardedDeviceVectorIndex) and len(h.index.fast.shard_devices) == 2
+                assert isinstance(h.delta.sealed, ShardedBulkDeviceBm25Index)
+            got[pkg.name] = (rows(h.searcher.search_batch(QUERIES, k=10)),
+                             [[(r.doc_id, r.score) for r in h.searcher.search(q, k=10).results] for q in QUERIES])
+    for port_rows, ref_rows in zip(got["port"], got["ref"]):
+        for g, w in zip(port_rows, ref_rows):
+            assert [d for d, _ in g] == [d for d, _ in w]
+            np.testing.assert_allclose([x for _, x in g], [x for _, x in w], rtol=1e-6)
 
 
 # -- open_hybrid: the facade's flows (tests/test_facade_e2e.py) -----------------------------

@@ -11,9 +11,8 @@ each other may swap, as in tests/test_torch_scan_lanes.py), everything
 else equal. The port also serves a root the reference built. The two
 parsers list the same commands and options, except the port's added
 ``--device`` (default ``cuda``: without a card a command fails as
-``resolve_device`` does, it never runs on the CPU). The one flag the port
-does not run yet, ``--shards N`` > 0, returns a typed ``not_ported``
-envelope.
+``resolve_device`` does, it never runs on the CPU). ``--shards N`` runs
+sharded in both.
 """
 
 import contextlib
@@ -497,15 +496,33 @@ def test_device_defaults_to_the_card(built):
 
 
 @pytest.mark.parametrize("flag", [
-    ["search", "q", "--shards", "2"],
+    ["search", "rust ownership", "--shards", "2"],
     ["serve", "--shards", "4"],
-    ["explain", "q", "--shards", "2"],
+    ["explain", "vector similarity log", "--shards", "2"],
 ], ids=lambda f: " ".join(f))
-def test_unported_flag_is_refused(built, flag):
+def test_shards_flag_equals_reference(built, flag):
+    """``--shards N`` opens both arms sharded over N shards (the reference
+    over N of its virtual CPU devices, the port over N CPU shards): the
+    replies' rows equal the reference's, and the unsharded port's."""
     roots, _ = built
-    rc, out = run("port", "--format", "json", *flag, "--root", roots["port"], stdin="")
-    env = json.loads(out)
-    assert rc == 1 and env["error"]["code"] == "not_ported", env
+    stdin = None
+    if flag[0] == "serve":
+        stdin = "".join(json.dumps({"op": "search", "query": q, "k": 6}) + "\n"
+                        for q in ("rust ownership", "w001 w002 w003", "sqlite log"))
+    replies = {}
+    for pkg, extra in (("port", flag[1:]), ("ref", flag[1:]), ("unsharded", flag[1:-2])):
+        rc, out = run("ref" if pkg == "ref" else "port", "--format", "json", flag[0], *extra,
+                      "--root", roots["ref" if pkg == "ref" else "port"], *([] if stdin else ["-k", "6"]),
+                      stdin=stdin)
+        assert rc == 0, out
+        replies[pkg] = [json.loads(line) for line in out.splitlines() if line.strip()] if stdin else [json.loads(out)]
+    score_key = "fused_score" if flag[0] == "explain" else "score"
+    for want in ("ref", "unsharded"):
+        assert len(replies["port"]) == len(replies[want]) == (3 if stdin else 1)
+        for g, w in zip(replies["port"], replies[want]):
+            assert g["ok"] and w["ok"] and g["data"]
+            same_rows([{k: v for k, v in r.items() if k != "rank"} for r in g["data"]],
+                      [{k: v for k, v in r.items() if k != "rank"} for r in w["data"]], score_key=score_key)
 
 
 def test_version_reports_torch_and_the_cards():

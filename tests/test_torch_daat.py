@@ -107,3 +107,47 @@ def test_layout_gates_like_reference(pair, monkeypatch):
     assert not tdaat.build_term_major(*host, vocab_size=port.vocab_size, device=CPU, raw=raw).packed
     monkeypatch.setattr(tdaat, "DAAT_MAX_LAYOUT_BYTES", 64)
     assert tdaat.build_term_major(*host, vocab_size=port.vocab_size, device=CPU, raw=raw) is None
+
+
+# -- the f32 layout's wrappers (tests/test_daat.py) -----------------------------------------
+
+
+def _both_daat_topk(tm_doc, tm_tf, plan, k, t_run):
+    want = jdaat.daat_topk(*(jnp.asarray(x) for x in (tm_doc, tm_tf) + plan), k=k, t_run=t_run)
+    got = tdaat.daat_topk(*(torch.from_numpy(x) for x in (tm_doc, tm_tf) + plan), k=k, t_run=t_run)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(bits(got[0].numpy()), bits(want[0]))
+    return got[0].numpy(), got[1].numpy()
+
+
+def test_daat_topk_masks_partial_rows():
+    """A span not aligned to 128 must not leak neighbour postings."""
+    tm_doc = np.arange(256, dtype=np.int32).reshape(2, 128)
+    tm_tf = np.ones((2, 128), dtype=np.float32)
+    plan = (np.array([[0, 1]], np.int32), np.array([[2.0, 2.0]], np.float32),
+            np.array([[100, 100]], np.int32), np.array([[140, 140]], np.int32))
+    s, d = _both_daat_topk(tm_doc, tm_tf, plan, 64, 8)
+    assert sorted(d[0][s[0] > 0].tolist()) == list(range(100, 140)) and np.all(s[0][s[0] > 0] == 2.0)
+
+
+def test_multi_term_same_doc_accumulates():
+    """One doc hit by several query terms sums all contributions."""
+    tm_doc = np.array([7, 9, 5, 7] + [-1] * 124, dtype=np.int32).reshape(1, 128)
+    tm_tf = np.array([1.0, 1.0, 1.0, 3.0] + [0.0] * 124, dtype=np.float32).reshape(1, 128)
+    plan = (np.array([[0, 0]], np.int32), np.array([[1.0, 0.5]], np.float32),
+            np.array([[0, 2]], np.int32), np.array([[2, 4]], np.int32))
+    s, d = _both_daat_topk(tm_doc, tm_tf, plan, 8, 8)
+    assert dict(zip(d[0][s[0] > 0].tolist(), s[0][s[0] > 0].tolist())) == {7: 2.5, 9: 1.0, 5: 0.5}
+
+
+def test_gathered_runs_equals_reference_and_tm_form(pair):
+    got_tm, want_tm = _layouts(*pair, False)
+    ids, w = _plan_rows(pair[1], QUERIES[:8])
+    plan = tdaat.build_gather_plan(got_tm.ptr, ids, w)
+    t_run = ids.shape[1]
+    sd, score = tdaat.gathered_runs(got_tm.tm_doc, got_tm.tm_tf, *(torch.from_numpy(x) for x in plan), t_run)
+    sd_tm, score_tm = tdaat.gathered_runs_tm(got_tm.device_arrays(), *(torch.from_numpy(x) for x in plan), t_run)
+    assert torch.equal(sd, sd_tm) and torch.equal(score, score_tm)
+    wsd, wscore = jdaat.gathered_runs(want_tm.tm_doc, want_tm.tm_tf, *(jnp.asarray(x) for x in plan), t_run)
+    np.testing.assert_array_equal(sd.numpy(), np.asarray(wsd))
+    np.testing.assert_array_equal(bits(score.numpy()), bits(wscore))

@@ -5,7 +5,9 @@ The same corpus goes into the reference's ``DeviceBm25Index`` /
 ``BulkDeviceBm25Index`` and, through ``convert.bm25_from_arrays`` or the
 port's own builders, into the port. The port's per-doc sum visits each
 doc's postings in posting order, as the reference's segment sum does on the
-CPU, so scores and rows are bitwise equal.
+CPU, so scores and rows are bitwise equal. The retired selectivity-grouped
+dispatch of the pruned lane (``ops/ab_primitives.grouped_blocked_dispatch``)
+is bitwise the single-batch lane and the reference's dispatch.
 """
 
 import numpy as np
@@ -249,6 +251,32 @@ def test_pruned_lane_auto_matches_reference(pruned_pair):
         ref.search_candidates_batch(th.QUERIES, 25)
     )
     assert port.last_lane == ref.last_lane
+
+
+@pytest.mark.parametrize("k", [1, 10])
+def test_selectivity_grouped_dispatch_bitwise(pruned_pair, monkeypatch, k):
+    """Selective (one rare term) and broad queries, 11 selective so that the
+    last sub-batch is short: every row bitwise the single-batch pruned lane
+    and the reference's grouped dispatch, with the same blocks skipped."""
+    from frankensearch_tpu.ops.ab_primitives import grouped_blocked_dispatch as ref_dispatch
+    from frankensearch_tpu_torch.ops.ab_primitives import grouped_blocked_dispatch
+
+    _, ref, port = pruned_pair
+    monkeypatch.setattr(port, "daat_mode", "blocked")
+    queries = [f"w{280 + i}" for i in range(11)] + ["w0 w1", "w1 w2 w3", "w0"]
+    base = port.search_candidates_batch(queries, k)
+    ids, w = port._query_sparse_rows(queries)
+    bounds = port._blocked.query_bounds(ids, w)
+    assert ((bounds <= 0.0).mean(axis=0) >= 0.5).sum() == 11
+    s, i = grouped_blocked_dispatch(port, ids, w, bounds, k)
+    assert s.shape == (len(queries), k) and i.dtype == np.int32
+    grouped = [[(port.doc_ids[int(i[b, j])], s[b, j].view(np.uint32)) for j in range(k) if s[b, j] > 0.0]
+               for b in range(len(queries))]
+    assert grouped == _cand_bits(base)
+    ws, wi = ref_dispatch(ref, ids, w, bounds, k)
+    np.testing.assert_array_equal(i, np.asarray(wi))
+    np.testing.assert_array_equal(s.view(np.uint32), np.asarray(ws).view(np.uint32))
+    assert port.last_blocks_skipped == ref.last_blocks_skipped > 0
 
 
 def test_fma_f32_rounds_once():

@@ -26,7 +26,7 @@ import frankensearch_tpu_torch.core.types as port_types
 import frankensearch_tpu_torch.fusion.federated as port_fed
 from frankensearch_tpu_torch.core.errors import SearchError, SubsystemError
 from tests.test_torch_cli import (  # noqa: F401
-    both, env_of, no_pallas, reference_logger_untouched, run, same_rows, strip_timing,
+    both, env_of, no_pallas, reference_logger_untouched, same_rows, strip_timing,
 )
 
 PKG = {"port": (port_types, port_fed), "ref": (ref_types, ref_fed)}
@@ -145,8 +145,8 @@ def fed_roots(tmp_path_factory):
     return out
 
 
-def federated(pkg, roots, query, *extra_roots):
-    argv = ["search", query, "--root", roots[0], "-k", "10"]
+def federated(pkg, roots, query, *extra_roots, shards=0):
+    argv = ["search", query, "--root", roots[0], "-k", "10"] + (["--shards", str(shards)] if shards else [])
     for r in extra_roots:
         argv += ["--federate", r]
     return env_of(pkg, *argv)
@@ -185,10 +185,17 @@ def test_duplicate_roots_rejected(fed_roots):
     assert got["error"] == want["error"] and got["error"]["code"] == "invalid_request"
 
 
-def test_federated_shards_flag_is_refused(fed_roots):
-    rc, out = run("port", "--format", "json", "search", "rust", "--root", fed_roots["port"][0],
-                  "--federate", fed_roots["port"][1], "--shards", "2")
-    assert rc == 1 and json.loads(out)["error"]["code"] == "not_ported"
+def test_federated_shards_flag_equals_reference(fed_roots):
+    """``--federate`` with ``--shards 2``: every root opens with both arms
+    sharded over two shards; the merged rows and the coverage equal the
+    reference's and the unsharded federation's."""
+    got = federated("port", fed_roots["port"], "rust", fed_roots["port"][1], shards=2)
+    want = federated("ref", fed_roots["ref"], "rust", fed_roots["ref"][1], shards=2)
+    same_rows(got["data"], want["data"])
+    same_rows(got["data"], federated("port", fed_roots["port"], "rust", fed_roots["port"][1])["data"])
+    assert {"a-rust", "b-rust"} <= {r["doc_id"] for r in got["data"]}
+    assert strip_timing(got["meta"]) == strip_timing(want["meta"])
+    assert got["meta"]["coverage"]["responded"] == 2
 
 
 # -- shadow -----------------------------------------------------------------------------------------

@@ -11,7 +11,10 @@ relative). With the same hot partial given to both, the flat lane is
 bitwise equal. The port's own hot partial (``torch.matmul``, fixed at
 ``FLAT_B_TILE`` rows) may differ from the reference's XLA dot in the last
 bits: where it enters, rows must be equal wherever the reference's k-th
-score has no tie within 1e-6, and scores within 1e-6 relative.
+score has no tie within 1e-6, and scores within 1e-6 relative. The
+retired hot combine of the term-driven lane (``ops/ab_primitives.
+hot_daat_topk_ab``) is held the same way to the reference's, and by rank,
+scores within 1e-5, to the split layout's flat lane (tests/test_hot_arm.py).
 """
 
 import contextlib
@@ -389,3 +392,51 @@ def test_daat_modules_agree_on_tail_eligibility(split_pair):
         tdaat.daat_eligible(tm.ptr, ids, w, total_postings=port.cold_posting_count),
         jdaat.daat_eligible(ref._term_major().ptr, ids, w, total_postings=ref.cold_posting_count),
     )
+
+
+# -- the retired hot combine (ops/ab_primitives.hot_daat_topk_ab) ------------------------------
+
+
+def global_hot_cols(index):
+    """The retired layout's dense hot columns in global doc order, built on
+    the host from the index's postings: (H_pad, N_pad) f32."""
+    hot = index._hot
+    terms, docs, tfs = index._post_host
+    cols = np.zeros((hot.h_pad, max((index.n_docs + 127) // 128 * 128, 128)), dtype=np.float32)
+    rows = hot.hot_row_of[terms.astype(np.int64)]
+    sel = rows >= 0
+    np.add.at(cols, (rows[sel], docs[sel].astype(np.int64)), tfs[sel])
+    return cols
+
+
+@pytest.mark.parametrize("k", [15, 60])
+def test_retired_hot_daat_ab_matches_reference_and_flat_lane(split_pair, monkeypatch, k):
+    from frankensearch_tpu.ops.ab_primitives import hot_daat_topk_ab as ref_ab
+    from frankensearch_tpu_torch.ops.ab_primitives import hot_daat_topk_ab
+
+    _, ref, port = split_pair
+    cols = global_hot_cols(port)
+    tm_t = tdaat.build_term_major(*port._cold_host, vocab_size=port.vocab_size, device=CPU)
+    tm_j = jdaat.build_term_major(*ref._cold_host, vocab_size=ref.vocab_size)
+    ids, w = port._query_sparse_rows(QUERIES)
+    q_hot = thot.split_hot_rows(port._hot.hot_row_of, ids, w, port._hot.h_pad)
+    assert ((q_hot > 0).any(axis=1) & (thot.compact_tail_rows(port._hot.hot_row_of, ids, w)[1] > 0).any(axis=1)).any()
+    plan = tdaat.build_gather_plan(tm_t.ptr, ids, w)
+    gs, gi = hot_daat_topk_ab(
+        torch.from_numpy(cols), torch.from_numpy(q_hot), tm_t.tm_doc, tm_t.tm_tf,
+        *(torch.from_numpy(x) for x in plan), k=k, t_run=ids.shape[1],
+    )
+    assert gi.dtype == torch.int32 and gs.shape == (len(QUERIES), k)
+    ws, wi = ref_ab(jnp.asarray(cols), jnp.asarray(q_hot), tm_j.tm_doc, tm_j.tm_tf,
+                    *(jnp.asarray(x) for x in plan), k=k, t_run=ids.shape[1])
+    gs, gi, ws, wi = gs.numpy(), gi.numpy(), np.asarray(ws), np.asarray(wi)
+    pos_g, pos_w = gs > 0, ws > 0
+    np.testing.assert_array_equal(pos_g, pos_w)
+    assert_rank_tolerant(np.where(pos_g, gs, -np.inf), np.where(pos_g, gi, -1),
+                         np.where(pos_w, ws, -np.inf), np.where(pos_w, wi, -1))
+    monkeypatch.setattr(port, "daat_mode", "blocked")
+    flat = port.search_candidates_batch(QUERIES, k)
+    for b, cands in enumerate(flat):
+        ab = [(port.doc_ids[int(gi[b, j])], float(gs[b, j])) for j in range(k) if gs[b, j] > 0.0]
+        assert [c.doc_id for c in cands] == [d for d, _ in ab], QUERIES[b]
+        np.testing.assert_allclose([c.score for c in cands], [x for _, x in ab], rtol=1e-5)

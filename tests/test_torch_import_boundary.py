@@ -24,7 +24,10 @@ and ``profile_chip.py``: none may name ``frankensearch_tpu`` or ``jax``;
 it also reads each of ``REFRESH_MODULES`` and ``EVALUATION_MODULES`` on
 its own. A third subprocess imports each of ``EVALUATION_MODULES`` with
 the two blocked and runs a campaign, the reload law, the lockstep, the
-quality harness and the evidence lint.
+quality harness and the evidence lint. A fourth imports each of
+``PARALLEL_MODULES`` with the two blocked and serves a root through
+``open_hybrid(mesh_shards=4)`` (the sharded fused lane, a write, a
+compaction) and the CLI's ``search --shards 2``.
 """
 
 import ast
@@ -53,6 +56,13 @@ EVALUATION_MODULES = (
     "gauntlet/generator.py", "gauntlet/perf_ratchet.py", "gauntlet/runner.py", "core/e2e_artifact.py",
     "core/distributed_observability.py", "core/contract_sanity.py", "fusion/priors.py", "fusion/ope.py",
     "fusion/interaction_oracles.py",
+)
+
+#: the multi-device serving path (the port's copies, at the reference's
+#: relative paths)
+PARALLEL_MODULES = (
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_scan.py", "parallel/sharded_index.py",
+    "parallel/sharded_bm25.py",
 )
 
 REFRESH_SCRIPT = r"""
@@ -383,6 +393,52 @@ def test_evaluation_modules_run_without_jax_or_the_reference():
     assert proc.stdout.strip().endswith("OK")
 
 
+MESH_SCRIPT = r"""
+import contextlib, importlib, io, json, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["frankensearch_tpu"] = None
+for m in MODULES:
+    importlib.import_module("frankensearch_tpu_torch." + m[:-3].replace("/", ".").removesuffix(".__init__"))
+import frankensearch_tpu_torch as fst
+from frankensearch_tpu_torch.cli.main import main
+from frankensearch_tpu_torch.parallel.sharded_bm25 import ShardedBulkDeviceBm25Index
+from frankensearch_tpu_torch.parallel.sharded_index import ShardedDeviceVectorIndex
+words = [f"w{i}" for i in range(40)]
+docs = [fst.IndexableDocument(doc_id=f"d{i}", content=" ".join(words[(i * 7 + j) % 40] for j in range(6)) + f" u{i}")
+        for i in range(80)]
+emb = fst.HashEmbedder(dim=32)
+with tempfile.TemporaryDirectory() as root:
+    fst.IndexBuilder(root, device="cpu").with_documents(docs).with_embedder_stack(fst.EmbedderStack(fast=emb)).build()
+    h = fst.open_hybrid(root, fast_embedder=emb, device="cpu", config=fst.TwoTierConfig(mesh_shards=4, fast_only=True))
+    assert isinstance(h.index.fast, ShardedDeviceVectorIndex) and isinstance(h.delta.sealed, ShardedBulkDeviceBm25Index)
+    out = h.searcher.search_batch([docs[3].content, "w1 w2"], k=5)
+    assert h.searcher.last_phase1_lex_lane == "sharded" and out[0].results[0].doc_id == "d3"
+    h.index.append_fast(["z"], emb.embed_batch(["zeppelin"]))
+    h.index.delete(["d5"])
+    c = h.index.compact()
+    assert isinstance(c.fast, ShardedDeviceVectorIndex) and c.fast.row_for("d5") is None
+    h.close()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(["--format", "json", "search", docs[7].content, "--root", root, "--shards", "2", "--device", "cpu"])
+    env = json.loads(buf.getvalue())
+    assert rc == 0 and env["data"][0]["doc_id"] == "d7", env
+assert not [m for m in sys.modules if m.startswith(("jax.", "frankensearch_tpu."))]
+print("OK")
+"""
+
+
+def test_sharded_path_runs_without_jax_or_the_reference():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    script = f"MODULES = {PARALLEL_MODULES!r}\n" + MESH_SCRIPT
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
 def _imported_roots(path: Path) -> set[str]:
     """The top-level package of every import statement in a file,
     including imports inside functions."""
@@ -407,7 +463,7 @@ def test_no_port_file_imports_the_reference_or_jax():
     assert offenders == {}
 
 
-@pytest.mark.parametrize("module", REFRESH_MODULES + EVALUATION_MODULES)
+@pytest.mark.parametrize("module", REFRESH_MODULES + EVALUATION_MODULES + PARALLEL_MODULES)
 def test_refresh_module_is_the_ports_own_copy(module):
     port, ref = REPO / "frankensearch_tpu_torch" / module, REPO / "frankensearch_tpu" / module
     assert port.is_file() and ref.is_file()
