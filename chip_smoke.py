@@ -99,7 +99,7 @@ Phases:
      stack on the card whose top-10 equals an exact f64 host BM25 over
      1,010,000 docs; 1,000 deletes (half new) never returned; K1, K2 and K3
      against their twins at the phase's shapes;
- 11. cli-500k, the product CLI: phase 4's first 500,000 docs (``CLI_DOCS``,
+ 11. cli-400k, the product CLI: phase 4's first 400,000 docs (``CLI_DOCS``,
      a depth cut for the script's time limit) as a JSONL corpus through
      ``cli index`` (in process, no ``--device``: the card; the default
      stack, HashEmbedder(256), a bf16 slab and the FLXB arm), then ``cli
@@ -114,7 +114,7 @@ Phases:
      started together (``python -m frankensearch_tpu_torch.cli``, on the
      card); K1, K2 and
      K3 against their twins at the phase's shapes;
- 12. cli-live-500k, the CLI's live-ingest and interactive path over phase
+ 12. cli-live-400k, the CLI's live-ingest and interactive path over phase
      11's root: two 20,000-doc roots (phase 3's corpus, its first and its
      next 20,000 docs, each through ``cli index``) and a one-shot
      ``search`` subprocess over the first (rows bitwise ``search()``'s, on
@@ -136,7 +136,7 @@ Phases:
      the fast top-10 unchanged across a reopen; ``shadow --candidate
      device`` on the card (no shadow error; a divergence only at a tie);
      K1, K2 and K3 against their twins at the phase's shapes;
- 13. cli-fleet-500k, the rest of the CLI over phase 12's root: ``serve
+ 13. cli-fleet-400k, the rest of the CLI over phase 12's root: ``serve
      --fleet-dir --warmup`` in process (phase 4's 256 pipelined queries and
      8 singletons, every reply bitwise the library's over the handle serve
      opened, K1, K2 and K3 counted) while ``fleet --live`` and ``fleet
@@ -229,6 +229,28 @@ Phases:
      append, a delete, a seal, ``compact()`` and a reopen on the mesh, then
      ``search --shards 2`` and ``serve --shards 2`` over ``fed_root``
      against the same commands unsharded.
+ 17. train-384, the training path, run last on nothing the earlier phases
+     left: data/quality_encoder_384's config (vocab 396, H 384, 6 layers, 12
+     heads) from the port's random init, on the lift world's 90 training
+     pairs. 17a one step at batch 16 x 32 tokens on a (dp 2, tp 2) mesh of
+     four shards of the card (tensor-parallel dense layers, sequence
+     parallelism, remat) against the step on a mesh of one and on the CPU
+     from the same state (loss and gradients within stated tolerances, and
+     one AdamW update from identical gradients on each), and each step's
+     time by CUDA events; 17b
+     ``finetune_quality_tier`` with the recipe that made the artifact (200
+     steps, batch 16, lr 5e-4, seed 11), then 100 steps with a checkpoint
+     and a resume to 200: losses and weights bitwise the uninterrupted
+     run's, the loss falling; 17c the tuned encoder through
+     ``save_artifact`` and ``load_artifact`` (certificate verified) as the
+     lift world's quality tier, its held-out lift significant and above the
+     untrained control's; 17d the GPipe pipeline over three stages of the
+     card within 2e-5 of the sequential forwards, a batch of 5 refused; 17e
+     ``graft_entry.dryrun_multichip(4)`` and ``entry()`` on the card. The
+     training path has no kernel of its own (the encoder's products are
+     cuBLAS's); the searches of 17c and 17e (the lift world's index, the
+     dry run's sharded fused lane) launch K1 and K2, counted on the kernels
+     line and held to their twins at those shapes.
 
 The kernels line gives each kernel's time, its twin's, and its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -1952,11 +1974,12 @@ def phase7_hybrid_m2v(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[di
 def lift_world(seed: int = LIFT_SEED):
     """tools/train_quality_lift.py's paraphrase world, its held-out half: a
     synonym dictionary (cwNNN <-> syNNN), 90 training topics drawn first
-    (only to keep the generator's sequence), then 45 held-out topics of
-    four docs each (the exact words, a paraphrase with one canonical
-    anchor, a partial match, noise) and a canonical-word query with graded
-    judgments. Returns ((doc id, text) list, queries, judgments, every
-    word)."""
+    (each a pair: the canonical words as the query, their synonyms and four
+    filler words as the doc), then 45 held-out topics of four docs each
+    (the exact words, a paraphrase with one canonical anchor, a partial
+    match, noise) and a canonical-word query with graded judgments. Returns
+    ((doc id, text) list, queries, judgments, every word, the 90 training
+    pairs)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -1969,9 +1992,10 @@ def lift_world(seed: int = LIFT_SEED):
         idx = rng.choice(n_dict, size=4, replace=False)
         return [canon_words[i] for i in idx], [syn_words[i] for i in idx]
 
-    for _ in range(90):  # the training pairs' draws
-        draw_topic()
-        rng.choice(filler, size=4)
+    pairs = []
+    for _ in range(90):  # the training pairs: canonical query, synonym doc
+        canon, syns = draw_topic()
+        pairs.append((" ".join(canon), " ".join(syns) + " " + " ".join(rng.choice(filler, size=4))))
 
     def pad():
         return " ".join(rng.choice(filler, size=6))
@@ -1986,7 +2010,7 @@ def lift_world(seed: int = LIFT_SEED):
         docs.append((f"ev{t}-noise", other + " " + pad()))
         queries.append(" ".join(canon))
         qrels.append({f"ev{t}-exact": 3.0, f"ev{t}-para": 2.0, f"ev{t}-part": 1.0})
-    return docs, queries, qrels, canon_words + syn_words + filler
+    return docs, queries, qrels, canon_words + syn_words + filler, pairs
 
 
 def lift_eval(dev, world, quality, root: str, *, rescan: bool, timeout_ms: float | None = None):
@@ -2005,7 +2029,7 @@ def lift_eval(dev, world, quality, root: str, *, rescan: bool, timeout_ms: float
     from frankensearch_tpu_torch.core.types import PhaseKind
     from frankensearch_tpu_torch.utils.quality_harness import EvalQuery, evaluate
 
-    docs, queries, qrels, words = world
+    docs, queries, qrels, words, _ = world
     rng = np.random.default_rng(3)
     table = rng.standard_normal((len(words), 128)).astype(np.float32)
     table /= np.linalg.norm(table, axis=1, keepdims=True)
@@ -2825,7 +2849,7 @@ def phase10_built_m2v(dev, tmp: str, lexical: dict, m2v_run: dict) -> tuple[dict
             launches, kernels)
 
 
-CLI_DOCS = 500_000  # phases 11-13: the CLI's root holds phase 4's first CLI_DOCS docs (a depth cut for the script's time)
+CLI_DOCS = 400_000  # phases 11-13: the CLI's root holds phase 4's first CLI_DOCS docs (a depth cut for the script's time)
 CLI_MAX_BATCH = 256  # serve --serve-max-batch: phase 4's whole batch in one search_batch
 CLI_COALESCE_MS = 200  # serve --coalesce-ms: time for the pipelined frames to arrive
 CLI_WAIT_S = 900  # longest wait for a reply (the serve loop opens the CLI's root first)
@@ -3040,7 +3064,7 @@ def serve_session(root: str, queries: list[str], singles: list[str], *, argv: tu
 
 
 def phase11_cli(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
-    """cli-500k: the product CLI over phase 4's first CLI_DOCS docs. ``index`` (in
+    """cli-400k: the product CLI over phase 4's first CLI_DOCS docs. ``index`` (in
     process, no ``--device``: the card; the default stack, HashEmbedder(256),
     a bf16 slab and the FLXB arm) builds a root from a JSONL corpus; ``serve
     --warmup`` answers phase 4's 256 queries as one coalesced batch, eight
@@ -3129,8 +3153,8 @@ def phase11_cli(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
     outright = lexical_oracle_check(sealed, queries, K, phase="phase11")
     log(f"phase11 the root's lexical top-{K} of {len(queries)} queries vs exact f64 host BM25: {outright} equal, "
         f"{len(queries) - outright} differ only at ties within {ORACLE_REL_TOL:g} ({time.perf_counter() - t0:.1f} s)")
-    kernels = check_kernels("cli-500k", oracle.index.fast.slab, oracle.index.fast._effective_mask(None, None), shapes)
-    kernels += check_flat_kernel("cli-500k", sealed._blocked.classes, flat_inputs)
+    kernels = check_kernels("cli-400k", oracle.index.fast.slab, oracle.index.fast._effective_mask(None, None), shapes)
+    kernels += check_flat_kernel("cli-400k", sealed._blocked.classes, flat_inputs)
     oracle.close()
     del oracle, sealed, want
     torch.cuda.empty_cache()
@@ -3427,7 +3451,7 @@ def shadow_ties(corpus: str, env: dict) -> int:
 
 
 def phase12_live(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
-    """cli-live-500k: ``watch`` into phase 11's root twice (768 docs,
+    """cli-live-400k: ``watch`` into phase 11's root twice (768 docs,
     then modifies, deletes, renames, creates and dropped records under
     ``--durability-window``), ``tui`` on the sync searcher over the watched
     root (every line bitwise the library's over the handle it opened,
@@ -3553,9 +3577,9 @@ def phase12_live(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict]]:
                   if getattr(seg, "_blocked", None) is not None]
         if len(sealed) != 1:
             raise AssertionError(f"phase12: {len(sealed)} segments in the split layout, expected 1")
-        kernels = check_kernels("cli-live-500k", handle.index.fast.slab, handle.index.fast._effective_mask(None, None),
+        kernels = check_kernels("cli-live-400k", handle.index.fast.slab, handle.index.fast._effective_mask(None, None),
                                 shapes)
-        kernels += check_flat_kernel("cli-live-500k", sealed[0]._blocked.classes, flat_inputs)
+        kernels += check_flat_kernel("cli-live-400k", sealed[0]._blocked.classes, flat_inputs)
         emb = HashEmbedder(dim=DIM)
         fast_before = {t: [(h.doc_id, h.score) for h in handle.index.search_fast_classified(emb.embed(t), K).hits]
                        for t in fresh}
@@ -3875,7 +3899,7 @@ def host_commands(tmp: str) -> dict:
 
 
 def phase13_fleet(dev, tmp: str, lexical: dict, docs: int) -> tuple[dict, dict, list[dict]]:
-    """cli-fleet-500k: ``serve --fleet-dir F --node-id serve-cli --warmup`` in
+    """cli-fleet-400k: ``serve --fleet-dir F --node-id serve-cli --warmup`` in
     process on phase 12's watched root (``docs`` docs): phase 4's
     256 pipelined queries and 8 singletons, every reply bitwise the
     library's over the handle serve opened, K1/K2/K3 counted; while it
@@ -3980,12 +4004,12 @@ def phase13_fleet(dev, tmp: str, lexical: dict, docs: int) -> tuple[dict, dict, 
         if pong["data"] != {"op": "pong"} or reply["data"] != json_rows(handle.searcher.search(q, k=K).results):
             raise AssertionError(f"phase13: singleton {q!r} differs from the library's search()")
     done = lexical["cli_shapes"]
-    kernels = check_kernels("cli-fleet-500k", slab, handle.index.fast._effective_mask(None, None), shapes, done=done)
+    kernels = check_kernels("cli-fleet-400k", slab, handle.index.fast._effective_mask(None, None), shapes, done=done)
     new_flat = {key: v for key, v in flat_inputs.items() if key not in lexical["cli_flat"]}
     if new_flat:
         sealed = [seg for seg in getattr(handle.delta.sealed, "segments", [handle.delta.sealed])
                   if getattr(seg, "_blocked", None) is not None]
-        kernels += check_flat_kernel("cli-fleet-500k", sealed[0]._blocked.classes, new_flat)
+        kernels += check_flat_kernel("cli-fleet-400k", sealed[0]._blocked.classes, new_flat)
     log(f"phase13 every reply bitwise the library's over the handle serve opened; kernel shapes {sorted(shapes)}, "
         f"K3 tiles {sorted(flat_inputs)}; held to their twins here where phases 11-12 had not: {len(kernels)} records")
     handle.close()
@@ -5170,6 +5194,272 @@ def phase16_roots(dev, tmp: str) -> tuple[dict, dict, list[dict]]:
     return rec, launches, []
 
 
+#: phase 17 (train-384): data/quality_encoder_384's recipe (tests/test_trained_quality_384.py)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR, TRAIN_SEED = 200, 16, 5e-4, 11
+TRAIN_RESUME_AT = 100  # the checkpointed run stops here, the resumed one goes on to TRAIN_STEPS
+TRAIN_T = 32  # finetune_quality_tier pads every text to 32 tokens
+#: 17a: the (dp 2, tp 2) mesh step against the mesh of one and the CPU port's
+#: step from the same state: f32 sums in other orders (row-parallel partial
+#: sums, cuBLAS's GEMM by shape, the CPU's kernels), logits scaled by 1 / 0.05
+TRAIN_LOSS_RTOL = 1e-5
+#: each gradient within TRAIN_GRAD_REL of its leaf's largest entry, plus
+#: TRAIN_GRAD_FLOOR of the largest entry of all: the key bias's gradient is
+#: zero but for rounding (softmax ignores a shift shared by a row's logits)
+TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR = 1e-4, 1e-6
+#: one AdamW update from the mesh of one's gradients on each mesh's master
+#: copy (the same elementwise arithmetic; the CPU's and the card's kernels
+#: may round a weight near 1 by one f32 ulp): within TRAIN_UPDATE_ATOL plus
+#: TRAIN_UPDATE_RTOL of the weight. A wrong update moves a weight by about lr
+TRAIN_UPDATE_ATOL, TRAIN_UPDATE_RTOL = 1e-7, 2.0**-23
+PIPE_STAGES, PIPE_MICRO, PIPE_TOL = 3, 4, 2e-5  # 17d: 6 layers, 2 a stage
+LIFT_RECORDED = (0.0613, 0.0406, 0.0845)  # data/quality_encoder_384's held-out lift and CI (the reference's run)
+
+
+def phase17_train(dev, tmp: str) -> tuple[dict, dict, list[dict]]:
+    """train-384: the training path on the card at data/quality_encoder_384's
+    config (vocab 396, H 384, 6 layers, 12 heads, FFN 1536, max_position
+    128) from the port's random init (seed 11), on the lift world's 90
+    training pairs. 17a one step at batch 16 on a (dp 2, tp 2) mesh of four
+    shards of the card (sequence parallelism and remat on) against the same
+    step on a mesh of one and on the CPU (loss and gradients), and one AdamW
+    update from identical gradients on each; 17b ``finetune_quality_tier`` with
+    the recipe (200 steps, batch 16, lr 5e-4, seed 11) uninterrupted, then
+    100 steps with a checkpoint and a resume to 200, bitwise the same; 17c
+    the tuned encoder saved, loaded with its certificate verified and served
+    as the quality tier of the held-out lift world, beside the untrained
+    control; 17d the GPipe pipeline over three stages of the card; 17e
+    ``graft_entry.dryrun_multichip(4)`` and ``entry()``. The training path
+    has no kernel of its own (the encoder's products are cuBLAS's); the
+    searches of 17c and 17e launch the scan kernels, counted in
+    (rec, launches, kernels) and held to their twins at their shapes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from frankensearch_tpu_torch import graft_entry
+    from frankensearch_tpu_torch.parallel.mesh import Mesh
+    from frankensearch_tpu_torch.parallel.pipeline import (pipeline_embed_forward, pipeline_encoder_forward,
+                                                           shard_stacked_layers, stack_layer_params)
+    from frankensearch_tpu_torch.parallel.train import AdamW, encode_batch, finetune_quality_tier, make_train_step
+    from frankensearch_tpu_torch.parallel.train import shard_params
+    from frankensearch_tpu_torch.rerank.bert import BertConfig
+    from frankensearch_tpu_torch.rerank.encoder import load_artifact, random_transformer_embedder, save_artifact
+    from frankensearch_tpu_torch.utils.quality_harness import compare_systems
+
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    cpu = torch.device("cpu")
+    torch.cuda.reset_peak_memory_stats()
+    world = lift_world()
+    pairs = world[4]
+    untrained = random_transformer_embedder(world[3], device=dev, hidden=Q_DIM, layers=6, heads=12, seed=TRAIN_SEED)
+    cfg, tok = untrained.cfg, untrained.tokenizer
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), QUALITY_ARTIFACT, "encoder.json")) as f:
+        want_cfg = json.load(f)["cfg"]
+    if cfg != BertConfig(**want_cfg):
+        raise AssertionError(f"phase17: config {dataclasses.asdict(cfg)} is not {QUALITY_ARTIFACT}'s {want_cfg}")
+    rec: dict = {"config": dataclasses.asdict(cfg), "card": card}
+
+    # --- 17a: one step on the (2, 2) mesh, on a mesh of one, on the CPU ---
+    t0 = time.perf_counter()
+    idx = np.random.default_rng([TRAIN_SEED, 0]).choice(len(pairs), size=TRAIN_BATCH, replace=False)
+    batch = (*encode_batch(tok, [pairs[i][0] for i in idx]), *encode_batch(tok, [pairs[i][1] for i in idx]))
+    state = untrained.model.state_dict()
+    meshes = {"mesh_2x2": Mesh(np.array([dev] * 4, dtype=object).reshape(2, 2), ("dp", "tp")),
+              "mesh_1": Mesh(np.array([[dev]], dtype=object), ("dp", "tp")),
+              "cpu": Mesh(np.array([[cpu]], dtype=object), ("dp", "tp"))}
+    steps, out, updated = {}, {}, {}
+    for name, mesh in meshes.items():
+        optimizer = AdamW(TRAIN_LR)
+        params = shard_params(state, mesh, cfg)
+        opt_state = optimizer.init(params)
+        steps[name] = (make_train_step(cfg, mesh, optimizer, sequence_parallel=True, remat=True), params, opt_state)
+        _, _, loss = steps[name][0](params, opt_state, *batch)
+        out[name] = (float(loss), {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                                   for n, p in params.items()})
+    base_loss, base_grads = out["mesh_1"]
+    for name, mesh in meshes.items():  # one update from the mesh of one's gradients
+        optimizer = AdamW(TRAIN_LR)
+        params = shard_params(state, mesh, cfg)
+        opt_state = optimizer.init(params)
+        for n, p in params.items():
+            p.grad = base_grads[n].to(p.device)
+        optimizer.update(params, opt_state)
+        updated[name] = {n: p.detach().cpu() for n, p in params.items()}
+    diffs = {}
+    for name in ("mesh_2x2", "cpu"):
+        loss, grads = out[name]
+        floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max()) for g in base_grads.values())
+        grad_rel = max(float((grads[n] - g).abs().max()) / (TRAIN_GRAD_REL * float(g.abs().max()) + floor)
+                       for n, g in base_grads.items())  # 1 = at the tolerance
+        update_rel = max(float(((updated[name][n] - w).abs() / (TRAIN_UPDATE_ATOL + TRAIN_UPDATE_RTOL * w.abs())).max())
+                         for n, w in updated["mesh_1"].items())  # 1 = at the tolerance
+        update_err = max(float((updated[name][n] - w).abs().max()) for n, w in updated["mesh_1"].items())
+        loss_rel = abs(loss - base_loss) / abs(base_loss)
+        diffs[name] = {"loss": loss, "loss_rel": loss_rel, "grad_err_over_tol": grad_rel,
+                       "update_max_abs": update_err, "update_err_over_tol": update_rel}
+        if not (loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= 1.0 and update_rel <= 1.0):
+            raise AssertionError(f"phase17a: the {name} step is off the mesh-of-one step: {diffs[name]}")
+    step_ms = {}
+    for name in ("mesh_2x2", "mesh_1"):
+        fn, params, opt_state = steps[name]
+        step_ms[name] = cuda_median_ms(lambda: fn(params, opt_state, *batch), warmup=2, iters=10)
+    del steps, out, updated
+    tokens = 2 * TRAIN_BATCH * TRAIN_T
+    rec["mesh_step"] = {"mesh_1_loss": base_loss, "vs": diffs, "step_ms": step_ms,
+                        "tokens_per_s": {k: tokens / (v / 1000.0) for k, v in step_ms.items()},
+                        "s": time.perf_counter() - t0}
+    log(f"phase17a [{card}] one step at B={TRAIN_BATCH} x T={TRAIN_T}: loss {base_loss:.6f} on a mesh of one; "
+        f"(dp 2, tp 2) mesh of 4 shards (sequence parallel, remat) {json.dumps(diffs['mesh_2x2'])}; CPU "
+        f"{json.dumps(diffs['cpu'])}; step by CUDA events " + ", ".join(
+            f"{k} {v:.2f} ms ({tokens / (v / 1000.0):.0f} padded tokens/s)" for k, v in step_ms.items())
+        + f"; {rec['mesh_step']['s']:.1f} s")
+
+    # --- 17b: the recipe, uninterrupted, then checkpointed and resumed ---
+    t0 = time.perf_counter()
+    recipe = dict(steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR, seed=TRAIN_SEED)
+    tuned, losses = finetune_quality_tier(untrained, pairs, **recipe)
+    full_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck = os.path.join(tmp, "train384-ck")
+    finetune_quality_tier(untrained, pairs, **dict(recipe, steps=TRAIN_RESUME_AT), checkpoint_dir=ck,
+                          checkpoint_every=TRAIN_RESUME_AT)
+    resumed, tail = finetune_quality_tier(untrained, pairs, **recipe, checkpoint_dir=ck,
+                                          checkpoint_every=TRAIN_RESUME_AT)
+    resume_s = time.perf_counter() - t0
+    if tail != losses[TRAIN_RESUME_AT:]:
+        raise AssertionError(f"phase17b: the resumed losses differ from the uninterrupted run's "
+                             f"({tail[:3]} vs {losses[TRAIN_RESUME_AT:TRAIN_RESUME_AT + 3]})")
+    want_state, got_state = tuned.model.state_dict(), resumed.model.state_dict()
+    if not all(torch.equal(v, got_state[n]) for n, v in want_state.items()):
+        raise AssertionError("phase17b: the resumed weights differ from the uninterrupted run's")
+    head, tail5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not tail5 < 0.9 * head:
+        raise AssertionError(f"phase17b: the loss did not fall ({head:.4f} -> {tail5:.4f})")
+    rec["finetune"] = {"losses": losses, "loss_head5": head, "loss_tail5": tail5, "s": full_s,
+                       "step_ms_host": full_s * 1000.0 / TRAIN_STEPS, "resume_s": resume_s,
+                       "resume_bitwise": True}
+    log(f"phase17b [{card}] finetune_quality_tier {TRAIN_STEPS} steps (batch {TRAIN_BATCH}, lr {TRAIN_LR:g}, seed "
+        f"{TRAIN_SEED}) in {full_s:.1f} s ({rec['finetune']['step_ms_host']:.2f} ms a step by the host clock, a "
+        f"loss read each step); loss {head:.4f} -> {tail5:.4f} (first and last 5); {TRAIN_RESUME_AT} steps + "
+        f"checkpoint + resume to {TRAIN_STEPS} in {resume_s:.1f} s: losses and weights bitwise the uninterrupted run's")
+
+    # --- 17c: the artifact and the held-out lift, tuned against untrained ---
+    t0 = time.perf_counter()
+    art = os.path.join(tmp, "quality_encoder_384_tuned")
+    save_artifact(tuned, art)
+    loaded = load_artifact(art, device=dev)  # verify=True: the certificate, fail-closed
+    lifts = {}
+    reports, l17c, kernels = counted("train-384-lift", lambda: {
+        label: lift_eval(dev, world, enc, os.path.join(tmp, f"lift17-{label}"), rescan=False)
+        for label, enc in (("tuned", loaded), ("untrained", untrained))})
+    for label, (init, refined, skips) in reports.items():
+        if any(skips):
+            raise AssertionError(f"phase17c {label}: phase-2 skips {sorted(set(skips) - {None})}")
+        cmp = compare_systems(init, refined)
+        i_n, r_n = ([rep.per_query[q]["ndcg"] for q in sorted(rep.per_query)] for rep in (init, refined))
+        lifts[label] = {"initial": float(np.mean(i_n)), "refined": float(np.mean(r_n)),
+                        "lift": float(np.mean(r_n) - np.mean(i_n)), "lo": cmp.lo, "hi": cmp.hi,
+                        "significant": cmp.significant}
+    if not (lifts["tuned"]["lo"] > 0 and lifts["tuned"]["lift"] > lifts["untrained"]["lift"]):
+        raise AssertionError(f"phase17c: the tuned lift is not significant or not above the control's: {lifts}")
+    rec["lift"] = dict(lifts, recorded={"lift": LIFT_RECORDED[0], "lo": LIFT_RECORDED[1], "hi": LIFT_RECORDED[2]},
+                       launches=l17c, s=time.perf_counter() - t0)
+    log(f"phase17c [{card}] artifact saved and loaded with its certificate verified; held-out lift (Refined - "
+        f"Initial nDCG@10): tuned {lifts['tuned']['lift']:+.4f} [{lifts['tuned']['lo']:.4f}, "
+        f"{lifts['tuned']['hi']:.4f}], untrained control {lifts['untrained']['lift']:+.4f} "
+        f"[{lifts['untrained']['lo']:.4f}, {lifts['untrained']['hi']:.4f}]; the reference's recorded "
+        f"{LIFT_RECORDED[0]:+.4f} [{LIFT_RECORDED[1]}, {LIFT_RECORDED[2]}]; launches {l17c}; "
+        f"{rec['lift']['s']:.1f} s")
+
+    # --- 17d: the pipeline over three stages of the card ---
+    t0 = time.perf_counter()
+    tuned_state = loaded.model.state_dict()
+    pp = Mesh([dev] * PIPE_STAGES, ("pp",))
+    stacked = shard_stacked_layers(stack_layer_params(tuned_state), pp)
+    ids, mask = (torch.from_numpy(x).to(dev, torch.int64) for x in loaded.tokenize_batch(world[1][:8]))
+    with torch.inference_mode():
+        hidden = pipeline_encoder_forward(tuned_state, stacked, ids, mask, cfg=cfg, mesh=pp, microbatches=PIPE_MICRO,
+                                          n_stages=PIPE_STAGES)
+        enc_err = float((hidden - loaded.model.encoder_forward(ids, mask)).abs().max())
+        pooled = pipeline_embed_forward(tuned_state, stacked, ids, mask, cfg=cfg, mesh=pp, microbatches=PIPE_MICRO)
+        emb_err = float((pooled - loaded.model.embed_forward(ids, mask)).abs().max())
+        pipe_ms = cuda_median_ms(lambda: pipeline_encoder_forward(
+            tuned_state, stacked, ids, mask, cfg=cfg, mesh=pp, microbatches=PIPE_MICRO, n_stages=PIPE_STAGES),
+            warmup=1, iters=5)
+        try:
+            pipeline_encoder_forward(tuned_state, stacked, ids[:5], mask[:5], cfg=cfg, mesh=pp,
+                                     microbatches=PIPE_MICRO, n_stages=PIPE_STAGES)
+            raise AssertionError("phase17d: a batch of 5 over 4 microbatches did not raise")
+        except ValueError as e:
+            if "divisible" not in str(e):
+                raise
+    if not (enc_err <= PIPE_TOL and emb_err <= PIPE_TOL):
+        raise AssertionError(f"phase17d: the pipeline is {enc_err:.3e} / {emb_err:.3e} from the sequential encoder")
+    rec["pipeline"] = {"stages": PIPE_STAGES, "microbatches": PIPE_MICRO, "encoder_max_abs_err": enc_err,
+                       "embed_max_abs_err": emb_err, "ms": pipe_ms, "s": time.perf_counter() - t0}
+    log(f"phase17d [{card}] pipeline over {PIPE_STAGES} stages of the card, {PIPE_MICRO} microbatches of "
+        f"{len(ids) // PIPE_MICRO}: encoder {enc_err:.3e}, embedding {emb_err:.3e} from the sequential forwards "
+        f"(tol {PIPE_TOL:g}); {pipe_ms:.2f} ms a forward; a batch of 5 raised")
+
+    # --- 17e: the dry run and the entry on the card ---
+    t0 = time.perf_counter()
+
+    def dry_and_entry():
+        dry = graft_entry.dryrun_multichip(4)
+        fn, args = graft_entry.entry()
+        return dry, fn, args, fn(*args)
+
+    (dry, fn, args, res), l17e, more = counted("dryrun-4", dry_and_entry)
+    need_launches("phase17e", l17e)
+    kernels += more
+    if tuple(res.scores.shape) != (8, 10) or not bool(torch.isfinite(res.scores).all()):
+        raise AssertionError(f"phase17e: entry() gave {tuple(res.scores.shape)}")
+    entry_ms = cuda_median_ms(lambda: fn(*args), warmup=1, iters=5)
+    rec["dryrun"] = dict(dry, entry_ms=entry_ms, launches=l17e, s=time.perf_counter() - t0)
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase17e [{card}] dryrun_multichip(4) on the card: {json.dumps(dry)}; launches {l17e} (the sharded "
+        f"fused lane's K1 and K2 per shard); entry() {entry_ms:.2f} ms; peak device memory "
+        f"{rec['peak_memory_bytes'] / 2**20:.1f} MiB; phase 17 {rec['phase_s']:.1f} s")
+    del tuned, resumed, loaded, untrained
+    torch.cuda.empty_cache()
+    return rec, {name: l17c[name] + l17e[name] for name in l17c}, kernels
+
+
+def counted(cell: str, fn):
+    """Run ``fn`` with the launch counters zeroed (:func:`drive`), keeping
+    every hierarchical scan's slab, mask and kernel shapes; then hold K1
+    and K2 to their twins on each slab at its shapes. Any other kernel
+    launched fails the phase. Returns (result, {kernel: launches}, kernel
+    records)."""
+    import torch
+
+    from frankensearch_tpu_torch.ops import topk_scan as ts
+
+    slabs: dict = {}  # (data pointer, shape) -> (slab, mask, shapes)
+
+    def keep_scans(real):
+        def kept(slab, queries, k, mask=None):
+            held = mask if mask is not None else torch.zeros(slab.shape[0], dtype=torch.float32, device=slab.device)
+            _, _, shapes = slabs.setdefault((slab.data_ptr(), tuple(slab.shape)), (slab, held, set()))
+            b = queries.shape[0]
+            shapes.update({("group_max", b, 0), ("gather_rescore", b, min(k, slab.shape[0] // ts.GROUP))})
+            return real(slab, queries, k, mask)
+        return kept
+
+    with spied((ts, "scan_topk_hierarchical", keep_scans)):
+        out, launches = drive(fn, set())
+    unheld = {name: n for name, n in launches.items() if n and name not in ("K1", "K2")}
+    if unheld or (launches["K1"] + launches["K2"] and not slabs):
+        raise AssertionError(f"{cell}: kernels launched outside the hierarchical scans it checks: {launches}")
+    kernels = []
+    for i, (slab, mask, shapes) in enumerate(slabs.values()):
+        kernels += check_kernels(f"{cell}-{i}", slab, mask, shapes)
+    return out, launches, kernels
+
+
 def main() -> int:
     # the port must reach neither jax nor the JAX package, even indirectly
     sys.modules["jax"] = None
@@ -5267,11 +5557,14 @@ def main() -> int:
         roots_rec, l16e, k16e = phase16_roots(dev, tmp)
         wall["phase16e_s"] = time.perf_counter() - t0
         del lexical
+        t0 = time.perf_counter()
+        train_rec, l17, k17 = phase17_train(dev, tmp)
+        wall["phase17_s"] = time.perf_counter() - t0
         log("phase wall times: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
     wall["total_s"] = time.perf_counter() - t_main
     log(f"chip_smoke wall time: {wall['total_s']:.1f} s (the kernel build, every phase and the cleanup)")
 
-    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9 + k10 + k11 + k12 + k13 + k14 + k15 + k16 + k16e
+    records = k2 + k3 + k4 + k5 + k6 + k7 + k8 + k9 + k10 + k11 + k12 + k13 + k14 + k15 + k16 + k16e + k17
     kernels = []
     for name, key, src, replaces, cell in KERNELS:
         recs = [r for r in records if r["kernel"] == name]
@@ -5287,7 +5580,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(l.get(key, 0) for l in (l2, l3, l4, l5, l6, l7, l8, l9, l10, l11, l12, l13, l14, l15,
-                                                    l16, l16e)),
+                                                    l16, l16e, l17)),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": sum(r["ms"] for r in head) / len(head), "plain_ms": sum(r["plain_ms"] for r in head) / len(head),
             "bound_ms": bound_ms,
@@ -5299,7 +5592,7 @@ def main() -> int:
                     "hybrid_1m_m2v": m2v_rec, "hybrid_1m_quality": quality_rec, "scan_lanes": lanes_rec,
                     "built_1m_m2v": built_rec, "cli_1m": cli_rec, "cli_live_1m": live_rec,
                     "cli_fleet_1m": fleet_rec, "refresh_1m_quality": refresh_rec, "gauntlet_1m": gauntlet_rec,
-                    "sharded_1m": shard_rec, "sharded_roots": roots_rec, "wall_s": wall}))
+                    "sharded_1m": shard_rec, "sharded_roots": roots_rec, "train_384": train_rec, "wall_s": wall}))
     log(json.dumps({"kernels": kernels}))
     log(gpu_line())
     print(json.dumps({

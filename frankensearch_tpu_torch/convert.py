@@ -119,3 +119,31 @@ def bert_params_from_arrays(flat: Mapping[str, np.ndarray], cfg) -> dict[str, to
     state = {port_name(key): torch.from_numpy(np.array(value, copy=True)) for key, value in flat.items()}
     check_state(cfg, state)
     return state
+
+
+def train_state_from_arrays(
+    params: Mapping[str, np.ndarray],
+    mu: Mapping[str, np.ndarray],
+    nu: Mapping[str, np.ndarray],
+    count,
+    cfg,
+    *,
+    device: torch.device,
+) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """The port's training state (parallel/train.py) from the reference's:
+    its parameters and its optax adamw state's fields (``mu``, ``nu``, each
+    keyed by jax's ``keystr`` paths as the parameters are, and ``count``) as
+    numpy. Returns (params as CPU tensors, for ``shard_params``; the AdamW
+    state, moments on ``device`` and the count as torch keeps it: an f32
+    scalar on the CPU)."""
+    from frankensearch_tpu_torch.rerank.bert import port_name
+
+    state = bert_params_from_arrays(params, cfg)
+    opt = {"count": torch.tensor(float(np.asarray(count)), dtype=torch.float32)}
+    for field, tree in (("mu", mu), ("nu", nu)):
+        moments = {port_name(key): value for key, value in tree.items()}
+        if set(moments) != set(state):
+            raise KeyError(f"optimizer {field}: {sorted(set(moments) ^ set(state))[:3]} differ from the params")
+        for name, value in moments.items():
+            opt[f"{field}.{name}"] = _to_tensor(np.asarray(value, dtype=np.float32)).to(device)
+    return state, opt

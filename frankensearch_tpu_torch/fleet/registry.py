@@ -109,8 +109,7 @@ class NodeRegistrar:
         while self._lat_ms and now - self._lat_ms[0][0] > WINDOW_S:
             self._lat_ms.popleft()
 
-    def _window_stats(self) -> tuple[float, float, float]:
-        now = time.time()
+    def _window_stats(self, now: float) -> tuple[float, float, float]:
         with self._lock:
             self._trim(now)
             lats = sorted(l for _, l in self._lat_ms)
@@ -126,7 +125,10 @@ class NodeRegistrar:
 
     def publish(self) -> None:
         status = {} if self.status_fn is None else dict(self.status_fn())
-        qps, p50, p99 = self._window_stats()
+        # one clock reading for the window and the stamp, so that a reader
+        # finds qps == window count / (at - started_at)
+        now = time.time()
+        qps, p50, p99 = self._window_stats(now)
         with self._lock:
             errors = self._errors
         payload = {
@@ -137,7 +139,7 @@ class NodeRegistrar:
             "root": self.root,
             "generation_id": str(status.get("generation_id", "")),
             "started_at": self.started_at,
-            "at": time.time(),
+            "at": now,
             "qps": round(qps, 2),
             "p50_ms": round(p50, 3),
             "p99_ms": round(p99, 3),

@@ -22,6 +22,14 @@ three forms (the reference's ``_linear``):
   activations times per-output-channel int8 weights with exact int32 sums
   (``torch._int_mm`` on CUDA, zero-padded to its shape rules; an int32
   product on the CPU), then the two scales and the bias in f32.
+
+The forwards are functions over a weights object, under the reference's
+names (``embed_tokens``, ``transformer_layer``, ``encoder_forward``): a
+:class:`Bert` serves through them, and :func:`state_view` lays a flat
+state's tensors out for them without a copy, so that training
+(parallel/train.py) and the pipeline's stages run the same operations with
+autograd reaching the state. There a dense layer is :class:`Dense` over the
+state's tensors or its tensor-parallel form :class:`ShardedDense`.
 """
 
 from __future__ import annotations
@@ -30,11 +38,14 @@ import dataclasses
 import math
 import os
 import re
+from types import SimpleNamespace
 from typing import Any, Mapping
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from frankensearch_tpu_torch.ops.vector_math import int8_matmul, mm_bf16_f32
 
@@ -221,10 +232,184 @@ def _nest(state: Mapping[str, Any]) -> dict:
     return root
 
 
+# ---------------------------------------------------------------------------
+# The forwards, over any weights object
+# ---------------------------------------------------------------------------
+#
+# A weights object has ``embeddings`` (``word``, ``position``, ``token_type``,
+# ``ln_scale``, ``ln_bias``) and ``layers``, each with the six dense layers as
+# callables ``(x, compute) -> y`` and the four LayerNorm tensors: a
+# :class:`Bert` module (the serving weights, its buffers) or a
+# :func:`state_view` over a flat state's tensors (training: autograd reaches
+# them).
+
+
+def embed_tokens(weights, input_ids: torch.Tensor, token_type_ids: torch.Tensor | None, *, cfg: BertConfig) -> torch.Tensor:
+    """Embedding sum + LayerNorm (the pre-pipeline stage)."""
+    emb = weights.embeddings
+    t = input_ids.shape[1]
+    positions = torch.arange(t, device=input_ids.device)[None, :]
+    if token_type_ids is None:
+        token_type_ids = torch.zeros_like(input_ids)
+    # F.embedding gathers the same rows as indexing does; its backward sums
+    # a repeated id's gradients in a fixed order on the card as well
+    x = (F.embedding(input_ids, emb.word) + F.embedding(positions, emb.position)
+         + F.embedding(token_type_ids, emb.token_type))
+    return _layer_norm(x, emb.ln_scale, emb.ln_bias, cfg.ln_eps)
+
+
+def transformer_layer(x: torch.Tensor, layer, amask: torch.Tensor, *, cfg: BertConfig) -> torch.Tensor:
+    """One post-LN block: x (B, T, H), amask (B, 1, 1, T) additive. The unit
+    that the sequential encoder and each pipeline stage apply."""
+    b, t = x.shape[0], x.shape[1]
+    nh, hd = cfg.heads, cfg.head_dim
+    cd = cfg.compute
+    scale = 1.0 / math.sqrt(hd)
+
+    def heads(y):  # (B, T, H) -> (B * heads, T, head_dim)
+        return y.reshape(b, t, nh, hd).permute(0, 2, 1, 3).reshape(b * nh, t, hd)
+
+    q, k, v = (heads(getattr(layer, n)(x, cd)) for n in ("q", "k", "v"))
+    if cd == "bf16":
+        logits = mm_bf16_f32(q.to(torch.bfloat16), k.to(torch.bfloat16).transpose(1, 2))
+    else:
+        logits = torch.matmul(q, k.transpose(1, 2))
+    logits = logits.reshape(b, nh, t, t) * scale + amask
+    probs = torch.softmax(logits, dim=-1).reshape(b * nh, t, t)
+    if cd == "bf16":
+        ctx = mm_bf16_f32(probs.to(torch.bfloat16), v.to(torch.bfloat16))
+    else:
+        ctx = torch.matmul(probs, v)
+    ctx = ctx.reshape(b, nh, t, hd).permute(0, 2, 1, 3).reshape(b, t, cfg.hidden)
+    x = _layer_norm(x + layer.attn_out(ctx, cd), layer.attn_ln_scale, layer.attn_ln_bias, cfg.ln_eps)
+    h = _exact_gelu(layer.ffn_in(x, cd))
+    return _layer_norm(x + layer.ffn_out(h, cd), layer.ffn_ln_scale, layer.ffn_ln_bias, cfg.ln_eps)
+
+
+def _split_sequence(x: torch.Tensor, devices) -> tuple[torch.Tensor, ...]:
+    if devices is None:
+        return (x,)
+    return tuple(p.to(d) for p, d in zip(torch.tensor_split(x, len(devices), dim=1), devices))
+
+
+def encoder_forward(
+    weights,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    token_type_ids: torch.Tensor | None = None,
+    *,
+    cfg: BertConfig,
+    remat: bool = False,
+    sequence_devices=None,
+) -> torch.Tensor:
+    """Token-level hidden states (B, T, H), f32, on ``input_ids``' device.
+
+    ``remat`` runs each block under ``torch.utils.checkpoint`` (the
+    non-reentrant form): the backward pass recomputes a block's internals
+    instead of keeping them, as ``jax.checkpoint`` does. ``sequence_devices``
+    is sequence parallelism: between blocks the residual stream's T axis is
+    cut over these devices (the tensor-parallel axis's), and each block
+    gathers it back; with ``remat``, those pieces are what the backward pass
+    keeps of the stream. Neither changes a value."""
+    x = embed_tokens(weights, input_ids, token_type_ids, cfg=cfg)
+    amask = torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9).to(torch.float32)
+    home = x.device
+
+    def block(layer, *parts):
+        h = torch.cat([p.to(home) for p in parts], dim=1) if len(parts) > 1 else parts[0].to(home)
+        return transformer_layer(h, layer, amask, cfg=cfg)
+
+    parts = _split_sequence(x, sequence_devices)
+    for layer in weights.layers:
+        if remat:
+            x = checkpoint(block, layer, *parts, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = block(layer, *parts)
+        parts = _split_sequence(x, sequence_devices)
+    return x
+
+
+def mean_pool_l2(hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    """The embedder's head: the mask-weighted mean over T, then L2 (B, H)."""
+    m = attention_mask.to(torch.float32)[..., None]
+    pooled = torch.sum(hidden * m, dim=1) / torch.clamp(torch.sum(m, dim=1), min=1e-9)
+    norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+    return torch.where(norm > 1e-12, pooled / norm, pooled)
+
+
+# ---------------------------------------------------------------------------
+# Weights over a flat state's tensors (training, the pipeline's stages)
+# ---------------------------------------------------------------------------
+
+
+class ShardedDense:
+    """The tensor-parallel form of a dense layer over the devices of a tp
+    axis (Megatron's split), in f32. ``split="out"`` is column-parallel (q,
+    k, v, ffn_in): ``w`` and ``b`` are cut on the output dim, one block a
+    device, and the blocks' outputs are copied back to x's device and
+    concatenated. ``split="in"`` is row-parallel (attn_out, ffn_out): ``w``
+    is cut on the input dim and x with it, each device's partial product is
+    copied back and the parts are added in shard order, then the replicated
+    bias. Every copy is differentiable, so each shard's gradient reaches
+    ``w`` and ``b``."""
+
+    def __init__(self, w: torch.Tensor, b: torch.Tensor, devices, split: str) -> None:
+        if split not in ("out", "in"):
+            raise ValueError(f"split must be 'out' or 'in', not {split!r}")
+        self.devices, self.split = tuple(devices), split
+        n = len(self.devices)
+        self.w = [p.to(d) for p, d in zip(torch.tensor_split(w, n, dim=1 if split == "out" else 0), self.devices)]
+        self.b = [p.to(d) for p, d in zip(torch.tensor_split(b, n), self.devices)] if split == "out" else b
+
+    def __call__(self, x: torch.Tensor, compute: str = "f32") -> torch.Tensor:
+        if compute != "f32":
+            raise ValueError(f"the tensor-parallel dense layer runs in f32, not {compute!r}")
+        lead, k = x.shape[:-1], x.shape[-1]
+        x2 = x.reshape(-1, k)
+        if self.split == "out":
+            y = torch.cat([(torch.matmul(x2.to(d), w) + b).to(x.device)
+                           for d, w, b in zip(self.devices, self.w, self.b)], dim=1)
+        else:
+            y = None
+            for d, xs, w in zip(self.devices, torch.tensor_split(x2, len(self.devices), dim=1), self.w):
+                part = torch.matmul(xs.to(d), w).to(x.device)
+                y = part if y is None else y + part
+            y = y + self.b
+        return y.reshape(*lead, y.shape[-1])
+
+
+def _dense(name: str, w: torch.Tensor, b: torch.Tensor) -> Dense:
+    # f32 tensors on their device are taken as they are: autograd reaches them
+    return Dense({"w": w, "b": b}, w.device)
+
+
+def layer_view(tensors: Mapping[str, torch.Tensor], dense=_dense) -> SimpleNamespace:
+    """One block's weights over ``tensors`` (keys ``q.w``, ``q.b``, ...,
+    ``ffn_ln_bias``, no copy); ``dense(name, w, b)`` makes each dense layer
+    (default :class:`Dense` over the f32 tensors)."""
+    view = SimpleNamespace(**{n: tensors[n] for n in LN_NAMES})
+    for n in DENSE_NAMES:
+        setattr(view, n, dense(n, tensors[f"{n}.w"], tensors[f"{n}.b"]))
+    return view
+
+
+def state_view(state: Mapping[str, torch.Tensor], dense=_dense) -> SimpleNamespace:
+    """A weights object for the forwards over a flat f32 state's tensors
+    (no copy: autograd reaches them): its embeddings and each ``layers.i``
+    it holds; ``dense`` as in :func:`layer_view`."""
+    per_layer: dict[int, dict[str, torch.Tensor]] = {}
+    for name, value in state.items():
+        parts = name.split(".", 2)
+        if parts[0] == "layers":
+            per_layer.setdefault(int(parts[1]), {})[parts[2]] = value
+    emb = SimpleNamespace(**{n: state[f"embeddings.{n}"] for n in EMB_NAMES})
+    return SimpleNamespace(embeddings=emb, layers=[layer_view(per_layer[i], dense) for i in range(len(per_layer))])
+
+
 class Bert(nn.Module):
-    """The encoder's weights on ``device`` and its forwards (inference
-    only). ``state`` maps state names to arrays or tensors, in f32 form or
-    as :func:`quantize_linear_weights` left it."""
+    """The encoder's weights on ``device`` and its serving forwards
+    (inference only). ``state`` maps state names to arrays or tensors, in f32
+    form or as :func:`quantize_linear_weights` left it."""
 
     def __init__(self, cfg: BertConfig, state: Mapping[str, Any], *, device: torch.device) -> None:
         super().__init__()
@@ -243,61 +428,16 @@ class Bert(nn.Module):
 
     # -- forwards --------------------------------------------------------
 
-    def embed_tokens(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor | None) -> torch.Tensor:
-        """Embedding sum + LayerNorm."""
-        emb = self.embeddings
-        t = input_ids.shape[1]
-        positions = torch.arange(t, device=input_ids.device)[None, :]
-        if token_type_ids is None:
-            token_type_ids = torch.zeros_like(input_ids)
-        x = emb.word[input_ids] + emb.position[positions] + emb.token_type[token_type_ids]
-        return _layer_norm(x, emb.ln_scale, emb.ln_bias, self.cfg.ln_eps)
-
-    def transformer_layer(self, x: torch.Tensor, layer: Layer, amask: torch.Tensor) -> torch.Tensor:
-        """One post-LN block: x (B, T, H), amask (B, 1, 1, T) additive."""
-        cfg = self.cfg
-        b, t = x.shape[0], x.shape[1]
-        nh, hd = cfg.heads, cfg.head_dim
-        cd = cfg.compute
-        scale = 1.0 / math.sqrt(hd)
-
-        def heads(y):  # (B, T, H) -> (B * heads, T, head_dim)
-            return y.reshape(b, t, nh, hd).permute(0, 2, 1, 3).reshape(b * nh, t, hd)
-
-        q, k, v = (heads(getattr(layer, n)(x, cd)) for n in ("q", "k", "v"))
-        if cd == "bf16":
-            logits = mm_bf16_f32(q.to(torch.bfloat16), k.to(torch.bfloat16).transpose(1, 2))
-        else:
-            logits = torch.matmul(q, k.transpose(1, 2))
-        logits = logits.reshape(b, nh, t, t) * scale + amask
-        probs = torch.softmax(logits, dim=-1).reshape(b * nh, t, t)
-        if cd == "bf16":
-            ctx = mm_bf16_f32(probs.to(torch.bfloat16), v.to(torch.bfloat16))
-        else:
-            ctx = torch.matmul(probs, v)
-        ctx = ctx.reshape(b, nh, t, hd).permute(0, 2, 1, 3).reshape(b, t, cfg.hidden)
-        x = _layer_norm(x + layer.attn_out(ctx, cd), layer.attn_ln_scale, layer.attn_ln_bias, cfg.ln_eps)
-        h = _exact_gelu(layer.ffn_in(x, cd))
-        return _layer_norm(x + layer.ffn_out(h, cd), layer.ffn_ln_scale, layer.ffn_ln_bias, cfg.ln_eps)
-
     def encoder_forward(
         self, input_ids: torch.Tensor, attention_mask: torch.Tensor, token_type_ids: torch.Tensor | None = None
     ) -> torch.Tensor:
         """Token-level hidden states (B, T, H), f32."""
-        x = self.embed_tokens(input_ids, token_type_ids)
-        amask = torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9).to(torch.float32)
-        for layer in self.layers:
-            x = self.transformer_layer(x, layer, amask)
-        return x
+        return encoder_forward(self, input_ids, attention_mask, token_type_ids, cfg=self.cfg)
 
     @torch.inference_mode()
     def embed_forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """Mean-pool + L2 head: (B, H) f32."""
-        hidden = self.encoder_forward(input_ids, attention_mask)
-        m = attention_mask.to(torch.float32)[..., None]
-        pooled = torch.sum(hidden * m, dim=1) / torch.clamp(torch.sum(m, dim=1), min=1e-9)
-        norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
-        return torch.where(norm > 1e-12, pooled / norm, pooled)
+        return mean_pool_l2(self.encoder_forward(input_ids, attention_mask), attention_mask)
 
     @torch.inference_mode()
     def cross_encoder_forward(

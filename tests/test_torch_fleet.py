@@ -118,6 +118,21 @@ def test_observe_query_telemetry(tmp_path):
     assert s.qps > 0 and s.p50_ms == 5.0 and s.p99_ms == 50.0 and s.errors == 1
 
 
+def test_node_file_qps_is_count_over_its_own_stamp(tmp_path, monkeypatch):
+    """qps and ``at`` come from one clock reading: a reader that divides
+    the window's count by ``at - started_at`` gets the published qps, even
+    when the clock moves between the window and the stamp (here 10 ms a
+    reading, as a busy serving thread can make it)."""
+    clock = iter(1000.0 + 0.01 * i for i in range(10_000))
+    monkeypatch.setattr(port_registry.time, "time", lambda: next(clock))
+    reg = NodeRegistrar(str(tmp_path), "n1")
+    for _ in range(264):
+        reg.observe_query(1.0)
+    reg.publish()
+    rec = json.load(open(reg.path))
+    assert rec["qps"] == round(264 / (rec["at"] - rec["started_at"]), 2)
+
+
 def test_close_deregisters(tmp_path):
     reg = NodeRegistrar(str(tmp_path), "n1").start()
     assert os.path.exists(reg.path)

@@ -27,7 +27,14 @@ the two blocked and runs a campaign, the reload law, the lockstep, the
 quality harness and the evidence lint. A fourth imports each of
 ``PARALLEL_MODULES`` with the two blocked and serves a root through
 ``open_hybrid(mesh_shards=4)`` (the sharded fused lane, a write, a
-compaction) and the CLI's ``search --shards 2``.
+compaction) and the CLI's ``search --shards 2``. A fifth imports each of
+``TRAIN_MODULES`` with ``jax``, ``optax``, ``orbax`` and the JAX package
+blocked and runs a (2, 2) mesh training step, a checkpoint and its resume,
+a fine-tune, the pipeline and ``graft_entry.dryrun_multichip(4)`` on CPU
+shards. Every ``.py`` of the JAX package has a counterpart in the port (its
+``__graft_entry__.py`` is the port's ``graft_entry.py``), and the entry
+points that take a device run on the card unless the caller asks for the
+CPU.
 """
 
 import ast
@@ -64,6 +71,12 @@ PARALLEL_MODULES = (
     "parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_scan.py", "parallel/sharded_index.py",
     "parallel/sharded_bm25.py",
 )
+
+#: the training path (the port's copies, at the reference's relative paths)
+TRAIN_MODULES = ("parallel/train.py", "parallel/checkpoint.py", "parallel/pipeline.py")
+
+#: the reference's entry points outside its package -> the port's module
+ENTRY_COUNTERPARTS = {"__graft_entry__.py": "graft_entry.py"}
 
 REFRESH_SCRIPT = r"""
 import os, sys, tempfile, threading, time
@@ -473,3 +486,108 @@ def test_refresh_module_is_the_ports_own_copy(module):
         if isinstance(node, ast.ImportFrom) and node.module and node.module.startswith("frankensearch")
     }
     assert all(m.startswith("frankensearch_tpu_torch.") for m in named), named
+
+
+TRAIN_SCRIPT = r"""
+import importlib, sys, tempfile
+for name in ("jax", "optax", "orbax", "frankensearch_tpu"):
+    sys.modules[name] = None
+for m in MODULES:
+    importlib.import_module("frankensearch_tpu_torch." + m[:-3].replace("/", "."))
+import numpy as np
+import torch
+torch.set_num_threads(1)  # tiny shapes: leave the cores to the suite's other workers
+from frankensearch_tpu_torch.graft_entry import dryrun_multichip
+from frankensearch_tpu_torch.parallel.checkpoint import restore_train_state, save_train_state
+from frankensearch_tpu_torch.parallel.mesh import make_mesh
+from frankensearch_tpu_torch.parallel.pipeline import pipeline_embed_forward, shard_stacked_layers, stack_layer_params
+from frankensearch_tpu_torch.parallel.train import finetune_quality_tier, make_train_state, make_train_step
+from frankensearch_tpu_torch.rerank.bert import BertConfig
+from frankensearch_tpu_torch.rerank.encoder import random_transformer_embedder
+cfg = BertConfig(vocab_size=64, hidden=32, layers=2, heads=2, intermediate=64, max_position=16)
+mesh = make_mesh(4, axes=("dp", "tp"), device="cpu")
+params, opt_state, optimizer = make_train_state(cfg, mesh)
+step = make_train_step(cfg, mesh, optimizer)
+ids = np.random.default_rng(0).integers(0, 64, size=(4, 8))
+mask = np.ones((4, 8), np.int64)
+params, opt_state, loss = step(params, opt_state, ids, mask, ids, mask)
+with tempfile.TemporaryDirectory() as ck:
+    save_train_state(ck, params, opt_state, step=1, cfg=cfg, mesh=mesh)
+    p2, o2, _ = make_train_state(cfg, mesh, seed=3)
+    restore_train_state(ck, p2, o2, cfg=cfg, mesh=mesh)
+assert all(torch.equal(p2[n], params[n]) for n in params) and np.isfinite(float(loss))
+words = ["alpha", "beta", "gamma"] + [str(i) for i in range(8)]
+emb = random_transformer_embedder(words, device=torch.device("cpu"), hidden=32, layers=2, heads=2)
+tuned, losses = finetune_quality_tier(emb, [(f"alpha {i}", f"beta {i} gamma") for i in range(8)], steps=2, batch_size=4)
+assert len(losses) == 2 and tuned.embedder_id.endswith("-tuned")
+pp = make_mesh(2, axes=("pp",), device="cpu")
+state = tuned.model.state_dict()
+stacked = shard_stacked_layers(stack_layer_params(state), pp)
+t = torch.from_numpy(ids % tuned.cfg.vocab_size)
+with torch.inference_mode():
+    got = pipeline_embed_forward(state, stacked, t, torch.ones_like(t), cfg=tuned.cfg, mesh=pp, microbatches=2)
+    assert (got - tuned.model.embed_forward(t, torch.ones_like(t))).abs().max() <= 2e-5
+dryrun_multichip(4, device="cpu")
+assert not [m for m in sys.modules if m.startswith(("jax.", "optax.", "orbax.", "frankensearch_tpu."))]
+print("OK")
+"""
+
+
+def test_training_path_runs_without_jax_optax_orbax_or_the_reference():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    script = f"MODULES = {TRAIN_MODULES!r}\n" + TRAIN_SCRIPT
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
+@pytest.mark.parametrize("module", TRAIN_MODULES + ("graft_entry.py",))
+def test_training_module_imports_no_jax_optax_orbax_or_the_reference(module):
+    port = REPO / "frankensearch_tpu_torch" / module
+    assert port.is_file()
+    assert not _imported_roots(port) & {"frankensearch_tpu", "jax", "jaxlib", "optax", "orbax"}
+
+
+def test_every_reference_module_has_a_port_counterpart():
+    ref_root, port_root = REPO / "frankensearch_tpu", REPO / "frankensearch_tpu_torch"
+    missing = sorted(str(p.relative_to(ref_root)) for p in ref_root.rglob("*.py")
+                     if not (port_root / p.relative_to(ref_root)).is_file())
+    assert missing == []
+    for ref, port in ENTRY_COUNTERPARTS.items():
+        assert (REPO / ref).is_file() and (port_root / port).is_file()
+
+
+def test_training_entry_points_run_on_the_card_unless_asked_for_the_cpu():
+    """make_mesh, make_train_state (through its mesh), graft_entry's entry
+    points: the default is the card, and without one they raise instead of
+    falling back to the CPU. finetune_quality_tier trains on the embedder's
+    own device."""
+    import inspect
+
+    import torch
+
+    from frankensearch_tpu_torch import graft_entry
+    from frankensearch_tpu_torch.parallel.mesh import make_mesh
+    from frankensearch_tpu_torch.parallel.train import finetune_quality_tier, make_train_state
+    from frankensearch_tpu_torch.rerank.bert import BertConfig
+    from frankensearch_tpu_torch.rerank.encoder import random_transformer_embedder
+
+    for fn in (make_mesh, graft_entry.entry, graft_entry.dryrun_multichip):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    cfg = BertConfig(vocab_size=32, hidden=32, layers=1, heads=2, intermediate=64, max_position=16)
+    if torch.cuda.is_available():
+        params, _, _ = make_train_state(cfg, make_mesh(1, axes=("dp",)))
+        assert all(p.device.type == "cuda" for p in params.values())
+    else:
+        with pytest.raises(RuntimeError, match="no card"):
+            make_train_state(cfg, make_mesh(1, axes=("dp",)))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            graft_entry.entry()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            graft_entry.dryrun_multichip(2)
+    emb = random_transformer_embedder(["a", "b"], device=torch.device("cpu"), hidden=32, layers=1, heads=2)
+    tuned, _ = finetune_quality_tier(emb, [("a", "a b"), ("b", "b a")], steps=1, batch_size=2)
+    assert tuned.device == emb.device == torch.device("cpu")

@@ -17,8 +17,9 @@ BM25 arm that phase 1 fuses). Held to the reference:
 * boolean and phrase queries through both entries;
 * ``quality_scores_for_hits`` and ``search_quality``: 1e-6;
 * the held-out lift world (tools/train_quality_lift.py, rebuilt by
-  ``chip_smoke.lift_world``): per-query Initial and Refined nDCG@10 equal
-  to the reference's, under the default config and with the rescan.
+  ``chip_smoke.lift_world`` with its training pairs): per-query Initial
+  and Refined nDCG@10 equal to the reference's, under the default config
+  and with the rescan.
 """
 
 import sys
@@ -240,11 +241,11 @@ def test_lift_world_ndcg_equals_reference(rescan, tmp_path):
     from frankensearch_tpu.rerank.encoder import load_artifact as ref_load
     from frankensearch_tpu_torch.rerank.encoder import load_artifact
 
-    _, ref_docs, ref_queries, ref_qrels, ref_words = tql.build_paraphrase_world(seed=chip_smoke.LIFT_SEED)
+    ref_pairs, ref_docs, ref_queries, ref_qrels, ref_words = tql.build_paraphrase_world(seed=chip_smoke.LIFT_SEED)
     world = chip_smoke.lift_world()
-    docs, queries, qrels, words = world
+    docs, queries, qrels, words, pairs = world
     assert docs == [(d.doc_id, d.content) for d in ref_docs]
-    assert (queries, qrels, words) == (ref_queries, ref_qrels, ref_words)
+    assert (queries, qrels, words, pairs) == (ref_queries, ref_qrels, ref_words, ref_pairs)
     art = str(REPO / chip_smoke.QUALITY_ARTIFACT)
     want_i, want_r = tql.eval_phase_lift(
         ref_docs, ref_queries, ref_qrels, tql.term_identity_fast(ref_words), ref_load(art),
