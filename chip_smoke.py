@@ -78,9 +78,11 @@ Phases:
      (a B=8 subset against the CPU); semantic-1M-ivf (a clustered 1M
      corpus, its IVF arm built on the card: build time, recall@10 at nprobe
      8 and 32, scanned fraction, full probe against the hierarchical scan up
-     to ties within bf16 rounding, K2 at the probe's shapes against its
-     twin, a calibrated nprobe certified, persisted, served behind the gate
-     and rebound after a reopen); the write path over phase 2's index (10,000
+     to ties within bf16 rounding, every probe on K2-ivf and none on K2,
+     K2-ivf at the probe's shapes and the calibration's widest against its
+     twin and timed beside K2's path and, at the full probe, one cuBLAS
+     product, a calibrated nprobe certified, persisted, served behind the
+     gate and rebound after a reopen); the write path over phase 2's index (10,000
      appends, 1,000 deletes, a WAL sync: each appended doc its own top hit,
      no deleted doc returned, ``mode="ivf"`` refused until ``enable_ivf()``
      runs again, then ``compact()`` and a reopen with the top-10 bitwise
@@ -257,7 +259,7 @@ larger of the bytes it must move (each input read once, each output
 written once; a gather counts the distinct groups it reads) over 3.35 TB/s
 and its operations over the H100's dense peak for their type (integer
 compares at the INT32 lanes' rate). K1, K2 and K5 on an f32 slab (their
-FFMA forms) and K2 at the IVF probe's shapes have entries of their own.
+FFMA forms) and the IVF probe's kernel (K2-ivf) have entries of their own.
 Each entry is one launch at its headline shape; K3's is the mean over the length classes of one flat scan
 at the widest batch tile, the unit its launch count counts.
 
@@ -382,7 +384,7 @@ KERNELS = (
      "frankensearch_tpu/ops/topk_scan.py:362", "semantic-1M-f32"),
     ("tile_topk_f32", "K5-f32", "frankensearch_tpu_torch/ops/csrc/tile_topk.cu",
      "frankensearch_tpu/ops/topk_scan.py:114", "semantic-1M-f32"),
-    ("gather_rescore_ivf", "K2-ivf", "frankensearch_tpu_torch/ops/csrc/gather_rescore.cu",
+    ("ivf_probe", "K2-ivf", "frankensearch_tpu_torch/ops/csrc/ivf_probe.cu",
      "frankensearch_tpu/ops/topk_scan.py:362", "semantic-1M-ivf"),
 )
 
@@ -525,7 +527,7 @@ def launch_counters() -> dict:
 
     return {"K1": ts.group_max, "K2": ts.gather_rescore, "K3": bm.flat_class_fused,
             "K4": ts.group_max_int8, "K2-i8": ts.gather_rescore_i8, "K5": ts.tile_topk,
-            "K6": ts.group_candidates}
+            "K6": ts.group_candidates, "K2-ivf": ts.ivf_probe_topk}
 
 
 def drive(fn, shapes: set, flat_inputs: dict | None = None, *, dim: int | None = None):
@@ -2370,38 +2372,97 @@ def clustered_cell(rng):
     return x, q / np.linalg.norm(q, axis=1, keepdims=True)
 
 
+def device_turns(fns: dict) -> dict:
+    """Each function's device ms a call (torch.profiler: the self device
+    time of all its kernels and copies over 10 calls, as
+    ``profile_chip.device_split``) and its per-kernel split, in turns (a,
+    b, b, a): the mean of its two runs."""
+    from profile_chip import device_split
+
+    order = list(fns) + list(fns)[::-1]
+    runs: dict = {name: [] for name in fns}
+    for name in order:
+        runs[name].append(device_split(fns[name]))
+    return {name: (sum(t for t, _ in r) / len(r),
+                   {k: sum(s.get(k, 0.0) for _, s in r) / len(r) for k in r[0][1]}) for name, r in runs.items()}
+
+
 def check_ivf_kernel(cell: str, arm, shapes: set) -> list[dict]:
-    """Phase 1 for K2 at the IVF probe's shapes: at each (B, nprobe) the
-    main path ran, the probe's sorted group ids for seeded near-corpus
-    queries, K2 against its twin within REL_TOL (the twin in chunks of
-    queries where its f32 candidates would pass 4 GB)."""
+    """Phase 1 for K2-ivf: at each (B, nprobe) the IVF path ran, seeded
+    near-corpus queries and their centroid top-k, the kernel's top-10
+    against its twin's (scores place by place within REL_TOL, so rows
+    differ only among such ties; row sets equal but at ties with the k-th
+    score; the twin in chunks of queries where its f32 candidates would
+    pass 4 GB). Device ms a call (torch.profiler), in turns with K2's path
+    that it replaced (the probe's groups, K2, the mask and the top-k:
+    ``k2_ms``): the wrapper with its merge (``ms``), its kernel alone
+    (``kernel_ms``, against ``k2_kernel_ms``), and the whole probe from the
+    centroid product (``probe_ms`` against ``k2_probe_ms``); the wrapper by
+    CUDA events too (``wrapper_ms``: at small B the host's enqueue). The
+    full probe's record is the headline, with one cuBLAS product of the
+    bf16 queries and the whole slab (f32 out) as ``library_ms``."""
     import torch
 
-    from frankensearch_tpu_torch.index.ivf import probe_groups
+    from frankensearch_tpu_torch.index import ivf
     from frankensearch_tpu_torch.ops import topk_scan as ts
 
-    slab = arm.slab
-    d = slab.shape[1]
+    slab, mask, gpc = arm.slab, arm.mask, arm.groups_per_cluster
+    n, d = slab.shape
+    cap = gpc * ts.GROUP
     gen = torch.Generator(device=slab.device).manual_seed(SEED + 11)
+    sms = torch.cuda.get_device_properties(slab.device).multi_processor_count
     recs = []
     for b, nprobe in sorted(shapes, reverse=True):
-        rows = torch.randint(0, slab.shape[0], (b,), generator=gen, device=slab.device)
+        rows = torch.randint(0, n, (b,), generator=gen, device=slab.device)
         q = slab[rows].to(torch.float32) + 0.02 * torch.randn(b, d, generator=gen, device=slab.device)
-        ids = torch.sort(probe_groups(arm.centroids, q, nprobe=nprobe, gpc=arm.groups_per_cluster), dim=1).values
-        kk = ids.shape[1]
-        step = max(1, int(4e9 // (kk * 128 * d * 4)))
+        probe = ivf.probe_clusters(arm.centroids, q, nprobe=nprobe)
+        step = max(1, int(4e9 // (nprobe * cap * d * 4)))
 
         def plain():
-            return torch.cat([ts.gather_rescore_plain(slab, q[i : i + step], ids[i : i + step])
-                              for i in range(0, b, step)])
+            parts = [ts.ivf_probe_topk_plain(slab, q[i : i + step], mask, probe[i : i + step], k=K, gpc=gpc)
+                     for i in range(0, b, step)]
+            return ts.TopKResult(torch.cat([p.scores for p in parts]), torch.cat([p.indices for p in parts]))
 
-        r = ts.gather_rescore(slab, q, ids)
-        err = check_close(r, plain(), f"phase1 {cell} K2 B={b} kk={kk} (nprobe {nprobe})")
-        recs.append({"kernel": "gather_rescore_ivf", "cell": cell, "n": slab.shape[0], "b": b, "kk": kk,
-                     "ms": cuda_median_ms(lambda: ts.gather_rescore(slab, q, ids)),
-                     "plain_ms": cuda_median_ms(plain, warmup=1, iters=5), "max_abs_err": err,
-                     "bound": bound(gathered_bytes(slab, ids) + nbytes(q, ids, r), 2 * r.numel() * d, "bf16")})
-    log_kernel_records(cell, recs)
+        got, want = ts.ivf_probe_topk(slab, q, mask, probe, k=K, gpc=gpc), plain()
+        what = f"phase1 {cell} K2-ivf B={b} nprobe={nprobe}"
+        err = check_close(got.scores, want.scores, what)
+        scores = [{**dict(zip(*g)), **dict(zip(*w))} for g, w in zip(
+            zip(got.indices.tolist(), got.scores.tolist()), zip(want.indices.tolist(), want.scores.tolist()))]
+        ties = check_sets(what, got.indices.tolist(), want.indices.tolist(), lambda j, row: scores[j][row],
+                          want.scores[:, -1].tolist(), REL_TOL)
+        groups = ts.cluster_groups(probe, gpc)
+        runs = device_turns({
+            "ms": lambda: ts.ivf_probe_topk(slab, q, mask, probe, k=K, gpc=gpc),
+            "k2_ms": lambda: ts._rescore_groups(slab, q, mask, groups, k=K),
+            "probe_ms": lambda: ivf._ivf_probe_rescore(arm.centroids, slab, mask, q, nprobe=nprobe, k=K, gpc=gpc),
+            "k2_probe_ms": lambda: ts._rescore_groups(
+                slab, q, mask, ts.cluster_groups(ivf.probe_clusters(arm.centroids, q, nprobe=nprobe), gpc), k=K),
+        })
+        t = {name: ms for name, (ms, _) in runs.items()}
+        split = runs["ms"][1]
+        t["kernel_ms"] = sum(v for name, v in split.items() if "ivf_probe_kernel" in name)
+        t["k2_kernel_ms"] = sum(v for name, v in runs["k2_ms"][1].items() if "gather_rescore_kernel" in name)
+        t["wrapper_ms"] = cuda_median_ms(lambda: ts.ivf_probe_topk(slab, q, mask, probe, k=K, gpc=gpc))
+        distinct = int(torch.unique(probe).numel())
+        moved = distinct * cap * (d * slab.element_size() + 4) + nbytes(q, probe) + b * nprobe * min(K, cap) * 8
+        pair_order, splits, q_tile, kp = ts._ivf_probe_layout(b, nprobe, arm.n_clusters, gpc, K, sms)
+        rec = {"kernel": "ivf_probe", "cell": cell, "n": n, "b": b, "kk": nprobe * gpc, "nprobe": nprobe,
+               "distinct_clusters": distinct, "layout": {"pair_order": pair_order, "splits": splits,
+                                                         "q_tile": q_tile, "kp": kp},
+               **t, "plain_ms": cuda_median_ms(plain, warmup=1, iters=5), "max_abs_err": err, "tie_queries": ties,
+               "bound": bound(moved, 2 * b * nprobe * cap * d, "bf16"), "library_ms": None,
+               "headline": nprobe == arm.n_clusters}
+        if rec["headline"]:
+            qb = q.to(slab.dtype)
+            rec["library_ms"] = device_turns({"mm": lambda: torch.mm(qb, slab.T, out_dtype=torch.float32)})["mm"][0]
+        recs.append(rec)
+        log(f"phase1 {cell} K2-ivf B={b} nprobe={nprobe} ({distinct} clusters, layout {rec['layout']}): "
+            f"{t['ms']:.4f} device ms, its kernel {t['kernel_ms']:.4f} (K2's path {t['k2_ms']:.4f}, K2 "
+            f"{t['k2_kernel_ms']:.4f}; bound {rec['bound'][0]:.4f} by {rec['bound'][1]}"
+            + (f"; cuBLAS product {rec['library_ms']:.4f}" if rec["library_ms"] is not None else "")
+            + f"; CUDA events {t['wrapper_ms']:.4f}, plain {rec['plain_ms']:.4f}), whole probe "
+            f"{t['probe_ms']:.4f} device ms (K2's {t['k2_probe_ms']:.4f}); max abs err {err:.3e}, "
+            f"{ties} of {b} queries' rows differ only at ties within {REL_TOL:g}")
     return recs
 
 
@@ -2543,7 +2604,9 @@ def phase9_scan_lanes(dev, tmp: str, semantic: dict) -> tuple[dict, dict, list[d
 
     ivf_index.fast.search_batch(xq[:8], K, mode="ivf")  # warm-up
     out, got = drive(ivf_path, set())
-    count("phase9 ivf", got, ("K2",), {"K2": "K2-ivf"})
+    count("phase9 ivf", got, ("K2-ivf",))
+    if got["K2"]:
+        raise AssertionError(f"phase9 ivf: the bf16 arm's probes launched K2 ({got})")
     ivf_rec = {"create_s": create_s, "build_s": ivf_build_s, "n_clusters": arm.n_clusters, "cap": arm.cap,
                "groups_per_cluster": arm.groups_per_cluster, "arm_slab_bytes": nbytes(arm.slab)}
     def mean_recall(rows, exact):
@@ -2572,6 +2635,8 @@ def phase9_scan_lanes(dev, tmp: str, semantic: dict) -> tuple[dict, dict, list[d
                     for p in IVF_NPROBES)
         + f"; full probe B=8 {out['full'][1]:.2f} ms, doc sets equal to the hierarchical scan ({off} of 8 "
         f"differ only at ties within {BF16_DOT_BOUND:.3g})")
+    # the calibration's widest probe (all 256 queries) is held to the twin too
+    ivf_shapes.add((256, max(c for c in IVF_CANDIDATES if c <= arm.n_clusters)))
     kernels += check_ivf_kernel("semantic-1M-ivf", arm, ivf_shapes)
 
     # calibrate, certify and persist, serve behind the gate, reopen
@@ -2594,7 +2659,7 @@ def phase9_scan_lanes(dev, tmp: str, semantic: dict) -> tuple[dict, dict, list[d
         raise AssertionError("phase9 ivf: the gate served below its floor")
     gated = TwoTierSearcher(ivf_index, emb, config=gated_cfg)
     (g_batch, g_ms), got = drive(lambda: timed(lambda: gated.search_batch(queries, k=K)), set())
-    count("phase9 ivf gated", got, ("K2",), {"K2": "K2-ivf"})
+    count("phase9 ivf gated", got, ("K2-ivf",))
     if not all(len(o.results) == K for o in g_batch):
         raise AssertionError("phase9 ivf: the gated searcher returned short results")
     reopened = TwoTierIndex.open(root, device=dev)
@@ -5574,8 +5639,10 @@ def main() -> int:
             top = max((r["b"], r["t"]) for r in recs)
             head = [r for r in recs if (r["b"], r["t"]) == top]
         else:
-            # headline: the 1M-doc cell's largest batch (and largest kk)
-            head = [max((r for r in recs if r["cell"] == cell), key=lambda r: (r["b"], r["kk"] or 0))]
+            # headline: a record marked so (K2-ivf's full probe), else the
+            # 1M-doc cell's largest batch (and largest kk)
+            head = [r for r in recs if r.get("headline")] or [
+                max((r for r in recs if r["cell"] == cell), key=lambda r: (r["b"], r["kk"] or 0))]
         bound_ms = sum(r["bound"][0] for r in head) / len(head)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -5585,7 +5652,9 @@ def main() -> int:
             "ms": sum(r["ms"] for r in head) / len(head), "plain_ms": sum(r["plain_ms"] for r in head) / len(head),
             "bound_ms": bound_ms,
             "bound_by": max(head, key=lambda r: r["bound"][0])["bound"][1],
-            "library_ms": None,  # no single PyTorch call computes any of these functions
+            # one PyTorch call computes only the full probe's scores (before
+            # the mask and top-k): K2-ivf's yardstick; none computes the others
+            "library_ms": head[0].get("library_ms"),
             "shapes": [{k: (v if k != "bound" else v[0]) for k, v in r.items() if k != "kernel"} for r in recs],
         })
     log(json.dumps({"semantic": sem, "hybrid": hyb, "hybrid_1m": h1m, "scan_modes": modes, "ab_scan": ab_rec,

@@ -11,13 +11,17 @@ capacity-constrained assignment keeps every bucket <= cap.
 
 :class:`IvfDeviceIndex` (the ``scan_mode="ivf"`` arm of
 ``DeviceVectorIndex``) sorts the slab by cluster, so a bucket is a run of
-128-row groups and probing is K2's job (``topk_scan.gather_rescore``, the
-query rounded to the slab dtype) on CUDA and K2's plain twin on the CPU.
-The reference takes an f32-query einsum off its TPU; the difference is
-bounded by the query's rounding (ROADMAP queue 3). The k-means update sums
-clusters with a one-hot product, as the reference does: no float atomics.
-The host helpers (:func:`balanced_assign`, :func:`spill_assign`) are the
-reference's numpy, unchanged.
+128-row groups. On a bf16/f16 arm the probe after the centroid top-k is
+K2-ivf (``topk_scan.ivf_probe_topk``, csrc/ivf_probe.cu on CUDA: each
+probed cluster streamed once for the queries that probe it, the mask and
+the top-k on the card); an f32 arm keeps K2-f32 on the probe's groups
+(``topk_scan._rescore_groups``). Both round the query to the slab dtype,
+and on the CPU both run K2's plain twin. The reference takes an f32-query
+einsum off its TPU; the difference is bounded by the query's rounding
+(ROADMAP queue 3). The k-means update sums clusters with a one-hot
+product, as the reference does: no float atomics. The host helpers
+(:func:`balanced_assign`, :func:`spill_assign`) are the reference's numpy,
+unchanged.
 """
 
 from __future__ import annotations
@@ -166,7 +170,8 @@ def spill_assign(prefs: np.ndarray, margins: np.ndarray, n_clusters: int, cap: i
 
 class IvfDeviceIndex:
     """IVF over a slab sorted by cluster: each bucket is a run of
-    contiguous 128-row groups, so probing is K2's gather + rescore.
+    contiguous 128-row groups, which a probe streams (K2-ivf; K2-f32 on an
+    f32 arm).
 
     Rows are L2-normalized at build (cosine == dot). The small-batch,
     low-latency lane: a probe reads about ``nprobe * cap`` rows instead of
@@ -294,22 +299,28 @@ def _ivf_probe_rescore(
     k: int,
     gpc: int,  # groups (of 128 rows) per cluster
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The probe's groups (:func:`probe_groups`) -> the hierarchical scan's
-    exact-rescore tail (sorted ids, K2, the mask, top-k). Returns (B, k)
-    f32 scores and int32 slab positions (-1 where the score is -inf)."""
-    group_ids = probe_groups(centroids, queries, nprobe=nprobe, gpc=gpc)
-    res = topk_scan._rescore_groups(slab, queries, mask, group_ids, k=k)
+    """The centroid top-k (:func:`probe_clusters`), then the probed rows'
+    exact top-k: K2-ivf on a bf16/f16 slab, the hierarchical scan's tail on
+    K2-f32 on an f32 one (chosen by dtype). Returns (B, k) f32 scores and
+    int32 slab positions (-1 where the score is -inf)."""
+    probe = probe_clusters(centroids, queries, nprobe=nprobe)
+    if slab.dtype == torch.float32:
+        res = topk_scan._rescore_groups(slab, queries, mask, topk_scan.cluster_groups(probe, gpc), k=k)
+    else:
+        res = topk_scan.ivf_probe_topk(slab, queries, mask, probe, k=k, gpc=gpc)
     return res.scores, res.indices
 
 
+def probe_clusters(centroids: torch.Tensor, queries: torch.Tensor, *, nprobe: int) -> torch.Tensor:
+    """Centroid sims (f32) -> each query's top ``nprobe`` clusters, (B,
+    nprobe) int64 in (sim desc, id asc) order."""
+    return topk_scan.topk_desc_rowasc(queries[:, : centroids.shape[1]] @ centroids.T, nprobe)[1]
+
+
 def probe_groups(centroids: torch.Tensor, queries: torch.Tensor, *, nprobe: int, gpc: int) -> torch.Tensor:
-    """Centroid sims (f32) -> the top ``nprobe`` clusters -> their ``nprobe
-    * gpc`` 128-row group ids in the sorted slab, (B, nprobe * gpc) int32,
-    cluster by cluster (unsorted)."""
-    b = queries.shape[0]
-    _, probe = topk_scan.topk_desc_rowasc(queries[:, : centroids.shape[1]] @ centroids.T, nprobe)
-    goff = torch.arange(gpc, dtype=torch.int64, device=queries.device)
-    return (probe[:, :, None] * gpc + goff).reshape(b, nprobe * gpc).to(torch.int32)
+    """The probed clusters' ``nprobe * gpc`` 128-row group ids in the sorted
+    slab, (B, nprobe * gpc) int32, cluster by cluster (unsorted)."""
+    return topk_scan.cluster_groups(probe_clusters(centroids, queries, nprobe=nprobe), gpc)
 
 
 @dataclass

@@ -22,12 +22,15 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("group_max.cu", "gather_rescore.cu", "flat_score.cu", "tile_topk.cu", "group_candidates.cu")
+SOURCES = (
+    "group_max.cu", "gather_rescore.cu", "flat_score.cu", "tile_topk.cu", "group_candidates.cu", "ivf_probe.cu",
+)
 #: headers the sources include (part of the build's hash): group_scan.cuh
 #: is the mma.sync scoring body of K5, hopper.cuh the TMA, mbarrier and
-#: wgmma primitives of K1 and K4 (group_max.cu), scan_f32.cuh the FFMA
-#: scoring body of K1's f32 form
-HEADERS = ("group_scan.cuh", "hopper.cuh", "scan_f32.cuh")
+#: wgmma primitives of K1, K4 (group_max.cu) and K2-ivf (ivf_probe.cu),
+#: scan_f32.cuh the FFMA scoring body of K1's f32 form, topk_list.cuh the
+#: sorted key list K5 and K2-ivf merge survivors into
+HEADERS = ("group_scan.cuh", "hopper.cuh", "scan_f32.cuh", "topk_list.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -143,4 +146,6 @@ def _load() -> ctypes.CDLL:
     lib.fs_tile_topk_wide.restype = i32
     lib.fs_tile_select.argtypes = [ptr, ptr, ptr, i32, i64, i32, i32, ptr]
     lib.fs_tile_select.restype = i32
+    lib.fs_ivf_probe.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
+    lib.fs_ivf_probe.restype = i32
     return lib

@@ -47,10 +47,11 @@
 // over chunk c, then c + 32, ..., and the same reduce-scatter. A lane holds
 // at most 32 chunks of a row, so d <= 4096. Its bound is bytes as K2's,
 // twice the bf16 form's: the distinct groups at 4 bytes a dim. The IVF
-// probe (index/ivf.py) calls K2 too, with kk = nprobe x groups per cluster
-// sorted per query (48 at 1M docs, 2,000 clusters, nprobe 8; 12,000 at
-// full probe): queries probing the same clusters share groups, which the
-// plan's runs (at most kRunPairs pairs a block) read once.
+// probe (index/ivf.py) calls this f32 form on an f32 arm, with kk = nprobe
+// x groups per cluster sorted per query; a bf16 or f16 arm probes with
+// K2-ivf (ivf_probe.cu), which streams each probed cluster once and keeps
+// the top-k on the card. The plan's counting sort (fs_gather_plan) serves
+// K2-ivf too, over clusters in place of groups.
 //
 // K2-i8, `fs_gather_rescore_i8` and `fs_gather_rescore_i8_sorted` below,
 // replaces the same TPU kernel in its `compute_f32` form, which the

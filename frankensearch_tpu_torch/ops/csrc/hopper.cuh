@@ -1,6 +1,7 @@
-// Hopper (sm_90a) primitives for K1 and K4 (group_max.cu): mbarriers, 2-D
-// TMA loads, and warpgroup matrix multiplies (wgmma) reading both operands
-// from shared memory laid out by a TMA load with 128-byte swizzle.
+// Hopper (sm_90a) primitives for K1 and K4 (group_max.cu) and the IVF probe
+// (ivf_probe.cu): mbarriers, 2-D TMA loads and the host's tensor-map
+// encoder, and warpgroup matrix multiplies (wgmma) reading both operands
+// from shared memory in TMA's 128-byte swizzle.
 //
 // The wgmma wrappers exist once per width N = 8 .. 256 (the register list
 // of an m64nN product is N/2 registers a thread), for bf16 and f16
@@ -12,6 +13,8 @@
 
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace fs_hopper {
@@ -174,4 +177,23 @@ FS_WGMMA_WIDTH(256, 128, 128, 129, 130)
 #undef FS_D64
 #undef FS_REGS_128
 #undef FS_D128
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched once through cudaGetDriverEntryPoint (the
+// library links no libcuda); null if the driver lacks it.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
 }  // namespace fs_hopper

@@ -8,8 +8,10 @@ Port of frankensearch_tpu/ops/topk_scan.py: the plain scan
 (:func:`scan_topk_int8_two_pass`, :func:`scan_topk_int4_two_pass`) and the
 Matryoshka two-pass scan (:func:`scan_topk_mrl`). Their TPU kernels become hand-written
 Hopper kernels: K1 (:func:`group_max`, csrc/group_max.cu), K2
-(:func:`gather_rescore`, csrc/gather_rescore.cu) and its int8 form
-(:func:`gather_rescore_i8`, the same source), K4 (:func:`group_max_int8`,
+(:func:`gather_rescore`, csrc/gather_rescore.cu), its int8 form
+(:func:`gather_rescore_i8`, the same source) and, at the IVF probe of
+index/ivf.py, K2-ivf (:func:`ivf_probe_topk`, csrc/ivf_probe.cu: the
+probe's rescore and top-k in one cluster-major kernel), K4 (:func:`group_max_int8`,
 K1's kernel in its int8 form) and K5 (:func:`tile_topk`,
 csrc/tile_topk.cu). K6 (:func:`group_candidates`: K1, then
 :func:`tile_select` in csrc/group_candidates.cu) is the kernel of the A/B
@@ -301,6 +303,131 @@ def gather_rescore(
 
 
 gather_rescore.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K2-ivf: the IVF probe's exact rescore and top-k
+# --------------------------------------------------------------------------
+
+#: the IVF probe's kernel takes up to this many (query, cluster) pairs in
+#: pair order, one unit of work each; above, a counting sort on the card
+#: first puts them in cluster order, so that a cluster's queries share one
+#: read of it. The sort's five launches cost more device time than the
+#: reads they save up to at least this many pairs on a 2,000-cluster arm,
+#: and less at 2,048 (``profile_chip.py --ivf-layout``)
+IVF_PAIR_ORDER_MAX = 512
+#: the longest per-run list the IVF probe's kernel keeps (K5's merge); a
+#: larger k has it write every probed row's score
+IVF_LIST_K = 64
+
+
+def cluster_groups(probe: torch.Tensor, gpc: int) -> torch.Tensor:
+    """(B, nprobe) cluster ids of a slab sorted by cluster -> their (B,
+    nprobe * gpc) int32 group ids, cluster by cluster."""
+    goff = torch.arange(gpc, dtype=torch.int64, device=probe.device)
+    return (probe.to(torch.int64)[:, :, None] * gpc + goff).reshape(probe.shape[0], -1).to(torch.int32)
+
+
+def ivf_probe_topk_plain(
+    slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor, probe: torch.Tensor, *, k: int, gpc: int
+) -> TopKResult:
+    """Plain twin of K2-ivf: the probed clusters' groups through the
+    hierarchical scan's tail on K2's twin (the query rounded to the slab
+    dtype, f32 sums, the mask, the top-k by score then slab position).
+    Returns (B, k) f32 scores and int32 slab positions (-1 at -inf)."""
+    return _rescore_groups(slab, queries, mask, cluster_groups(probe, gpc), k=k, rescore=gather_rescore_plain)
+
+
+def _ivf_probe_layout(b: int, nprobe: int, n_clusters: int, gpc: int, k: int, sms: int) -> tuple[bool, int, int, int]:
+    """How the IVF probe's kernel cuts its work: (pair order, runs a
+    cluster is cut into, queries a unit takes, list length). Pair order up
+    to ``IVF_PAIR_ORDER_MAX`` pairs; a run is one group where the units
+    (pairs, or at most the distinct clusters) would not give each SM one;
+    the query tile is 16 where twice the mean queries a cluster (at most
+    B) pass 8, else 8 (a wider tile leaves room for one block an SM, whose
+    selections then run on half the warps); above ``IVF_LIST_K`` a run
+    writes all its rows. ``profile_chip.py --ivf-layout`` times each choice
+    flipped."""
+    total = b * nprobe
+    pair_order = total <= IVF_PAIR_ORDER_MAX
+    units = total if pair_order else min(total, n_clusters)
+    splits = gpc if units < sms else 1
+    q_tile = 16 if not pair_order and min(b, 2 * total / n_clusters) > 8 else 8
+    kp = k if k <= IVF_LIST_K else -(-gpc // splits) * GROUP
+    return pair_order, splits, q_tile, kp
+
+
+def merge_probe_lists(cand_s: torch.Tensor, cand_i: torch.Tensor, k: int) -> TopKResult:
+    """The top ``k`` of each row of (B, M) candidate scores and slab
+    positions (-1: none) by score (total order, +0.0 above -0.0)
+    descending, then position ascending: one unique int64 key each."""
+    key = (float_order_key(cand_s) << 32) | (0xFFFFFFFF - (cand_i.to(torch.int64) & 0xFFFFFFFF))
+    sel = torch.topk(key, min(k, key.shape[1]), dim=1, largest=True, sorted=True).indices
+    return _finalize(*_pad_topk(torch.gather(cand_s, 1, sel), torch.gather(cand_i, 1, sel), k))
+
+
+def ivf_probe_topk(
+    slab: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor, probe: torch.Tensor, *, k: int, gpc: int
+) -> TopKResult:
+    """K2-ivf (replaces ``_gather_rescore_kernel`` at the IVF probe, and
+    the mask add, top-k and position gather after it): the top ``k`` of
+    each query's probed rows of a slab sorted by cluster (clusters of
+    ``gpc`` 128-row groups; ``probe`` (B, nprobe) cluster ids), scored
+    against the query rounded to the slab dtype plus ``mask``. CUDA tensors
+    run csrc/ivf_probe.cu on a bf16 or f16 slab (an f32 slab has no
+    tensor-core form: the IVF arm keeps K2-f32 for it) and merge its
+    per-run lists (:func:`merge_probe_lists`); CPU tensors the plain twin.
+    Returns (B, k) f32 scores and int32 slab positions (-1 at -inf)."""
+    if slab.device.type == "cpu":
+        return ivf_probe_topk_plain(slab, queries, mask, probe, k=k, gpc=gpc)
+    if slab.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"ivf_probe_topk takes bf16/f16 slabs (an f32 arm probes with K2-f32), got {slab.dtype}")
+    _check_kernel_operands(slab, queries)
+    n, d = slab.shape
+    if d % 8 or d > MAX_KERNEL_DIM:
+        raise ValueError(f"ivf_probe_topk needs dim % 8 == 0 and dim <= {MAX_KERNEL_DIM}, got {d}")
+    if gpc < 1 or n % (gpc * GROUP):
+        raise ValueError(f"slab rows {n} are not clusters of {gpc} groups of {GROUP}")
+    b, nprobe = probe.shape
+    if b != queries.shape[0] or probe.device != slab.device:
+        raise ValueError("probe must be (B, nprobe) on the slab's device")
+    if mask.shape != (n,) or mask.dtype != torch.float32 or mask.device != slab.device:
+        raise ValueError("mask must be (N,) f32 on the slab's device")
+    if k < 1:
+        raise ValueError(f"ivf_probe_topk needs k >= 1, got {k}")
+    if b == 0 or nprobe == 0:
+        return merge_probe_lists(torch.empty((b, 0), device=slab.device),
+                                 torch.empty((b, 0), dtype=torch.int32, device=slab.device), k)
+    n_clusters = n // (gpc * GROUP)
+    sms = torch.cuda.get_device_properties(slab.device).multi_processor_count
+    pair_order, splits, q_tile, kp = _ivf_probe_layout(b, nprobe, n_clusters, gpc, k, sms)
+    total = b * nprobe
+    q = _aligned(queries.to(slab.dtype))  # the kernel reads query rows with 16-byte loads
+    ids = probe.to(torch.int32).contiguous()
+    mask = mask.contiguous()
+    out_s = torch.empty((b, nprobe * splits * kp), dtype=torch.float32, device=slab.device)
+    out_i = torch.empty((b, nprobe * splits * kp), dtype=torch.int32, device=slab.device)
+    plan = units = None
+    if not pair_order:
+        plan = _gather_plan_scratch(n_clusters, total, slab.device)[0]
+        units = torch.empty(4 * total * splits + 1, dtype=torch.int32, device=slab.device)
+    from frankensearch_tpu_torch.ops import _build
+
+    lib = _build.library()
+    with torch.cuda.device(slab.device):
+        rc = lib.fs_ivf_probe(
+            q.data_ptr(), slab.data_ptr(), mask.data_ptr(), ids.data_ptr(),
+            None if plan is None else plan.data_ptr(), None if units is None else units.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), b, nprobe, d, n_clusters, gpc, splits, q_tile, kp,
+            _KINDS[slab.dtype], torch.cuda.current_stream(slab.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"ivf_probe_topk kernel launch failed: CUDA error {rc}")
+    ivf_probe_topk.launches += 1
+    return merge_probe_lists(out_s, out_i, k)
+
+
+ivf_probe_topk.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -79,6 +79,14 @@ the selection, one whose scan is replaced by hashed scores; see
 ``K5_SPLIT_PATCHES``), each in a process of its own, and prints the ptxas
 report of the list entry's instances and K5 (bf16) at B = 256 beside it.
 
+``python3 profile_chip.py --ivf-layout`` times K2-ivf (the IVF probe's
+kernel, ``topk_scan.ivf_probe_topk``) on chip_smoke's clustered 1M arm at
+``IVF_LAYOUT_SHAPES``: as ``topk_scan._ivf_probe_layout`` cuts the work,
+and with each of its choices flipped in turn (pair order or the counting
+sort, one run a cluster or one a group, a query tile of 8 or 16). Device
+ms a call of the wrapper and of its kernel (``device_split``), three runs
+each; the last line is a JSON summary.
+
 ``python3 profile_chip.py --open OUT_DIR TREE [TREE ...]`` times a 1M-doc
 open: it builds chip_smoke's cli-1M root (phase 4's 1M docs through ``cli
 index`` of this checkout) and runs ``cli watch`` into it once (phase 12's
@@ -118,6 +126,7 @@ TRACED_KERNELS = (
     (("K3",), ("flat_fused_kernel",)),
     (("K5",), ("tile_topk_kernel<", "tile_topk_f32_kernel<", "tile_topk_wide_kernel<")),
     (("K6",), ("tile_select_kernel",)),
+    (("K2-ivf",), ("ivf_probe_kernel<",)),
 )
 #: the idle seconds around the calls in each profiler run a call gets
 #: before its trace counts as incomplete
@@ -233,6 +242,58 @@ K5_SHAPES = ((256, 60), (256, 30), (8, 60), (8, 30), (1, 60), (1, 30))
 CROSSOVER_BS = (8, 16, 32, 64, 128, 192, 256)
 #: per-dim dequant scale of the seeded int8 queries K2-i8 rescores with
 I8_SCALE = 1.0 / 127.0
+
+
+#: (B, nprobe) at which ``--ivf-layout`` times K2-ivf: phase 9's shapes, the
+#: calibration's widest, and batches around the pair-order and run thresholds
+IVF_LAYOUT_SHAPES = ((1, 8), (1, 32), (8, 8), (8, 32), (32, 8), (64, 8), (256, 8), (256, 32), (256, 256),
+                     (8, 2000))
+
+
+def ivf_layouts() -> int:
+    """``--ivf-layout``: K2-ivf's device ms at each layout choice."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from frankensearch_tpu_torch.index import ivf
+    from frankensearch_tpu_torch.ops import topk_scan as ts
+
+    dev = torch.device("cuda")
+    x, _ = cs.clustered_cell(np.random.default_rng(cs.SEED + 9))
+    arm = ivf.IvfDeviceIndex(x, device=dev)
+    gpc = arm.groups_per_cluster
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 11)
+    chosen = ts._ivf_probe_layout
+    rows = []
+    try:
+        for b, nprobe in IVF_LAYOUT_SHAPES:
+            nprobe = min(nprobe, arm.n_clusters)
+            picks = torch.randint(0, arm.slab.shape[0], (b,), generator=gen, device=dev)
+            q = arm.slab[picks].to(torch.float32) + 0.02 * torch.randn(b, x.shape[1], generator=gen, device=dev)
+            probe = ivf.probe_clusters(arm.centroids, q, nprobe=nprobe)
+            base = chosen(b, nprobe, arm.n_clusters, gpc, cs.K, sms)
+            variants = {"chosen": base, "pair order flipped": (not base[0], *base[1:]),
+                        "runs flipped": (base[0], gpc if base[1] == 1 else 1, *base[2:]),
+                        "query tile flipped": (*base[:2], 16 if base[2] == 8 else 8, base[3])}
+            for name, layout in variants.items():
+                ts._ivf_probe_layout = lambda *a, layout=layout: layout
+                runs = []
+                for _ in range(3):
+                    total, by_name = device_split(lambda: ts.ivf_probe_topk(arm.slab, q, arm.mask, probe, k=cs.K,
+                                                                            gpc=gpc))
+                    runs.append((total, sum(v for k, v in by_name.items() if "ivf_probe_kernel" in k)))
+                rows.append({"b": b, "nprobe": nprobe, "variant": name, "layout": list(layout),
+                             "device_ms": [t for t, _ in runs], "kernel_ms": [k for _, k in runs]})
+                cs.log(f"K2-ivf B={b} nprobe={nprobe} {name} (pair order, runs, query tile, list) {layout}: "
+                       f"device ms {' '.join(f'{t:.4f}' for t, _ in runs)}, its kernel "
+                       f"{' '.join(f'{k:.4f}' for _, k in runs)}")
+    finally:
+        ts._ivf_probe_layout = chosen
+    cs.log(cs.gpu_line())
+    print(json.dumps({"ivf_layout": rows}), flush=True)
+    return 0
 
 
 def time_kernels(root: str) -> int:
@@ -636,6 +697,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     if len(sys.argv) > 1 and sys.argv[1] == "--kernels":
         return time_kernels(os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else HERE)
+    if len(sys.argv) > 1 and sys.argv[1] == "--ivf-layout":
+        return ivf_layouts()
     if len(sys.argv) > 1 and sys.argv[1] == "--k5-split":
         return k5_split(os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else HERE)
     if len(sys.argv) > 3 and sys.argv[1] == "--open":

@@ -7,8 +7,10 @@ K2 at the quality tier's width (384), the int8 GEMM behind the encoder at
 padded shapes (exact), the trained 384 encoder's forward against the
 CPU (f32, bf16, int8), the f32 forms of K1, K2 and K5 against their twins
 (K5's candidates and K1's maxima the same bits, a row's bits independent
-of its batch), K2 at the IVF probe's shapes, and the MRL, int4 and IVF
-lanes against the CPU.
+of its batch), K2 and K2-ivf (the IVF probe's kernel: pair order, a hot
+cluster over 64 queries, the full probe, k up to 300, a masked cluster, a
+width not a multiple of 64, ids outside the arm) at the IVF probe's
+shapes, and the MRL, int4 and IVF lanes against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -723,8 +725,8 @@ def test_encoder_forward_card_vs_cpu(cuda_device, form):
 
 
 # --------------------------------------------------------------------------
-# the f32 forms (K1, K2, K5 by FFMA), K2 at the IVF probe's shapes, and the
-# MRL, int4 and IVF lanes
+# the f32 forms (K1, K2, K5 by FFMA), K2 and K2-ivf at the IVF probe's
+# shapes, and the MRL, int4 and IVF lanes
 # --------------------------------------------------------------------------
 
 
@@ -786,6 +788,73 @@ def test_gather_rescore_at_the_ivf_probe_shapes(cuda_device, b, nprobe):
     ids = ids.to(torch.int32).to(cuda_device)
     got = topk_scan.gather_rescore(slab, q, ids)
     torch.testing.assert_close(got, topk_scan.gather_rescore_plain(slab, q, ids), rtol=1e-5, atol=1e-5)
+
+
+def _ivf_arm(seed, b, nprobe, *, d=256, n_clusters=64, gpc=6, dtype=torch.bfloat16, hot=16):
+    """A slab sorted by cluster (n_clusters x gpc groups), a tombstone mask
+    over a tenth of its rows, and a probe table: nprobe of ``hot`` clusters
+    a query (so B = 256 puts about 128 queries on a cluster), or, above
+    ``hot``, nprobe of all clusters."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    slab = torch.randn(n_clusters * gpc * 128, d, generator=gen)
+    slab = (slab / slab.norm(dim=1, keepdim=True)).to(dtype)
+    q = torch.randn(b, d, generator=gen)
+    mask = torch.zeros(slab.shape[0])
+    mask[torch.randperm(slab.shape[0], generator=gen)[: slab.shape[0] // 10]] = float("-inf")
+    hot_ids = torch.randperm(n_clusters, generator=gen)[:hot]
+    probe = torch.stack([torch.randperm(n_clusters, generator=gen)[:nprobe] if nprobe > hot
+                         else hot_ids[torch.randperm(hot, generator=gen)[:nprobe]] for _ in range(b)])
+    return slab, q, mask, probe
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("k", [1, 10, 65, 300])
+@pytest.mark.parametrize("b,nprobe", [(1, 8), (8, 8), (32, 8), (256, 8), (8, 64)])
+def test_ivf_probe_matches_twin(cuda_device, b, nprobe, k, dtype):
+    """K2-ivf against its twin at the IVF probe's shapes (those of
+    test_gather_rescore_at_the_ivf_probe_shapes, and 32 x 8): pair order
+    with a run a group at B = 1 and 8 x 8, pair order with a run a cluster
+    at 32 x 8, a hot cluster probed by about 128 queries at B = 256, the full
+    probe at nprobe 64), lists at k <= 64 and every row above, within
+    1e-5 (tensor-core sums in another order; rows equal but at such
+    ties); it launches no K2."""
+    slab, q, mask, probe = _ivf_arm(b * nprobe + k, b, nprobe, dtype=dtype)
+    want = topk_scan.ivf_probe_topk_plain(slab, q, mask, probe, k=k, gpc=6)
+    before = (topk_scan.ivf_probe_topk.launches, topk_scan.gather_rescore.launches)
+    got = topk_scan.ivf_probe_topk(slab.to(cuda_device), q.to(cuda_device), mask.to(cuda_device),
+                                   probe.to(cuda_device), k=k, gpc=6)
+    assert (topk_scan.ivf_probe_topk.launches, topk_scan.gather_rescore.launches) == (before[0] + 1, before[1])
+    assert got.scores.shape == (b, k) and got.indices.dtype == torch.int32
+    _same_up_to_near_ties(got, want)
+
+
+@pytest.mark.parametrize("d,b,nprobe", [(256, 8, 8), (256, 256, 8), (200, 8, 8), (200, 256, 40)])
+def test_ivf_probe_masked_cluster_and_narrow_rows(cuda_device, d, b, nprobe):
+    """A probed cluster whose rows are all masked gives no row; a width that
+    is not a multiple of 64 (the last chunk's columns read as zeros)."""
+    slab, q, mask, probe = _ivf_arm(d + b, b, nprobe, d=d)
+    mask[probe[0, 0] * 768 : probe[0, 0] * 768 + 768] = float("-inf")
+    want = topk_scan.ivf_probe_topk_plain(slab, q, mask, probe, k=10, gpc=6)
+    got = topk_scan.ivf_probe_topk(slab.to(cuda_device), q.to(cuda_device), mask.to(cuda_device),
+                                   probe.to(cuda_device), k=10, gpc=6)
+    _same_up_to_near_ties(got, want)
+    dead = set(range(int(probe[0, 0]) * 768, int(probe[0, 0]) * 768 + 768))
+    assert not dead & set(got.indices[0].tolist())
+
+
+def test_ivf_probe_poisons_ids_outside_the_arm(cuda_device):
+    """A probe id outside [0, C) is not streamed: its lists come back as
+    NaN (ranked first by the merge, as K2 poisons such ids), the other
+    queries' rows are the twin's."""
+    slab, q, mask, probe = _ivf_arm(7, 200, 8)
+    probe[3, 2] = 64
+    got = topk_scan.ivf_probe_topk(slab.to(cuda_device), q.to(cuda_device), mask.to(cuda_device),
+                                   probe.to(cuda_device), k=10, gpc=6)
+    assert bool(torch.isnan(got.scores[3]).all())
+    keep = torch.arange(200) != 3
+    want = topk_scan.ivf_probe_topk_plain(slab, q[keep], mask, probe[keep], k=10, gpc=6)
+    _same_up_to_near_ties(topk_scan.TopKResult(got.scores[keep.to(cuda_device)], got.indices[keep.to(cuda_device)]),
+                          want)
 
 
 def test_mrl_int4_and_ivf_lanes_gpu_vs_cpu(cuda_device):
