@@ -280,6 +280,13 @@ class TwoTierMetrics:
 
     Every phase's wall time plus candidate counts, skip reasons, and
     rank-stability (Kendall tau between Phase 1 and Phase 2 orderings).
+    Each time is the host time of the phase's span (utils/tracing.py
+    ``span``), which is also a profiler range under ``torch.profiler``.
+    ``search_batch`` gives every outcome the whole batch's times:
+    ``canonicalize_us``, ``fast_embed_ms``, ``vector_scan_ms``,
+    ``lexical_ms``, ``fusion_ms``, ``phase2_ms`` (the batched quality
+    rescore), ``phase1_ms`` (the batch's time to its fused results less
+    ``phase2_ms``) and ``total_ms``, where those phases ran.
     """
 
     query_class: str = ""

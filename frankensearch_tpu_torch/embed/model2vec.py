@@ -32,6 +32,7 @@ import torch
 
 from frankensearch_tpu_torch.core.errors import EmbeddingFailed
 from frankensearch_tpu_torch.embed.base import Embedder, l2_normalize_rows
+from frankensearch_tpu_torch.utils.tracing import span
 
 _WORD_RE = re.compile(r"[\w']+|[^\w\s]", re.UNICODE)
 
@@ -209,15 +210,22 @@ class Model2VecEmbedder(Embedder):
         return ids, mask
 
     def embed_batch(self, texts: Sequence[str]) -> np.ndarray:
+        """Unit rows for ``texts``: host tokenizing (span ``fs.embed.tokenize``),
+        the upload and the pool enqueued on the device (``fs.embed.pool``),
+        the ``.cpu()`` fetch that waits for it (``fs.embed.fetch``), then the
+        host normalize."""
         if not texts:
             return np.zeros((0, self._dim), dtype=np.float32)
-        ids, mask = self.tokenize_batch(texts)
-        out = gather_pool_normalize(
-            self._emb, torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device)
-        )
-        result = out.cpu().numpy().astype(np.float32, copy=False)
+        with span("fs.embed.tokenize"):
+            ids, mask = self.tokenize_batch(texts)
+        with span("fs.embed.pool"):
+            out = gather_pool_normalize(
+                self._emb, torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device)
+            )
+        with span("fs.embed.fetch"):
+            out = out.cpu()
         # rows with zero tokens stay zero vectors (caller treats as degenerate)
-        return l2_normalize_rows(result)
+        return l2_normalize_rows(out.numpy().astype(np.float32, copy=False))
 
 
 def random_model2vec(

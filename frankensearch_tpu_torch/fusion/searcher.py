@@ -33,6 +33,7 @@ other fault of the cross-encoder propagates.
 from __future__ import annotations
 
 import concurrent.futures
+import logging
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
@@ -68,6 +69,9 @@ from frankensearch_tpu_torch.fusion.phase_gate import PhaseGate
 from frankensearch_tpu_torch.fusion.rrf import RrfConfig, candidate_count, fuse_by_strategy
 from frankensearch_tpu_torch.lexical.base import LexicalCandidate, LexicalRead
 from frankensearch_tpu_torch.index.two_tier import TwoTierIndex
+from frankensearch_tpu_torch.utils.tracing import get_logger, span
+
+_log = get_logger("searcher")
 
 PhaseCallback = Callable[[SearchPhase], None]
 TextFn = Callable[[str], str | None]
@@ -588,7 +592,10 @@ class TwoTierSearcher:
         """One query through the progressive phases; ``on_phase`` sees each
         phase as it is emitted (Initial, then Refined or RefinementFailed,
         then Reranked)."""
-        t_start = time.monotonic()
+        with span("fs.search") as whole:
+            return self._search(whole, query, k, on_phase, text_fn, search_filter)
+
+    def _search(self, whole: span, query, k, on_phase, text_fn, search_filter) -> SearchOutcome:
         if k < 0:
             raise InvalidConfig(f"k must be >= 0, got {k}")
         self._enforce_recall_certificate(k)
@@ -605,18 +612,18 @@ class TwoTierSearcher:
                 on_phase(phase)
 
         # 1. canonicalize + parse + classify (searcher.rs:929-963)
-        t0 = time.monotonic()
-        canonical = self.canonicalizer.canonicalize_query(query)
-        parsed = ParsedQuery.parse(canonical)
-        parsed = self._attach_boolean_tree(parsed, canonical)
-        qclass = QueryClass.classify(parsed.positive or canonical)
-        metrics.canonicalize_us = (time.monotonic() - t0) * 1e6
+        with span("fs.search.parse") as sp:
+            canonical = self.canonicalizer.canonicalize_query(query)
+            parsed = ParsedQuery.parse(canonical)
+            parsed = self._attach_boolean_tree(parsed, canonical)
+            qclass = QueryClass.classify(parsed.positive or canonical)
+        metrics.canonicalize_us = sp.ms * 1000.0
         metrics.query_class = qclass.value
 
         if qclass is QueryClass.EMPTY:
             outcome = SearchOutcome(results=[], phases=phases, metrics=metrics)
             emit(SearchPhase(PhaseKind.INITIAL, [], 0.0, metrics=metrics))
-            self._export(metrics, t_start)
+            self._export(metrics, whole.ms)
             return outcome
 
         # intent-aware stage plan (runtime/query_planner.py), off by default
@@ -662,7 +669,7 @@ class TwoTierSearcher:
         initial_results, fast_hits, lexical_pool = self._run_phase1(
             parsed, qclass, k, metrics, search_filter, text_fn
         )
-        metrics.phase1_ms = (time.monotonic() - t_start) * 1000.0
+        metrics.phase1_ms = whole.ms
         emit(SearchPhase(PhaseKind.INITIAL, list(initial_results), metrics.phase1_ms, metrics=metrics))
 
         results = initial_results
@@ -677,13 +684,13 @@ class TwoTierSearcher:
                 stage = plan.stage("quality")
                 if stage is not None and stage.enabled and stage.budget_ms > 0:
                     quality_budget_ms = stage.budget_ms
-            t2 = time.monotonic()
-            refined, failure = self._run_phase2_with_timeout(
-                parsed, qclass, k, fast_hits, lexical_pool, initial_results, metrics, text_fn,
-                quality_prefetch=phase2_prefetch,
-                timeout_ms_override=quality_budget_ms,
-            )
-            metrics.phase2_ms = (time.monotonic() - t2) * 1000.0
+            with span("fs.search.refine") as sp:
+                refined, failure = self._run_phase2_with_timeout(
+                    parsed, qclass, k, fast_hits, lexical_pool, initial_results, metrics, text_fn,
+                    quality_prefetch=phase2_prefetch,
+                    timeout_ms_override=quality_budget_ms,
+                )
+            metrics.phase2_ms = sp.ms
             if refined is not None:
                 if self.config.explain:
                     initial_rank = {r.doc_id: i for i, r in enumerate(initial_results)}
@@ -697,13 +704,13 @@ class TwoTierSearcher:
                 results = refined
                 emit(SearchPhase(
                     PhaseKind.REFINED, list(results),
-                    (time.monotonic() - t_start) * 1000.0, metrics=metrics,
+                    whole.ms, metrics=metrics,
                 ))
             else:
                 metrics.phase2_skip_reason = failure
                 emit(SearchPhase(
                     PhaseKind.REFINEMENT_FAILED, list(results),
-                    (time.monotonic() - t_start) * 1000.0, reason=failure, metrics=metrics,
+                    whole.ms, reason=failure, metrics=metrics,
                 ))
 
         # 4. Phase 3 rerank (searcher.rs:1219, :2477)
@@ -722,14 +729,14 @@ class TwoTierSearcher:
             and results
             and text_fn is not None
         ):
-            t3 = time.monotonic()
-            reranked = self._run_phase3(parsed.positive, results, k, text_fn, metrics)
-            metrics.phase3_ms = (time.monotonic() - t3) * 1000.0
+            with span("fs.search.rerank") as sp:
+                reranked = self._run_phase3(parsed.positive, results, k, text_fn, metrics)
+            metrics.phase3_ms = sp.ms
             if reranked is not None:
                 results = reranked
                 emit(SearchPhase(
                     PhaseKind.RERANKED, list(results),
-                    (time.monotonic() - t_start) * 1000.0, metrics=metrics,
+                    whole.ms, metrics=metrics,
                 ))
         elif (self.config.rerank_enabled and self.reranker is not None
                 and metrics.phase3_skip_reason is None):
@@ -739,7 +746,7 @@ class TwoTierSearcher:
             results = self.feedback.apply(results)
 
         results = results[:k]
-        self._export(metrics, t_start)
+        self._export(metrics, whole.ms)
         return SearchOutcome(results=results, phases=phases, metrics=metrics)
 
     # ------------------------------------------------------------------ batch
@@ -755,7 +762,13 @@ class TwoTierSearcher:
         both arms run as one device pass, the RRF merge runs on the device,
         the quality tier rescores the whole batch at once, and per-query
         fusion and hydration stay on the host. Results match per-query
-        ``search()`` for the same config; no phase callbacks or timeouts."""
+        ``search()`` for the same config; no phase callbacks or timeouts.
+        Each outcome's metrics carry the batch's phase times, and each goes
+        to the metrics exporter."""
+        with span("fs.search_batch") as whole:
+            return self._search_batch(whole, queries, k, search_filter)
+
+    def _search_batch(self, whole: span, queries, k, search_filter) -> list[SearchOutcome]:
         if k < 0:
             raise InvalidConfig(f"k must be >= 0, got {k}")
         self._enforce_recall_certificate(k)
@@ -787,12 +800,17 @@ class TwoTierSearcher:
                         outcomes[i] = sub[j]
                 return outcomes
 
-        parsed_list = [ParsedQuery.parse(self.canonicalizer.canonicalize_query(q)) for q in queries]
-        classes = [QueryClass.classify(p.positive or q) for p, q in zip(parsed_list, queries)]
-        live = [i for i, qc in enumerate(classes) if qc is not QueryClass.EMPTY]
+        # the batch's phase times, given to every outcome's metrics
+        times: dict[str, float] = {}
+        with span("fs.search.parse") as sp:
+            parsed_list = [ParsedQuery.parse(self.canonicalizer.canonicalize_query(q)) for q in queries]
+            classes = [QueryClass.classify(p.positive or q) for p, q in zip(parsed_list, queries)]
+            live = [i for i, qc in enumerate(classes) if qc is not QueryClass.EMPTY]
+        times["canonicalize_us"] = sp.ms * 1000.0
         for i, qc in enumerate(classes):
             outcomes[i].metrics.query_class = qc.value
         if not live:
+            self._export_batch(outcomes, times, whole.ms)
             return outcomes
 
         hits_per_query: dict[int, list[VectorHit]] = {}
@@ -813,14 +831,16 @@ class TwoTierSearcher:
 
         def fused_lane(fast_vecs) -> bool:
             nonlocal fused_raw
-            fused = self._fused_phase1_batch(
-                fast_vecs, [parsed_list[i].positive for i in live],
-                sem_budget_f, lex_budget_f,
-                rrf_ctx=self._rrf_ctx(classes, live, k),
-            )
-            if fused is None:
-                return False
-            self._fill_fused(fused, live, hits_per_query, lexical_pools)
+            with span("fs.fused_pass") as sp:
+                fused = self._fused_phase1_batch(
+                    fast_vecs, [parsed_list[i].positive for i in live],
+                    sem_budget_f, lex_budget_f,
+                    rrf_ctx=self._rrf_ctx(classes, live, k),
+                )
+                if fused is None:
+                    return False
+                self._fill_fused(fused, live, hits_per_query, lexical_pools)
+            times["vector_scan_ms"] = sp.ms
             for i in live:
                 outcomes[i].metrics.phase1_fused = True
             fused_raw = fused[2]
@@ -834,7 +854,9 @@ class TwoTierSearcher:
         # one call for all fast embeddings
         fast_vecs = None
         if self._semantic_admitted and not fused_done:
-            fast_vecs = self.fast_embedder.embed_batch([parsed_list[i].positive for i in live])
+            with span("fs.embed") as sp:
+                fast_vecs = self.fast_embedder.embed_batch([parsed_list[i].positive for i in live])
+            times["fast_embed_ms"] = sp.ms
 
         # scan + BM25 fused lane (query vectors already computed)
         if fast_vecs is not None and self.lexical is not None and search_filter is None:
@@ -845,13 +867,15 @@ class TwoTierSearcher:
                     * max(classes[i].semantic_budget_multiplier() for i in live)),
                 k,
             )
-            res = self.index.fast.search_batch(
-                fast_vecs, sem_budget, search_filter=search_filter,
-                mode="mrl" if cfg.mrl_search_dims else cfg.scan_mode,
-                mrl_search_dims=cfg.mrl_search_dims,
-                nprobe=cfg.ivf_nprobe,
-            )
-            hydrated = self.index.fast.hydrate(res)
+            with span("fs.search.vector") as sp:
+                res = self.index.fast.search_batch(
+                    fast_vecs, sem_budget, search_filter=search_filter,
+                    mode="mrl" if cfg.mrl_search_dims else cfg.scan_mode,
+                    mrl_search_dims=cfg.mrl_search_dims,
+                    nprobe=cfg.ivf_nprobe,
+                )
+                hydrated = self.index.fast.hydrate(res)
+            times["vector_scan_ms"] = sp.ms
             for j, i in enumerate(live):
                 hits_per_query[i] = hydrated[j]
 
@@ -867,153 +891,161 @@ class TwoTierSearcher:
             and self._quality_admitted
             and hits_per_query
         ):
-            q_vecs = self.quality_embedder.embed_batch([parsed_list[i].positive for i in live])
-            for j, i in enumerate(live):
-                hits = hits_per_query.get(i, [])
-                if hits:
-                    q_vec_i = q_vecs[j]
-                    if self.prf is not None:
-                        q_vec_i = self.prf.expand(q_vec_i, hits, self.index)
-                    qs = self.index.quality_scores_for_hits(q_vec_i, hits)
-                    if self.calibrator is not None:
-                        qs = {d: self.calibrator(v) for d, v in qs.items()}
-                    qscores_per_query[i] = qs
-            if cfg.quality_rescan and self.index.quality is not None:
-                q_budget = max(
-                    int(candidate_count(k, 0, cfg.candidate_multiplier)
-                        * max(classes[i].semantic_budget_multiplier() for i in live)),
-                    k,
-                )
-                qres = self.index.quality.search_batch(q_vecs, q_budget)
-                qhydrated = self.index.quality.hydrate(qres)
+            with span("fs.search.refine") as sp:
+                q_vecs = self.quality_embedder.embed_batch([parsed_list[i].positive for i in live])
                 for j, i in enumerate(live):
-                    scan_hits = qhydrated[j]
-                    scan_per_query.setdefault(i, []).extend(scan_hits)
-                    qd = qscores_per_query.setdefault(i, {})
-                    for h in scan_hits:
-                        qd.setdefault(h.doc_id, h.score)
+                    hits = hits_per_query.get(i, [])
+                    if hits:
+                        q_vec_i = q_vecs[j]
+                        if self.prf is not None:
+                            q_vec_i = self.prf.expand(q_vec_i, hits, self.index)
+                        qs = self.index.quality_scores_for_hits(q_vec_i, hits)
+                        if self.calibrator is not None:
+                            qs = {d: self.calibrator(v) for d, v in qs.items()}
+                        qscores_per_query[i] = qs
+                if cfg.quality_rescan and self.index.quality is not None:
+                    q_budget = max(
+                        int(candidate_count(k, 0, cfg.candidate_multiplier)
+                            * max(classes[i].semantic_budget_multiplier() for i in live)),
+                        k,
+                    )
+                    qres = self.index.quality.search_batch(q_vecs, q_budget)
+                    qhydrated = self.index.quality.hydrate(qres)
+                    for j, i in enumerate(live):
+                        scan_hits = qhydrated[j]
+                        scan_per_query.setdefault(i, []).extend(scan_hits)
+                        qd = qscores_per_query.setdefault(i, {})
+                        for h in scan_hits:
+                            qd.setdefault(h.doc_id, h.score)
+            times["phase2_ms"] = sp.ms
 
         # lexical pools: one batched device call when the backend has it
         if self.lexical is not None and not fused_done:
-            lex_budget_all = max(
-                int(candidate_count(k, 0, cfg.candidate_multiplier)
-                    * max(classes[i].lexical_budget_multiplier() for i in live)),
-                k,
-            )
-            batch_api = getattr(self.lexical, "search_candidates_batch", None)
-            if callable(batch_api):
-                cand_lists = batch_api([parsed_list[i].positive for i in live], lex_budget_all)
-                for j, i in enumerate(live):
-                    cands = cand_lists[j]
-                    meta = self.lexical.hydrate_candidates([c.doc_id for c in cands])
-                    lexical_pools[i] = self._apply_filter_to_pool(
-                        self._drop_superseded([
-                            ScoredResult(
-                                doc_id=c.doc_id, score=c.score, lexical_score=c.score,
-                                title=(meta.get(c.doc_id) or {}).get("title"),
-                                metadata=(meta.get(c.doc_id) or {}).get("metadata"),
-                            )
-                            for c in cands
-                        ]),
-                        search_filter,
-                    )
-
-        # vectorized batch RRF: replaces the per-query dict fusion when the
-        # exactness gates hold — bitwise identical
-        batch_fused = None
-        if (
-            fused_raw is not None
-            and not qscores_per_query
-            and not scan_per_query
-            and cfg.fusion_strategy is FusionStrategy.RRF
-            and cfg.tiebreak is TiebreakStrategy.LEXICAL_THEN_ID
-            and self.nqc is None
-            and self.graph_ranker is None
-        ):
-            batch_fused = self._vectorized_batch_fuse(fused_raw, live, classes, k)
-
-        # per-query host-side fusion (the scalar search() contract)
-        for i in live:
-            parsed, qclass = parsed_list[i], classes[i]
-            lexical_pool: list[ScoredResult] = lexical_pools.get(i, [])
-            if self.lexical is not None and i not in lexical_pools:
-                lex_budget = max(
+            with span("fs.lexical") as sp:
+                lex_budget_all = max(
                     int(candidate_count(k, 0, cfg.candidate_multiplier)
-                        * qclass.lexical_budget_multiplier()),
+                        * max(classes[i].lexical_budget_multiplier() for i in live)),
                     k,
                 )
-                lexical_pool = self._apply_filter_to_pool(
-                    self._drop_superseded(self.lexical.search(parsed.positive, lex_budget)),
-                    search_filter,
-                )
-            fast_hits = hits_per_query.get(i, [])
-            if (
-                qclass is QueryClass.IDENTIFIER
-                and not self.fast_embedder.is_semantic
-                and len(lexical_pool) >= k
-            ):
-                # identifier short-circuit (searcher.rs:1451,1641)
-                fast_hits = []
-            if self.calibrator is not None and fast_hits:
-                fast_hits = [
-                    VectorHit(h.doc_id, self.calibrator(h.score), h.row) for h in fast_hits
-                ]
-            if self.hubness is not None and fast_hits:
-                fast_hits = self.hubness.apply(fast_hits)
-            if self.smoother is not None and fast_hits:
-                fast_hits = self.smoother.apply(fast_hits)
-            rrf_cfg = RrfConfig(
-                k=self._effective_rrf_k(qclass),
-                lexical_weight=cfg.lexical_rrf_weight,
-                semantic_weight=self._effective_semantic_weight(lexical_pool, parsed),
-                tiebreak=cfg.tiebreak,
-            )
-            qscores = qscores_per_query.get(i)
-            if qscores and i in scan_per_query:
-                # expanded pool (quality_rescan): the two-pool blend
-                qpool: dict[str, VectorHit] = {h.doc_id: h for h in scan_per_query[i]}
-                fast_rows = {h.doc_id: h.row for h in fast_hits}
-                for d, sc in qscores.items():
-                    if d not in qpool:
-                        qpool[d] = VectorHit(doc_id=d, score=sc, row=fast_rows.get(d, -1))
-                blended = blend_two_tier(
-                    fast_hits, list(qpool.values()), self._effective_quality_weight(qclass)
-                )
-                fused = fuse_by_strategy(cfg.fusion_strategy, lexical_pool, blended, k, 0, rrf_cfg)
-            elif qscores:
-                aligned = [qscores.get(h.doc_id) for h in fast_hits]
-                blended = blend_two_tier_aligned(
-                    fast_hits, aligned, self._effective_quality_weight(qclass)
-                )
-                fused = fuse_by_strategy(cfg.fusion_strategy, lexical_pool, blended, k, 0, rrf_cfg)
-            elif batch_fused is not None and i in batch_fused and fast_hits:
-                fused = batch_fused[i]
-            elif self.graph_ranker is not None and cfg.graph_rrf_weight > 0.0:
-                from frankensearch_tpu_torch.fusion.rrf import rrf_fuse_with_graph
+                batch_api = getattr(self.lexical, "search_candidates_batch", None)
+                if callable(batch_api):
+                    cand_lists = batch_api([parsed_list[i].positive for i in live], lex_budget_all)
+                    for j, i in enumerate(live):
+                        cands = cand_lists[j]
+                        meta = self.lexical.hydrate_candidates([c.doc_id for c in cands])
+                        lexical_pools[i] = self._apply_filter_to_pool(
+                            self._drop_superseded([
+                                ScoredResult(
+                                    doc_id=c.doc_id, score=c.score, lexical_score=c.score,
+                                    title=(meta.get(c.doc_id) or {}).get("title"),
+                                    metadata=(meta.get(c.doc_id) or {}).get("metadata"),
+                                )
+                                for c in cands
+                            ]),
+                            search_filter,
+                        )
+            times["lexical_ms"] = sp.ms
 
-                seeds = lexical_pool or [
-                    ScoredResult(doc_id=h.doc_id, score=h.score) for h in fast_hits
-                ]
-                graph_pool = self.graph_ranker.rank(seeds, limit=k * cfg.candidate_multiplier)
-                fused = rrf_fuse_with_graph(
-                    lexical_pool, fast_hits, graph_pool, cfg.graph_rrf_weight, k, 0, rrf_cfg,
+        with span("fs.search.fuse") as sp:
+            # vectorized batch RRF: replaces the per-query dict fusion when
+            # the exactness gates hold — bitwise identical
+            batch_fused = None
+            if (
+                fused_raw is not None
+                and not qscores_per_query
+                and not scan_per_query
+                and cfg.fusion_strategy is FusionStrategy.RRF
+                and cfg.tiebreak is TiebreakStrategy.LEXICAL_THEN_ID
+                and self.nqc is None
+                and self.graph_ranker is None
+            ):
+                batch_fused = self._vectorized_batch_fuse(fused_raw, live, classes, k)
+
+            # per-query host-side fusion (the scalar search() contract)
+            for i in live:
+                parsed, qclass = parsed_list[i], classes[i]
+                lexical_pool: list[ScoredResult] = lexical_pools.get(i, [])
+                if self.lexical is not None and i not in lexical_pools:
+                    lex_budget = max(
+                        int(candidate_count(k, 0, cfg.candidate_multiplier)
+                            * qclass.lexical_budget_multiplier()),
+                        k,
+                    )
+                    lexical_pool = self._apply_filter_to_pool(
+                        self._drop_superseded(self.lexical.search(parsed.positive, lex_budget)),
+                        search_filter,
+                    )
+                fast_hits = hits_per_query.get(i, [])
+                if (
+                    qclass is QueryClass.IDENTIFIER
+                    and not self.fast_embedder.is_semantic
+                    and len(lexical_pool) >= k
+                ):
+                    # identifier short-circuit (searcher.rs:1451,1641)
+                    fast_hits = []
+                if self.calibrator is not None and fast_hits:
+                    fast_hits = [
+                        VectorHit(h.doc_id, self.calibrator(h.score), h.row) for h in fast_hits
+                    ]
+                if self.hubness is not None and fast_hits:
+                    fast_hits = self.hubness.apply(fast_hits)
+                if self.smoother is not None and fast_hits:
+                    fast_hits = self.smoother.apply(fast_hits)
+                rrf_cfg = RrfConfig(
+                    k=self._effective_rrf_k(qclass),
+                    lexical_weight=cfg.lexical_rrf_weight,
+                    semantic_weight=self._effective_semantic_weight(lexical_pool, parsed),
+                    tiebreak=cfg.tiebreak,
                 )
-            else:
-                fused = fuse_by_strategy(cfg.fusion_strategy, lexical_pool, fast_hits, k, 0, rrf_cfg)
-            results = self._fused_to_results(
-                fused, lexical_pool, fast_hits, self.default_text_fn, parsed
-            )
-            if qscores:
-                for r in results:
-                    if r.doc_id in qscores:
-                        r.quality_score = qscores[r.doc_id]
-                        r.sources |= SearchSource.QUALITY_VECTOR
-            if self.feedback is not None and results:
-                results = self.feedback.apply(results)
-            outcomes[i].results = results[:k]
-            outcomes[i].metrics.fast_candidates = len(fast_hits)
-            outcomes[i].metrics.lexical_candidates = len(lexical_pool)
-            outcomes[i].metrics.quality_candidates = len(qscores or {})
+                qscores = qscores_per_query.get(i)
+                if qscores and i in scan_per_query:
+                    # expanded pool (quality_rescan): the two-pool blend
+                    qpool: dict[str, VectorHit] = {h.doc_id: h for h in scan_per_query[i]}
+                    fast_rows = {h.doc_id: h.row for h in fast_hits}
+                    for d, sc in qscores.items():
+                        if d not in qpool:
+                            qpool[d] = VectorHit(doc_id=d, score=sc, row=fast_rows.get(d, -1))
+                    blended = blend_two_tier(
+                        fast_hits, list(qpool.values()), self._effective_quality_weight(qclass)
+                    )
+                    fused = fuse_by_strategy(cfg.fusion_strategy, lexical_pool, blended, k, 0, rrf_cfg)
+                elif qscores:
+                    aligned = [qscores.get(h.doc_id) for h in fast_hits]
+                    blended = blend_two_tier_aligned(
+                        fast_hits, aligned, self._effective_quality_weight(qclass)
+                    )
+                    fused = fuse_by_strategy(cfg.fusion_strategy, lexical_pool, blended, k, 0, rrf_cfg)
+                elif batch_fused is not None and i in batch_fused and fast_hits:
+                    fused = batch_fused[i]
+                elif self.graph_ranker is not None and cfg.graph_rrf_weight > 0.0:
+                    from frankensearch_tpu_torch.fusion.rrf import rrf_fuse_with_graph
+
+                    seeds = lexical_pool or [
+                        ScoredResult(doc_id=h.doc_id, score=h.score) for h in fast_hits
+                    ]
+                    graph_pool = self.graph_ranker.rank(seeds, limit=k * cfg.candidate_multiplier)
+                    fused = rrf_fuse_with_graph(
+                        lexical_pool, fast_hits, graph_pool, cfg.graph_rrf_weight, k, 0, rrf_cfg,
+                    )
+                else:
+                    fused = fuse_by_strategy(cfg.fusion_strategy, lexical_pool, fast_hits, k, 0, rrf_cfg)
+                results = self._fused_to_results(
+                    fused, lexical_pool, fast_hits, self.default_text_fn, parsed
+                )
+                if qscores:
+                    for r in results:
+                        if r.doc_id in qscores:
+                            r.quality_score = qscores[r.doc_id]
+                            r.sources |= SearchSource.QUALITY_VECTOR
+                if self.feedback is not None and results:
+                    results = self.feedback.apply(results)
+                outcomes[i].results = results[:k]
+                outcomes[i].metrics.fast_candidates = len(fast_hits)
+                outcomes[i].metrics.lexical_candidates = len(lexical_pool)
+                outcomes[i].metrics.quality_candidates = len(qscores or {})
+        times["fusion_ms"] = sp.ms
+        times["phase1_ms"] = whole.ms - times.get("phase2_ms", 0.0)
+        self._export_batch(outcomes, times, whole.ms)
         return outcomes
 
     # ------------------------------------------------------------------ phase 1
@@ -1054,14 +1086,14 @@ class TwoTierSearcher:
             and parsed.boolean_query is None
             and not (qclass is QueryClass.IDENTIFIER and not self.fast_embedder.is_semantic)
         ):
-            t_f = time.monotonic()
-            fused_single = self._fused_phase1_batch(None, [parsed.positive], sem_budget, lex_budget)
-            if fused_single is None:
-                # not a Model2Vec fast tier: embed first, then fuse scan + BM25
-                vec = self.fast_embedder.embed(parsed.positive)
-                fused_single = self._fused_phase1_batch(
-                    vec[None, :], [parsed.positive], sem_budget, lex_budget
-                )
+            with span("fs.fused_pass") as sp:
+                fused_single = self._fused_phase1_batch(None, [parsed.positive], sem_budget, lex_budget)
+                if fused_single is None:
+                    # not a Model2Vec fast tier: embed first, then fuse scan + BM25
+                    vec = self.fast_embedder.embed(parsed.positive)
+                    fused_single = self._fused_phase1_batch(
+                        vec[None, :], [parsed.positive], sem_budget, lex_budget
+                    )
             if fused_single is not None and fused_single[0][0]:
                 hydrated, lex_lists, _raw = fused_single
                 fast_hits = hydrated[0]
@@ -1076,7 +1108,7 @@ class TwoTierSearcher:
                     for c in cands
                 ])
                 metrics.fast_embed_ms = 0.0  # inside the scan's pass
-                metrics.vector_scan_ms = (time.monotonic() - t_f) * 1000.0
+                metrics.vector_scan_ms = sp.ms
                 metrics.lexical_ms = 0.0
                 metrics.lexical_candidates = len(lexical_pool)
                 metrics.scan_docs = self.index.fast.live_count
@@ -1090,15 +1122,15 @@ class TwoTierSearcher:
             fast_future = self._pool.submit(self._timed_fast_embed, parsed.positive, metrics)
         lexical_pool: list[ScoredResult] = []
         if self.lexical is not None:
-            t_lex = time.monotonic()
-            if parsed.boolean_query is not None:
-                # tree retrieval: exact on the oracle, bag + post-filter on
-                # device arms
-                pool = self.lexical.search_boolean(parsed.boolean_query, lex_budget)
-            else:
-                pool = self.lexical.search(parsed.positive, lex_budget)
-            lexical_pool = self._apply_filter_to_pool(self._drop_superseded(pool), search_filter)
-            metrics.lexical_ms = (time.monotonic() - t_lex) * 1000.0
+            with span("fs.lexical") as sp:
+                if parsed.boolean_query is not None:
+                    # tree retrieval: exact on the oracle, bag + post-filter on
+                    # device arms
+                    pool = self.lexical.search_boolean(parsed.boolean_query, lex_budget)
+                else:
+                    pool = self.lexical.search(parsed.positive, lex_budget)
+                lexical_pool = self._apply_filter_to_pool(self._drop_superseded(pool), search_filter)
+            metrics.lexical_ms = sp.ms
             metrics.lexical_candidates = len(lexical_pool)
 
         # identifier short-circuit (searcher.rs:1451,1641): identifier
@@ -1110,16 +1142,18 @@ class TwoTierSearcher:
             and not self.fast_embedder.is_semantic
         )
         if fast_future is not None and not short_circuit:
-            query_vec = fast_future.result()
-            t_scan = time.monotonic()
-            classified: ClassifiedHits = self.index.search_fast_classified(
-                query_vec, sem_budget, search_filter=search_filter,
-                mrl_search_dims=cfg.mrl_search_dims,
-                mrl_rescore_top_k=cfg.mrl_rescore_top_k,
-                mode="mrl" if cfg.mrl_search_dims else cfg.scan_mode,
-                nprobe=cfg.ivf_nprobe,
-            )
-            metrics.vector_scan_ms = (time.monotonic() - t_scan) * 1000.0
+            # the embed runs on the pool thread; this thread waits for it
+            with span("fs.search.wait_embed"):
+                query_vec = fast_future.result()
+            with span("fs.search.vector") as sp:
+                classified: ClassifiedHits = self.index.search_fast_classified(
+                    query_vec, sem_budget, search_filter=search_filter,
+                    mrl_search_dims=cfg.mrl_search_dims,
+                    mrl_rescore_top_k=cfg.mrl_rescore_top_k,
+                    mode="mrl" if cfg.mrl_search_dims else cfg.scan_mode,
+                    nprobe=cfg.ivf_nprobe,
+                )
+            metrics.vector_scan_ms = sp.ms
             metrics.scan_docs = self.index.fast.live_count
             if classified.zero_signal is not None:
                 metrics.zero_signal = classified.zero_signal.value
@@ -1138,32 +1172,32 @@ class TwoTierSearcher:
     def _phase1_fuse(self, parsed, qclass, k, metrics, text_fn, lexical_pool, fast_hits):
         cfg = self.config
         # fuse (searcher.rs:1760-1825); a graph ranker feeds RRF a third arm
-        t_fuse = time.monotonic()
-        rrf_cfg = RrfConfig(
-            k=self._effective_rrf_k(qclass),
-            lexical_weight=cfg.lexical_rrf_weight,
-            semantic_weight=self._effective_semantic_weight(lexical_pool, parsed),
-            tiebreak=cfg.tiebreak,
-        )
-        if self.graph_ranker is not None and cfg.graph_rrf_weight > 0.0:
-            from frankensearch_tpu_torch.fusion.rrf import rrf_fuse_with_graph
-
-            seeds = lexical_pool or [ScoredResult(doc_id=h.doc_id, score=h.score) for h in fast_hits]
-            graph_pool = self.graph_ranker.rank(seeds, limit=k * cfg.candidate_multiplier)
-            fused = rrf_fuse_with_graph(
-                lexical_pool, fast_hits, graph_pool, cfg.graph_rrf_weight, k, 0, rrf_cfg,
+        with span("fs.search.fuse") as sp:
+            rrf_cfg = RrfConfig(
+                k=self._effective_rrf_k(qclass),
+                lexical_weight=cfg.lexical_rrf_weight,
+                semantic_weight=self._effective_semantic_weight(lexical_pool, parsed),
+                tiebreak=cfg.tiebreak,
             )
-        else:
-            fused = fuse_by_strategy(cfg.fusion_strategy, lexical_pool, fast_hits, k, 0, rrf_cfg)
-        results = self._fused_to_results(fused, lexical_pool, fast_hits, text_fn, parsed)
-        metrics.fusion_ms = (time.monotonic() - t_fuse) * 1000.0
+            if self.graph_ranker is not None and cfg.graph_rrf_weight > 0.0:
+                from frankensearch_tpu_torch.fusion.rrf import rrf_fuse_with_graph
+
+                seeds = lexical_pool or [ScoredResult(doc_id=h.doc_id, score=h.score) for h in fast_hits]
+                graph_pool = self.graph_ranker.rank(seeds, limit=k * cfg.candidate_multiplier)
+                fused = rrf_fuse_with_graph(
+                    lexical_pool, fast_hits, graph_pool, cfg.graph_rrf_weight, k, 0, rrf_cfg,
+                )
+            else:
+                fused = fuse_by_strategy(cfg.fusion_strategy, lexical_pool, fast_hits, k, 0, rrf_cfg)
+            results = self._fused_to_results(fused, lexical_pool, fast_hits, text_fn, parsed)
+        metrics.fusion_ms = sp.ms
         metrics.fused_candidates = len(results)
         return results, fast_hits, lexical_pool
 
     def _timed_fast_embed(self, text: str, metrics: TwoTierMetrics) -> np.ndarray:
-        t0 = time.monotonic()
-        vec = self.fast_embedder.embed(text)
-        metrics.fast_embed_ms = (time.monotonic() - t0) * 1000.0
+        with span("fs.embed") as sp:
+            vec = self.fast_embedder.embed(text)
+        metrics.fast_embed_ms = sp.ms
         return vec
 
     # ------------------------------------------------------------------ fusion helpers
@@ -1469,50 +1503,50 @@ class TwoTierSearcher:
         quality_prefetch=None,
     ) -> list[ScoredResult]:
         assert self.quality_embedder is not None
-        t0 = time.monotonic()
-        if quality_prefetch is not None:
-            quality_vec = quality_prefetch()  # the forward enqueued before phase 1
-        else:
-            quality_vec = self.quality_embedder.embed(parsed.positive)
-        metrics.quality_embed_ms = (time.monotonic() - t0) * 1000.0
+        with span("fs.refine.embed") as sp:
+            if quality_prefetch is not None:
+                quality_vec = quality_prefetch()  # the forward enqueued before phase 1
+            else:
+                quality_vec = self.quality_embedder.embed(parsed.positive)
+        metrics.quality_embed_ms = sp.ms
 
         # Rocchio PRF with the phase-1 top docs' centroid (prf.rs)
         if self.prf is not None and fast_hits:
             quality_vec = self.prf.expand(quality_vec, fast_hits, self.index)
 
-        t1 = time.monotonic()
-        qscores = self.index.quality_scores_for_hits(quality_vec, fast_hits)
-        if self.calibrator is not None:
-            qscores = {d: self.calibrator(s) for d, s in qscores.items()}
-        aligned: list[float | None] = [qscores.get(h.doc_id) for h in fast_hits]
-        metrics.quality_rescore_ms = (time.monotonic() - t1) * 1000.0
+        with span("fs.refine.rescore") as sp:
+            qscores = self.index.quality_scores_for_hits(quality_vec, fast_hits)
+            if self.calibrator is not None:
+                qscores = {d: self.calibrator(s) for d, s in qscores.items()}
+            aligned: list[float | None] = [qscores.get(h.doc_id) for h in fast_hits]
+        metrics.quality_rescore_ms = sp.ms
         metrics.quality_candidates = sum(1 for s in aligned if s is not None)
 
-        t2 = time.monotonic()
-        if self.config.quality_rescan and self.index.quality is not None:
-            # pool expansion: a full quality-tier scan surfaces docs the
-            # fast tier cannot see
-            sem_budget = max(
-                int(candidate_count(k, 0, self.config.candidate_multiplier)
-                    * qclass.semantic_budget_multiplier()),
-                k,
-            )
-            res = self.index.quality.search_batch(quality_vec, sem_budget)
-            scan_hits = self.index.quality.hydrate(res)[0]
-            if self.calibrator is not None:
-                scan_hits = [VectorHit(h.doc_id, self.calibrator(h.score), h.row) for h in scan_hits]
-            qpool: dict[str, VectorHit] = {h.doc_id: h for h in scan_hits}
-            fast_rows = {h.doc_id: h.row for h in fast_hits}
-            for d, s in qscores.items():
-                if d not in qpool:
-                    qpool[d] = VectorHit(doc_id=d, score=s, row=fast_rows.get(d, -1))
-            for h in scan_hits:  # expanded docs carry quality scores too
-                qscores.setdefault(h.doc_id, h.score)
-            metrics.quality_candidates = len(qpool)
-            blended = blend_two_tier(fast_hits, list(qpool.values()), self._effective_quality_weight(qclass))
-        else:
-            blended = blend_two_tier_aligned(fast_hits, aligned, self._effective_quality_weight(qclass))
-        metrics.blend_ms = (time.monotonic() - t2) * 1000.0
+        with span("fs.refine.blend") as sp:
+            if self.config.quality_rescan and self.index.quality is not None:
+                # pool expansion: a full quality-tier scan surfaces docs the
+                # fast tier cannot see
+                sem_budget = max(
+                    int(candidate_count(k, 0, self.config.candidate_multiplier)
+                        * qclass.semantic_budget_multiplier()),
+                    k,
+                )
+                res = self.index.quality.search_batch(quality_vec, sem_budget)
+                scan_hits = self.index.quality.hydrate(res)[0]
+                if self.calibrator is not None:
+                    scan_hits = [VectorHit(h.doc_id, self.calibrator(h.score), h.row) for h in scan_hits]
+                qpool: dict[str, VectorHit] = {h.doc_id: h for h in scan_hits}
+                fast_rows = {h.doc_id: h.row for h in fast_hits}
+                for d, s in qscores.items():
+                    if d not in qpool:
+                        qpool[d] = VectorHit(doc_id=d, score=s, row=fast_rows.get(d, -1))
+                for h in scan_hits:  # expanded docs carry quality scores too
+                    qscores.setdefault(h.doc_id, h.score)
+                metrics.quality_candidates = len(qpool)
+                blended = blend_two_tier(fast_hits, list(qpool.values()), self._effective_quality_weight(qclass))
+            else:
+                blended = blend_two_tier_aligned(fast_hits, aligned, self._effective_quality_weight(qclass))
+        metrics.blend_ms = sp.ms
         metrics.kendall_tau = kendall_tau(fast_hits, blended)
 
         # lexical re-fusion (searcher.rs:2359): the refined order reflects
@@ -1583,18 +1617,21 @@ class TwoTierSearcher:
 
     # ------------------------------------------------------------------ misc
 
-    def _export(self, metrics: TwoTierMetrics, t_start: float) -> None:
-        metrics.total_ms = (time.monotonic() - t_start) * 1000.0
+    def _export_batch(self, outcomes: list[SearchOutcome], times: dict, total_ms: float) -> None:
+        """Give every outcome of a batch the batch's phase ``times`` (field
+        name -> value) and export each."""
+        for outcome in outcomes:
+            for name, value in times.items():
+                setattr(outcome.metrics, name, value)
+            self._export(outcome.metrics, total_ms)
+
+    def _export(self, metrics: TwoTierMetrics, total_ms: float) -> None:
+        metrics.total_ms = total_ms
         metrics.device_kind = self.index.fast.device.type
         if self.metrics_exporter is not None:
             self.metrics_exporter.export(metrics)
-        import logging
-
-        from frankensearch_tpu_torch.utils.tracing import get_logger
-
-        log = get_logger("searcher")
-        if log.isEnabledFor(logging.DEBUG):  # hot path: format only when on
-            log.debug(
+        if _log.isEnabledFor(logging.DEBUG):  # hot path: format only when on
+            _log.debug(
                 "search %s total=%.2fms p1=%.2fms p2=%.2fms skip2=%s skip3=%s",
                 metrics.query_class, metrics.total_ms, metrics.phase1_ms,
                 metrics.phase2_ms, metrics.phase2_skip_reason,

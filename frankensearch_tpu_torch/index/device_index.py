@@ -29,6 +29,7 @@ from frankensearch_tpu_torch.index.fsvi import EmbeddingIdentity, FtviFile
 from frankensearch_tpu_torch.index.wal import WalState
 from frankensearch_tpu_torch.ops import topk_scan
 from frankensearch_tpu_torch.ops.quantize import calibrate_int8
+from frankensearch_tpu_torch.utils.tracing import span
 
 NEG_INF = float("-inf")
 #: slab row padding unit (a multiple of the scan kernels' 128-row group)
@@ -401,43 +402,46 @@ class DeviceVectorIndex:
         (default 64) dims, rescoring ``mrl_rescore_top_k``. ``ivf`` probes
         ``nprobe`` clusters of the IVF arm (K2 on CUDA), with this index's
         mask permuted into the arm; it raises ``InvalidConfig`` until
-        :meth:`enable_ivf` has built the arm over the current rows."""
-        q = np.asarray(queries, dtype=np.float32)
-        if q.ndim == 1:
-            q = q[None, :]
-        if q.shape[1] != self.dim:
-            raise DimensionMismatch(self.dim, q.shape[1])
-        if q.shape[1] != self.d_pad:
-            q = np.pad(q, ((0, 0), (0, self.d_pad - q.shape[1])))
-        q_dev = torch.from_numpy(q).to(self.device)
-        mask = self._effective_mask(search_filter, metadata)
+        :meth:`enable_ivf` has built the arm over the current rows. Span
+        ``fs.index.scan``: mode dispatch, the query upload and the scan's
+        enqueue (on CUDA the kernels run after the call returns)."""
+        with span("fs.index.scan"):
+            q = np.asarray(queries, dtype=np.float32)
+            if q.ndim == 1:
+                q = q[None, :]
+            if q.shape[1] != self.dim:
+                raise DimensionMismatch(self.dim, q.shape[1])
+            if q.shape[1] != self.d_pad:
+                q = np.pad(q, ((0, 0), (0, self.d_pad - q.shape[1])))
+            q_dev = torch.from_numpy(q).to(self.device)
+            mask = self._effective_mask(search_filter, metadata)
 
-        if mode == "auto":
-            mode = "hierarchical" if self.device.type == "cuda" else "xla"
-        if mode == "mrl":
-            return topk_scan.scan_topk_mrl(
-                self.slab, q_dev, k, mask,
-                search_dims=mrl_search_dims or 64, rescore_top_k=mrl_rescore_top_k,
-            )
-        if mode == "ivf":
-            if self._ivf is None or self._ivf_built_rows != self.n_rows:
-                raise InvalidConfig("ivf arm not built for the current rows; call enable_ivf()")
-            return self._ivf.search_batch(q[:, : self.dim], k, nprobe=nprobe, extra_row_mask=mask)
-        if mode == "int8":
-            i8_slab, scale = self._int8_arm()
-            if self.device.type == "cuda":
-                return topk_scan.scan_topk_hierarchical_int8(i8_slab, scale, q_dev, k, mask)
-            return topk_scan.scan_topk_int8_two_pass(
-                i8_slab, scale, self.slab, q_dev, k, mask,
-                candidate_multiplier=int8_candidate_multiplier,
-            )
-        if mode == "pallas":
-            return topk_scan.scan_topk_pallas(self.slab, q_dev, k, mask)
-        if mode == "hierarchical":
-            return topk_scan.scan_topk_hierarchical(self.slab, q_dev, k, mask)
-        if mode == "xla":
-            return topk_scan.scan_topk_xla(self.slab, q_dev, k, mask)
-        raise ValueError(f"unknown scan mode {mode!r}")
+            if mode == "auto":
+                mode = "hierarchical" if self.device.type == "cuda" else "xla"
+            if mode == "mrl":
+                return topk_scan.scan_topk_mrl(
+                    self.slab, q_dev, k, mask,
+                    search_dims=mrl_search_dims or 64, rescore_top_k=mrl_rescore_top_k,
+                )
+            if mode == "ivf":
+                if self._ivf is None or self._ivf_built_rows != self.n_rows:
+                    raise InvalidConfig("ivf arm not built for the current rows; call enable_ivf()")
+                return self._ivf.search_batch(q[:, : self.dim], k, nprobe=nprobe, extra_row_mask=mask)
+            if mode == "int8":
+                i8_slab, scale = self._int8_arm()
+                if self.device.type == "cuda":
+                    return topk_scan.scan_topk_hierarchical_int8(i8_slab, scale, q_dev, k, mask)
+                return topk_scan.scan_topk_int8_two_pass(
+                    i8_slab, scale, self.slab, q_dev, k, mask,
+                    candidate_multiplier=int8_candidate_multiplier,
+                )
+            if mode == "pallas":
+                return topk_scan.scan_topk_pallas(self.slab, q_dev, k, mask)
+            if mode == "hierarchical":
+                return topk_scan.scan_topk_hierarchical(self.slab, q_dev, k, mask)
+            if mode == "xla":
+                return topk_scan.scan_topk_xla(self.slab, q_dev, k, mask)
+            raise ValueError(f"unknown scan mode {mode!r}")
 
     def certify_scan_mode(
         self,
@@ -541,19 +545,23 @@ class DeviceVectorIndex:
         return ClassifiedHits(hits=tuple(hits))
 
     def hydrate(self, result: topk_scan.TopKResult) -> list[list[VectorHit]]:
-        """Device result -> host VectorHits (drops -1 padding)."""
-        scores = torch.as_tensor(result.scores).cpu().tolist()
-        indices = torch.as_tensor(result.indices).cpu().tolist()
-        doc_ids = self.doc_ids
-        isfinite = math.isfinite
-        return [
-            [
-                VectorHit(doc_id=doc_ids[i], score=s, row=i)
-                for s, i in zip(srow, irow)
-                if i >= 0 and isfinite(s)
+        """Device result -> host VectorHits (drops -1 padding). Span
+        ``fs.index.hydrate``; the two device-to-host fetches, which wait for
+        the scan, are its child ``fs.index.fetch``."""
+        with span("fs.index.hydrate"):
+            with span("fs.index.fetch"):
+                scores = torch.as_tensor(result.scores).cpu()
+                indices = torch.as_tensor(result.indices).cpu()
+            doc_ids = self.doc_ids
+            isfinite = math.isfinite
+            return [
+                [
+                    VectorHit(doc_id=doc_ids[i], score=s, row=i)
+                    for s, i in zip(srow, irow)
+                    if i >= 0 and isfinite(s)
+                ]
+                for srow, irow in zip(scores.tolist(), indices.tolist())
             ]
-            for srow, irow in zip(scores, indices)
-        ]
 
     def scores_for_rows(self, query: np.ndarray, rows: Sequence[int]) -> np.ndarray:
         """Exact f32 rescore of specific rows against a query (host copy)."""
