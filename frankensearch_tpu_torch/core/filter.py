@@ -10,6 +10,11 @@ scan consumes as a score mask (masked rows get -inf before top-k), so
 filtering happens *during* the scan like the reference's filter-aware
 scan fast path (index/src/search.rs:26-33). Host-side ``admit`` is kept
 for post-hydration predicates.
+
+``doc_ids`` may be a packed store (index/doc_id_store.py) that decodes a
+row on each read. So only a filter that judges ids reads them: a bitset
+asks the store for its rows by id (``isin``), and the metadata filters
+read the metadata alone.
 """
 
 from __future__ import annotations
@@ -39,6 +44,9 @@ class BitsetFilter(SearchFilter):
     allowed: frozenset[str]
 
     def mask(self, doc_ids, metadata) -> np.ndarray:
+        isin = getattr(doc_ids, "isin", None)
+        if isin is not None:  # a packed store: look the allowed ids up
+            return isin(self.allowed)
         return np.fromiter((d in self.allowed for d in doc_ids), dtype=bool, count=len(doc_ids))
 
     def admit(self, doc_id, metadata) -> bool:
@@ -58,11 +66,8 @@ class DocTypeFilter(SearchFilter):
         return metadata.get(self.type_key) in self.allowed_types
 
     def mask(self, doc_ids, metadata) -> np.ndarray:
-        return np.fromiter(
-            (self.admit(d, m) for d, m in zip(doc_ids, metadata)),
-            dtype=bool,
-            count=len(doc_ids),
-        )
+        # the ids play no part: read the metadata alone
+        return np.fromiter((self.admit("", m) for m in metadata), dtype=bool, count=len(doc_ids))
 
 
 @dataclass
@@ -87,11 +92,8 @@ class DateRangeFilter(SearchFilter):
         return True
 
     def mask(self, doc_ids, metadata) -> np.ndarray:
-        return np.fromiter(
-            (self.admit(d, m) for d, m in zip(doc_ids, metadata)),
-            dtype=bool,
-            count=len(doc_ids),
-        )
+        # the ids play no part: read the metadata alone
+        return np.fromiter((self.admit("", m) for m in metadata), dtype=bool, count=len(doc_ids))
 
 
 @dataclass

@@ -25,6 +25,7 @@ import torch
 from frankensearch_tpu_torch.core.errors import DimensionMismatch, InvalidConfig
 from frankensearch_tpu_torch.core.filter import SearchFilter
 from frankensearch_tpu_torch.core.types import ClassifiedHits, VectorHit, ZeroSignalReason
+from frankensearch_tpu_torch.index.doc_id_store import DocIdStore
 from frankensearch_tpu_torch.index.fsvi import EmbeddingIdentity, FtviFile
 from frankensearch_tpu_torch.index.wal import WalState
 from frankensearch_tpu_torch.ops import topk_scan
@@ -136,8 +137,8 @@ class DeviceVectorIndex:
         self, slab, base_mask, valid, doc_ids, identity, *, dim, vectors_f32, slab_dtype
     ) -> None:
         self.identity = identity
-        self.doc_ids = list(doc_ids)
-        self._row_of = {doc_id: i for i, doc_id in enumerate(self.doc_ids)}
+        # packed, so the collector's full passes never walk the ids
+        self.doc_ids = DocIdStore.of(doc_ids)
         self.dim = dim
         self.slab_dtype = slab_dtype
         self.device = slab.device
@@ -195,14 +196,14 @@ class DeviceVectorIndex:
         reference's supersession rules (search.rs:276-300): WAL appends
         supersede base rows of the same doc id; WAL tombstones kill both."""
         vectors = f.vectors_f32()
-        doc_ids = list(f.doc_ids)
+        doc_ids = f.doc_ids
         tomb = f.tombstoned().copy()
         if wal is not None and (wal.live or wal.tombstones):
-            base_rows = {d: i for i, d in enumerate(doc_ids)}
+            base_rows = doc_ids.row_for
             extra_ids: list[str] = []
             extra_vecs: list[np.ndarray] = []
             for doc_id, vec in wal.live.items():
-                row = base_rows.get(doc_id)
+                row = base_rows(doc_id)
                 if row is not None:
                     vectors = vectors.copy() if vectors.base is not None else vectors
                     if vec.shape[0] != vectors.shape[1]:
@@ -217,7 +218,7 @@ class DeviceVectorIndex:
                 doc_ids = doc_ids + extra_ids
                 tomb = np.concatenate([tomb, np.zeros(len(extra_ids), dtype=bool)])
             for doc_id in wal.tombstones:
-                row = base_rows.get(doc_id)
+                row = base_rows(doc_id)
                 if row is not None:
                     tomb[row] = True
         index = cls(vectors, doc_ids, f.header.identity, tombstoned=tomb, **kwargs)
@@ -252,7 +253,7 @@ class DeviceVectorIndex:
         if vecs.size and vecs.shape[1] != self.dim:
             raise DimensionMismatch(self.dim, vecs.shape[1])
         new_ids, vecs = _last_wins(list(doc_ids), vecs)
-        fresh = all(d not in self._row_of for d in new_ids)
+        fresh = all(self.doc_ids.row_for(d) is None for d in new_ids)
         m = len(new_ids)
         if fresh and m and self.n_rows + m <= self.n_pad:
             norm_vecs = _l2_normalize_rows(vecs)
@@ -298,16 +299,15 @@ class DeviceVectorIndex:
 
     def _merged_host(
         self, new_ids: list[str], vecs: np.ndarray
-    ) -> tuple[np.ndarray, list[str], np.ndarray]:
+    ) -> tuple[np.ndarray, DocIdStore, np.ndarray]:
         """Host-side append merge (search.rs:276-300): same-id appends
         overwrite in place and clear the tombstone; new ids extend the rows."""
-        keep_ids = list(self.doc_ids)
+        keep_ids = self.doc_ids
         tomb = ~self._valid_host[: self.n_rows]
-        superseded = {d: i for i, d in enumerate(keep_ids)}
         new_base = self._vectors_f32[: self.n_rows].copy()
         extra_ids, extra_rows = [], []
         for i, doc_id in enumerate(new_ids):
-            row = superseded.get(doc_id)
+            row = keep_ids.row_for(doc_id)
             v = _l2_normalize_rows(vecs[i : i + 1])[0]
             if row is not None:
                 new_base[row] = v
@@ -330,7 +330,7 @@ class DeviceVectorIndex:
         cached = getattr(self, "_tombstoned_ids", None)
         if cached is None:
             cached = frozenset(
-                self.doc_ids[i] for i in range(self.n_rows) if not self._valid_host[i]
+                self.doc_ids.take(np.flatnonzero(~self._valid_host[: self.n_rows]))
             )
             self._tombstoned_ids = cached
         return cached
@@ -338,7 +338,7 @@ class DeviceVectorIndex:
     def with_tombstones(self, doc_ids: Sequence[str]) -> "DeviceVectorIndex":
         tomb = (~self._valid_host[: self.n_rows]).copy()
         for doc_id in doc_ids:
-            row = self._row_of.get(doc_id)
+            row = self.doc_ids.row_for(doc_id)
             if row is not None:
                 tomb[row] = True
         return DeviceVectorIndex(
@@ -350,7 +350,7 @@ class DeviceVectorIndex:
     # -- search ------------------------------------------------------------
 
     def row_for(self, doc_id: str) -> int | None:
-        return self._row_of.get(doc_id)
+        return self.doc_ids.row_for(doc_id)
 
     def stats(self) -> ScanStats:
         return ScanStats(self.n_rows, self.live_count, self.n_pad - self.n_rows)
@@ -545,23 +545,22 @@ class DeviceVectorIndex:
         return ClassifiedHits(hits=tuple(hits))
 
     def hydrate(self, result: topk_scan.TopKResult) -> list[list[VectorHit]]:
-        """Device result -> host VectorHits (drops -1 padding). Span
-        ``fs.index.hydrate``; the two device-to-host fetches, which wait for
-        the scan, are its child ``fs.index.fetch``."""
+        """Device result -> host VectorHits (drops -1 padding and
+        non-finite scores). Every kept row of the batch maps to its id in
+        one ``take``. Span ``fs.index.hydrate``; the two device-to-host
+        fetches, which wait for the scan, are its child ``fs.index.fetch``."""
         with span("fs.index.hydrate"):
             with span("fs.index.fetch"):
-                scores = torch.as_tensor(result.scores).cpu()
-                indices = torch.as_tensor(result.indices).cpu()
-            doc_ids = self.doc_ids
-            isfinite = math.isfinite
-            return [
-                [
-                    VectorHit(doc_id=doc_ids[i], score=s, row=i)
-                    for s, i in zip(srow, irow)
-                    if i >= 0 and isfinite(s)
-                ]
-                for srow, irow in zip(scores.tolist(), indices.tolist())
-            ]
+                scores = torch.as_tensor(result.scores).cpu().numpy()
+                indices = torch.as_tensor(result.indices).cpu().numpy()
+            keep = (indices >= 0) & np.isfinite(scores)
+            rows = indices[keep]
+            hits = list(map(VectorHit, self.doc_ids.take(rows), scores[keep].tolist(), rows.tolist()))
+            out, at = [], 0
+            for n in keep.sum(axis=1).tolist():
+                out.append(hits[at : at + n])
+                at += n
+            return out
 
     def scores_for_rows(self, query: np.ndarray, rows: Sequence[int]) -> np.ndarray:
         """Exact f32 rescore of specific rows against a query (host copy)."""

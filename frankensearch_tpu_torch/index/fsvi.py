@@ -45,6 +45,7 @@ from frankensearch_tpu_torch.core.errors import (
     IndexCorrupted,
     IndexNotFound,
 )
+from frankensearch_tpu_torch.index.doc_id_store import DocIdStore
 
 MAGIC = b"FTVI\x01\x00\x00\x00"
 ALIGN = 64
@@ -197,13 +198,10 @@ def write_ftvi(
     else:
         raise ValueError(f"unknown dtype {dtype!r}")
 
-    blob = b"".join(s.encode("utf-8") for s in doc_ids)
-    offsets = np.zeros(n + 1, dtype=np.uint64)
-    pos = 0
-    for i, s in enumerate(doc_ids):
-        offsets[i] = pos
-        pos += len(s.encode("utf-8"))
-    offsets[n] = pos
+    ids = DocIdStore.of(doc_ids)
+    blob = ids.blob
+    blob.decode("utf-8")  # refuses a lone surrogate, which no reader could decode
+    offsets = ids.offsets.astype(np.uint64)
 
     header = FtviHeader(
         identity=identity,
@@ -319,11 +317,10 @@ class FtviFile:
         try:
             # the doc-id blob has no per-section CRC; a flipped byte must
             # still surface typed, not as a raw UnicodeDecodeError
-            self.doc_ids: list[str] = [
-                blob[int(offsets[i]) : int(offsets[i + 1])].decode("utf-8")
-                for i in range(h.record_count)
-            ]
-        except (UnicodeDecodeError, IndexError, OverflowError) as e:
+            if len(offsets) != h.record_count + 1:
+                raise ValueError(f"{len(offsets)} offsets for {h.record_count} records")
+            self.doc_ids = DocIdStore.from_packed(blob, offsets)
+        except ValueError as e:
             raise IndexCorrupted(f"doc-id table unreadable in {self.path}: {e}") from None
         np_dtype = _np_dtype(h.dtype)
         # validate byte extents BEFORE memmap: a truncated file would

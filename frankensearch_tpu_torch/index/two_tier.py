@@ -86,10 +86,9 @@ def _compacted_rows(tier: DeviceVectorIndex, path: str) -> np.ndarray:
     base = FtviFile(path, verify_slab=False) if moved.size else None
     if base is None or base.header.dtype != "bf16":
         return vecs
-    file_row = {d: r for r, d in enumerate(base.doc_ids)}
     out = vecs.copy()
     for r in moved:
-        fr = file_row.get(tier.doc_ids[r])
+        fr = base.doc_ids.row_for(tier.doc_ids[r])
         if fr is None:
             continue
         stored = bf16_bits_to_f32(np.asarray(base.slab[fr : fr + 1]))
@@ -189,8 +188,8 @@ class TwoTierIndex:
         fast_ids = fast.doc_ids
         if fast_ids == quality.doc_ids:
             return np.arange(len(fast_ids), dtype=np.int64)
-        row_of = quality._row_of
-        return np.fromiter((row_of.get(d, -1) for d in fast_ids), dtype=np.int64, count=len(fast_ids))
+        rows = map(quality.row_for, fast_ids)
+        return np.fromiter((-1 if r is None else r for r in rows), dtype=np.int64, count=len(fast_ids))
 
     def _publish(self, fast: DeviceVectorIndex, quality: DeviceVectorIndex | None) -> None:
         """Build the row map for ``fast`` and ``quality``, then swap all
@@ -348,7 +347,7 @@ class TwoTierIndex:
             if tier is None:
                 continue
             live = tier._valid_host[: tier.n_rows]
-            ids = [d for d, ok in zip(tier.doc_ids, live) if ok]
+            ids = tier.doc_ids.take(np.flatnonzero(live))
             path = os.path.join(self.root, fname)
             bytes_before = os.path.getsize(path) if os.path.exists(path) else 0
             wal_path = path + ".wal"

@@ -108,7 +108,7 @@ class ShardedDeviceVectorIndex(DeviceVectorIndex):
 
     # -- updates: rebuilt sharded (the spare-row fast path is single-device) --
 
-    def _rebuilt(self, vectors: np.ndarray, doc_ids: list[str], tombstoned: np.ndarray):
+    def _rebuilt(self, vectors: np.ndarray, doc_ids: Sequence[str], tombstoned: np.ndarray):
         return ShardedDeviceVectorIndex(
             vectors, doc_ids, self.identity, mesh=self.mesh, axis=self.axis,
             hier_align=self.hier_align, tombstoned=tombstoned,
@@ -125,7 +125,7 @@ class ShardedDeviceVectorIndex(DeviceVectorIndex):
     def with_tombstones(self, doc_ids: Sequence[str]) -> "ShardedDeviceVectorIndex":
         tomb = (~self._valid_host[: self.n_rows]).copy()
         for doc_id in doc_ids:
-            row = self._row_of.get(doc_id)
+            row = self.doc_ids.row_for(doc_id)
             if row is not None:
                 tomb[row] = True
         return self._rebuilt(self._vectors_f32[: self.n_rows], self.doc_ids, tomb)
