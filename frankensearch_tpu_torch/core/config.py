@@ -319,9 +319,13 @@ class TwoTierMetrics:
     #: (ops/hybrid_phase1.py) — observability for the lane choice
     phase1_fused: bool = False
     scan_docs: int = 0
+    #: the lane this query's BM25 took inside the fused pass ("dense",
+    #: "flat", "pruned" or "daat"); a field of the port's own, kept out of
+    #: ``to_dict`` (the reference's wire form)
+    lexical_lane: str | None = field(default=None, metadata={"wire": False})
 
     def to_dict(self) -> dict[str, Any]:
-        return {f.name: getattr(self, f.name) for f in fields(self)}
+        return {f.name: getattr(self, f.name) for f in fields(self) if f.metadata.get("wire", True)}
 
 
 class MetricsExporter:

@@ -294,10 +294,14 @@ class TwoTierSearcher:
         sharded lane (``fused_phase1_sharded``: both arms over the shards,
         merged on the lead device, then the same RRF tail); it needs query
         vectors. Returns (hydrated vector hits per query, lexical candidate
-        lists per query, raw) or None when a lane does not apply (non-device
+        lists per query, raw: the arms' rows and each query's lexical lane
+        under ``lex_lanes``) or None when a lane does not apply (non-device
         arms, one arm sharded and not the other, filters, non-auto scan
         modes, an empty lexical arm, no query vectors and no Model2Vec
-        embedder)."""
+        embedder). Its spans: ``fs.fused_pass.plan`` (tokens, sparse rows,
+        the lane's plan and their uploads), ``.enqueue`` (the lane's body
+        and the RRF tail), ``.fetch`` (the one device-to-host copy) and
+        ``.finish`` (hydrate, the candidate lists, ``finish_rrf``)."""
         from frankensearch_tpu_torch.index.device_index import DeviceVectorIndex
         from frankensearch_tpu_torch.lexical.delta import DeltaLexicalIndex
         from frankensearch_tpu_torch.lexical.device_bm25 import DeviceBm25Index
@@ -340,106 +344,110 @@ class TwoTierSearcher:
         b_real = len(queries)
         b_padded = max(-(-b_real // 8) * 8, 8)
         queries = list(queries) + [queries[0]] * (b_padded - b_real)
-        mask = fast._effective_mask(None, None)
-        if inner is not None:
-            # the embed-fused bodies take (table, token ids, mask) in place
-            # of the query vectors, and the index's padded width
-            tok_ids, tok_mask = inner.tokenize_batch(queries)
-            lead = (inner._emb, dev(tok_ids), dev(tok_mask), fast.slab, mask)
-            extra = {"d_pad": fast.d_pad}
-        else:
-            q = np.asarray(fast_vecs, dtype=np.float32)
-            if q.ndim == 1:
-                q = q[None, :]
-            if q.shape[1] != fast.dim:
-                return None
-            if q.shape[0] != b_padded:
-                q = np.concatenate([q, np.repeat(q[:1], b_padded - q.shape[0], axis=0)])
-            q_dev = hp._pad_q(dev(q), fast.d_pad)
-            lead = (fast.slab, mask, q_dev)
-            extra = {}
-        embed_fused = inner is not None
+        with span("fs.fused_pass.plan"):
+            mask = fast._effective_mask(None, None)
+            if inner is not None:
+                # the embed-fused bodies take (table, token ids, mask) in place
+                # of the query vectors, and the index's padded width
+                tok_ids, tok_mask = inner.tokenize_batch(queries)
+                lead = (inner._emb, dev(tok_ids), dev(tok_mask), fast.slab, mask)
+                extra = {"d_pad": fast.d_pad}
+            else:
+                q = np.asarray(fast_vecs, dtype=np.float32)
+                if q.ndim == 1:
+                    q = q[None, :]
+                if q.shape[1] != fast.dim:
+                    return None
+                if q.shape[0] != b_padded:
+                    q = np.concatenate([q, np.repeat(q[:1], b_padded - q.shape[0], axis=0)])
+                q_dev = hp._pad_q(dev(q), fast.d_pad)
+                lead = (fast.slab, mask, q_dev)
+                extra = {}
+            embed_fused = inner is not None
+            scan_mode = "hierarchical" if fast.device.type == "cuda" else "xla"
+            k_vec = min(sem_budget, fast.n_rows) or 1
+            k_lex = min(lex_budget, arm.n_docs)
+            common = {"k_vec": k_vec, "k_lex": k_lex, "scan_mode": scan_mode, **extra}
 
-        def lane(name: str):
-            return getattr(hp, f"fused_phase1_embed_{name}" if embed_fused else f"fused_phase1_{name}")
-
-        scan_mode = "hierarchical" if fast.device.type == "cuda" else "xla"
-        k_vec = min(sem_budget, fast.n_rows) or 1
-        k_lex = min(lex_budget, arm.n_docs)
-        common = {"k_vec": k_vec, "k_lex": k_lex, "scan_mode": scan_mode, **extra}
-
-        if sharded:
-            self.last_phase1_lex_lane = "sharded"
-            ids, w = arm.inner._query_sparse_rows(list(queries))
-            vec_s, vec_i, lex_s, lex_i = hp.fused_phase1_sharded(
-                fast._slab_shards, fast._mask_shards, q_dev,
-                arm._sharded, arm.place_bounds(arm._blocked_host.query_bounds(ids, w)), dev(ids), dev(w),
-                k_vec=k_vec, k_lex=k_lex, scan_mode="hier" if scan_mode == "hierarchical" else "xla",
-            )
-        elif arm._blocked is not None:
-            vec_s, vec_i, lex_s, lex_i = self._fused_blocked_lanes(arm, queries, lead, lane, dev, common)
-        else:
-            self.last_phase1_lex_lane = "dense"
-            q_idf = dev(arm._query_idf_rows(list(queries)))
-            vec_s, vec_i, lex_s, lex_i = lane("dense")(
-                *lead, arm._post_term, arm._post_tf, arm._doc_steps, q_idf,
-                n_docs_lex=arm.n_docs, **common,
-            )
+            if sharded:
+                ids, w = arm.inner._query_sparse_rows(list(queries))
+                body = hp.fused_phase1_sharded
+                args = (fast._slab_shards, fast._mask_shards, q_dev, arm._sharded,
+                        arm.place_bounds(arm._blocked_host.query_bounds(ids, w)), dev(ids), dev(w))
+                kwargs = {"k_vec": k_vec, "k_lex": k_lex,
+                          "scan_mode": "hier" if scan_mode == "hierarchical" else "xla"}
+                lane, lanes = "sharded", ["pruned"] * b_padded  # the block-sharded pruned scan
+            elif arm._blocked is not None:
+                lane, lanes, name, lex_args, lex_kwargs = self._plan_blocked_lanes(arm, queries, dev)
+                body = getattr(hp, f"fused_phase1_embed_{name}" if embed_fused else f"fused_phase1_{name}")
+                args, kwargs = lead + lex_args, {**common, **lex_kwargs}
+            else:
+                body = hp.fused_phase1_embed_dense if embed_fused else hp.fused_phase1_dense
+                args = lead + (arm._post_term, arm._post_tf, arm._doc_steps,
+                               dev(arm._query_idf_rows(list(queries))))
+                kwargs = {**common, "n_docs_lex": arm.n_docs}
+                lane, lanes = "dense", ["dense"] * b_padded
+        self.last_phase1_lex_lane = lane
         self.last_phase1_embed_fused = embed_fused
-        # on-device RRF tail: the fused entries ride the same fetch; the
-        # host keeps hydration and result construction only
-        rrf_dev, contribs = self._device_rrf_tail(
-            fast, arm, vec_i, lex_s, lex_i, rrf_ctx, b_padded
-        )
+        with span("fs.fused_pass.enqueue"):
+            vec_s, vec_i, lex_s, lex_i = body(*args, **kwargs)
+            # on-device RRF tail: the fused entries ride the same fetch; the
+            # host keeps hydration and result construction only
+            rrf_dev, contribs = self._device_rrf_tail(
+                fast, arm, vec_i, lex_s, lex_i, rrf_ctx, b_padded
+            )
 
         # one fetch for all result tensors (the first copy waits for the
         # stream; the rest are ready)
-        fetched = [
-            t.cpu().numpy()
-            for t in (vec_s, vec_i, lex_s, lex_i) + (rrf_dev if rrf_dev is not None else ())
-        ]
-        vec_s, vec_i, lex_s, lex_i = fetched[:4]
-        from frankensearch_tpu_torch.ops.topk_scan import TopKResult
+        with span("fs.fused_pass.fetch"):
+            fetched = [
+                t.cpu().numpy()
+                for t in (vec_s, vec_i, lex_s, lex_i) + (rrf_dev if rrf_dev is not None else ())
+            ]
+        with span("fs.fused_pass.finish"):
+            vec_s, vec_i, lex_s, lex_i = fetched[:4]
+            from frankensearch_tpu_torch.ops.topk_scan import TopKResult
 
-        hydrated = fast.hydrate(
-            TopKResult(torch.from_numpy(vec_s[:b_real]), torch.from_numpy(vec_i[:b_real]))
-        )
-        s_np = lex_s[:b_real]
-        i_np = lex_i[:b_real]
-        lex_lists = []
-        for b in range(b_real):
-            lex_lists.append([
-                LexicalCandidate(doc_id=arm.doc_ids[int(i_np[b, j])], score=float(s_np[b, j]))
-                for j in range(s_np.shape[1])
-                if s_np[b, j] > 0.0
-            ])
-        raw = {
-            "vec_rows": vec_i[:b_real], "lex_rows": i_np,
-            "lex_scores": s_np, "arm": arm,
-        }
-        if rrf_dev is not None:
-            from frankensearch_tpu_torch.ops.device_rrf import finish_rrf
-
-            raw["fused_entries"] = finish_rrf(
-                fetched[4][:b_real], fetched[5][:b_real], fetched[6][:b_real],
-                contribs[0][:b_real], contribs[1][:b_real],
+            hydrated = fast.hydrate(
+                TopKResult(torch.from_numpy(vec_s[:b_real]), torch.from_numpy(vec_i[:b_real]))
             )
-            raw["fused_limit"] = rrf_ctx["limit"]
+            s_np = lex_s[:b_real]
+            i_np = lex_i[:b_real]
+            lex_lists = []
+            for b in range(b_real):
+                lex_lists.append([
+                    LexicalCandidate(doc_id=arm.doc_ids[int(i_np[b, j])], score=float(s_np[b, j]))
+                    for j in range(s_np.shape[1])
+                    if s_np[b, j] > 0.0
+                ])
+            raw = {
+                "vec_rows": vec_i[:b_real], "lex_rows": i_np,
+                "lex_scores": s_np, "arm": arm, "lex_lanes": lanes[:b_real],
+            }
+            if rrf_dev is not None:
+                from frankensearch_tpu_torch.ops.device_rrf import finish_rrf
+
+                raw["fused_entries"] = finish_rrf(
+                    fetched[4][:b_real], fetched[5][:b_real], fetched[6][:b_real],
+                    contribs[0][:b_real], contribs[1][:b_real],
+                )
+                raw["fused_limit"] = rrf_ctx["limit"]
         return hydrated, lex_lists, raw
 
-    def _fused_blocked_lanes(self, arm, queries, lead, lane, dev, common):
-        """Phase 1 over the blocked lexical layout, the reference's
-        dispatch. ``lead`` are the lane body's leading arguments (slab, mask
-        and query vectors, or the Model2Vec table and token ids first),
-        ``lane(name)`` picks the body and ``common`` holds its keyword
-        arguments. On a split corpus each query's hot terms become a dense
+    def _plan_blocked_lanes(self, arm, queries, dev):
+        """Phase 1's plan over the blocked lexical layout, the reference's
+        dispatch: (the batch's lane, each query's lane, the body's name,
+        its lexical arguments after the leading ones, its lexical keyword
+        arguments). On a split corpus each query's hot terms become a dense
         hot row and its sparse row keeps only tail terms; with
         ``daat_mode == "auto"`` the pure-tail queries whose own postings
         are few (``daat_eligible``) take the term-driven lane. All of them
         eligible: the ``daat`` lane; some: ``mixed`` (both lanes, each
         query keeps its own); none, or a plan past
         DAAT_MAX_FUSED_ELEMENTS: ``blocked``. Eligibility is a pure
-        per-query test, so a query's lane never depends on its batchmates."""
+        per-query test, so a query's lane never depends on its batchmates.
+        A query's own lane is ``daat``, or else ``flat`` (K3 over the split
+        layout) or ``pruned`` (the unsplit layout's block-max scan)."""
         from frankensearch_tpu_torch.lexical import daat as _daat
         from frankensearch_tpu_torch.lexical import hot_arm as _hot_arm
 
@@ -457,6 +465,7 @@ class TwoTierSearcher:
                 hot_struct.cols_phys, dev(q_hot), hot_struct.cold_cols,
                 hot_struct.cold_rows, hot_struct.dmap_groups,
             )
+        exhaustive = "flat" if hot is not None else "pruned"
         daat_plan = None
         elig = None
         tm = None
@@ -473,12 +482,9 @@ class TwoTierSearcher:
                     plan = _daat.build_gather_plan(tm.ptr, ids, w_plan)
                     if plan[0].size * 128 <= _daat.DAAT_MAX_FUSED_ELEMENTS:
                         daat_plan = tuple(dev(x) for x in plan)
+        daat_kwargs = {"t_run": ids.shape[1], "tm_packed": tm.packed} if daat_plan is not None else {}
         if daat_plan is not None and bool(elig.all()):
-            self.last_phase1_lex_lane = "daat"
-            return lane("daat")(
-                *lead, tm.device_arrays(), *daat_plan,
-                t_run=ids.shape[1], tm_packed=tm.packed, **common,
-            )
+            return "daat", ["daat"] * len(queries), "daat", (tm.device_arrays(), *daat_plan), daat_kwargs
         # the flat lane consumes no block-max bounds
         bounds_list = (
             arm._blocked.split_bounds(arm._blocked.query_bounds(ids, w), arm.device)
@@ -487,13 +493,10 @@ class TwoTierSearcher:
         )
         lex_args = (arm._blocked.classes, bounds_list, dev(ids), dev(w), hot)
         if daat_plan is not None:
-            self.last_phase1_lex_lane = "mixed"
-            return lane("daat_mixed")(
-                *lead, tm.device_arrays(), *daat_plan, dev(elig), *lex_args,
-                t_run=ids.shape[1], tm_packed=tm.packed, **common,
-            )
-        self.last_phase1_lex_lane = "blocked"
-        return lane("blocked")(*lead, *lex_args, **common)
+            lanes = ["daat" if e else exhaustive for e in elig.tolist()]
+            daat_args = (tm.device_arrays(), *daat_plan, dev(elig))
+            return "mixed", lanes, "daat_mixed", daat_args + lex_args, daat_kwargs
+        return "blocked", [exhaustive] * len(queries), "blocked", lex_args, {}
 
     @staticmethod
     def _apply_filter_to_pool(pool, search_filter):
@@ -839,10 +842,12 @@ class TwoTierSearcher:
                 )
                 if fused is None:
                     return False
-                self._fill_fused(fused, live, hits_per_query, lexical_pools)
+                with span("fs.fused_pass.finish"):
+                    self._fill_fused(fused, live, hits_per_query, lexical_pools)
             times["vector_scan_ms"] = sp.ms
-            for i in live:
+            for i, lane in zip(live, fused[2]["lex_lanes"]):
                 outcomes[i].metrics.phase1_fused = True
+                outcomes[i].metrics.lexical_lane = lane
             fused_raw = fused[2]
             return True
 
@@ -1114,6 +1119,7 @@ class TwoTierSearcher:
                 metrics.scan_docs = self.index.fast.live_count
                 metrics.fast_candidates = len(fast_hits)
                 metrics.phase1_fused = True
+                metrics.lexical_lane = _raw["lex_lanes"][0]
                 return self._phase1_fuse(parsed, qclass, k, metrics, text_fn, lexical_pool, fast_hits)
 
         # concurrent fast embed + lexical search (searcher.rs:1536 rayon::join)

@@ -304,7 +304,13 @@ def daat_topk_tm(
     top_d = torch.gather(sd, 1, top_pos).to(torch.int64)
     top_d = torch.where(torch.isfinite(top_s), top_d, -1)
     top_s, top_d = _pad_topk(top_s, top_d, k)
+    daat_topk_tm.launches += 1
     return top_s, top_d.to(torch.int32)
+
+
+#: calls of the term-driven lane, on any device (the lane has no kernel of
+#: its own and no plain twin: the same operators run on both)
+daat_topk_tm.launches = 0
 
 
 def daat_topk(tm_doc, tm_tf, row_idx, row_w, span_lo, span_hi, *, k: int, t_run: int):

@@ -29,9 +29,9 @@ VOCAB = [f"w{i}" for i in range(300)]
 N_DOCS, DIM = 384, 64
 QUERIES = ["w1 w2 w3", "w4 w5", "w7 w8 w9 w10", "w11", "w12 w13 w14", "w20 w21"]
 #: the range names the repo's benchmark opens around the program's calls
-#: (benchmark/harness/trace.py, cell.py and systems/vector.py)
+#: (benchmark/harness/trace.py, cell.py, systems/vector.py and hybrid.py)
 BENCHMARK_RANGES = {"bench.window", "searcher.search", "searcher.search_batch",
-                    "index.search_batch", "embed.embed_batch"}
+                    "index.search_batch", "embed.embed_batch", "lexical.flat_scan"}
 PORT = Path(__file__).resolve().parents[1] / "frankensearch_tpu_torch"
 
 
