@@ -63,7 +63,10 @@ Phases:
      RRF bitwise against the host oracle, singletons against their batch
      rows, the lexical pools against phase 4's, vector recall@10 against an
      exact f32 scan of the pass's own query vectors, and the results against
-     the same batch embedded on the host first;
+     the same batch embedded on the host first; every Model2Vec pool call of
+     the main path (the fused pass's, at its B and T) held bit for bit to
+     the plain twin on its own ids and mask, and the pool's wrapper timed
+     at POOL_SHAPES;
   8. hybrid-1M with a 1M x 384 quality tier (hybrid-1M-quality): the trained
      encoder, the Refined phase of ``search_batch`` and ``search()`` (aligned
      rescore and rescan, K1/K2 at d = 384), a seeded cross-encoder, and the
@@ -252,7 +255,8 @@ Phases:
      training path has no kernel of its own (the encoder's products are
      cuBLAS's); the searches of 17c and 17e (the lift world's index, the
      dry run's sharded fused lane) launch K1 and K2, counted on the kernels
-     line and held to their twins at those shapes.
+     line and held to their twins at those shapes, and the Model2Vec pool,
+     each of its calls held bit for bit to its twin on the same inputs.
 
 The kernels line gives each kernel's time, its twin's, and its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -260,6 +264,8 @@ written once; a gather counts the distinct groups it reads) over 3.35 TB/s
 and its operations over the H100's dense peak for their type (integer
 compares at the INT32 lanes' rate). K1, K2 and K5 on an f32 slab (their
 FFMA forms) and the IVF probe's kernel (K2-ivf) have entries of their own.
+The Model2Vec pool's entry is its wrapper's time by CUDA events, at its
+sizes the host's enqueue; ``profile_chip.py --pool`` gives its device time.
 Each entry is one launch at its headline shape; K3's is the mean over the length classes of one flat scan
 at the widest batch tile, the unit its launch count counts.
 
@@ -304,6 +310,10 @@ AB_KS = (30, 60)  # the searcher's candidate budgets at k = 10
 AB_TILE = 8192  # K6's widest tile: 64 groups
 M2V_ROWS = 500_000  # of the order of potion-multilingual-128M's 128M parameters over 256 dims
 M2V_COS_FLOOR = 0.99999  # bag lane vs embed_batch (tests/test_bulk_embed.py)
+#: the pool kernel's timed shapes (B, T, tokens a row): an interactive
+#: query of 6 words in the 16-token bucket, and 64-query batches in the 16-
+#: and 32-token buckets
+POOL_SHAPES = ((1, 16, 6), (64, 16, 6), (64, 32, 20))
 #: how far rounding a unit query and a unit doc vector to bf16 (unit
 #: roundoff u = 2^-9) can move their dot product: (2u + u^2) |q| |d|, plus
 #: f32 sums; two docs closer than twice this may swap against an f32 scan
@@ -386,6 +396,8 @@ KERNELS = (
      "frankensearch_tpu/ops/topk_scan.py:114", "semantic-1M-f32"),
     ("ivf_probe", "K2-ivf", "frankensearch_tpu_torch/ops/csrc/ivf_probe.cu",
      "frankensearch_tpu/ops/topk_scan.py:362", "semantic-1M-ivf"),
+    ("embed_pool", "pool", "frankensearch_tpu_torch/ops/csrc/embed_pool.cu",
+     "none (XLA): frankensearch_tpu/embed/model2vec.py:48", "hybrid-1M-m2v"),
 )
 
 
@@ -522,15 +534,41 @@ def gathered_bytes(slab, groups) -> int:
 
 def launch_counters() -> dict:
     """Kernel name -> its wrapper (each counts its launches)."""
+    from frankensearch_tpu_torch.embed import model2vec
     from frankensearch_tpu_torch.lexical import device_bm25 as bm
     from frankensearch_tpu_torch.ops import topk_scan as ts
 
     return {"K1": ts.group_max, "K2": ts.gather_rescore, "K3": bm.flat_class_fused,
             "K4": ts.group_max_int8, "K2-i8": ts.gather_rescore_i8, "K5": ts.tile_topk,
-            "K6": ts.group_candidates, "K2-ivf": ts.ivf_probe_topk}
+            "K6": ts.group_candidates, "K2-ivf": ts.ivf_probe_topk, "pool": model2vec.gather_pool_normalize}
 
 
-def drive(fn, shapes: set, flat_inputs: dict | None = None, *, dim: int | None = None):
+class PoolNoted:
+    """``model2vec.gather_pool_normalize`` with each call on the card kept in
+    ``calls`` as (table, ids, mask, out), copies of all but the table. Its
+    ``launches`` are the wrapper's own: the wrapper counts them under its
+    module name, which this object holds while it is swapped in."""
+
+    def __init__(self, real, calls: list):
+        self.real, self.calls = real, calls
+
+    def __call__(self, emb, ids, mask):
+        out = self.real(emb, ids, mask)
+        if out.is_cuda:
+            self.calls.append((emb, ids.clone(), mask.clone(), out.clone()))
+        return out
+
+    @property
+    def launches(self) -> int:
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.real.launches = n
+
+
+def drive(fn, shapes: set, flat_inputs: dict | None = None, *, dim: int | None = None,
+          pool_calls: list | None = None):
     """Run ``fn`` with the kernels' launch counters zeroed; returns
     (result, {kernel: launches}) of that run alone. Adds to ``shapes`` the
     kernel shapes of every scan in the run (with ``dim``, of every
@@ -539,9 +577,12 @@ def drive(fn, shapes: set, flat_inputs: dict | None = None, *, dim: int | None =
     K4 at ("group_max_int8", B, 0) and K2-i8 at ("gather_rescore_i8", B,
     kk), a per-tile scan K5 at ("tile_topk", B, kk). ``flat_inputs``
     collects, for each (B, T) at which the flat lane ran K3, a copy of the
-    first query rows, hot partial and group-row map it got."""
+    first query rows, hot partial and group-row map it got. ``pool_calls``
+    collects every Model2Vec pool call on the card (:class:`PoolNoted`),
+    from ``embed_batch`` and from the fused pass alike."""
+    from frankensearch_tpu_torch.embed import model2vec
     from frankensearch_tpu_torch.lexical import device_bm25 as bm
-    from frankensearch_tpu_torch.ops import topk_scan as ts
+    from frankensearch_tpu_torch.ops import hybrid_phase1, topk_scan as ts
 
     scan, scan_i8, scan_tiles = ts.scan_topk_hierarchical, ts.scan_topk_hierarchical_int8, ts.scan_topk_pallas
     flat = bm._graded_scan_flat
@@ -572,14 +613,18 @@ def drive(fn, shapes: set, flat_inputs: dict | None = None, *, dim: int | None =
     counters = launch_counters()
     for wrapper in counters.values():
         wrapper.launches = 0
+    pool = model2vec.gather_pool_normalize
     ts.scan_topk_hierarchical, ts.scan_topk_hierarchical_int8, ts.scan_topk_pallas = (
         scan_noted, scan_i8_noted, tiles_noted)
     bm._graded_scan_flat = flat_noted
+    if pool_calls is not None:
+        model2vec.gather_pool_normalize = hybrid_phase1.gather_pool_normalize = PoolNoted(pool, pool_calls)
     try:
         result = fn()
     finally:
         ts.scan_topk_hierarchical, ts.scan_topk_hierarchical_int8, ts.scan_topk_pallas = scan, scan_i8, scan_tiles
         bm._graded_scan_flat = flat
+        model2vec.gather_pool_normalize = hybrid_phase1.gather_pool_normalize = pool
     return result, {name: wrapper.launches for name, wrapper in counters.items()}
 
 
@@ -1802,6 +1847,74 @@ def m2v_embedder(dev):
     return random_model2vec(vocab, dim=DIM, seed=SEED + 7, device=dev)
 
 
+def check_pool_calls(cell: str, calls: list, launches: int) -> None:
+    """Hold every Model2Vec pool call of a run (:func:`drive`'s
+    ``pool_calls``) to its plain twin on the same table, ids and mask: the
+    same bits. Every launch the counter saw has to be among them."""
+    import torch
+
+    from frankensearch_tpu_torch.embed import model2vec
+
+    if len(calls) != launches:
+        raise AssertionError(f"{cell}: {launches} pool launches, {len(calls)} of them seen")
+    shapes: dict = {}
+    for emb, ids, mask, out in calls:
+        want = model2vec.gather_pool_normalize_plain(emb, ids, mask)
+        if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{cell} pool B={ids.shape[0]} T={ids.shape[1]}: the kernel's bits differ "
+                                 "from the twin's")
+        key = (tuple(emb.shape), emb.dtype, *ids.shape)
+        shapes[key] = shapes.get(key, 0) + 1
+    log(f"{cell} pool: {len(calls)} calls bitwise their twin's" + "".join(
+        f"{', at (table, B, T)' if i == 0 else ','} {v}x{d} {str(dt).removeprefix('torch.')} {b}x{t} ({n})"
+        for i, (((v, d), dt, b, t), n) in enumerate(sorted(shapes.items(), key=str))))
+
+
+def pool_inputs(emb):
+    """(B, T, ids, mask) on ``emb``'s device at each of :data:`POOL_SHAPES`:
+    seeded prefix masks of 1 to the shape's token count, seeded ids under
+    them and id 0 past them."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 9)
+    for b, t, n_tok in POOL_SHAPES:
+        lens = torch.randint(1, n_tok + 1, (b,), generator=gen)
+        mask = (torch.arange(t)[None, :] < lens[:, None]).to(torch.int32)
+        ids = (torch.randint(0, emb.shape[0], (b, t), generator=gen) * mask).to(torch.int32)
+        yield b, t, ids.to(emb.device), mask.to(emb.device)
+
+
+def check_pool_kernel(cell: str, emb) -> list[dict]:
+    """The Model2Vec pool kernel against its plain twin on ``emb`` (the
+    card's table) at :data:`POOL_SHAPES`, on seeded ids: the same bits, then
+    CUDA-event medians of one call of each wrapper (``ms``, ``plain_ms``).
+    At these sizes an event pair times the host's enqueue, not the kernel:
+    ``python3 profile_chip.py --pool`` gives the device time, in a process
+    of its own (the profiler stays out of this one until phase 9). The bound is the
+    bytes the call must move: the gathered rows (masked positions included),
+    the ids, the mask and the output."""
+    import torch
+
+    from frankensearch_tpu_torch.embed import model2vec
+
+    v, d = emb.shape
+    recs = []
+    for b, t, ids, mask in pool_inputs(emb):
+        got = model2vec.gather_pool_normalize(emb, ids, mask)
+        want = model2vec.gather_pool_normalize_plain(emb, ids, mask)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"phase7 {cell} pool B={b} T={t}: the kernel's bits differ from the twin's")
+        ms = cuda_median_ms(lambda: model2vec.gather_pool_normalize(emb, ids, mask))
+        plain_ms = cuda_median_ms(lambda: model2vec.gather_pool_normalize_plain(emb, ids, mask))
+        rec = {"kernel": "embed_pool", "cell": cell, "n": v, "b": b, "kk": None, "t": t, "ms": ms,
+               "plain_ms": plain_ms, "max_abs_err": 0.0, "headline": b == 1,
+               "bound": bound(b * t * d * emb.element_size() + nbytes(ids, mask, got), 0, "f32")}
+        log(f"phase7 {cell} embed_pool V={v} D={d} B={b} T={t}: wrapper {ms:.4f} ms by CUDA events (twin "
+            f"{plain_ms:.4f}; bound {rec['bound'][0]:.6f} by {rec['bound'][1]}), the twin's bits")
+        recs.append(rec)
+    return recs
+
+
 def phase7_hybrid_m2v(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[dict], dict]:
     """hybrid-1M-m2v: phase 4's corpus and lexical arm with a seeded
     Model2Vec fast tier, served through the fully fused lane. Returns its
@@ -1872,10 +1985,11 @@ def phase7_hybrid_m2v(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[di
         return batch, batch_ms, solo, single_ms
 
     flat_inputs: dict = {}
-    (batch, batch_ms, solo, single_ms), launches = drive(main_path, shapes, flat_inputs)
+    pool_calls: list = []
+    (batch, batch_ms, solo, single_ms), launches = drive(main_path, shapes, flat_inputs, pool_calls=pool_calls)
     log(f"phase7 search_batch B=256: {batch_ms:.2f} ms; singletons: "
         + ", ".join(f"{t:.2f}" for t in single_ms) + f" ms; lanes {lanes}")
-    need_launches("phase7", launches, ("K1", "K2", "K3"))
+    need_launches("phase7", launches, ("K1", "K2", "K3", "pool"))
     if not all(embedded) or not all(o.metrics.phase1_fused for o in batch + solo):
         raise AssertionError(f"phase7: the fully fused embed lane did not run every time ({embedded})")
     if not {"daat", "blocked", "mixed"} <= set(lanes):
@@ -1960,6 +2074,9 @@ def phase7_hybrid_m2v(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[di
         f"bitwise equal vector hits and results; {moved} whose host-normalized vector rounds an element to "
         f"another bf16 value give vector hits equal up to ties within {BF16_DOT_BOUND:.3e}")
     kernels = check_kernels("hybrid-1M-m2v", index.fast.slab, index.fast._effective_mask(None, None), shapes)
+    check_pool_calls("phase7 hybrid-1M-m2v", pool_calls, launches["pool"])
+    del pool_calls
+    kernels += check_pool_kernel("hybrid-1M-m2v", m2v._emb)
     check_flat_kernel("hybrid-1M-m2v", bm25._blocked.classes, flat_inputs, timed=False)
     del searcher, host, index, vecs
     torch.cuda.empty_cache()
@@ -5495,10 +5612,11 @@ def phase17_train(dev, tmp: str) -> tuple[dict, dict, list[dict]]:
 
 def counted(cell: str, fn):
     """Run ``fn`` with the launch counters zeroed (:func:`drive`), keeping
-    every hierarchical scan's slab, mask and kernel shapes; then hold K1
-    and K2 to their twins on each slab at its shapes. Any other kernel
-    launched fails the phase. Returns (result, {kernel: launches}, kernel
-    records)."""
+    every hierarchical scan's slab, mask and kernel shapes and every
+    Model2Vec pool call; then hold K1 and K2 to their twins on each slab at
+    its shapes, and each pool call bit for bit to its twin on the same
+    inputs (:func:`check_pool_calls`). Any other kernel launched fails the
+    phase. Returns (result, {kernel: launches}, kernel records)."""
     import torch
 
     from frankensearch_tpu_torch.ops import topk_scan as ts
@@ -5514,11 +5632,14 @@ def counted(cell: str, fn):
             return real(slab, queries, k, mask)
         return kept
 
+    pool_calls: list = []
     with spied((ts, "scan_topk_hierarchical", keep_scans)):
-        out, launches = drive(fn, set())
-    unheld = {name: n for name, n in launches.items() if n and name not in ("K1", "K2")}
+        out, launches = drive(fn, set(), pool_calls=pool_calls)
+    unheld = {name: n for name, n in launches.items() if n and name not in ("K1", "K2", "pool")}
     if unheld or (launches["K1"] + launches["K2"] and not slabs):
         raise AssertionError(f"{cell}: kernels launched outside the hierarchical scans it checks: {launches}")
+    check_pool_calls(cell, pool_calls, launches["pool"])
+    del pool_calls
     kernels = []
     for i, (slab, mask, shapes) in enumerate(slabs.values()):
         kernels += check_kernels(f"{cell}-{i}", slab, mask, shapes)

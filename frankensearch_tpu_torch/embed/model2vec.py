@@ -5,15 +5,18 @@ Port of frankensearch_tpu/embed/model2vec.py, the fast tier
 (potion-multilingual-128M class): tokenizer -> per-token row gather from a
 (vocab x dim) table -> mean pool -> L2 normalize. The table lives on an
 explicit device, in bf16 by default, and the pool accumulates in f32.
-``gather_pool_normalize`` is plain PyTorch: the reference runs it as XLA,
-with no Pallas kernel behind it.
+The reference runs the pool as XLA, with no Pallas kernel behind it; the
+port's :func:`gather_pool_normalize` runs it on the card as one hand-written
+kernel (ops/csrc/embed_pool.cu) and on the CPU as its plain twin,
+:func:`gather_pool_normalize_plain`.
 
 The pool's sums run in a fixed order made of elementwise adds (token by
 token, then a halving tree over the dimensions for the norm), so a row's
 bits depend neither on its batchmates, nor on the padded token length, nor
 on the device: a query embedded alone and in a batch gets the same vector
-on the CPU and on the card. The reference's XLA reductions take an order
-of their own, so the two agree within 1e-6 relative.
+on the CPU and on the card, from the kernel or the twin. The reference's
+XLA reductions take an order of their own, so the two agree within 1e-6
+relative.
 
 Model loading: a directory holding ``tokenizer.json`` (HF tokenizers) and
 ``model.safetensors`` (key ``embeddings``) in the model2vec layout. For
@@ -50,7 +53,11 @@ def normalize_rows(pooled: torch.Tensor) -> torch.Tensor:
     """Rows of (B, D) f32 divided by their L2 norm where it exceeds 1e-12
     (others, e.g. zero rows, kept). The sum of squares is a halving tree of
     elementwise adds over D padded to a power of two: a fixed order, the
-    same on every device and at every batch size."""
+    same on every device and at every batch size. The norm is the correctly
+    rounded f32 root, taken in f64 and rounded once: torch's vectorized f32
+    ``sqrt`` on the CPU can miss it by an ulp (about 0.6% of random inputs
+    under torch 2.13) where its scalar tail does not, so a row's bits would
+    depend on its place in the batch."""
     sq = pooled * pooled
     width = 1 << max(sq.shape[1] - 1, 0).bit_length()
     if width != sq.shape[1]:
@@ -58,11 +65,11 @@ def normalize_rows(pooled: torch.Tensor) -> torch.Tensor:
     while sq.shape[1] > 1:
         half = sq.shape[1] // 2
         sq = sq[:, :half] + sq[:, half:]
-    norm = torch.sqrt(sq)
+    norm = torch.sqrt(sq.to(torch.float64)).to(torch.float32)
     return torch.where(norm > 1e-12, pooled / norm, pooled)
 
 
-def gather_pool_normalize(emb: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def gather_pool_normalize_plain(emb: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """(V, D) table x (B, T) token ids and 0/1 mask -> (B, D) f32 unit rows:
     the masked mean of the gathered rows, f32 sums token by token, then
     :func:`normalize_rows`. Rows with no token stay zero."""
@@ -74,6 +81,55 @@ def gather_pool_normalize(emb: torch.Tensor, ids: torch.Tensor, mask: torch.Tens
         acc = acc + rows[:, t] * m[:, t : t + 1]
         count = count + m[:, t : t + 1]
     return normalize_rows(acc / torch.clamp(count, min=1.0))
+
+
+#: the kernel's table types, as ops/topk_scan's kinds
+_POOL_KINDS = {torch.bfloat16: 1, torch.float32: 2}
+#: widest D the kernel's shared-memory tree holds (csrc/embed_pool.cu)
+POOL_MAX_DIM = 32768
+
+
+def gather_pool_normalize(emb: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """:func:`gather_pool_normalize_plain` in one launch: CUDA tensors run
+    csrc/embed_pool.cu (a bf16 or f32 table; int32 ids and mask; any
+    B, D up to :data:`POOL_MAX_DIM`), counted in
+    ``gather_pool_normalize.launches``; CPU tensors the plain twin. Both
+    take the same rounded steps in the same order, so they agree bit for
+    bit. An id outside the table gives its row NaN on the card (the twin
+    raises)."""
+    if emb.device.type == "cpu":
+        return gather_pool_normalize_plain(emb, ids, mask)
+    kind = _POOL_KINDS.get(emb.dtype)
+    if kind is None or ids.dtype != torch.int32 or mask.dtype != torch.int32:
+        raise ValueError(f"gather_pool_normalize takes a bf16/f32 table and int32 ids and mask, "
+                         f"got {emb.dtype}, {ids.dtype}, {mask.dtype}")
+    if emb.dim() != 2 or ids.dim() != 2 or mask.shape != ids.shape or ids.shape[1] < 1:
+        raise ValueError(f"shapes {tuple(emb.shape)}, {tuple(ids.shape)}, {tuple(mask.shape)}: "
+                         "want (V, D), (B, T), (B, T) with T >= 1")
+    if ids.device != emb.device or mask.device != emb.device:
+        raise ValueError("gather_pool_normalize operands must share one device")
+    (v, d), (b, t) = emb.shape, ids.shape
+    if v < 1 or d > POOL_MAX_DIM:
+        raise ValueError(f"gather_pool_normalize needs a table of 1+ rows and D <= {POOL_MAX_DIM}, got {v} x {d}")
+    out = torch.empty((b, d), dtype=torch.float32, device=emb.device)
+    if b == 0 or d == 0:
+        return out
+    emb, ids, mask = emb.contiguous(), ids.contiguous(), mask.contiguous()
+    from frankensearch_tpu_torch.ops import _build
+
+    lib = _build.library()
+    with torch.cuda.device(emb.device):
+        rc = lib.fs_embed_pool(
+            emb.data_ptr(), ids.data_ptr(), mask.data_ptr(), out.data_ptr(), v, d, b, t, kind,
+            torch.cuda.current_stream(emb.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"embed_pool kernel launch failed: CUDA error {rc}")
+    gather_pool_normalize.launches += 1
+    return out
+
+
+gather_pool_normalize.launches = 0
 
 
 class SimpleWordTokenizer:
@@ -211,17 +267,16 @@ class Model2VecEmbedder(Embedder):
 
     def embed_batch(self, texts: Sequence[str]) -> np.ndarray:
         """Unit rows for ``texts``: host tokenizing (span ``fs.embed.tokenize``),
-        the upload and the pool enqueued on the device (``fs.embed.pool``),
-        the ``.cpu()`` fetch that waits for it (``fs.embed.fetch``), then the
-        host normalize."""
+        one upload of ids and mask and the pool enqueued on the device
+        (``fs.embed.pool``), the ``.cpu()`` fetch that waits for it
+        (``fs.embed.fetch``), then the host normalize."""
         if not texts:
             return np.zeros((0, self._dim), dtype=np.float32)
         with span("fs.embed.tokenize"):
             ids, mask = self.tokenize_batch(texts)
         with span("fs.embed.pool"):
-            out = gather_pool_normalize(
-                self._emb, torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device)
-            )
+            packed = torch.from_numpy(np.stack((ids, mask))).to(self.device)  # one upload
+            out = gather_pool_normalize(self._emb, packed[0], packed[1])
         with span("fs.embed.fetch"):
             out = out.cpu()
         # rows with zero tokens stay zero vectors (caller treats as degenerate)

@@ -1122,22 +1122,19 @@ class TwoTierSearcher:
                 metrics.lexical_lane = _raw["lex_lanes"][0]
                 return self._phase1_fuse(parsed, qclass, k, metrics, text_fn, lexical_pool, fast_hits)
 
-        # concurrent fast embed + lexical search (searcher.rs:1536 rayon::join)
-        fast_future = None
-        if self._semantic_admitted:
-            fast_future = self._pool.submit(self._timed_fast_embed, parsed.positive, metrics)
+        # concurrent fast embed + lexical search (searcher.rs:1536 rayon::join):
+        # the embed runs on this thread, as rayon runs a join's first closure
+        # on the calling thread, and the lexical arm beside it on the pool
+        lex_future = None
+        if self.lexical is not None and self._semantic_admitted:
+            lex_future = self._pool.submit(self._timed_lexical, parsed, lex_budget, search_filter, metrics)
+        query_vec = self._timed_fast_embed(parsed.positive, metrics) if self._semantic_admitted else None
         lexical_pool: list[ScoredResult] = []
-        if self.lexical is not None:
-            with span("fs.lexical") as sp:
-                if parsed.boolean_query is not None:
-                    # tree retrieval: exact on the oracle, bag + post-filter on
-                    # device arms
-                    pool = self.lexical.search_boolean(parsed.boolean_query, lex_budget)
-                else:
-                    pool = self.lexical.search(parsed.positive, lex_budget)
-                lexical_pool = self._apply_filter_to_pool(self._drop_superseded(pool), search_filter)
-            metrics.lexical_ms = sp.ms
-            metrics.lexical_candidates = len(lexical_pool)
+        if lex_future is not None:
+            with span("fs.search.wait_lexical"):
+                lexical_pool = lex_future.result()
+        elif self.lexical is not None:
+            lexical_pool = self._timed_lexical(parsed, lex_budget, search_filter, metrics)
 
         # identifier short-circuit (searcher.rs:1451,1641): identifier
         # queries with enough lexical evidence skip a non-semantic vector arm
@@ -1147,10 +1144,7 @@ class TwoTierSearcher:
             and len(lexical_pool) >= k
             and not self.fast_embedder.is_semantic
         )
-        if fast_future is not None and not short_circuit:
-            # the embed runs on the pool thread; this thread waits for it
-            with span("fs.search.wait_embed"):
-                query_vec = fast_future.result()
+        if query_vec is not None and not short_circuit:
             with span("fs.search.vector") as sp:
                 classified: ClassifiedHits = self.index.search_fast_classified(
                     query_vec, sem_budget, search_filter=search_filter,
@@ -1170,8 +1164,6 @@ class TwoTierSearcher:
                 fast_hits = self.hubness.apply(fast_hits)
             if self.smoother is not None:
                 fast_hits = self.smoother.apply(fast_hits)
-        elif fast_future is not None:
-            fast_future.cancel()
         metrics.fast_candidates = len(fast_hits)
         return self._phase1_fuse(parsed, qclass, k, metrics, text_fn, lexical_pool, fast_hits)
 
@@ -1199,6 +1191,20 @@ class TwoTierSearcher:
         metrics.fusion_ms = sp.ms
         metrics.fused_candidates = len(results)
         return results, fast_hits, lexical_pool
+
+    def _timed_lexical(self, parsed: ParsedQuery, budget: int, search_filter, metrics: TwoTierMetrics,
+                       ) -> list[ScoredResult]:
+        with span("fs.lexical") as sp:
+            if parsed.boolean_query is not None:
+                # tree retrieval: exact on the oracle, bag + post-filter on
+                # device arms
+                pool = self.lexical.search_boolean(parsed.boolean_query, budget)
+            else:
+                pool = self.lexical.search(parsed.positive, budget)
+            lexical_pool = self._apply_filter_to_pool(self._drop_superseded(pool), search_filter)
+        metrics.lexical_ms = sp.ms
+        metrics.lexical_candidates = len(lexical_pool)
+        return lexical_pool
 
     def _timed_fast_embed(self, text: str, metrics: TwoTierMetrics) -> np.ndarray:
         with span("fs.embed") as sp:

@@ -24,6 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "group_max.cu", "gather_rescore.cu", "flat_score.cu", "tile_topk.cu", "group_candidates.cu", "ivf_probe.cu",
+    "embed_pool.cu",
 )
 #: headers the sources include (part of the build's hash): group_scan.cuh
 #: is the mma.sync scoring body of K5, hopper.cuh the TMA, mbarrier and
@@ -148,4 +149,6 @@ def _load() -> ctypes.CDLL:
     lib.fs_tile_select.restype = i32
     lib.fs_ivf_probe.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
     lib.fs_ivf_probe.restype = i32
+    lib.fs_embed_pool.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr]
+    lib.fs_embed_pool.restype = i32
     return lib

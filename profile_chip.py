@@ -87,6 +87,13 @@ sort, one run a cluster or one a group, a query tile of 8 or 16). Device
 ms a call of the wrapper and of its kernel (``device_split``), three runs
 each; the last line is a JSON summary.
 
+``python3 profile_chip.py --pool`` times the Model2Vec pool's kernel and
+its plain twin on chip_smoke's 500,000 x 256 bf16 table at
+``chip_smoke.POOL_SHAPES``, on ``chip_smoke.pool_inputs``: device ms a call
+(``device_split``; the twin's kernels and copies summed) and CUDA-event
+medians of each wrapper (at these sizes the host's enqueue). The last line
+is a JSON summary.
+
 ``python3 profile_chip.py --open OUT_DIR TREE [TREE ...]`` times a 1M-doc
 open: it builds chip_smoke's cli-1M root (phase 4's 1M docs through ``cli
 index`` of this checkout) and runs ``cli watch`` into it once (phase 12's
@@ -127,6 +134,7 @@ TRACED_KERNELS = (
     (("K5",), ("tile_topk_kernel<", "tile_topk_f32_kernel<", "tile_topk_wide_kernel<")),
     (("K6",), ("tile_select_kernel",)),
     (("K2-ivf",), ("ivf_probe_kernel<",)),
+    (("pool",), ("embed_pool_kernel<",)),
 )
 #: the idle seconds around the calls in each profiler run a call gets
 #: before its trace counts as incomplete
@@ -293,6 +301,30 @@ def ivf_layouts() -> int:
         ts._ivf_probe_layout = chosen
     cs.log(cs.gpu_line())
     print(json.dumps({"ivf_layout": rows}), flush=True)
+    return 0
+
+
+def pool_times() -> int:
+    """``--pool``: the Model2Vec pool's kernel and its twin, device ms and
+    CUDA events, at each of chip_smoke's POOL_SHAPES."""
+    import chip_smoke as cs
+    from frankensearch_tpu_torch.device import resolve_device
+    from frankensearch_tpu_torch.embed import model2vec
+
+    emb = cs.m2v_embedder(resolve_device("cuda"))._emb
+    rows = []
+    for b, t, ids, mask in cs.pool_inputs(emb):
+        kernel, twin = (lambda: model2vec.gather_pool_normalize(emb, ids, mask),
+                        lambda: model2vec.gather_pool_normalize_plain(emb, ids, mask))
+        (ms, split), (plain_ms, _) = device_split(kernel), device_split(twin)
+        row = {"b": b, "t": t, "device_ms": ms, "kernel_ms": sum(v for k, v in split.items() if "embed_pool" in k),
+               "plain_device_ms": plain_ms, "wrapper_ms": cs.cuda_median_ms(kernel),
+               "plain_wrapper_ms": cs.cuda_median_ms(twin)}
+        print(f"pool {tuple(emb.shape)} B={b} T={t}: {ms:.4f} device ms (its kernel {row['kernel_ms']:.4f}; twin "
+              f"{plain_ms:.4f}); CUDA events {row['wrapper_ms']:.4f} (twin {row['plain_wrapper_ms']:.4f})", flush=True)
+        rows.append(row)
+    print(cs.gpu_line())
+    print(json.dumps({"pool": rows}))
     return 0
 
 
@@ -697,6 +729,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     if len(sys.argv) > 1 and sys.argv[1] == "--kernels":
         return time_kernels(os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else HERE)
+    if len(sys.argv) > 1 and sys.argv[1] == "--pool":
+        return pool_times()
     if len(sys.argv) > 1 and sys.argv[1] == "--ivf-layout":
         return ivf_layouts()
     if len(sys.argv) > 1 and sys.argv[1] == "--k5-split":

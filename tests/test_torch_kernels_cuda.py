@@ -2,7 +2,8 @@
 their plain twins (K6's selection also alone, on crafted maxima), the deterministic lanes (dense, pruned and DAAT BM25,
 device RRF) bitwise against the CPU, the int8 and per-tile scan lanes
 against their CPU twin pipelines, the A/B scan's K6 route bitwise against
-the K1/K2 route, the Model2Vec pool and bag lane against the CPU, K1 and
+the K1/K2 route, the Model2Vec pool and bag lane against the CPU, the
+pool's kernel against its twin on the card and on the CPU, K1 and
 K2 at the quality tier's width (384), the int8 GEMM behind the encoder at
 padded shapes (exact), the trained 384 encoder's forward against the
 CPU (f32, bf16, int8), the f32 forms of K1, K2 and K5 against their twins
@@ -30,7 +31,8 @@ K1's body, K6 with K1's kernel), and on inputs whose every score is exact
 in f32 K5 is bitwise its twin; K6's selection does no arithmetic, so it is
 bitwise its twin (the argmax passes) on any maxima; K4's int32
 sums are exact, so it is bitwise; the Model2Vec pool is elementwise f32
-adds in a fixed order, within 1e-6 of the CPU; K3 sums
+adds in a fixed order, within 1e-6 of the CPU, and its kernel takes its
+twin's rounded steps in the twin's order, so it is bitwise; K3 sums
 in its twin's order with unfused products and adds, then adds the hot
 partial, masks and reduces as the twin does, so it is bitwise; the
 BM25 and RRF lanes are order-pinned f32 adds (the pruned lane's exact
@@ -438,6 +440,108 @@ def test_model2vec_pool_and_bag_lane_gpu_vs_cpu(cuda_device):
     bag_gpu = bulk.bag_embed_corpus(gpu, texts, chunk_docs=128)
     np.testing.assert_array_equal(bag_gpu.view(np.uint32), bulk.bag_embed_corpus(gpu, texts, chunk_docs=128).view(np.uint32))
     np.testing.assert_allclose(bag_gpu, bag_cpu, rtol=0, atol=1e-6)
+
+
+def _pool_input(seed: int, b: int, t: int, d: int, dtype, *, prefix: bool = True, v: int = 1000):
+    """A signed (v, d) table and (b, t) int32 ids and 0/1 mask: prefix masks
+    of every length 0 .. t (row 0 empty), or random masks over real ids;
+    padding ids are 0 and masked ids are real rows, so the gathered zeros
+    carry both signs."""
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32)).to(dtype)
+    ids = rng.integers(0, v, size=(b, t)).astype(np.int32)
+    if prefix:
+        lens = rng.integers(0, t + 1, size=b)
+        lens[0] = 0
+        mask = (np.arange(t)[None, :] < lens[:, None]).astype(np.int32)
+        ids[mask == 0] = 0
+    else:
+        mask = (rng.random((b, t)) < 0.5).astype(np.int32)
+        mask[0] = 0
+    return table, torch.from_numpy(ids), torch.from_numpy(mask)
+
+
+def _same_bits(got, want) -> bool:
+    return torch.equal(got.contiguous().view(torch.int32), want.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 256, 384, 1024])
+@pytest.mark.parametrize("t", [16, 32, 64, 128, 256, 512])
+def test_embed_pool_bitwise_to_twin(cuda_device, t, d, dtype):
+    """The pool kernel gives its plain twin's bits on the same card, at every
+    bucket, with prefix and scattered masks and rows of no token."""
+    for b in (1, 7, 64, 300):
+        for prefix in (True, False):
+            table, ids, mask = _pool_input(b * t + d, b, t, d, dtype, prefix=prefix)
+            table, ids, mask = table.to(cuda_device), ids.to(cuda_device), mask.to(cuda_device)
+            got = model2vec.gather_pool_normalize(table, ids, mask)
+            want = model2vec.gather_pool_normalize_plain(table, ids, mask)
+            assert _same_bits(got, want), (b, prefix)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_embed_pool_empty_rows_keep_the_twins_zero_signs(cuda_device, dtype):
+    """Rows with no token: every product is a signed zero, and the sum's sign
+    follows the gathered rows' signs as the twin's adds give it."""
+    d, t = 256, 16
+    signs = torch.tensor([[-1.0] * d, [1.0] * d, [-1.0] * (d // 2) + [1.0] * (d // 2)], dtype=dtype)
+    ids = torch.tensor([[0] * t, [1] * t, [0, 1] * (t // 2), [2] * t, [0] * (t - 1) + [1]], dtype=torch.int32)
+    mask = torch.zeros_like(ids)
+    table, ids, mask = signs.to(cuda_device), ids.to(cuda_device), mask.to(cuda_device)
+    got = model2vec.gather_pool_normalize(table, ids, mask)
+    want = model2vec.gather_pool_normalize_plain(table, ids, mask)
+    assert _same_bits(got, want)
+    assert not bool(got.any())
+    assert bool(torch.signbit(got[0]).all()) and not bool(torch.signbit(got[1]).any())
+
+
+def test_embed_pool_bitwise_to_the_cpu(cuda_device):
+    """The kernel on the card gives the twin's bits on the CPU (IEEE steps,
+    each rounded once, in one order on both)."""
+    for prefix in (True, False):
+        table, ids, mask = _pool_input(5, 64, 32, 256, torch.bfloat16, prefix=prefix)
+        want = model2vec.gather_pool_normalize(table, ids, mask)
+        got = model2vec.gather_pool_normalize(table.to(cuda_device), ids.to(cuda_device), mask.to(cuda_device))
+        assert _same_bits(got.cpu(), want), prefix
+
+
+def test_embed_pool_row_bits_alone_in_a_batch_and_in_a_larger_bucket(cuda_device):
+    table, ids, mask = _pool_input(9, 64, 16, 256, torch.bfloat16)
+    table, ids, mask = table.to(cuda_device), ids.to(cuda_device), mask.to(cuda_device)
+    batch = model2vec.gather_pool_normalize(table, ids, mask)
+    wide = model2vec.gather_pool_normalize(
+        table, torch.nn.functional.pad(ids, (0, 496)), torch.nn.functional.pad(mask, (0, 496)))
+    assert _same_bits(wide, batch)
+    for j in (0, 1, 31, 63):
+        alone = model2vec.gather_pool_normalize(table, ids[j : j + 1].contiguous(), mask[j : j + 1].contiguous())
+        assert _same_bits(alone, batch[j : j + 1]), j
+
+
+def test_embed_pool_counts_one_launch_a_call(cuda_device):
+    gpu = model2vec.random_model2vec([f"w{i}" for i in range(50)], dim=64, seed=1, device=cuda_device)
+    before = model2vec.gather_pool_normalize.launches
+    _, ids, mask = _pool_input(3, 8, 16, 64, torch.bfloat16, v=50)
+    model2vec.gather_pool_normalize(gpu._emb, ids.to(cuda_device), mask.to(cuda_device))
+    assert model2vec.gather_pool_normalize.launches == before + 1
+    gpu.embed_batch(["w1 w2", "w3"])
+    torch.cuda.synchronize()
+    assert model2vec.gather_pool_normalize.launches == before + 2
+    model2vec.gather_pool_normalize_plain(gpu._emb, ids.to(cuda_device), mask.to(cuda_device))
+    assert model2vec.gather_pool_normalize.launches == before + 2
+
+
+def test_embed_pool_rejects_unsupported_operands(cuda_device):
+    table, ids, mask = _pool_input(4, 2, 16, 64, torch.bfloat16)
+    table, ids, mask = table.to(cuda_device), ids.to(cuda_device), mask.to(cuda_device)
+    with pytest.raises(ValueError):
+        model2vec.gather_pool_normalize(table, ids.long(), mask)
+    with pytest.raises(ValueError):
+        model2vec.gather_pool_normalize(table.double(), ids, mask)
+    with pytest.raises(ValueError):
+        model2vec.gather_pool_normalize(table, ids, mask[:, :8])
+    with pytest.raises(ValueError):
+        model2vec.gather_pool_normalize(table, ids.cpu(), mask)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])

@@ -101,6 +101,57 @@ def test_gather_pool_normalize_matches_reference(pair, lo, hi):
     np.testing.assert_allclose(port.embed_batch(batch), ref.embed_batch(batch), rtol=0, atol=ATOL)
 
 
+def test_cpu_tensors_take_the_plain_twin(pair, monkeypatch):
+    """On the CPU the pool is its plain twin: no kernel library is loaded and
+    the launch counter does not move."""
+    from frankensearch_tpu_torch.ops import _build
+
+    _, port = pair
+    ids, mask = port.tokenize_batch(texts(9, 6, 0, 20) + [""])
+    ids, mask = torch.from_numpy(ids), torch.from_numpy(mask)
+    calls = []
+    plain = tm2v.gather_pool_normalize_plain
+
+    def noted(*args):
+        calls.append(args)
+        return plain(*args)
+
+    def no_library():
+        raise AssertionError("the CPU path loaded the kernel library")
+
+    monkeypatch.setattr(tm2v, "gather_pool_normalize_plain", noted)
+    monkeypatch.setattr(_build, "library", no_library)
+    before = tm2v.gather_pool_normalize.launches
+    got = tm2v.gather_pool_normalize(port._emb, ids, mask)
+    port.embed_batch(["w1 w2", "w3"])
+    assert len(calls) == 2 and tm2v.gather_pool_normalize.launches == before
+    assert torch.equal(got.view(torch.int32), plain(port._emb, ids, mask).view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["ids_int64", "table_f64", "mask_shape", "one_dim_ids", "devices", "too_wide"])
+def test_pool_kernel_rejects_what_it_does_not_take(case):
+    """The kernel's wrapper checks its operands before it loads anything
+    (meta tensors stand in for the card's)."""
+    meta = torch.device("meta")
+    table = torch.empty((50, 64), dtype=torch.bfloat16, device=meta)
+    ids = torch.empty((3, 16), dtype=torch.int32, device=meta)
+    mask = torch.empty((3, 16), dtype=torch.int32, device=meta)
+    if case == "ids_int64":
+        ids = ids.long()
+    elif case == "table_f64":
+        table = table.double()
+    elif case == "mask_shape":
+        mask = mask[:, :8]
+    elif case == "one_dim_ids":
+        ids, mask = ids[0], mask[0]
+    elif case == "devices":
+        ids = torch.zeros((3, 16), dtype=torch.int32)
+    else:
+        table = torch.empty((50, tm2v.POOL_MAX_DIM + 1), dtype=torch.bfloat16, device=meta)
+    with pytest.raises(ValueError):
+        tm2v.gather_pool_normalize(table, ids, mask)
+
+
 def test_rows_independent_of_batch_and_padding(pair):
     """A row's bits do not change with its batchmates or the token bucket."""
     _, port = pair
@@ -118,6 +169,25 @@ def test_normalize_rows_any_width():
     got = tm2v.normalize_rows(torch.from_numpy(x)).numpy()
     want = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_normalize_rows_bitwise_to_ieee_steps():
+    """Each step is one IEEE f32 operation, the root included (numpy's f32
+    ``sqrt`` is correctly rounded): a row's bits are the same in any batch
+    and on any device."""
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((4096, 48)) * rng.uniform(0.01, 10, (4096, 1))).astype(np.float32)
+    x[5] = 0.0
+    sq = np.pad(x * x, ((0, 0), (0, 16)))
+    while sq.shape[1] > 1:
+        sq = sq[:, : sq.shape[1] // 2] + sq[:, sq.shape[1] // 2 :]
+    norm = np.sqrt(sq)
+    with np.errstate(invalid="ignore"):
+        want = np.where(norm > np.float32(1e-12), x / norm, x)
+    got = tm2v.normalize_rows(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    alone = np.stack([tm2v.normalize_rows(torch.from_numpy(x[i : i + 1])).numpy()[0] for i in range(64)])
+    np.testing.assert_array_equal(alone.view(np.uint32), got[:64].view(np.uint32))
 
 
 @pytest.mark.parametrize("chunk", [16_384, 7])

@@ -92,24 +92,48 @@ def test_search_spans_nest_as_documented(searcher):
     assert parents(ranges) == {
         "fs.search": {None},
         "fs.search.parse": {"fs.search"},
-        "fs.search.wait_embed": {"fs.search"},
         "fs.search.vector": {"fs.search"},
         "fs.index.scan": {"fs.search.vector"},
         "fs.index.hydrate": {"fs.search.vector"},
         "fs.index.fetch": {"fs.index.hydrate"},
         "fs.search.fuse": {"fs.search"},
-        # the embed runs on the searcher's pool thread, while the caller waits
-        "fs.embed": {None},
+        # no lexical arm to overlap with: the embed runs on the caller's
+        # thread, so no range waits for a pool thread
+        "fs.embed": {"fs.search"},
         "fs.embed.tokenize": {"fs.embed"},
         "fs.embed.pool": {"fs.embed"},
         "fs.embed.fetch": {"fs.embed"},
     }
     by_name = {name: (tid, s, e) for name, tid, s, e in ranges}
-    caller, embed = by_name["fs.search"][0], by_name["fs.embed"][0]
-    assert caller != embed
-    # the pool thread's embed starts inside the call and ends before the wait does
-    assert by_name["fs.search"][1] <= by_name["fs.embed"][1]
-    assert by_name["fs.embed"][2] <= by_name["fs.search.wait_embed"][2]
+    assert by_name["fs.search"][0] == by_name["fs.embed"][0]
+    # the embed ends before the vector arm starts
+    assert by_name["fs.embed"][2] <= by_name["fs.search.vector"][1]
+
+
+def test_with_a_lexical_arm_the_lexical_search_runs_on_the_pool_thread_beside_the_embed():
+    from frankensearch_tpu_torch.core.types import IndexableDocument
+    from frankensearch_tpu_torch.lexical.memory_index import MemoryLexicalIndex
+
+    lex = MemoryLexicalIndex()
+    for i in range(40):
+        lex.add_document(IndexableDocument(f"d{i}", f"w{30 + i % 7} w{31 + i % 5} w{i}"))
+    lex.commit()
+    s = make_searcher(lexical=lex)
+    try:
+        with profiler() as prof:
+            out = s.search("w30 w31 w32", 5)
+    finally:
+        s.close()
+    assert out.results and out.metrics.lexical_candidates > 0 and out.metrics.lexical_ms > 0
+    ranges = fs_ranges(prof)
+    got = parents(ranges)
+    assert got["fs.embed"] == got["fs.search.wait_lexical"] == got["fs.search.vector"] == {"fs.search"}
+    # the lexical arm runs on the searcher's pool thread while the caller embeds, then waits for it
+    assert got["fs.lexical"] == {None}
+    by_name = {name: (tid, s, e) for name, tid, s, e in ranges}
+    assert by_name["fs.search"][0] == by_name["fs.embed"][0] != by_name["fs.lexical"][0]
+    assert by_name["fs.search"][1] <= by_name["fs.lexical"][1]
+    assert by_name["fs.lexical"][2] <= by_name["fs.search.wait_lexical"][2]
 
 
 def test_search_batch_spans_nest_as_documented_once_per_batch(searcher):
