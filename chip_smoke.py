@@ -822,12 +822,12 @@ def phase3_hybrid(dev, tmp: str) -> tuple[dict, dict, list[dict]]:
     if searcher.last_fusion_path != "device":
         raise AssertionError(f"phase3: fusion path {searcher.last_fusion_path!r}, not device")
 
-    # the device RRF against the host oracle (the reference's vectorized
-    # rrf_fuse_batch_rows) on the same arm outputs: with the device tail
-    # switched off, the searcher fuses the identical arm bits on the host
+    # the device RRF against the host oracle (the per-query fusion) on the
+    # same arm outputs: with the device tail switched off, the searcher
+    # fuses the identical arm bits on the host, query by query
     searcher._device_rrf_tail = lambda *args: (None, None)
     oracle = searcher.search_batch(queries, k=K)
-    if searcher.last_fusion_path != "host_vectorized":
+    if searcher.last_fusion_path != "host":
         raise AssertionError(f"phase3: oracle fusion path {searcher.last_fusion_path!r}")
     for j, (out, want) in enumerate(zip(batch, oracle)):
         if [(r.doc_id, r.score) for r in out.results] != [(r.doc_id, r.score) for r in want.results]:
@@ -1212,7 +1212,7 @@ def phase4_hybrid1m(dev, semantic) -> tuple[dict, dict, list[dict], dict]:
 
     searcher._device_rrf_tail = lambda *args: (None, None)
     oracle = searcher.search_batch(queries, k=K)
-    if searcher.last_fusion_path != "host_vectorized":
+    if searcher.last_fusion_path != "host":
         raise AssertionError(f"phase4: oracle fusion path {searcher.last_fusion_path!r}")
     for j, (out, want) in enumerate(zip(batch, oracle)):
         if [(r.doc_id, r.score) for r in out.results] != [(r.doc_id, r.score) for r in want.results]:
@@ -2032,7 +2032,7 @@ def phase7_hybrid_m2v(dev, tmp: str, lexical: dict) -> tuple[dict, dict, list[di
 
     searcher._device_rrf_tail = lambda *args: (None, None)
     oracle = searcher.search_batch(queries, k=K)
-    if searcher.last_fusion_path != "host_vectorized":
+    if searcher.last_fusion_path != "host":
         raise AssertionError(f"phase7: oracle fusion path {searcher.last_fusion_path!r}")
     for j, (out, want) in enumerate(zip(batch, oracle)):
         if [(r.doc_id, r.score) for r in out.results] != [(r.doc_id, r.score) for r in want.results]:
@@ -2959,7 +2959,7 @@ def phase10_built_m2v(dev, tmp: str, lexical: dict, m2v_run: dict) -> tuple[dict
     searcher._device_rrf_tail = lambda *args: (None, None)
     oracle = searcher.search_batch(queries, k=K)
     del searcher._device_rrf_tail
-    if [rows_of(o) for o in oracle] != m2v_run["rows"] or searcher.last_fusion_path != "host_vectorized":
+    if [rows_of(o) for o in oracle] != m2v_run["rows"] or searcher.last_fusion_path != "host":
         raise AssertionError("phase10: the device RRF differs from the host oracle")
     b256_ms = host_median_ms(lambda: searcher.search_batch(queries, k=K))
     b1_ms = host_median_ms(lambda: searcher.search_batch(singles[:1], k=K))
@@ -5151,7 +5151,7 @@ def phase16_sharded(dev, tmp: str, semantic: dict, lexical: dict) -> tuple[dict,
                            [hpools[j] for j in range(len(lq))], [lexical["pools"][j] for j in range(len(lq))])
     hybrid._device_rrf_tail = lambda *args: (None, None)
     oracle = hybrid.search_batch(lq, k=K)
-    if hybrid.last_fusion_path != "host_vectorized":
+    if hybrid.last_fusion_path != "host":
         raise AssertionError(f"phase16: oracle fusion path {hybrid.last_fusion_path!r}")
     for j, (out, want) in enumerate(zip(hbatch, oracle)):
         if [(r.doc_id, r.score) for r in out.results] != [(r.doc_id, r.score) for r in want.results]:

@@ -67,7 +67,7 @@ from frankensearch_tpu_torch.fusion.blend import blend_two_tier, blend_two_tier_
 from frankensearch_tpu_torch.fusion.circuit_breaker import CircuitBreaker, Phase2Outcome
 from frankensearch_tpu_torch.fusion.phase_gate import PhaseGate
 from frankensearch_tpu_torch.fusion.rrf import RrfConfig, candidate_count, fuse_by_strategy
-from frankensearch_tpu_torch.lexical.base import LexicalCandidate, LexicalRead
+from frankensearch_tpu_torch.lexical.base import LexicalRead
 from frankensearch_tpu_torch.index.two_tier import TwoTierIndex
 from frankensearch_tpu_torch.utils.tracing import get_logger, span
 
@@ -228,14 +228,18 @@ class TwoTierSearcher:
 
     def _rrf_ctx(self, classes, live, k):
         """Pre-dispatch context for the on-device RRF tail: per-query
-        class-adjusted k and the fused limit, or None when the exactness
-        gates that _vectorized_batch_fuse checks can't hold."""
+        class-adjusted k and the fused limit, or None when its result would
+        not be the per-query fusion's bit for bit: another fusion strategy
+        or tiebreak, an NQC or graph arm, or tombstones (supersession
+        pruning is per doc). These are the only gates of the device
+        entries; ``search_batch`` fuses per query whenever it has none."""
         cfg = self.config
         if (
             cfg.fusion_strategy is not FusionStrategy.RRF
             or cfg.tiebreak is not TiebreakStrategy.LEXICAL_THEN_ID
             or self.nqc is not None
             or self.graph_ranker is not None
+            or self.index.tombstoned_ids()
         ):
             return None
         return {
@@ -248,22 +252,15 @@ class TwoTierSearcher:
     def _device_rrf_tail(self, fast, arm, vec_i, lex_s, lex_i, rrf_ctx, b_padded):
         """Enqueue the on-device RRF merge behind the phase-1 tensors (no
         host sync). Returns ((out_id, out_lr, out_fr) device tensors,
-        (contrib_l, contrib_v) f64 host tables) or (None, None) when the
-        gates don't hold."""
+        (contrib_l, contrib_v) f64 host tables) or (None, None) without a
+        context or when a vector doc is missing from the lexical arm."""
         if rrf_ctx is None:
-            return None, None
-        if self.index.tombstoned_ids():
             return None, None
         row_map = self._vecrow_to_lexrow(fast, arm)
         if row_map is None:
             return None, None
         from frankensearch_tpu_torch.ops import device_rrf as drrf
 
-        key = (id(fast), id(arm))
-        cached = getattr(self, "_row_map_dev", None)
-        if cached is None or cached[0] != key:
-            cached = (key, torch.from_numpy(row_map.astype(np.int32)).to(fast.device))
-            self._row_map_dev = cached
         k_arr = rrf_ctx["k_arr"]
         if len(k_arr) != b_padded:
             k_arr = np.concatenate([k_arr, np.repeat(k_arr[:1], b_padded - len(k_arr))])
@@ -277,7 +274,7 @@ class TwoTierSearcher:
             return torch.from_numpy(x).to(fast.device)
 
         rrf_dev = drrf.device_rrf(
-            lex_i, lex_s, vec_i, cached[1], dev(contrib_l), dev(contrib_v), limit=rrf_ctx["limit"],
+            lex_i, lex_s, vec_i, row_map, dev(contrib_l), dev(contrib_v), limit=rrf_ctx["limit"],
         )
         return rrf_dev, (contrib_l, contrib_v)
 
@@ -286,22 +283,26 @@ class TwoTierSearcher:
     ):
         """Run phase 1's (embed +) vector scan + device BM25 as one device
         pass (ops/hybrid_phase1.py) and, with ``rrf_ctx``, the RRF merge on
-        the device too; all results come back in one fetch. With
-        ``fast_vecs=None`` the fast embedder must be a Model2Vec one of the
-        index's width (``CachedEmbedder`` unwrapped): the queries go in as
-        token ids and the gather + mean-pool embed runs in the pass.
-        A mesh-sharded fast tier with a block-sharded lexical arm takes the
-        sharded lane (``fused_phase1_sharded``: both arms over the shards,
-        merged on the lead device, then the same RRF tail); it needs query
-        vectors. Returns (hydrated vector hits per query, lexical candidate
-        lists per query, raw: the arms' rows and each query's lexical lane
-        under ``lex_lanes``) or None when a lane does not apply (non-device
-        arms, one arm sharded and not the other, filters, non-auto scan
-        modes, an empty lexical arm, no query vectors and no Model2Vec
-        embedder). Its spans: ``fs.fused_pass.plan`` (tokens, sparse rows,
-        the lane's plan and their uploads), ``.enqueue`` (the lane's body
-        and the RRF tail), ``.fetch`` (the one device-to-host copy) and
-        ``.finish`` (hydrate, the candidate lists, ``finish_rrf``)."""
+        the device too; all results come back in one fetch. The lexical arm
+        plans its own half (``fused_plan``: its batch lane, each query's
+        lane and the body's lexical arguments); this maps the batch lane to
+        a body. With ``fast_vecs=None`` the fast embedder must be a
+        Model2Vec one of the index's width (``CachedEmbedder`` unwrapped):
+        the queries go in as token ids and the gather + mean-pool embed
+        runs in the pass. A mesh-sharded fast tier with a block-sharded
+        lexical arm takes the sharded lane (``fused_phase1_sharded``: both
+        arms over the shards, merged on the lead device, then the same RRF
+        tail); it needs query vectors. Returns (hydrated vector hits per
+        query, lexical candidate lists per query, raw: the lexical arm,
+        each query's lexical lane under ``lex_lanes`` and the device RRF's
+        entries under ``fused_entries``) or None when a lane does not apply
+        (non-device arms, one arm sharded and not the other, filters,
+        non-auto scan modes, an empty lexical arm, no query vectors and no
+        Model2Vec embedder). Its spans: ``fs.fused_pass.plan`` (tokens,
+        sparse rows, the arm's plan and their uploads), ``.enqueue`` (the
+        lane's body and the RRF tail), ``.fetch`` (the one device-to-host
+        copy) and ``.finish`` (hydrate, the candidate lists,
+        ``finish_rrf``)."""
         from frankensearch_tpu_torch.index.device_index import DeviceVectorIndex
         from frankensearch_tpu_torch.lexical.delta import DeltaLexicalIndex
         from frankensearch_tpu_torch.lexical.device_bm25 import DeviceBm25Index
@@ -367,27 +368,18 @@ class TwoTierSearcher:
             scan_mode = "hierarchical" if fast.device.type == "cuda" else "xla"
             k_vec = min(sem_budget, fast.n_rows) or 1
             k_lex = min(lex_budget, arm.n_docs)
-            common = {"k_vec": k_vec, "k_lex": k_lex, "scan_mode": scan_mode, **extra}
-
+            plan = arm.fused_plan(queries)
             if sharded:
-                ids, w = arm.inner._query_sparse_rows(list(queries))
                 body = hp.fused_phase1_sharded
-                args = (fast._slab_shards, fast._mask_shards, q_dev, arm._sharded,
-                        arm.place_bounds(arm._blocked_host.query_bounds(ids, w)), dev(ids), dev(w))
+                args = (fast._slab_shards, fast._mask_shards, q_dev) + plan.args
                 kwargs = {"k_vec": k_vec, "k_lex": k_lex,
                           "scan_mode": "hier" if scan_mode == "hierarchical" else "xla"}
-                lane, lanes = "sharded", ["pruned"] * b_padded  # the block-sharded pruned scan
-            elif arm._blocked is not None:
-                lane, lanes, name, lex_args, lex_kwargs = self._plan_blocked_lanes(arm, queries, dev)
-                body = getattr(hp, f"fused_phase1_embed_{name}" if embed_fused else f"fused_phase1_{name}")
-                args, kwargs = lead + lex_args, {**common, **lex_kwargs}
             else:
-                body = hp.fused_phase1_embed_dense if embed_fused else hp.fused_phase1_dense
-                args = lead + (arm._post_term, arm._post_tf, arm._doc_steps,
-                               dev(arm._query_idf_rows(list(queries))))
-                kwargs = {**common, "n_docs_lex": arm.n_docs}
-                lane, lanes = "dense", ["dense"] * b_padded
-        self.last_phase1_lex_lane = lane
+                name = "daat_mixed" if plan.lane == "mixed" else plan.lane
+                body = getattr(hp, f"fused_phase1_embed_{name}" if embed_fused else f"fused_phase1_{name}")
+                args = lead + plan.args
+                kwargs = {"k_vec": k_vec, "k_lex": k_lex, "scan_mode": scan_mode, **extra, **plan.kwargs}
+        self.last_phase1_lex_lane = plan.lane
         self.last_phase1_embed_fused = embed_fused
         with span("fs.fused_pass.enqueue"):
             vec_s, vec_i, lex_s, lex_i = body(*args, **kwargs)
@@ -411,19 +403,8 @@ class TwoTierSearcher:
             hydrated = fast.hydrate(
                 TopKResult(torch.from_numpy(vec_s[:b_real]), torch.from_numpy(vec_i[:b_real]))
             )
-            s_np = lex_s[:b_real]
-            i_np = lex_i[:b_real]
-            lex_lists = []
-            for b in range(b_real):
-                lex_lists.append([
-                    LexicalCandidate(doc_id=arm.doc_ids[int(i_np[b, j])], score=float(s_np[b, j]))
-                    for j in range(s_np.shape[1])
-                    if s_np[b, j] > 0.0
-                ])
-            raw = {
-                "vec_rows": vec_i[:b_real], "lex_rows": i_np,
-                "lex_scores": s_np, "arm": arm, "lex_lanes": lanes[:b_real],
-            }
+            lex_lists = arm.rows_to_candidates(lex_s[:b_real], lex_i[:b_real])
+            raw = {"arm": arm, "lex_lanes": plan.lanes[:b_real]}
             if rrf_dev is not None:
                 from frankensearch_tpu_torch.ops.device_rrf import finish_rrf
 
@@ -431,72 +412,7 @@ class TwoTierSearcher:
                     fetched[4][:b_real], fetched[5][:b_real], fetched[6][:b_real],
                     contribs[0][:b_real], contribs[1][:b_real],
                 )
-                raw["fused_limit"] = rrf_ctx["limit"]
         return hydrated, lex_lists, raw
-
-    def _plan_blocked_lanes(self, arm, queries, dev):
-        """Phase 1's plan over the blocked lexical layout, the reference's
-        dispatch: (the batch's lane, each query's lane, the body's name,
-        its lexical arguments after the leading ones, its lexical keyword
-        arguments). On a split corpus each query's hot terms become a dense
-        hot row and its sparse row keeps only tail terms; with
-        ``daat_mode == "auto"`` the pure-tail queries whose own postings
-        are few (``daat_eligible``) take the term-driven lane. All of them
-        eligible: the ``daat`` lane; some: ``mixed`` (both lanes, each
-        query keeps its own); none, or a plan past
-        DAAT_MAX_FUSED_ELEMENTS: ``blocked``. Eligibility is a pure
-        per-query test, so a query's lane never depends on its batchmates.
-        A query's own lane is ``daat``, or else ``flat`` (K3 over the split
-        layout) or ``pruned`` (the unsplit layout's block-max scan)."""
-        from frankensearch_tpu_torch.lexical import daat as _daat
-        from frankensearch_tpu_torch.lexical import hot_arm as _hot_arm
-
-        ids, w = arm._query_sparse_rows(list(queries))
-        hot = None
-        has_hot = np.zeros(len(queries), dtype=bool)
-        hot_struct = arm._hot
-        if hot_struct is not None:
-            q_hot = _hot_arm.split_hot_rows(hot_struct.hot_row_of, ids, w, hot_struct.h_pad)
-            has_hot = (q_hot > 0.0).any(axis=1)
-            ids, w = _hot_arm.compact_tail_rows(hot_struct.hot_row_of, ids, w)
-            # always the flat lane on split corpora (a corpus constant);
-            # a zero hot row adds exactly +0.0
-            hot = (
-                hot_struct.cols_phys, dev(q_hot), hot_struct.cold_cols,
-                hot_struct.cold_rows, hot_struct.dmap_groups,
-            )
-        exhaustive = "flat" if hot is not None else "pruned"
-        daat_plan = None
-        elig = None
-        tm = None
-        if arm.daat_mode == "auto":
-            tm = arm._term_major()
-            if tm is not None:
-                elig = _daat.daat_eligible(
-                    tm.ptr, ids, w, total_postings=arm.cold_posting_count
-                ) & ~has_hot
-                if elig.any():
-                    # ineligible queries gather nothing: their lane is the
-                    # exhaustive one
-                    w_plan = np.where(elig[:, None], w, np.float32(0.0))
-                    plan = _daat.build_gather_plan(tm.ptr, ids, w_plan)
-                    if plan[0].size * 128 <= _daat.DAAT_MAX_FUSED_ELEMENTS:
-                        daat_plan = tuple(dev(x) for x in plan)
-        daat_kwargs = {"t_run": ids.shape[1], "tm_packed": tm.packed} if daat_plan is not None else {}
-        if daat_plan is not None and bool(elig.all()):
-            return "daat", ["daat"] * len(queries), "daat", (tm.device_arrays(), *daat_plan), daat_kwargs
-        # the flat lane consumes no block-max bounds
-        bounds_list = (
-            arm._blocked.split_bounds(arm._blocked.query_bounds(ids, w), arm.device)
-            if hot is None
-            else None
-        )
-        lex_args = (arm._blocked.classes, bounds_list, dev(ids), dev(w), hot)
-        if daat_plan is not None:
-            lanes = ["daat" if e else exhaustive for e in elig.tolist()]
-            daat_args = (tm.device_arrays(), *daat_plan, dev(elig))
-            return "mixed", lanes, "daat_mixed", daat_args + lex_args, daat_kwargs
-        return "blocked", [exhaustive] * len(queries), "blocked", lex_args, {}
 
     @staticmethod
     def _apply_filter_to_pool(pool, search_filter):
@@ -506,72 +422,53 @@ class TwoTierSearcher:
             return pool
         return [r for r in pool if search_filter.admit(r.doc_id, r.metadata)]
 
-    def _vectorized_batch_fuse(self, raw, live, classes, k):
-        """Batch RRF over row ids (fusion/rrf_batch.py). Returns
-        {outcome index -> FusedHit list} or None when the row space can't
-        be joined (docs missing from an arm, tombstones)."""
-        from frankensearch_tpu_torch.fusion.rrf_batch import rows_to_fused_hits, rrf_fuse_batch_rows
-
-        arm = raw["arm"]
-        # on-device fused entries — exact; reusable only when the fuse-time
-        # limit matches the dispatch-time one
-        ent = raw.get("fused_entries")
-        if ent is not None and raw.get("fused_limit") == k:
-            self.last_fusion_path = "device"
-            return {i: rows_to_fused_hits(ent[j], arm.doc_ids) for j, i in enumerate(live)}
-        fast = self.index.fast
-        if self.index.tombstoned_ids():
-            return None  # supersession pruning is per-doc: scalar path
-        row_map = self._vecrow_to_lexrow(fast, arm)
-        if row_map is None:
-            return None
-        cfg = self.config
-        vec_rows = np.asarray(raw["vec_rows"], dtype=np.int64)
-        vec_lexrows = np.where(vec_rows >= 0, row_map[np.maximum(vec_rows, 0)], -1)
-        lex_rows = np.asarray(raw["lex_rows"], dtype=np.int64)
-        lex_scores = np.asarray(raw["lex_scores"], dtype=np.float32)
-        lex_rows = np.where(lex_scores > 0.0, lex_rows, -1)
-        k_arr = np.array([self._effective_rrf_k(classes[i]) for i in live], dtype=np.float64)
-        sem_w = np.full(len(live), cfg.fast_rrf_weight, dtype=np.float64)
-        entries = rrf_fuse_batch_rows(
-            lex_rows, lex_scores, vec_lexrows, k, k_arr,
-            cfg.lexical_rrf_weight, sem_w, arm.n_docs,
-        )
-        self.last_fusion_path = "host_vectorized"
-        return {i: rows_to_fused_hits(entries[j], arm.doc_ids) for j, i in enumerate(live)}
-
     def _vecrow_to_lexrow(self, fast, arm):
-        """Vector-slab row -> lexical-arm row (cached per index pair); None
-        when any doc is missing from the lexical arm."""
+        """Vector-slab row -> lexical-arm row as an i32 tensor on the
+        vector index's device (cached per index pair); None when any doc is
+        missing from the lexical arm."""
         key = (id(fast), id(arm))
-        cached = getattr(self, "_row_map_cache", None)
+        cached = getattr(self, "_row_map", None)
         if cached is not None and cached[0] == key:
             return cached[1]
         lex_row_of = {d: i for i, d in enumerate(arm.doc_ids)}
-        out = np.empty(len(fast.doc_ids), dtype=np.int64)
+        out = np.empty(len(fast.doc_ids), dtype=np.int32)
+        row_map = None
         for i, d in enumerate(fast.doc_ids):
             r = lex_row_of.get(d)
             if r is None:
-                self._row_map_cache = (key, None)
-                return None
+                break
             out[i] = r
-        self._row_map_cache = (key, out)
-        return out
+        else:
+            row_map = torch.from_numpy(out).to(fast.device)
+        self._row_map = (key, row_map)
+        return row_map
 
-    def _fill_fused(self, fused, live, hits_per_query, lexical_pools) -> None:
-        vec_hydrated, lex_lists, _raw = fused
-        for j, i in enumerate(live):
-            hits_per_query[i] = vec_hydrated[j]
-            cands = lex_lists[j]
-            meta = self.lexical.hydrate_candidates([c.doc_id for c in cands])
-            lexical_pools[i] = self._drop_superseded([
+    def _lexical_pool(self, cands, search_filter=None) -> list[ScoredResult]:
+        """Lexical candidates -> the hydrated pool: superseded docs dropped,
+        then the search filter applied."""
+        meta = self.lexical.hydrate_candidates([c.doc_id for c in cands])
+        return self._apply_filter_to_pool(
+            self._drop_superseded([
                 ScoredResult(
                     doc_id=c.doc_id, score=c.score, lexical_score=c.score,
                     title=(meta.get(c.doc_id) or {}).get("title"),
                     metadata=(meta.get(c.doc_id) or {}).get("metadata"),
                 )
                 for c in cands
-            ])
+            ]),
+            search_filter,
+        )
+
+    def _class_budget(self, k: int, multiplier: float) -> int:
+        """A candidate budget: the configured pool for ``k`` scaled by a
+        query class's multiplier, never below ``k``."""
+        return max(int(candidate_count(k, 0, self.config.candidate_multiplier) * multiplier), k)
+
+    def _fill_fused(self, fused, live, hits_per_query, lexical_pools) -> None:
+        vec_hydrated, lex_lists, _raw = fused
+        for j, i in enumerate(live):
+            hits_per_query[i] = vec_hydrated[j]
+            lexical_pools[i] = self._lexical_pool(lex_lists[j])
 
     def _drop_superseded(self, pool):
         """Cross-arm supersession (search.rs:276-300): a doc tombstoned in
@@ -821,23 +718,15 @@ class TwoTierSearcher:
         fused_done = False
         fused_raw = None
         self.last_phase1_embed_fused = False
-        sem_budget_f = max(
-            int(candidate_count(k, 0, cfg.candidate_multiplier)
-                * max(classes[i].semantic_budget_multiplier() for i in live)),
-            k,
-        )
-        lex_budget_f = max(
-            int(candidate_count(k, 0, cfg.candidate_multiplier)
-                * max(classes[i].lexical_budget_multiplier() for i in live)),
-            k,
-        )
+        sem_budget = self._class_budget(k, max(classes[i].semantic_budget_multiplier() for i in live))
+        lex_budget = self._class_budget(k, max(classes[i].lexical_budget_multiplier() for i in live))
 
         def fused_lane(fast_vecs) -> bool:
             nonlocal fused_raw
             with span("fs.fused_pass") as sp:
                 fused = self._fused_phase1_batch(
                     fast_vecs, [parsed_list[i].positive for i in live],
-                    sem_budget_f, lex_budget_f,
+                    sem_budget, lex_budget,
                     rrf_ctx=self._rrf_ctx(classes, live, k),
                 )
                 if fused is None:
@@ -867,11 +756,6 @@ class TwoTierSearcher:
         if fast_vecs is not None and self.lexical is not None and search_filter is None:
             fused_done = fused_lane(fast_vecs)
         if fast_vecs is not None and not fused_done:
-            sem_budget = max(
-                int(candidate_count(k, 0, cfg.candidate_multiplier)
-                    * max(classes[i].semantic_budget_multiplier() for i in live)),
-                k,
-            )
             with span("fs.search.vector") as sp:
                 res = self.index.fast.search_batch(
                     fast_vecs, sem_budget, search_filter=search_filter,
@@ -909,12 +793,7 @@ class TwoTierSearcher:
                             qs = {d: self.calibrator(v) for d, v in qs.items()}
                         qscores_per_query[i] = qs
                 if cfg.quality_rescan and self.index.quality is not None:
-                    q_budget = max(
-                        int(candidate_count(k, 0, cfg.candidate_multiplier)
-                            * max(classes[i].semantic_budget_multiplier() for i in live)),
-                        k,
-                    )
-                    qres = self.index.quality.search_batch(q_vecs, q_budget)
+                    qres = self.index.quality.search_batch(q_vecs, sem_budget)
                     qhydrated = self.index.quality.hydrate(qres)
                     for j, i in enumerate(live):
                         scan_hits = qhydrated[j]
@@ -927,57 +806,34 @@ class TwoTierSearcher:
         # lexical pools: one batched device call when the backend has it
         if self.lexical is not None and not fused_done:
             with span("fs.lexical") as sp:
-                lex_budget_all = max(
-                    int(candidate_count(k, 0, cfg.candidate_multiplier)
-                        * max(classes[i].lexical_budget_multiplier() for i in live)),
-                    k,
-                )
                 batch_api = getattr(self.lexical, "search_candidates_batch", None)
                 if callable(batch_api):
-                    cand_lists = batch_api([parsed_list[i].positive for i in live], lex_budget_all)
+                    cand_lists = batch_api([parsed_list[i].positive for i in live], lex_budget)
                     for j, i in enumerate(live):
-                        cands = cand_lists[j]
-                        meta = self.lexical.hydrate_candidates([c.doc_id for c in cands])
-                        lexical_pools[i] = self._apply_filter_to_pool(
-                            self._drop_superseded([
-                                ScoredResult(
-                                    doc_id=c.doc_id, score=c.score, lexical_score=c.score,
-                                    title=(meta.get(c.doc_id) or {}).get("title"),
-                                    metadata=(meta.get(c.doc_id) or {}).get("metadata"),
-                                )
-                                for c in cands
-                            ]),
-                            search_filter,
-                        )
+                        lexical_pools[i] = self._lexical_pool(cand_lists[j], search_filter)
             times["lexical_ms"] = sp.ms
 
         with span("fs.search.fuse") as sp:
-            # vectorized batch RRF: replaces the per-query dict fusion when
-            # the exactness gates hold — bitwise identical
+            # the device RRF's entries (``_rrf_ctx`` gated them) are the
+            # per-query fusion's bit for bit, without phase-2 scores
             batch_fused = None
-            if (
-                fused_raw is not None
-                and not qscores_per_query
-                and not scan_per_query
-                and cfg.fusion_strategy is FusionStrategy.RRF
-                and cfg.tiebreak is TiebreakStrategy.LEXICAL_THEN_ID
-                and self.nqc is None
-                and self.graph_ranker is None
-            ):
-                batch_fused = self._vectorized_batch_fuse(fused_raw, live, classes, k)
+            if fused_raw is not None:
+                ent = fused_raw.get("fused_entries")
+                if ent is not None and not qscores_per_query:
+                    from frankensearch_tpu_torch.fusion.rrf_batch import rows_to_fused_hits
+
+                    doc_ids = fused_raw["arm"].doc_ids
+                    batch_fused = {i: rows_to_fused_hits(ent[j], doc_ids) for j, i in enumerate(live)}
+                self.last_fusion_path = "host" if batch_fused is None else "device"
 
             # per-query host-side fusion (the scalar search() contract)
             for i in live:
                 parsed, qclass = parsed_list[i], classes[i]
                 lexical_pool: list[ScoredResult] = lexical_pools.get(i, [])
                 if self.lexical is not None and i not in lexical_pools:
-                    lex_budget = max(
-                        int(candidate_count(k, 0, cfg.candidate_multiplier)
-                            * qclass.lexical_budget_multiplier()),
-                        k,
-                    )
+                    budget = self._class_budget(k, qclass.lexical_budget_multiplier())
                     lexical_pool = self._apply_filter_to_pool(
-                        self._drop_superseded(self.lexical.search(parsed.positive, lex_budget)),
+                        self._drop_superseded(self.lexical.search(parsed.positive, budget)),
                         search_filter,
                     )
                 fast_hits = hits_per_query.get(i, [])
@@ -1065,14 +921,8 @@ class TwoTierSearcher:
         text_fn: TextFn | None,
     ) -> tuple[list[ScoredResult], list[VectorHit], list[ScoredResult]]:
         cfg = self.config
-        lex_budget = max(
-            int(candidate_count(k, 0, cfg.candidate_multiplier) * qclass.lexical_budget_multiplier()),
-            k,
-        )
-        sem_budget = max(
-            int(candidate_count(k, 0, cfg.candidate_multiplier) * qclass.semantic_budget_multiplier()),
-            k,
-        )
+        lex_budget = self._class_budget(k, qclass.lexical_budget_multiplier())
+        sem_budget = self._class_budget(k, qclass.semantic_budget_multiplier())
 
         # fully fused singleton lane: with a device lexical arm, phase 1's
         # (embed +) scan + BM25 run as one device pass. Off when a per-hit
@@ -1102,16 +952,7 @@ class TwoTierSearcher:
             if fused_single is not None and fused_single[0][0]:
                 hydrated, lex_lists, _raw = fused_single
                 fast_hits = hydrated[0]
-                cands = lex_lists[0]
-                meta = self.lexical.hydrate_candidates([c.doc_id for c in cands])
-                lexical_pool = self._drop_superseded([
-                    ScoredResult(
-                        doc_id=c.doc_id, score=c.score, lexical_score=c.score,
-                        title=(meta.get(c.doc_id) or {}).get("title"),
-                        metadata=(meta.get(c.doc_id) or {}).get("metadata"),
-                    )
-                    for c in cands
-                ])
+                lexical_pool = self._lexical_pool(lex_lists[0])
                 metrics.fast_embed_ms = 0.0  # inside the scan's pass
                 metrics.vector_scan_ms = sp.ms
                 metrics.lexical_ms = 0.0
@@ -1538,12 +1379,9 @@ class TwoTierSearcher:
             if self.config.quality_rescan and self.index.quality is not None:
                 # pool expansion: a full quality-tier scan surfaces docs the
                 # fast tier cannot see
-                sem_budget = max(
-                    int(candidate_count(k, 0, self.config.candidate_multiplier)
-                        * qclass.semantic_budget_multiplier()),
-                    k,
+                res = self.index.quality.search_batch(
+                    quality_vec, self._class_budget(k, qclass.semantic_budget_multiplier())
                 )
-                res = self.index.quality.search_batch(quality_vec, sem_budget)
                 scan_hits = self.index.quality.hydrate(res)[0]
                 if self.calibrator is not None:
                     scan_hits = [VectorHit(h.doc_id, self.calibrator(h.score), h.row) for h in scan_hits]

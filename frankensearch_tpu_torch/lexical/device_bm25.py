@@ -794,6 +794,15 @@ def _upload_postings(index, terms_all, docs_all, tf_all, raw=None, *, device) ->
 # --------------------------------------------------------------------------
 
 
+class FusedLexPlan(NamedTuple):
+    """A lexical arm's half of the fused phase-1 pass for a padded batch."""
+
+    lane: str  # the batch's lane: dense, blocked, daat, mixed or sharded
+    lanes: list  # each query's lane: dense, flat, pruned or daat
+    args: tuple  # the lane body's lexical arguments, after the vector arm's
+    kwargs: dict  # its lexical keyword arguments
+
+
 @dataclass
 class _FieldArm:
     term_ids: dict[str, int]
@@ -1003,7 +1012,42 @@ class DeviceBm25Index(LexicalRead):
         k = min(budget, self.n_docs)
         ids, w = self._query_sparse_rows(queries)
         s, i = self._dispatch_rows(ids, w, k)
-        return self._rows_to_candidates(s, i, len(queries))
+        return self.rows_to_candidates(s, i)
+
+    def _route_rows(self, ids: np.ndarray, w: np.ndarray, daat_mode: str):
+        """Each query's way through the blocked layout, decided per query so
+        that a query's lane, and so its bits, never depend on its
+        batchmates. On a split corpus its hot terms become a dense hot row
+        and its sparse row keeps only tail terms (the tail layouts hold no
+        hot posting); hot-term queries always take the exhaustive lane.
+        Under ``daat_mode`` ``"auto"`` the pure-tail queries whose own tail
+        postings are few (``daat_eligible``) take the term-driven lane,
+        under ``"daat"`` every pure-tail query does, under ``"blocked"``
+        none. Returns (tail ids, tail weights, (B, H_pad) hot rows or None,
+        (B,) has a hot term, the term-major layout or None, (B,) takes the
+        term-driven lane)."""
+        from frankensearch_tpu_torch.lexical import daat as _daat
+
+        n = ids.shape[0]
+        hot = self._hot
+        q_hot = None
+        has_hot = np.zeros(n, dtype=bool)
+        if hot is not None:
+            from frankensearch_tpu_torch.lexical import hot_arm as _hot_arm
+
+            q_hot = _hot_arm.split_hot_rows(hot.hot_row_of, ids, w, hot.h_pad)
+            has_hot = (q_hot > 0.0).any(axis=1)
+            ids, w = _hot_arm.compact_tail_rows(hot.hot_row_of, ids, w)
+        tm = self._term_major() if daat_mode != "blocked" else None
+        if tm is None:
+            take_daat = np.zeros(n, dtype=bool)
+        elif daat_mode == "daat":
+            take_daat = ~has_hot
+        else:
+            take_daat = _daat.daat_eligible(
+                tm.ptr, ids, w, total_postings=self.cold_posting_count
+            ) & ~has_hot
+        return ids, w, q_hot, has_hot, tm, take_daat
 
     def _dispatch_rows(self, ids: np.ndarray, w: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
         """Lane dispatch over resolved sparse query rows; returns host
@@ -1026,28 +1070,7 @@ class DeviceBm25Index(LexicalRead):
 
         from frankensearch_tpu_torch.lexical import daat as _daat
 
-        hot = self._hot
-        q_hot_all = None
-        has_hot = np.zeros(n, dtype=bool)
-        if hot is not None:
-            from frankensearch_tpu_torch.lexical import hot_arm as _hot_arm
-
-            q_hot_all = _hot_arm.split_hot_rows(hot.hot_row_of, ids, w, hot.h_pad)
-            has_hot = (q_hot_all > 0.0).any(axis=1)
-            # the tail layouts hold no hot posting: keep only tail terms
-            ids, w = _hot_arm.compact_tail_rows(hot.hot_row_of, ids, w)
-        tm = self._term_major() if self.daat_mode != "blocked" else None
-        if tm is None:
-            take_daat = np.zeros(n, dtype=bool)
-        elif self.daat_mode == "daat":
-            take_daat = ~has_hot
-        else:
-            # per-query crossover over the tail CSR: a query's lane, and so
-            # its bits, never depend on its batchmates; hot-term queries
-            # always take the flat lane
-            take_daat = _daat.daat_eligible(
-                tm.ptr, ids, w, total_postings=self.cold_posting_count
-            ) & ~has_hot
+        ids, w, q_hot_all, has_hot, _, take_daat = self._route_rows(ids, w, self.daat_mode)
         self.last_blocks_skipped = 0
         self.last_hot_queries = int(has_hot.sum())
         pieces: list = []  # (dest rows, device s, device i)
@@ -1074,11 +1097,55 @@ class DeviceBm25Index(LexicalRead):
             i[rows] = pi.cpu().numpy()
         return s, i
 
-    def _rows_to_candidates(
-        self, s: np.ndarray, i: np.ndarray, n: int
-    ) -> list[list[LexicalCandidate]]:
+    def fused_plan(self, queries: list[str]) -> FusedLexPlan:
+        """The lexical half of the fused phase-1 pass (ops/hybrid_phase1.py)
+        for a padded query batch. Below the blocked threshold: the
+        ``dense`` lane. Over the blocked layout, the reference's dispatch
+        (its searcher takes the term-driven lane only under ``daat_mode ==
+        "auto"``): every query term-driven, the ``daat`` lane; some,
+        ``mixed`` (both lanes, each query keeps its own); none, or a gather
+        plan past DAAT_MAX_FUSED_ELEMENTS, ``blocked``. A query's own lane
+        is ``dense``, ``daat``, or else ``flat`` (K3 over the split layout)
+        or ``pruned`` (the unsplit layout's block-max scan)."""
+        n = len(queries)
+        if self._blocked is None:
+            args = (self._post_term, self._post_tf, self._doc_steps, self._dev(self._query_idf_rows(queries)))
+            return FusedLexPlan("dense", ["dense"] * n, args, {"n_docs_lex": self.n_docs})
+        from frankensearch_tpu_torch.lexical import daat as _daat
+
+        ids, w = self._query_sparse_rows(queries)
+        ids, w, q_hot, _, tm, elig = self._route_rows(
+            ids, w, "auto" if self.daat_mode == "auto" else "blocked"
+        )
+        hot = self._hot
+        exhaustive = "flat" if hot is not None else "pruned"
+        daat_plan = None
+        if elig.any():
+            # ineligible queries gather nothing: their lane is the exhaustive one
+            plan = _daat.build_gather_plan(tm.ptr, ids, np.where(elig[:, None], w, np.float32(0.0)))
+            if plan[0].size * 128 <= _daat.DAAT_MAX_FUSED_ELEMENTS:
+                daat_plan = tuple(self._dev(x) for x in plan)
+        daat_kwargs = {"t_run": ids.shape[1], "tm_packed": tm.packed} if daat_plan is not None else {}
+        if daat_plan is not None and bool(elig.all()):
+            return FusedLexPlan("daat", ["daat"] * n, (tm.device_arrays(), *daat_plan), daat_kwargs)
+        if hot is None:
+            bounds_list = self._blocked.split_bounds(self._blocked.query_bounds(ids, w), self.device)
+            hot_args = None
+        else:
+            # the flat lane consumes no block-max bounds; a zero hot row adds exactly +0.0
+            bounds_list = None
+            hot_args = (hot.cols_phys, self._dev(q_hot), hot.cold_cols, hot.cold_rows, hot.dmap_groups)
+        lex_args = (self._blocked.classes, bounds_list, self._dev(ids), self._dev(w), hot_args)
+        if daat_plan is None:
+            return FusedLexPlan("blocked", [exhaustive] * n, lex_args, {})
+        lanes = ["daat" if e else exhaustive for e in elig.tolist()]
+        return FusedLexPlan("mixed", lanes, (tm.device_arrays(), *daat_plan, self._dev(elig)) + lex_args, daat_kwargs)
+
+    def rows_to_candidates(self, s: np.ndarray, i: np.ndarray) -> list[list[LexicalCandidate]]:
+        """Host (B, k) scores and rows -> each query's candidates, the rows
+        that scored above 0."""
         out: list[list[LexicalCandidate]] = []
-        for b in range(n):
+        for b in range(s.shape[0]):
             out.append([
                 LexicalCandidate(doc_id=self.doc_ids[int(i[b, j])], score=float(s[b, j]))
                 for j in range(s.shape[1])

@@ -166,7 +166,7 @@ class SegmentedBm25(LexicalRead):
                     ids[b, j] = tid
                     w[b, j] = weight
             s, i = seg._dispatch_rows(ids, w, k)
-            per_seg.append(seg._rows_to_candidates(s, i, len(queries)))
+            per_seg.append(seg.rows_to_candidates(s, i))
         # exact host merge: segments are doc-disjoint and each list is
         # already (score desc, doc_id asc)
         out: list[list[LexicalCandidate]] = []

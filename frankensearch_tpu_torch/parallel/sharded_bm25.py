@@ -29,6 +29,7 @@ import torch
 from frankensearch_tpu_torch.lexical import device_bm25 as _bm
 from frankensearch_tpu_torch.lexical.base import LexicalCandidate, LexicalRead
 from frankensearch_tpu_torch.lexical.device_bm25 import (
+    FusedLexPlan,
     _BlockedPostings,
     _build_blocked,
     _graded_scan_pruned,
@@ -149,27 +150,31 @@ class ShardedBulkDeviceBm25Index(LexicalRead):
         """Host (n_blk, B) bounds -> the per-shard device bounds."""
         return place_bounds(self._blocked_host, self._sharded, bounds)
 
+    def _bounded_rows(self, queries) -> tuple:
+        """(placed per-shard bounds, device ids, device weights) of a batch."""
+        ids, w = self.inner._query_sparse_rows(list(queries))
+        bounds = self.place_bounds(self._blocked_host.query_bounds(ids, w))
+        return bounds, torch.from_numpy(ids).to(self.device), torch.from_numpy(w).to(self.device)
+
+    def fused_plan(self, queries) -> FusedLexPlan:
+        """The lexical half of ``fused_phase1_sharded`` for a padded batch:
+        (sharded blocks, placed bounds, ids, w); every query takes the
+        block-sharded pruned scan."""
+        return FusedLexPlan("sharded", ["pruned"] * len(queries), (self._sharded, *self._bounded_rows(queries)), {})
+
+    def rows_to_candidates(self, s: np.ndarray, i: np.ndarray) -> list[list[LexicalCandidate]]:
+        return self.inner.rows_to_candidates(s, i)
+
     # -- LexicalRead -----------------------------------------------------------
 
     def search_candidates_batch(self, queries, budget: int) -> list[list[LexicalCandidate]]:
         if self.n_docs == 0 or not queries:
             return [[] for _ in queries]
-        ids, w = self.inner._query_sparse_rows(list(queries))
-        bounds = self._blocked_host.query_bounds(ids, w)
         top_s, top_i, skipped = sharded_bm25_topk(
-            self._sharded, self.place_bounds(bounds),
-            torch.from_numpy(ids).to(self.device), torch.from_numpy(w).to(self.device),
-            k=min(budget, self.n_docs),
+            self._sharded, *self._bounded_rows(queries), k=min(budget, self.n_docs),
         )
         self.last_blocks_skipped = skipped
-        s = top_s.cpu().numpy()
-        i = top_i.cpu().numpy()
-        doc_ids = self.doc_ids
-        return [
-            [LexicalCandidate(doc_id=doc_ids[int(i[b, j])], score=float(s[b, j]))
-             for j in range(s.shape[1]) if s[b, j] > 0.0]
-            for b in range(len(queries))
-        ]
+        return self.rows_to_candidates(top_s.cpu().numpy(), top_i.cpu().numpy())
 
     def search_candidates(self, query: str, budget: int) -> list[LexicalCandidate]:
         return self.search_candidates_batch([query], budget)[0]

@@ -440,3 +440,53 @@ def test_retired_hot_daat_ab_matches_reference_and_flat_lane(split_pair, monkeyp
         ab = [(port.doc_ids[int(gi[b, j])], float(gs[b, j])) for j in range(k) if gs[b, j] > 0.0]
         assert [c.doc_id for c in cands] == [d for d, _ in ab], QUERIES[b]
         np.testing.assert_allclose([c.score for c in cands], [x for _, x in ab], rtol=1e-5)
+
+
+# -- the fused pass's lexical half against the unfused dispatch ----------------------------------
+
+
+@pytest.mark.parametrize("layout,lane", [
+    ("dense", "dense"), ("split", "blocked"), ("split", "daat"), ("split", "mixed"), ("unsplit", "blocked"),
+])
+def test_fused_plan_rows_equal_unfused_dispatch(tmp_path, monkeypatch, layout, lane):
+    """The fused phase-1 pass (its lexical half planned by the arm's
+    ``fused_plan``) returns each query's lexical rows and scores bit for
+    bit as ``search_candidates_batch`` does for the same batch, and gives
+    each query the lane the unfused dispatch takes for it alone: ``daat``,
+    else ``flat`` on the split layout and ``pruned`` on the unsplit one."""
+    from frankensearch_tpu_torch import HashEmbedder, TwoTierConfig
+    from frankensearch_tpu_torch.fusion.searcher import TwoTierSearcher
+    from frankensearch_tpu_torch.index.two_tier import TwoTierIndex
+
+    monkeypatch.setattr(tdaat, "DAAT_CROSSOVER_DIVISOR", 8)  # both kinds of tail query
+    docs = corpus()
+    _, port_mem = memory_pair(docs)
+    if layout == "dense":
+        arm = tbm.DeviceBm25Index(port_mem, device=CPU)
+    else:
+        with lowered(hot=layout == "split"):
+            arm = tbm.DeviceBm25Index(port_mem, device=CPU)
+    assert (arm._blocked is None) == (layout == "dense") and (arm._hot is not None) == (layout == "split")
+    k = 20
+    alone = {}
+    for q in QUERIES:
+        arm.search_candidates_batch([q], k)
+        alone[q] = arm.last_lane
+    want_lane = {"dense": "dense", "daat": "daat", "blocked": "flat" if layout == "split" else "pruned"}
+    batch = {
+        "dense": QUERIES, "mixed": QUERIES,
+        "daat": [q for q in QUERIES if alone[q] == "daat"],
+        "blocked": [q for q in QUERIES if alone[q] == "blocked"],
+    }[lane]
+    assert batch and (lane != "mixed" or {alone[q] for q in batch} == {"daat", "blocked"}), alone
+    emb = HashEmbedder(dim=32)
+    idx = TwoTierIndex.create(str(tmp_path), emb.embed_batch([d.content for d in docs]), [d.doc_id for d in docs],
+                              emb.identity(), device=CPU)
+    searcher = TwoTierSearcher(idx, emb, lexical=arm, config=TwoTierConfig(fast_only=True))
+    _, lex_lists, raw = searcher._fused_phase1_batch(emb.embed_batch(batch), batch, k, k)
+    assert searcher.last_phase1_lex_lane == lane
+    assert raw["lex_lanes"] == [want_lane[alone[q]] for q in batch]
+    unfused = arm.search_candidates_batch(batch, k)
+    for q, got, want in zip(batch, lex_lists, unfused):
+        assert [c.doc_id for c in got] == [c.doc_id for c in want], q
+        np.testing.assert_array_equal(bits([c.score for c in got]), bits([c.score for c in want]))

@@ -207,3 +207,45 @@ def test_resolve_device_never_falls_back(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
+
+
+#: what the lexical layer keeps to itself: its layouts (``_blocked``,
+#: ``_hot``, the term-major and sharded forms, their fields) and the query
+#: rows and bounds the lane plan is made of
+LEXICAL_PRIVATE = {
+    "_blocked", "_blocked_host", "_hot", "_sharded", "_term_major", "_query_sparse_rows", "_query_idf_rows",
+    "_post_term", "_post_tf", "_doc_steps", "_dispatch_rows", "_route_rows", "_rows_to_candidates",
+    "classes", "split_bounds", "query_bounds", "place_bounds", "ptr", "packed", "device_arrays",
+    "daat_mode", "cold_posting_count",
+}
+
+
+def test_searcher_reads_no_private_attribute_of_a_lexical_arm():
+    """The fused pass asks the arm for its plan (``fused_plan``) and its
+    candidates (``rows_to_candidates``): fusion/searcher.py names none of
+    the lexical layer's private attributes, and reads no ``_`` attribute of
+    an arm (``arm``, ``self.lexical``, an arm's ``inner``) but
+    ``DeltaLexicalIndex._read_arm``."""
+    import ast
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "frankensearch_tpu_torch" / "fusion" / "searcher.py"
+    tree = ast.parse(src.read_text())
+
+    def is_arm(node) -> bool:
+        if isinstance(node, ast.Name):
+            return node.id == "arm"
+        return isinstance(node, ast.Attribute) and (
+            (node.attr == "lexical" and isinstance(node.value, ast.Name) and node.value.id == "self")
+            or (node.attr == "inner" and is_arm(node.value))
+        )
+
+    bad = sorted(
+        (node.lineno, node.attr) for node in ast.walk(tree)
+        if isinstance(node, ast.Attribute) and (
+            node.attr in LEXICAL_PRIVATE
+            or (is_arm(node.value) and (node.attr.startswith("_") or node.attr == "inner")
+                and node.attr != "_read_arm")
+        )
+    )
+    assert not bad, bad

@@ -146,6 +146,6 @@ def test_sharded_fused_lane_device_rrf_equals_host_oracle(cuda_device, tmp_path)
     assert topk_scan.group_max.launches == SHARDS
     s._device_rrf_tail = lambda *a: (None, None)
     oracle = s.search_batch(QUERIES, k=K)
-    assert s.last_fusion_path == "host_vectorized"
+    assert s.last_fusion_path == "host"
     assert [[(r.doc_id, r.score) for r in o.results] for o in outs] == \
         [[(r.doc_id, r.score) for r in o.results] for o in oracle]

@@ -266,7 +266,7 @@ def test_sharded_fused_lane_engages_with_parity(tmp_path, n):
         assert [(r.doc_id, r.score) for r in o.results] == [(r.doc_id, r.score) for r in plain.search(q, k=6).results]
     fused._device_rrf_tail = lambda *a: (None, None)
     oracle = fused.search_batch(queries, k=6)
-    assert fused.last_fusion_path == "host_vectorized"
+    assert fused.last_fusion_path == "host"
     assert [[(r.doc_id, r.score) for r in o.results] for o in oracle] == \
         [[(r.doc_id, r.score) for r in o.results] for o in outs]
     ref_docs = fused_docs(fs)
